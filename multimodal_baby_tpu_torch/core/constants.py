@@ -1,0 +1,18 @@
+"""Framework-wide constants, the same values as
+``multimodal_baby_tpu/core/constants.py`` (a test holds them equal). The
+port keeps its own copy so that it imports nothing of the JAX package."""
+
+# special tokens (ids are part of the data contract; do not change)
+PAD_TOKEN_ID = 0
+UNK_TOKEN_ID = 1
+SOS_TOKEN_ID = 2
+EOS_TOKEN_ID = 3
+
+# utterances are padded or truncated to this length
+MAX_LEN_UTTERANCE = 25
+
+# image contract: 224x224 RGB, ImageNet-normalized
+IMAGE_H = 224
+IMAGE_W = 224
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)

@@ -1,0 +1,57 @@
+"""VisionEncoder: trunk + projection head (counterpart of
+``multimodal_baby_tpu/models/vision.py``; the flat head only).
+
+The head is ``model.fc``, as in the reference, which replaces the trunk's
+classifier with the projection (state-dict name
+``vision_encoder.model.fc``). A frozen trunk's outputs are detached; its
+parameters leave autograd when ``train.optimizer.build_optimizer`` applies
+the frozen mask.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from multimodal_baby_tpu_torch.core.config import ModelConfig
+from multimodal_baby_tpu_torch.models.layers import TorchLinear
+from multimodal_baby_tpu_torch.models.vision_resnext import ResNeXt50
+
+
+class VisionEncoder(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        v = cfg.vision
+        if v.backbone != "resnext50":
+            raise NotImplementedError(
+                f"the port's vision trunk is ResNeXt-50; got {v.backbone!r}")
+        if cfg.embedding_type != "flat":
+            raise NotImplementedError(
+                f"the port's head is flat; got {cfg.embedding_type!r}")
+        if v.trunk_int8:
+            raise NotImplementedError("the port has no int8 trunk yet")
+        if v.frozen_bn not in ("batch", "running"):
+            raise ValueError(f"frozen_bn must be batch|running, got "
+                             f"{v.frozen_bn!r}")
+        self.cfg = cfg
+        self.model = ResNeXt50(dtype, frozen=not v.finetune_cnn,
+                               device=device, generator=generator)
+        self.model.fc = TorchLinear(v.last_out_dim, cfg.embedding_dim,
+                                    device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x: [B, H, W, 3] NHWC, ImageNet-normalized. Returns
+        (features [B, E], feature_map [B, h, w, 2048])."""
+        v = self.cfg.vision
+        # a frozen trunk may run BN on running averages (frozen_bn="running")
+        bn_train = train and (v.finetune_cnn or v.frozen_bn == "batch")
+        out = self.model(x, train=bn_train)
+        pooled, feature_map = out["pooled"], out["feature_map"]
+        if not v.finetune_cnn:
+            pooled = pooled.detach()
+            feature_map = feature_map.detach()
+        return self.model.fc(pooled), feature_map

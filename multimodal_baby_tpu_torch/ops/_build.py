@@ -1,0 +1,87 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+The sources under ``csrc/`` have a plain C interface: ``nvcc`` compiles
+them for Hopper (``sm_90a``) into one shared library in a few seconds,
+with no PyTorch headers. The library is built at first use, into
+``build/cuda/`` at the root of the checkout (listed in ``.gitignore``),
+under a name that carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("bottleneck.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""        # nvcc's output (ptxas: registers, shared memory, spills)
+build_seconds = 0.0   # 0 when the library was already on disk
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.is_file():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def build() -> Path:
+    """Compile the kernels if this exact source and flag set has not been
+    compiled yet; returns the shared library's path."""
+    global build_log, build_seconds
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    lib = BUILD_DIR / f"libmmb_kernels_{digest.hexdigest()[:16]}.so"
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.mmb_bottleneck_bf16.argtypes = (
+                [ptr] * 12 + [i32] * 7 + [ptr])
+            lib.mmb_bottleneck_bf16.restype = i32
+            lib.mmb_cuda_error_string.argtypes = [i32]
+            lib.mmb_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.mmb_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,114 @@
+"""Train and eval steps (counterpart of ``multimodal_baby_tpu/train/step.py``),
+for the contrastive loss (lambda_mm = 1, lambda_lm = 0) on one device."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from multimodal_baby_tpu_torch.core.config import ExperimentConfig
+from multimodal_baby_tpu_torch.data.augment import augment_batch
+from multimodal_baby_tpu_torch.models import losses as L
+from multimodal_baby_tpu_torch.models.multimodal import CVCL
+from multimodal_baby_tpu_torch.train.optimizer import build_optimizer
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclass
+class TrainState:
+    model: CVCL
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator  # augment draws, on the model's device
+
+
+def init_train_state(model: CVCL, cfg: ExperimentConfig,
+                     device=None) -> TrainState:
+    """Optimizer over the model's trainable parameters and an augment
+    generator seeded with ``cfg.train.seed``."""
+    device = torch.device(device or "cpu")
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.train.seed)
+    return TrainState(model, build_optimizer(cfg, model), generator)
+
+
+def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
+    """loss_fn(batch, train, generator) -> (loss, metrics).
+
+    ``batch`` holds ``text`` [B, L], ``text_len`` [B], optional ``valid``
+    [B], and either ``image`` (normalized [B, H, W, 3]) or ``image_u8``
+    (raw frames, augmented and normalized here on the device)."""
+    t = cfg.train
+    if t.lambda_lm or t.lambda_ar:
+        raise NotImplementedError("the port's loss is contrastive only")
+    compute_dtype = (torch.bfloat16
+                     if cfg.parallel.compute_dtype == "bfloat16"
+                     else torch.float32)
+
+    def loss_fn(batch: Batch, train: bool,
+                generator: torch.Generator | None = None
+                ) -> Tuple[torch.Tensor, Metrics]:
+        if "image" in batch:
+            image = batch["image"]
+        else:
+            image = augment_batch(
+                batch["image_u8"], augment=cfg.data.augment_frames and train,
+                dtype=compute_dtype, generator=generator)
+        out = model.joint_forward(image, batch["text"], batch["text_len"],
+                                  train=train)
+        valid = batch.get("valid")
+        infonce, metrics = L.contrastive_loss_from_logits(
+            out["logits_per_image"], out["logits_per_text"], valid=valid)
+        metrics["batch_size"] = (
+            valid.sum().float() if valid is not None
+            else torch.tensor(float(image.shape[0])))
+        metrics["temperature"] = torch.exp(-out["logit_neg_log_temperature"])
+        metrics["infonce_loss"] = infonce
+        loss = t.lambda_mm * infonce
+        metrics["loss"] = loss
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_train_step(model: CVCL, cfg: ExperimentConfig
+                    ) -> Callable[[TrainState, Batch], Metrics]:
+    """Returns train_step(state, batch) -> metrics; updates the model's
+    trainable parameters in place."""
+    loss_fn = make_loss_fn(model, cfg)
+
+    def train_step(state: TrainState, batch: Batch) -> Metrics:
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch, True, state.generator)
+        loss.backward()
+        # optax's masked AdamW updates every trainable leaf, a zero gradient
+        # included (its weight decay still applies); torch's AdamW skips a
+        # parameter whose .grad is None. Zero-filling keeps the two equal.
+        # It matters only for parameters outside the contrastive graph: the
+        # LM bias, which decay shrinks when a checkpoint made it nonzero
+        # (from its zero init it stays zero either way).
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        opt.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_eval_step(model: CVCL, cfg: ExperimentConfig
+                   ) -> Callable[[Batch], Metrics]:
+    """Validation step: loss and metrics, no gradients, no augment."""
+    loss_fn = make_loss_fn(model, cfg)
+
+    def eval_step(batch: Batch) -> Metrics:
+        with torch.no_grad():
+            _, metrics = loss_fn(batch, False)
+        return metrics
+
+    return eval_step

@@ -1,0 +1,75 @@
+"""The port imports neither JAX nor the JAX package.
+
+Checked in a fresh interpreter: this test process has JAX loaded already
+(tests/conftest.py).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+MODULES = [
+    "multimodal_baby_tpu_torch",
+    "multimodal_baby_tpu_torch.core",
+    "multimodal_baby_tpu_torch.ops.bottleneck",
+    "multimodal_baby_tpu_torch.models.layers",
+    "multimodal_baby_tpu_torch.models.vision_resnext",
+    "multimodal_baby_tpu_torch.models.vision",
+    "multimodal_baby_tpu_torch.models.text",
+    "multimodal_baby_tpu_torch.models.multimodal",
+    "multimodal_baby_tpu_torch.models.losses",
+    "multimodal_baby_tpu_torch.data.augment",
+    "multimodal_baby_tpu_torch.train.optimizer",
+    "multimodal_baby_tpu_torch.train.step",
+    "multimodal_baby_tpu_torch.api.convert",
+]
+
+PROBE = """
+import importlib, sys
+for name in {modules!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax"))
+             or m == "multimodal_baby_tpu"
+             or m.startswith("multimodal_baby_tpu."))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE.format(modules=MODULES)], cwd=REPO,
+        capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py's module scope and its imports of the port."""
+    probe = PROBE.replace("importlib.import_module(name)",
+                          "importlib.import_module(name)\n"
+                          "import runpy; runpy.run_path('chip_smoke.py')")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe.format(modules=MODULES)], cwd=REPO,
+        capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Without CUDA, and alone in a directory, chip_smoke.py exits non-zero
+    and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd, script in ((REPO, "chip_smoke.py"), (tmp_path, str(alone))):
+        proc = subprocess.run([sys.executable, script], cwd=cwd,
+                              capture_output=True, text=True, timeout=120,
+                              check=False)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the PyTorch port's CUDA kernel and drive its main path on one GPU.
+"""Build the PyTorch port's CUDA kernels and drive its main paths on one GPU.
 
 Run from the root of the repository, on a machine with an NVIDIA H100:
 
@@ -7,24 +7,44 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 
 Phases (each raises on failure, and the script then exits non-zero):
 
-1. The card's name and power limit; the build of the K1 kernel
-   (``multimodal_baby_tpu_torch/ops/csrc/bottleneck.cu``) with nvcc.
+1. The card's name and power limit; the build of the kernels
+   (``multimodal_baby_tpu_torch/ops/csrc/*.cu``) with nvcc.
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
    same bf16 inputs with the same rounding points, for four small and
    odd-sized cases at B = 8 and the 8 distinct ResNeXt-50 block shapes at
    224 px and B = 128: max error relative to the largest output <= 1e-2,
    cosine >= 0.9999. Then the time of each version at B = 128 (CUDA
-   events; the plain version computes in f32 with TF32 off).
-3. The slice: the flagship CVCL (ResNeXt-50 at full width with seeded
-   random weights and BN statistics, flat 512-d head, embedding text
-   encoder, fixed T = 0.07, running BN, no int8), 3 AdamW train steps at
-   B = 128 on 224x224 uint8 frames with the augment on, then one eval
-   step. Checks: finite losses, 16 K1 launches per forward, trunk
+   events; the plain version computes in f32 with TF32 off), of the cuDNN
+   bf16 channels-last conv chain on the same folded weights (the library
+   call), and the bound.
+2b. K5 (``fused_block_attention``) and K6 (``fused_mlp``) against their
+   plain versions, with the same gates: small and odd cases at B = 2
+   (N = 10 with kv_valid = 7, and N = 17; C = 256, 4 heads, F = 1024),
+   then the ViT-B/14 shapes at B = 128 (N = 257, C = 768, 12 heads,
+   F = 3072), timed beside their plain versions, the library calls
+   (LayerNorm, Linear, scaled_dot_product_attention or GELU, Linear and
+   the residual, in bf16) and the bound.
+3. The ResNeXt slice: the flagship CVCL (ResNeXt-50 at full width with
+   seeded random weights and BN statistics, flat 512-d head, embedding
+   text encoder, fixed T = 0.07, running BN, no int8), 3 AdamW train
+   steps at B = 128 on 224x224 uint8 frames with the augment on, then one
+   eval step. Checks: finite losses, 16 K1 launches per forward, trunk
    parameters bit-unchanged, heads changed. The eval forward's pooled
    features and logits against the plain bf16 conv path on the same
    weights: per-row cosine >= 0.999; the cosine against the f32 conv path
    (TF32 off) is printed. Then the step time and the trunk time of both
    paths.
+4. The ViT slice: the ViT flagship CVCL (DINO ViT-B/14 at full width and
+   depth in bf16, seeded trunc-normal(0.02) Dense weights, LayerNorm
+   scale 1 + 0.1 N(0, 1) and bias 0.1 N(0, 1), the 1-layer transformer
+   text encoder with a learned pos-embed), 3 AdamW train steps at B = 128
+   with the augment and the text dropout on, then one eval step. Checks:
+   finite losses, 12 K5 and 12 K6 launches per forward, every ViT tensor
+   bit-unchanged, the head and the text encoder changed. The eval CLS
+   features and logits against the plain bf16 blocks on the same
+   weights: per-row cosine >= 0.999; the cosine against the f32 plain
+   blocks is printed. Then the ViT forward time of both paths, the step
+   time and pairs/s.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -40,6 +60,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.core.config import (
     DataConfig, ExperimentConfig, ModelConfig, TextConfig, TrainConfig,
@@ -48,13 +69,17 @@ from multimodal_baby_tpu_torch.core.constants import MAX_LEN_UTTERANCE
 from multimodal_baby_tpu_torch.data.augment import augment_batch
 from multimodal_baby_tpu_torch.models.multimodal import CVCL, l2_normalize
 from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
+from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm
 from multimodal_baby_tpu_torch.ops import _build
+from multimodal_baby_tpu_torch.ops.attention import (
+    block_attention_reference, fused_block_attention)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
+from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
 from multimodal_baby_tpu_torch.train.step import (
     init_train_state, make_eval_step, make_train_step)
 
-BATCH = 128          # the slice's batch: K1 is checked and timed at it
+BATCH = 128          # the slices' batch: the kernels are checked and timed at it
 CHECK_BATCH = 8      # the batch of the small and odd-sized K1 checks
 VOCAB = 2350
 REL_TOL = 1e-2
@@ -62,6 +87,8 @@ COS_TOL = 0.9999
 SLICE_COS_TOL = 0.999
 TRAIN_STEPS = 3
 TIMED_STEPS = 10
+PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, at 700 W
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 # (name, H, Cin, width, Cout, stride, downsample, blocks per forward)
 BLOCKS_224 = [
@@ -81,6 +108,10 @@ BLOCKS_EDGE = [
     ("odd 7->4 stride 2", 7, 512, 256, 512, 2, True, 0),
     ("odd 5x5 stride 1", 5, 256, 128, 256, 1, False, 0),
 ]
+# (B, N, C, heads, F, kv_valid); the last is ViT-B/14 at the slice's batch
+VIT_CASES = [(2, 10, 256, 4, 1024, 7), (2, 17, 256, 4, 1024, None),
+             (BATCH, 257, 768, 12, 3072, None)]
+VIT_DEPTH = 12
 
 
 def log(msg: str) -> None:
@@ -94,24 +125,11 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def random_block(gen, H, cin, width, cout, stride, has_ds, batch):
-    """bf16 post-ReLU input and folded weights of one block, on the card."""
-    def w(*shape, fan_in):
-        return (torch.randn(*shape, generator=gen) * math.sqrt(2.0 / fan_in)
-                ).to("cuda", torch.bfloat16)
-
-    def b(n):
-        return (0.1 * torch.randn(n, generator=gen)).to("cuda")
-
-    fw = {"w1": w(cin, width, fan_in=cin), "b1": b(width),
-          "w2": w(3, 3, width // 32, width, fan_in=9 * width // 32),
-          "b2": b(width),
-          "w3": w(width, cout, fan_in=width), "b3": b(cout)}
-    if has_ds:
-        fw["wd"] = w(cin, cout, fan_in=cin)
-        fw["bd"] = b(cout)
-    x = torch.randn(batch, H, H, cin, generator=gen).clamp_min(0.0)
-    return x.to("cuda", torch.bfloat16), fw
+def bound(flops: float, nbytes: float):
+    """(ms, what bounds it): the larger of the two least times."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def cosine(a, b):
@@ -139,59 +157,223 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_block(name, x, fw, s) -> float:
-    """K1 against its plain version on one input; returns the max abs error."""
-    got = fused_bottleneck(x, fw, stride=s)
-    want = bottleneck_reference(x, fw, stride=s)
+def time_in_turns(kernel, plain, library, iters):
+    """(kernel, plain, library) ms, timed plain, kernel, library, library,
+    kernel, plain; each entry is the mean of its two turns."""
+    p1, k1, l1 = (time_ms(plain, max(iters // 4, 2)), time_ms(kernel, iters),
+                  time_ms(library, iters))
+    l2, k2, p2 = (time_ms(library, iters), time_ms(kernel, iters),
+                  time_ms(plain, max(iters // 4, 2)))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+
+
+def check(what, got, want) -> float:
+    """A kernel's output against its plain version; returns the max abs
+    error."""
     torch.cuda.synchronize()
     if got.shape != want.shape:
-        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
     err = float((got.float() - want.float()).abs().max())
     rel = err / max(float(want.float().abs().max()), 1e-12)
     cos = cosine(got, want)
-    log(f"  K1 {name:18s} out {tuple(got.shape)}: max_abs_err {err:.4g} "
+    log(f"  {what:34s} out {tuple(got.shape)}: max_abs_err {err:.4g} "
         f"rel {rel:.3e} cos {cos:.7f}")
     if not (math.isfinite(rel) and rel <= REL_TOL and cos >= COS_TOL):
         raise AssertionError(
-            f"K1 {name}: rel {rel:.3e} (<= {REL_TOL}) cos {cos:.7f} "
+            f"{what}: rel {rel:.3e} (<= {REL_TOL}) cos {cos:.7f} "
             f"(>= {COS_TOL})")
     return err
 
 
-def phase_kernels():
+# ----------------------------------------------------------------- phase 2
+
+def random_block(gen, H, cin, width, cout, stride, has_ds, batch):
+    """bf16 post-ReLU input and folded weights of one block, on the card."""
+    def w(*shape, fan_in):
+        return (torch.randn(*shape, generator=gen) * math.sqrt(2.0 / fan_in)
+                ).to("cuda", torch.bfloat16)
+
+    def b(n):
+        return (0.1 * torch.randn(n, generator=gen)).to("cuda")
+
+    fw = {"w1": w(cin, width, fan_in=cin), "b1": b(width),
+          "w2": w(3, 3, width // 32, width, fan_in=9 * width // 32),
+          "b2": b(width),
+          "w3": w(width, cout, fan_in=width), "b3": b(cout)}
+    if has_ds:
+        fw["wd"] = w(cin, cout, fan_in=cin)
+        fw["bd"] = b(cout)
+    x = torch.randn(batch, H, H, cin, generator=gen).clamp_min(0.0)
+    return x.to("cuda", torch.bfloat16), fw
+
+
+def conv_chain(fw, stride):
+    """The library call for K1: cuDNN bf16 convolutions, channels-last, on
+    the same folded weights (biases in bf16)."""
+    cl = torch.channels_last
+
+    def conv_w(w):  # [in, out] -> [out, in, 1, 1]
+        return w.t()[:, :, None, None].contiguous(memory_format=cl)
+
+    cw = {"w1": conv_w(fw["w1"]), "w3": conv_w(fw["w3"]),
+          "w2": fw["w2"].permute(3, 2, 0, 1).contiguous(memory_format=cl)}
+    if "wd" in fw:
+        cw["wd"] = conv_w(fw["wd"])
+    cb = {k: v.to(torch.bfloat16) for k, v in fw.items() if k[0] == "b"}
+
+    def run(x):
+        xc = x.permute(0, 3, 1, 2)           # NCHW view of NHWC data
+        h = F.relu(F.conv2d(xc, cw["w1"], cb["b1"]))
+        h = F.relu(F.conv2d(h, cw["w2"], cb["b2"], stride=stride, padding=1,
+                            groups=32))
+        y = F.conv2d(h, cw["w3"], cb["b3"])
+        idn = (F.conv2d(xc, cw["wd"], cb["bd"], stride=stride)
+               if "wd" in cw else xc)
+        return F.relu(y + idn)
+
+    return run
+
+
+def phase_k1():
     gen = torch.Generator().manual_seed(1)
     max_abs = 0.0
     for name, H, cin, width, cout, s, ds, _ in BLOCKS_EDGE:
         x, fw = random_block(gen, H, cin, width, cout, s, ds, CHECK_BATCH)
-        max_abs = max(max_abs, check_block(name, x, fw, s))
+        max_abs = max(max_abs, check(
+            f"K1 {name}", fused_bottleneck(x, fw, stride=s),
+            bottleneck_reference(x, fw, stride=s)))
 
     # the trunk's block shapes at the slice's batch: checked, then timed
-    kernel_ms = plain_ms = 0.0
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
     for name, H, cin, width, cout, s, ds, count in BLOCKS_224:
         x, fw = random_block(gen, H, cin, width, cout, s, ds, BATCH)
-        max_abs = max(max_abs, check_block(name, x, fw, s))
-        run_k = lambda: fused_bottleneck(x, fw, stride=s)  # noqa: E731
-        run_p = lambda: bottleneck_reference(x, fw, stride=s)  # noqa: E731
-        # in turns: plain, kernel, kernel, plain
-        p1 = time_ms(run_p, 5)
-        k1 = time_ms(run_k, 20)
-        k2 = time_ms(run_k, 20)
-        p2 = time_ms(run_p, 5)
-        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        max_abs = max(max_abs, check(
+            f"K1 {name}", fused_bottleneck(x, fw, stride=s),
+            bottleneck_reference(x, fw, stride=s)))
+        lib = conv_chain(fw, s)
+        k, p, li = time_in_turns(
+            lambda: fused_bottleneck(x, fw, stride=s),
+            lambda: bottleneck_reference(x, fw, stride=s),
+            lambda: lib(x), 20)
+        Ho = (H - 1) // s + 1
         flops = 2 * BATCH * (
             H * H * cin * width
-            + (H // s) ** 2 * (9 * width // 32 * width + width * cout
-                               + (cin * cout if ds else 0)))
-        log(f"  K1 {name} B={BATCH}: kernel {k1:.3f}/{k2:.3f} ms, plain f32 "
-            f"{p1:.3f}/{p2:.3f} ms, kernel {flops / k / 1e9:.1f} TFLOP/s")
-        kernel_ms += count * k
-        plain_ms += count * p
-        del x, fw
+            + Ho * Ho * (9 * width // 32 * width + width * cout
+                         + (cin * cout if ds else 0)))
+        nbytes = (2 * BATCH * (H * H * cin + Ho * Ho * cout)
+                  + sum(t.numel() * t.element_size() for t in fw.values()))
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"  K1 {name} B={BATCH}: kernel {k:.3f} ms, plain f32 {p:.3f} "
+            f"ms, cuDNN bf16 {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+            f"kernel {flops / k / 1e9:.1f} TFLOP/s")
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
+                       ("flops", flops), ("nbytes", nbytes)):
+            total[key] += count * v
+        del x, fw, lib
+    b_ms, b_by = bound(total["flops"], total["nbytes"])
     log(f"  K1 over the 16 blocks of one forward at B={BATCH}: kernel "
-        f"{kernel_ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
-    return max_abs, kernel_ms, plain_ms
+        f"{total['ms']:.3f} ms, plain f32 {total['plain_ms']:.3f} ms, cuDNN "
+        f"bf16 {total['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return dict(max_abs_err=max_abs, ms=total["ms"],
+                plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=total["library_ms"])
 
+
+# ---------------------------------------------------------------- phase 2b
+
+def vit_half_inputs(gen, kind, B, N, C, F_):
+    """bf16 x and the half's operands: LayerNorm scale and bias, then
+    (wqkv [C, 3C], bqkv, wproj [C, C], bproj) or (w1 [C, F], b1, w2, b2)."""
+    out_a, in_b = (3 * C, C) if kind == "attention" else (F_, F_)
+    shapes = [((B, N, C), 1.0), ((C,), 0.1), ((C,), 0.1),
+              ((C, out_a), C ** -0.5), ((out_a,), 0.1),
+              ((in_b, C), in_b ** -0.5), ((C,), 0.1)]
+    x, *params = [(torch.randn(*s, generator=gen) * sc).to("cuda",
+                                                           torch.bfloat16)
+                  for s, sc in shapes]
+    params[0] = params[0] + 1.0
+    return x, params
+
+
+def attention_library(x, params, heads):
+    """The library call for K5, in bf16: LayerNorm, Linear,
+    scaled_dot_product_attention, Linear and the residual."""
+    g, b, wqkv, bqkv, wproj, bproj = params
+    wq, wp = wqkv.t().contiguous(), wproj.t().contiguous()
+    B, N, C = x.shape
+
+    def run():
+        xn = F.layer_norm(x, (C,), g, b, 1e-6)
+        q, k, v = (F.linear(xn, wq, bqkv).reshape(B, N, 3, heads, C // heads)
+                   .permute(2, 0, 3, 1, 4))
+        y = F.scaled_dot_product_attention(q, k, v)
+        return x + F.linear(y.transpose(1, 2).reshape(B, N, C), wp, bproj)
+
+    return run
+
+
+def mlp_library(x, params):
+    """The library call for K6, in bf16: LayerNorm, Linear, GELU, Linear
+    and the residual."""
+    g, b, w1, b1, w2, b2 = params
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    C = x.shape[-1]
+
+    def run():
+        h = F.gelu(F.linear(F.layer_norm(x, (C,), g, b, 1e-6), w1t, b1))
+        return x + F.linear(h, w2t, b2)
+
+    return run
+
+
+def phase_vit_kernels():
+    gen = torch.Generator().manual_seed(2)
+    out = {}
+    for B, N, C, heads, F_, kv in VIT_CASES:
+        scale = (C // heads) ** -0.5
+        xa, pa = vit_half_inputs(gen, "attention", B, N, C, F_)
+        xm, pm = vit_half_inputs(gen, "mlp", B, N, C, F_)
+        runs = {
+            "K5": (lambda: fused_block_attention(xa, *pa, heads, scale, kv),
+                   lambda: block_attention_reference(xa, *pa, heads, scale,
+                                                     kv),
+                   attention_library(xa, pa, heads),
+                   (2 * B * N * C * 3 * C + 2 * B * N * C * C
+                    + 4 * B * N * N * C),
+                   2 * (2 * B * N * C) + 2 * 4 * C * C),
+            "K6": (lambda: fused_mlp(xm, *pm), lambda: mlp_reference(xm, *pm),
+                   mlp_library(xm, pm), 4 * B * N * C * F_,
+                   2 * (2 * B * N * C) + 2 * 2 * C * F_)}
+        for name, (kernel, plain, library, flops, nbytes) in runs.items():
+            what = f"{name} B={B} N={N} C={C}" + (
+                f" kv_valid={kv}" if name == "K5" else f" F={F_}")
+            with torch.no_grad():
+                err = check(what, kernel(), plain())
+            res = out.setdefault(name, {"max_abs_err": 0.0})
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            if B != BATCH:
+                continue
+            with torch.no_grad():
+                k, p, li = time_in_turns(kernel, plain, library, 20)
+            b_ms, b_by = bound(flops, nbytes)
+            log(f"  {name} B={B} N={N} C={C}: kernel {k:.3f} ms, plain "
+                f"{p:.3f} ms, library bf16 {li:.3f} ms, bound {b_ms:.3f} ms "
+                f"({b_by}); kernel {flops / k / 1e9:.1f} TFLOP/s")
+            # per forward: one launch per block
+            b_fwd, _ = bound(VIT_DEPTH * flops, VIT_DEPTH * nbytes)
+            res.update(ms=VIT_DEPTH * k, plain_ms=VIT_DEPTH * p,
+                       library_ms=VIT_DEPTH * li, bound_ms=b_fwd,
+                       bound_by=b_by)
+    for name, res in out.items():
+        log(f"  {name} over the {VIT_DEPTH} blocks of one forward at "
+            f"B={BATCH}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
+            f" ms, library bf16 {res['library_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.3f} ms ({res['bound_by']})")
+    return out
+
+
+# ------------------------------------------------------------ phases 3 and 4
 
 def make_batch(rng, b):
     """Synthetic uint8 frames and token ids, as bench.py makes them."""
@@ -207,16 +389,111 @@ def make_batch(rng, b):
             "text_len": torch.from_numpy(lens + 2).cuda()}
 
 
-def phase_slice():
-    cfg = ExperimentConfig(
+def flagship_cfg(vit: bool) -> ExperimentConfig:
+    """bench.py's flagship (build_flagship, no int8) or ViT flagship
+    (build_vit_flagship), with the augment on."""
+    if vit:
+        vision = VisionConfig(vit_dino=True)
+        text = TextConfig(text_encoder="transformer",
+                          pos_embed_type="learned")
+    else:
+        vision = VisionConfig(cnn_dino=True, frozen_bn="running",
+                              trunk_int8=False)
+        text = TextConfig(text_encoder="embedding")
+    return ExperimentConfig(
         model=ModelConfig(
             embedding_dim=512, vocab_size=VOCAB, embedding_type="flat",
             normalize_features=True, fix_temperature=True, temperature=0.07,
-            vision=VisionConfig(cnn_dino=True, frozen_bn="running",
-                                trunk_int8=False),
-            text=TextConfig(text_encoder="embedding")),
+            vision=vision, text=text),
         data=DataConfig(augment_frames=True),
         train=TrainConfig(optimizer="AdamW", lr=1e-4, weight_decay=0.1))
+
+
+def build_vit_slice():
+    """(cfg, model, batch) of the ViT slice with its seeded weights."""
+    cfg = flagship_cfg(vit=True)
+    gen = torch.Generator().manual_seed(0)
+    model = CVCL(cfg.model, dtype=torch.bfloat16, device="cuda",
+                 generator=gen)
+    with torch.no_grad():  # LayerNorm affine and Dense biases that matter
+        for m in model.vision_encoder.model.blocks.modules():
+            if isinstance(m, LayerNorm):
+                c = m.weight.numel()
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+            elif isinstance(m, torch.nn.Linear):
+                m.bias.copy_(0.02 * torch.randn(m.bias.numel(),
+                                                generator=gen))
+    return cfg, model, make_batch(np.random.RandomState(0), BATCH)
+
+
+def drive(model, cfg, batch, launch_counters):
+    """TRAIN_STEPS train steps then one eval step, the kernel launch counts
+    set to 0 just before and read just after. Returns (state, train_step,
+    launches per counter)."""
+    state = init_train_state(model, cfg)
+    train_step = make_train_step(model, cfg)
+    eval_step = make_eval_step(model, cfg)
+    torch.cuda.synchronize()
+    for counter in launch_counters:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    losses = [float(train_step(state, batch)["loss"])
+              for _ in range(TRAIN_STEPS)]
+    eval_loss = float(eval_step(batch)["loss"])
+    torch.cuda.synchronize()
+    launches = [counter.launches for counter in launch_counters]
+    log(f"  losses {losses}, eval loss {eval_loss:.5f} "
+        f"({time.perf_counter() - t0:.2f} s for the first {TRAIN_STEPS} "
+        f"steps + eval, weight preparation included)")
+    if not all(math.isfinite(v) for v in losses + [eval_loss]):
+        raise AssertionError(f"non-finite loss: {losses}, eval {eval_loss}")
+    return state, train_step, launches
+
+
+def check_frozen_and_heads(model, frozen, heads):
+    """The trunk tensors in ``frozen`` are bit-unchanged, the parameters
+    in ``heads`` changed."""
+    trunk = model.vision_encoder.model
+    for k, v in trunk.state_dict().items():
+        if k in frozen and not torch.equal(v, frozen[k]):
+            raise AssertionError(f"frozen trunk tensor {k} changed")
+    named = dict(model.named_parameters())
+    for k, v in heads.items():
+        if torch.equal(named[k].detach(), v):
+            raise AssertionError(f"{k} did not change")
+    log(f"  trunk unchanged ({len(frozen)} tensors), {len(heads)} head and "
+        f"text tensors updated")
+
+
+def compare_features(what, kernel, plain, f32):
+    """Per-row cosines of the kernel path against the plain bf16 path
+    (gated) and against f32 (printed)."""
+    cp, cf, cpf = (row_cosines(kernel, plain), row_cosines(kernel, f32),
+                   row_cosines(plain, f32))
+    log(f"  eval {what}: kernel vs plain bf16 cos min "
+        f"{float(cp.min()):.7f} mean {float(cp.mean()):.7f}; kernel vs f32 "
+        f"min {float(cf.min()):.7f}; plain bf16 vs f32 min "
+        f"{float(cpf.min()):.7f}")
+    if not (torch.isfinite(kernel).all()
+            and float(cp.min()) >= SLICE_COS_TOL):
+        raise AssertionError(f"eval {what}: cosine {float(cp.min()):.7f} < "
+                             f"{SLICE_COS_TOL}")
+
+
+def time_steps(state, train_step, batch, what):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    log(f"  {what} train step B={BATCH}: {step_s * 1e3:.3f} ms, "
+        f"{BATCH / step_s:.1f} pairs/s")
+
+
+def phase_resnext_slice():
+    cfg = flagship_cfg(vit=False)
     gen = torch.Generator().manual_seed(0)
     model = CVCL(cfg.model, dtype=torch.bfloat16, device="cuda",
                  generator=gen)
@@ -230,42 +507,20 @@ def phase_slice():
                 m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
                 m.running_var.copy_(0.75 + 0.5 * torch.rand(c, generator=gen))
     batch = make_batch(np.random.RandomState(0), BATCH)
-    state = init_train_state(model, cfg, device="cuda")
-    train_step = make_train_step(model, cfg)
-    eval_step = make_eval_step(model, cfg)
-
     frozen = {k: v.clone() for k, v in trunk.state_dict().items()
               if not k.startswith("fc.")}
     heads = {"vision_encoder.model.fc.weight": trunk.fc.weight.detach().clone(),
              "text_encoder.embedding.weight":
                  model.text_encoder.embedding.weight.detach().clone()}
 
-    torch.cuda.synchronize()
-    fused_bottleneck.launches = 0
-    t0 = time.perf_counter()
-    losses = [float(train_step(state, batch)["loss"])
-              for _ in range(TRAIN_STEPS)]
-    eval_loss = float(eval_step(batch)["loss"])
-    torch.cuda.synchronize()
-    launches = fused_bottleneck.launches
-    first_s = time.perf_counter() - t0
+    state, train_step, (launches,) = drive(model, cfg, batch,
+                                           [fused_bottleneck])
     forwards = TRAIN_STEPS + 1
-    log(f"  losses {losses}, eval loss {eval_loss:.5f} ({first_s:.2f} s "
-        f"for the first {TRAIN_STEPS} steps + eval, fold included)")
     log(f"  K1 launches {launches} over {forwards} forwards")
-    if not all(math.isfinite(v) for v in losses + [eval_loss]):
-        raise AssertionError(f"non-finite loss: {losses}, eval {eval_loss}")
     if launches != 16 * forwards:
         raise AssertionError(f"K1 launched {launches} times, expected "
                              f"{16 * forwards}")
-    for k, v in trunk.state_dict().items():
-        if k in frozen and not torch.equal(v, frozen[k]):
-            raise AssertionError(f"frozen trunk tensor {k} changed")
-    named = dict(model.named_parameters())
-    for k, v in heads.items():
-        if torch.equal(named[k].detach(), v):
-            raise AssertionError(f"head {k} did not change")
-    log(f"  trunk unchanged ({len(frozen)} tensors), heads updated")
+    check_frozen_and_heads(model, frozen, heads)
 
     with torch.no_grad():
         img_bf16 = augment_batch(batch["image_u8"], augment=False,
@@ -277,39 +532,64 @@ def phase_slice():
             f = l2_normalize(trunk.fc(pooled), dim=1)
             return model.similarity(f, txt) * model.logit_scale()
 
-        pooled_k = trunk.forward_folded(img_bf16)["pooled"]
-        pooled_p = trunk.forward_conv(img_bf16)["pooled"]
-        pooled_f = trunk.forward_conv(img_f32)["pooled"]
-        for what, a, b_, c in (
-                ("pooled", pooled_k, pooled_p, pooled_f),
-                ("logits", logits(pooled_k), logits(pooled_p),
-                 logits(pooled_f))):
-            cp, cf = row_cosines(a, b_), row_cosines(a, c)
-            cpf = row_cosines(b_, c)
-            log(f"  eval {what}: kernel vs plain bf16 cos min "
-                f"{float(cp.min()):.7f} mean {float(cp.mean()):.7f}; "
-                f"kernel vs f32 min {float(cf.min()):.7f}; plain bf16 vs "
-                f"f32 min {float(cpf.min()):.7f}")
-            if not (torch.isfinite(a).all() and float(cp.min())
-                    >= SLICE_COS_TOL):
-                raise AssertionError(
-                    f"eval {what}: cosine {float(cp.min()):.7f} < "
-                    f"{SLICE_COS_TOL}")
+        pooled = [trunk.forward_folded(img_bf16)["pooled"],
+                  trunk.forward_conv(img_bf16)["pooled"],
+                  trunk.forward_conv(img_f32)["pooled"]]
+        compare_features("pooled", *pooled)
+        compare_features("logits", *map(logits, pooled))
 
         img_aug = augment_batch(batch["image_u8"], dtype=torch.bfloat16)
         trunk_k = time_ms(lambda: trunk.forward_folded(img_aug), 10)
         trunk_p = time_ms(lambda: trunk.forward_conv(img_aug), 10)
     log(f"  trunk forward B={BATCH}: K1 path {trunk_k:.3f} ms, plain bf16 "
         f"conv path {trunk_p:.3f} ms")
+    time_steps(state, train_step, batch, "ResNeXt")
+    return launches
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        train_step(state, batch)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TIMED_STEPS
-    log(f"  train step B={BATCH}: {step_s * 1e3:.3f} ms, "
-        f"{BATCH / step_s:.1f} pairs/s")
+
+def phase_vit_slice():
+    cfg, model, batch = build_vit_slice()
+    trunk = model.vision_encoder.model
+    frozen = {k: v.clone() for k, v in trunk.state_dict().items()
+              if not k.startswith("head.")}
+    layer = "text_encoder.transformer_encoder.layers.0."
+    named = dict(model.named_parameters())
+    heads = {k: named[k].detach().clone() for k in (
+        "vision_encoder.model.head.weight", "text_encoder.embedding.weight",
+        "text_encoder.pos_embed", layer + "self_attn.in_proj_weight",
+        layer + "linear1.weight", layer + "norm2.weight")}
+
+    state, train_step, launches = drive(
+        model, cfg, batch, [fused_block_attention, fused_mlp])
+    forwards = TRAIN_STEPS + 1
+    log(f"  K5 launches {launches[0]}, K6 launches {launches[1]} over "
+        f"{forwards} forwards")
+    if launches != [VIT_DEPTH * forwards] * 2:
+        raise AssertionError(f"K5/K6 launched {launches} times, expected "
+                             f"{VIT_DEPTH * forwards} each")
+    check_frozen_and_heads(model, frozen, heads)
+
+    with torch.no_grad():
+        img_bf16 = augment_batch(batch["image_u8"], augment=False,
+                                 dtype=torch.bfloat16)
+        img_f32 = augment_batch(batch["image_u8"], augment=False)
+        txt, _ = model.encode_text(batch["text"], batch["text_len"])
+
+        def logits(cls):
+            f = l2_normalize(trunk.head(cls), dim=1)
+            return model.similarity(f, txt) * model.logit_scale()
+
+        cls = [trunk(img_bf16), trunk.forward_plain(img_bf16),
+               trunk.forward_plain(img_f32)]
+        compare_features("CLS", *cls)
+        compare_features("logits", *map(logits, cls))
+
+        img_aug = augment_batch(batch["image_u8"], dtype=torch.bfloat16)
+        vit_k = time_ms(lambda: trunk(img_aug), 5)
+        vit_p = time_ms(lambda: trunk.forward_plain(img_aug), 5)
+    log(f"  ViT forward B={BATCH}: K5/K6 path {vit_k:.3f} ms, plain bf16 "
+        f"path {vit_p:.3f} ms")
+    time_steps(state, train_step, batch, "ViT")
     return launches
 
 
@@ -336,17 +616,28 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     log("phase 2: K1 against its plain version")
-    max_abs, kernel_ms, plain_ms = phase_kernels()
+    k1 = phase_k1()
+    log("phase 2b: K5 and K6 against their plain versions")
+    vit_kernels = phase_vit_kernels()
+    log("phase 3: the ResNeXt slice")
+    k1["launches"] = phase_resnext_slice()
+    log("phase 4: the ViT slice")
+    vit_kernels["K5"]["launches"], vit_kernels["K6"]["launches"] = \
+        phase_vit_slice()
 
-    log("phase 3: the slice")
-    launches = phase_slice()
-
-    print(json.dumps({"kernels": [{
-        "name": "fused_bottleneck", "route": "cuda",
-        "source": "multimodal_baby_tpu_torch/ops/csrc/bottleneck.cu",
-        "replaces": "multimodal_baby_tpu/ops/bottleneck_hwbc.py:408",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    csrc = "multimodal_baby_tpu_torch/ops/csrc/"
+    rows = [("fused_bottleneck", "bottleneck.cu",
+             "multimodal_baby_tpu/ops/bottleneck_hwbc.py:408", k1),
+            ("fused_block_attention", "vit.cu",
+             "multimodal_baby_tpu/ops/attention.py:601", vit_kernels["K5"]),
+            ("fused_mlp", "vit.cu", "multimodal_baby_tpu/ops/vit_mlp.py:186",
+             vit_kernels["K6"])]
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": csrc + src,
+         "replaces": replaces, **{k: res[k] for k in keys}}
+        for name, src, replaces, res in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """Weight bridge from the JAX package (counterpart of
 ``multimodal_baby_tpu/api/convert.py``, run the other way).
 
-``convert_resnext50`` and ``convert_cvcl_checkpoint`` there turn a
-reference-named state dict into flax ``(params, batch_stats)``; the
-functions here invert them, turning the JAX package's trees (numpy arrays)
-into this package's ``state_dict``, so both packages can run on the same
-weights.
+``convert_resnext50``, ``convert_vit``, ``convert_text_encoder`` and
+``convert_cvcl_checkpoint`` there turn a reference-named state dict into
+flax ``(params, batch_stats)``; the functions here invert them, turning the
+JAX package's trees (numpy arrays) into this package's ``state_dict``, so
+both packages can run on the same weights.
 """
 
 from __future__ import annotations
@@ -57,18 +57,78 @@ def resnext50_state_dict(params: Tree, stats: Tree, prefix: str = ""
     return sd
 
 
-def cvcl_state_dict(params: Tree, batch_stats: Tree
+def _linear(out: Dict[str, np.ndarray], prefix: str, p: Tree) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _ln(out: Dict[str, np.ndarray], prefix: str, p: Tree) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def vit_state_dict(params: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Inverse of ``convert_vit``: flax VisionTransformerDino tree ->
+    reference names under ``prefix``."""
+    p = prefix
+    sd: Dict[str, np.ndarray] = {
+        f"{p}cls_token": np.asarray(params["cls_token"]),
+        f"{p}pos_embed": np.asarray(params["pos_embed"]),
+        f"{p}patch_embed.proj.weight": _conv(
+            params["patch_embed"]["kernel"]),
+        f"{p}patch_embed.proj.bias": np.asarray(params["patch_embed"]["bias"]),
+    }
+    _ln(sd, f"{p}norm", params["norm"])
+    depth = sum(1 for k in params if k.startswith("block"))
+    for i in range(depth):
+        bp, tp = params[f"block{i}"], f"{p}blocks.{i}"
+        _ln(sd, f"{tp}.norm1", bp["norm1"])
+        _ln(sd, f"{tp}.norm2", bp["norm2"])
+        _linear(sd, f"{tp}.attn.qkv", bp["attn"]["qkv"])
+        _linear(sd, f"{tp}.attn.proj", bp["attn"]["proj"])
+        _linear(sd, f"{tp}.mlp.fc1", bp["fc1"])
+        _linear(sd, f"{tp}.mlp.fc2", bp["fc2"])
+    return sd
+
+
+def text_encoder_state_dict(params: Tree, prefix: str = "text_encoder."
+                            ) -> Dict[str, np.ndarray]:
+    """Inverse of ``convert_text_encoder`` for the embedding and
+    transformer encoders (the learned pos-embed in the reference layout
+    ``[L, 1, E]``)."""
+    p = prefix
+    sd = {f"{p}embedding.weight": np.asarray(params["token_embedding"])}
+    if "transformer_layer" in params:
+        tl, lp = params["transformer_layer"], f"{p}transformer_encoder.layers.0"
+        sd[f"{lp}.self_attn.in_proj_weight"] = np.asarray(
+            tl["in_proj_weight"]).T
+        sd[f"{lp}.self_attn.in_proj_bias"] = np.asarray(tl["in_proj_bias"])
+        _linear(sd, f"{lp}.self_attn.out_proj", tl["out_proj"])
+        _linear(sd, f"{lp}.linear1", tl["linear1"])
+        _linear(sd, f"{lp}.linear2", tl["linear2"])
+        _ln(sd, f"{lp}.norm1", tl["norm1"])
+        _ln(sd, f"{lp}.norm2", tl["norm2"])
+    if "pos_embed" in params:
+        sd[f"{p}pos_embed"] = np.asarray(params["pos_embed"])[:, None]
+    return sd
+
+
+def cvcl_state_dict(params: Tree, batch_stats: Tree, vit: bool = False
                     ) -> Dict[str, np.ndarray]:
-    """Inverse of ``convert_cvcl_checkpoint`` for the slice's CVCL
-    (ResNeXt-50 trunk, flat head, embedding text encoder)."""
+    """Inverse of ``convert_cvcl_checkpoint`` for the port's CVCL: a
+    ResNeXt-50 (``vit=False``) or ViT-B/14 trunk, the flat head, and the
+    embedding or transformer text encoder (read from the tree)."""
     vis = params["vision_encoder"]
-    sd = resnext50_state_dict(vis["backbone"],
-                              batch_stats["vision_encoder"]["backbone"],
-                              "vision_encoder.model.")
-    sd["vision_encoder.model.fc.weight"] = np.asarray(vis["head"]["kernel"]).T
-    sd["vision_encoder.model.fc.bias"] = np.asarray(vis["head"]["bias"])
-    sd["text_encoder.embedding.weight"] = np.asarray(
-        params["text_encoder"]["token_embedding"])
+    vp = "vision_encoder.model."
+    if vit:
+        sd = vit_state_dict(vis["backbone"], vp)
+        _linear(sd, f"{vp}head", vis["head"])
+    else:
+        sd = resnext50_state_dict(vis["backbone"],
+                                  batch_stats["vision_encoder"]["backbone"],
+                                  vp)
+        _linear(sd, f"{vp}fc", vis["head"])
+    sd.update(text_encoder_state_dict(params["text_encoder"]))
     if "logit_neg_log_temperature" in params:
         sd["model.logit_neg_log_temperature"] = np.asarray(
             params["logit_neg_log_temperature"])

@@ -5,8 +5,10 @@ flat similarity.
 Parameter names follow the reference's Lightning checkpoint, so
 ``multimodal_baby_tpu/api/convert.py::convert_cvcl_checkpoint`` maps this
 module's ``state_dict()`` to the JAX package's parameter tree:
-``vision_encoder.model.{conv1,bn1,layerS.B.*,fc}``,
-``text_encoder.embedding.weight``, ``model.logit_neg_log_temperature``
+``vision_encoder.model.{conv1,bn1,layerS.B.*,fc}`` (ResNeXt-50) or
+``vision_encoder.model.{patch_embed,cls_token,pos_embed,blocks.*,norm,head}``
+(ViT-B/14), ``text_encoder.{embedding.weight,transformer_encoder.*,
+pos_embed}``, ``model.logit_neg_log_temperature``
 (learned temperature only) and ``language_model.output_layer.{weight,bias}``
 (weight only when untied). The LM head is held for the state dict and the
 optimizer; the slice runs no LM forward.
@@ -21,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from multimodal_baby_tpu_torch.core.config import ModelConfig
+from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision import VisionEncoder
 
@@ -50,12 +53,15 @@ class LMOutputLayer(nn.Module):
 
 class CVCL(nn.Module):
     """``dtype`` is the trunk's compute dtype (None = f32); parameters,
-    heads, logits and losses stay f32. ``generator`` is a CPU generator for
-    the seeded init."""
+    heads, logits and losses stay f32. The model is built on the card
+    unless ``device`` says otherwise (``device="cpu"``); asking for the card
+    where there is none raises. ``generator`` is a CPU generator for the
+    seeded init."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
-                 device=None, generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.vision_encoder = VisionEncoder(cfg, dtype, device=device,
                                             generator=generator)
@@ -87,8 +93,11 @@ class CVCL(nn.Module):
             features = l2_normalize(features, dim=1)
         return features, feature_map
 
-    def encode_text(self, text: torch.Tensor, text_length: torch.Tensor):
-        features, outputs = self.text_encoder(text, text_length)
+    def encode_text(self, text: torch.Tensor, text_length: torch.Tensor,
+                    generator: torch.Generator | None = None):
+        """``generator`` draws the text encoder's dropout (None:
+        deterministic)."""
+        features, outputs = self.text_encoder(text, text_length, generator)
         if self.cfg.normalize_features:
             features = l2_normalize(features, dim=-1)
         return features, outputs
@@ -111,12 +120,16 @@ class CVCL(nn.Module):
         return ret
 
     def joint_forward(self, image: torch.Tensor, text: torch.Tensor,
-                      text_length: torch.Tensor, train: bool = False
+                      text_length: torch.Tensor, train: bool = False,
+                      generator: torch.Generator | None = None
                       ) -> Dict[str, torch.Tensor]:
-        """The contrastive outputs the train and eval steps need."""
+        """The contrastive outputs the train and eval steps need. In
+        training, ``generator`` draws the text encoder's dropout; eval is
+        deterministic."""
         image_features, image_feature_map = self.encode_image(
             image, train=train)
-        text_features, text_outputs = self.encode_text(text, text_length)
+        text_features, text_outputs = self.encode_text(
+            text, text_length, generator if train else None)
         match = self.similarity(image_features, text_features)
         scale = self.logit_scale()
         return {

@@ -1,11 +1,11 @@
 """VisionEncoder: trunk + projection head (counterpart of
 ``multimodal_baby_tpu/models/vision.py``; the flat head only).
 
-The head is ``model.fc``, as in the reference, which replaces the trunk's
-classifier with the projection (state-dict name
-``vision_encoder.model.fc``). A frozen trunk's outputs are detached; its
-parameters leave autograd when ``train.optimizer.build_optimizer`` applies
-the frozen mask.
+The trunk is ResNeXt-50 or DINO ViT-B/14. The head replaces the trunk's
+classifier with the projection, as in the reference: ``model.fc`` on the
+ResNeXt (2048 -> E), ``model.head`` on the ViT (768 -> E). A frozen trunk's
+outputs are detached; its parameters leave autograd when
+``train.optimizer.build_optimizer`` applies the frozen mask.
 """
 
 from __future__ import annotations
@@ -16,18 +16,21 @@ import torch
 import torch.nn as nn
 
 from multimodal_baby_tpu_torch.core.config import ModelConfig
-from multimodal_baby_tpu_torch.models.layers import TorchLinear
+from multimodal_baby_tpu_torch.models.layers import (
+    TorchLinear, resolve_device)
 from multimodal_baby_tpu_torch.models.vision_resnext import ResNeXt50
+from multimodal_baby_tpu_torch.models.vision_vit import vit_base
 
 
 class VisionEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
-                 device=None, generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         v = cfg.vision
-        if v.backbone != "resnext50":
+        if v.backbone not in ("resnext50", "vit_b14"):
             raise NotImplementedError(
-                f"the port's vision trunk is ResNeXt-50; got {v.backbone!r}")
+                "the port's vision trunks are ResNeXt-50 and ViT-B/14; got "
+                f"{v.backbone!r}")
         if cfg.embedding_type != "flat":
             raise NotImplementedError(
                 f"the port's head is flat; got {cfg.embedding_type!r}")
@@ -36,17 +39,29 @@ class VisionEncoder(nn.Module):
         if v.frozen_bn not in ("batch", "running"):
             raise ValueError(f"frozen_bn must be batch|running, got "
                              f"{v.frozen_bn!r}")
+        device = resolve_device(device)
         self.cfg = cfg
-        self.model = ResNeXt50(dtype, frozen=not v.finetune_cnn,
-                               device=device, generator=generator)
-        self.model.fc = TorchLinear(v.last_out_dim, cfg.embedding_dim,
-                                    device=device, generator=generator)
+        trunk = vit_base if v.vit_dino else ResNeXt50
+        self.model = trunk(dtype=dtype, frozen=not v.finetune_cnn,
+                           device=device, generator=generator)
+        head = TorchLinear(v.last_out_dim, cfg.embedding_dim, device=device,
+                           generator=generator)
+        if v.vit_dino:
+            self.model.head = head
+        else:
+            self.model.fc = head
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x: [B, H, W, 3] NHWC, ImageNet-normalized. Returns
-        (features [B, E], feature_map [B, h, w, 2048])."""
+        (features [B, E], feature_map [B, h, w, 2048]); the ViT has no
+        feature map (None), as in the reference."""
         v = self.cfg.vision
+        if v.vit_dino:
+            cls = self.model(x)
+            if not v.finetune_cnn:
+                cls = cls.detach()
+            return self.model.head(cls), None
         # a frozen trunk may run BN on running averages (frozen_bn="running")
         bn_train = train and (v.finetune_cnn or v.frozen_bn == "batch")
         out = self.model(x, train=bn_train)

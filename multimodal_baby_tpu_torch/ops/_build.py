@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface: ``nvcc`` compiles
-them for Hopper (``sm_90a``) into one shared library in a few seconds,
-with no PyTorch headers. The library is built at first use, into
+them for Hopper (``sm_90a``), one process per source, all started
+together, and links the objects into one shared library, in a few seconds
+and with no PyTorch headers. The library is built at first use, into
 ``build/cuda/`` at the root of the checkout (listed in ``.gitignore``),
 under a name that carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
@@ -19,10 +20,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bottleneck.cu",)
+SOURCES = ("bottleneck.cu", "vit.cu")
+HEADERS = ("gemm.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -44,23 +47,35 @@ def build() -> Path:
     """Compile the kernels if this exact source and flag set has not been
     compiled yet; returns the shared library's path."""
     global build_log, build_seconds
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    digest = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     lib = BUILD_DIR / f"libmmb_kernels_{digest.hexdigest()[:16]}.so"
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}")
+    objs = [Path(f"{tmp}.{Path(name).stem}.o") for name in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [subprocess.Popen(
+        [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(SOURCES, objs)]
+    build_log = "".join(proc.communicate()[0] for proc in procs)
+    failed = [name for name, proc in zip(SOURCES, procs) if proc.returncode]
+    if not failed:
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", f"{tmp}.tmp",
+                               *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        build_log += link.stdout + link.stderr
+        failed = ["the link"] if link.returncode else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+    os.replace(f"{tmp}.tmp", lib)
     return lib
 
 
@@ -70,10 +85,16 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.mmb_bottleneck_bf16.argtypes = (
                 [ptr] * 12 + [i32] * 7 + [ptr])
-            lib.mmb_bottleneck_bf16.restype = i32
+            lib.mmb_vit_attention_bf16.argtypes = (
+                [ptr] * 11 + [i32] * 4 + [f32] * 2 + [ptr])
+            lib.mmb_vit_mlp_bf16.argtypes = (
+                [ptr] * 10 + [i32] * 3 + [f32, ptr])
+            for fn in (lib.mmb_bottleneck_bf16, lib.mmb_vit_attention_bf16,
+                       lib.mmb_vit_mlp_bf16):
+                fn.restype = i32
             lib.mmb_cuda_error_string.argtypes = [i32]
             lib.mmb_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -12,14 +12,15 @@ import torch.nn as nn
 from multimodal_baby_tpu_torch.core.config import ExperimentConfig
 
 _TRUNK = "vision_encoder.model."
-_HEAD = "vision_encoder.model.fc."
+# the projection heads: ``fc`` on the ResNeXt, ``head`` on the ViT
+_HEADS = ("vision_encoder.model.fc.", "vision_encoder.model.head.")
 
 
 def frozen_mask(model: nn.Module, finetune_cnn: bool) -> Dict[str, bool]:
-    """{parameter name: trainable}. The vision trunk is frozen unless
-    ``finetune_cnn``; its projection head stays trainable."""
+    """{parameter name: trainable}. The vision trunk (either backbone) is
+    frozen unless ``finetune_cnn``; its projection head stays trainable."""
     return {name: finetune_cnn or not name.startswith(_TRUNK)
-            or name.startswith(_HEAD)
+            or name.startswith(_HEADS)
             for name, _ in model.named_parameters()}
 
 

@@ -22,21 +22,22 @@ Metrics = Dict[str, torch.Tensor]
 class TrainState:
     model: CVCL
     optimizer: torch.optim.Optimizer
-    generator: torch.Generator  # augment draws, on the model's device
+    generator: torch.Generator  # augment and dropout draws, model's device
 
 
-def init_train_state(model: CVCL, cfg: ExperimentConfig,
-                     device=None) -> TrainState:
-    """Optimizer over the model's trainable parameters and an augment
-    generator seeded with ``cfg.train.seed``."""
-    device = torch.device(device or "cpu")
+def init_train_state(model: CVCL, cfg: ExperimentConfig) -> TrainState:
+    """Optimizer over the model's trainable parameters and a generator for
+    the augment and the dropout, on the model's device, seeded with
+    ``cfg.train.seed``."""
+    device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.train.seed)
     return TrainState(model, build_optimizer(cfg, model), generator)
 
 
 def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
-    """loss_fn(batch, train, generator) -> (loss, metrics).
+    """loss_fn(batch, train, generator) -> (loss, metrics). In training,
+    ``generator`` draws the augment and the text encoder's dropout.
 
     ``batch`` holds ``text`` [B, L], ``text_len`` [B], optional ``valid``
     [B], and either ``image`` (normalized [B, H, W, 3]) or ``image_u8``
@@ -58,7 +59,7 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
                 batch["image_u8"], augment=cfg.data.augment_frames and train,
                 dtype=compute_dtype, generator=generator)
         out = model.joint_forward(image, batch["text"], batch["text_len"],
-                                  train=train)
+                                  train=train, generator=generator)
         valid = batch.get("valid")
         infonce, metrics = L.contrastive_loss_from_logits(
             out["logits_per_image"], out["logits_per_text"], valid=valid)

@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's train step spends its time on the card.
+
+Builds one of ``chip_smoke.py``'s slices (the ViT flagship or the
+ResNeXt flagship, seeded random weights, B = 128, augment on), runs a few
+warm-up steps, times steps on the host clock without the profiler, then
+traces steps with ``torch.profiler`` and prints the device time per step
+by kernel name, the kernel time per step and the device's busy share
+(kernel time over step time). Run from the root of the repository on a
+machine with an NVIDIA GPU:
+
+    python3 scripts/profile_torch_step.py [--slice vit|resnext] [--steps 5]
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+from multimodal_baby_tpu_torch.models.multimodal import CVCL  # noqa: E402
+from multimodal_baby_tpu_torch.train.step import (  # noqa: E402
+    init_train_state, make_train_step)
+
+
+def build(which: str):
+    if which == "vit":
+        return chip_smoke.build_vit_slice()
+    cfg = chip_smoke.flagship_cfg(vit=False)
+    model = CVCL(cfg.model, dtype=torch.bfloat16, device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    return cfg, model, chip_smoke.make_batch(np.random.RandomState(0),
+                                             chip_smoke.BATCH)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--slice", choices=("vit", "resnext"), default="vit")
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 1
+    print(chip_smoke.card_line(), flush=True)
+    cfg, model, batch = build(args.slice)
+    state = init_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / args.steps * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    launches = collections.Counter()
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not evt.is_user_annotation):
+            by_name[evt.name] += evt.device_time_total / 1e3 / args.steps
+            launches[evt.name] += 1
+    kernel_ms = sum(by_name.values())
+    if not kernel_ms:
+        print("profile_torch_step: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    print(f"{args.slice} train step B={chip_smoke.BATCH}: {step_ms:.3f} ms "
+          f"without the profiler; device time {kernel_ms:.3f} ms per step; "
+          f"busy {100 * kernel_ms / step_ms:.1f}%")
+    print(f"{'ms/step':>9} {'calls/step':>10}  kernel")
+    for name, ms in by_name.most_common(30):
+        print(f"{ms:9.3f} {launches[name] / args.steps:10.1f}  {name[:110]}")
+    print(f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

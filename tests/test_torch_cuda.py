@@ -1,5 +1,6 @@
-"""The K1 kernel on a CUDA card: against its plain version at the shapes
-of tests/test_hwbc_kernels.py and on the arguments it refuses.
+"""The K1, K5 and K6 kernels on a CUDA card: against their plain versions
+(K1 at the shapes of tests/test_hwbc_kernels.py, K5 and K6 at small, odd
+and ViT-B shapes, with kv_valid) and on the arguments they refuse.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -12,8 +13,11 @@ move a bf16 rounding of h1 or h2 by one ulp).
 import pytest
 import torch
 
+from multimodal_baby_tpu_torch.ops.attention import (
+    block_attention_reference, fused_block_attention)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
+from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
 
 pytestmark = pytest.mark.gpu
 
@@ -85,3 +89,64 @@ def test_kernel_refuses_what_it_cannot_take(cuda, bad):
     with pytest.raises(ValueError):
         fused_bottleneck(x, fw, stride=2)
     assert fused_bottleneck.launches == before
+
+
+def vit_inputs(kind, B, N, C, F, device):
+    """bf16 x and the half's parameters: LayerNorm scale and bias, then
+    (wqkv, bqkv, wproj, bproj) or (w1, b1, w2, b2)."""
+    g = torch.Generator().manual_seed(B + N + C)
+    out_a, in_b = (3 * C, C) if kind == "attention" else (F, F)
+    shapes = [((B, N, C), 1.0), ((C,), 0.1), ((C,), 0.1),
+              ((C, out_a), C ** -0.5), ((out_a,), 0.1),
+              ((in_b, C), in_b ** -0.5), ((C,), 0.1)]
+    x, *params = [(torch.randn(*s, generator=g) * sc).to(device,
+                                                         torch.bfloat16)
+                  for s, sc in shapes]
+    params[0] = params[0] + 1.0
+    return x, params
+
+
+def assert_close_bf16(got, want):
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    cos = torch.nn.functional.cosine_similarity(
+        got.double().flatten(), want.double().flatten(), dim=0)
+    assert float(err) <= REL_TOL and float(cos) >= COS_TOL
+
+
+@pytest.mark.parametrize("B,N,C,kv_valid", [
+    (2, 10, 256, 7), (2, 17, 256, None), (3, 65, 128, 64),
+    (4, 257, 768, None), (2, 272, 768, 257), (1, 752, 256, 700)])
+def test_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid):
+    x, p = vit_inputs("attention", B, N, C, 0, cuda)
+    heads, scale = C // 64, 64 ** -0.5
+    before = fused_block_attention.launches
+    got = fused_block_attention(x, *p, heads, scale, kv_valid)
+    want = block_attention_reference(x, *p, heads, scale, kv_valid)
+    torch.cuda.synchronize()
+    assert fused_block_attention.launches == before + 1
+    assert_close_bf16(got, want)
+
+
+@pytest.mark.parametrize("B,N,C,F", [
+    (2, 10, 256, 1024), (2, 17, 256, 512), (4, 257, 768, 3072)])
+def test_mlp_kernel_matches_plain_version(cuda, B, N, C, F):
+    x, p = vit_inputs("mlp", B, N, C, F, cuda)
+    before = fused_mlp.launches
+    got = fused_mlp(x, *p)
+    want = mlp_reference(x, *p)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    assert_close_bf16(got, want)
+
+
+@pytest.mark.parametrize("bad", ["float32", "heads", "too_long"])
+def test_vit_kernels_refuse_what_they_cannot_take(cuda, bad):
+    N = 753 if bad == "too_long" else 10
+    x, p = vit_inputs("attention", 2, N, 256, 0, cuda)
+    heads = 8 if bad == "heads" else 4      # heads of 32
+    if bad == "float32":
+        x = x.float()
+    before = fused_block_attention.launches
+    with pytest.raises(ValueError):
+        fused_block_attention(x, *p, heads, 0.125)
+    assert fused_block_attention.launches == before

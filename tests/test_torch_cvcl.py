@@ -94,7 +94,8 @@ def build_pair(cfg):
     params = jax.tree.map(np.asarray, variables["params"])
     stats = _perturb_stats(jax.device_get(variables["batch_stats"]),
                            np.random.RandomState(1))
-    port = CVCL(tcfg.ExperimentConfig.from_json(cfg.to_json()).model)
+    port = CVCL(tcfg.ExperimentConfig.from_json(cfg.to_json()).model,
+                device="cpu")
     load_state_dict(port, cvcl_state_dict(params, stats))
     return model, params, stats, port
 
@@ -182,6 +183,49 @@ def test_frozen_mask_freezes_the_trunk_only(pair):
     assert all(frozen_mask(port, finetune_cnn=True).values())
 
 
+def test_frozen_mask_keeps_either_head():
+    """The trunk of either backbone is frozen; its head, ``fc`` (ResNeXt)
+    or ``head`` (ViT), stays trainable."""
+    model = torch.nn.Module()
+    model.vision_encoder = torch.nn.Module()
+    trunk = model.vision_encoder.model = torch.nn.Module()
+    for name in ("layer1", "blocks", "fc", "head"):
+        setattr(trunk, name, torch.nn.Linear(2, 2))
+    model.text_encoder = torch.nn.Linear(2, 2)
+    mask = frozen_mask(model, finetune_cnn=False)
+    assert sorted(k for k, v in mask.items() if v) == [
+        "text_encoder.bias", "text_encoder.weight",
+        "vision_encoder.model.fc.bias", "vision_encoder.model.fc.weight",
+        "vision_encoder.model.head.bias", "vision_encoder.model.head.weight"]
+
+
+@pytest.mark.parametrize("what", ["CVCL", "VisionEncoder", "TextEncoder"])
+def test_entry_points_build_on_the_card_unless_asked(what):
+    """With no device given, the model goes to the card; where there is
+    none that raises, and device="cpu" builds on the CPU."""
+    from multimodal_baby_tpu_torch.models.text import TextEncoder
+    from multimodal_baby_tpu_torch.models.vision import VisionEncoder
+    cls = {"CVCL": CVCL, "VisionEncoder": VisionEncoder,
+           "TextEncoder": TextEncoder}[what]
+    cfg = tcfg.ExperimentConfig.from_json(make_cfg().to_json()).model
+    if torch.cuda.is_available():
+        built = cls(cfg)
+        assert next(built.parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(cfg)
+    built = cls(cfg, device="cpu")
+    assert all(p.device.type == "cpu" for p in built.parameters())
+
+
+def test_init_train_state_takes_the_model_device(pair):
+    *_, port = pair
+    cfg = tcfg.ExperimentConfig.from_json(make_cfg().to_json())
+    state = init_train_state(port, cfg)
+    assert state.generator.device == next(port.parameters()).device
+    assert state.generator.initial_seed() == cfg.train.seed
+
+
 @pytest.mark.parametrize("fix_temperature", [True, False])
 def test_train_step_matches_jax(fix_temperature):
     """One AdamW step from the same weights and batch, augment off: the
@@ -242,7 +286,7 @@ def test_weight_bridge_round_trip(fix_temperature, tie):
     the JAX CVCL itself builds."""
     cfg = make_cfg(fix_temperature=fix_temperature, tie=tie)
     port = CVCL(tcfg.ExperimentConfig.from_json(cfg.to_json()).model,
-                generator=torch.Generator().manual_seed(7))
+                device="cpu", generator=torch.Generator().manual_seed(7))
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     params, stats = convert_cvcl_checkpoint(sd, "embedding", tie=tie)
     back = cvcl_state_dict(params, stats)

@@ -24,9 +24,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    F = 3072), timed beside their plain versions, the library calls
    (LayerNorm, Linear, scaled_dot_product_attention or GELU, Linear and
    the residual, in bf16) and the bound.
-3. The ResNeXt slice: the flagship CVCL (ResNeXt-50 at full width with
-   seeded random weights and BN statistics, flat 512-d head, embedding
-   text encoder, fixed T = 0.07, running BN, no int8), 3 AdamW train
+2c. K2 (``fused_bottleneck`` on int8), K3a (``fused_stage``) and K3b
+   (``fused_stage_banded``) against their plain versions: small and odd
+   cases at B = 32 (8x8 and 7x7 px, as tests/test_quant_trunk.py), then
+   every shape the published plan gives them at 224 px and B = 128: K2 on
+   the four int8 block shapes of layers 3-4, K3a on the layer-3 tail and
+   on layer 4 in int8 and in bf16, K3b on layer 1 with N = 28 rows. int8
+   gate: codes at most 1 apart and fewer than 1e-3 of them differing (the
+   count is printed; 0 is expected); bf16 gate as K1. Each main-path
+   shape is timed beside its plain version, a library chain
+   (torch._int_mm 1x1 GEMMs, the cuDNN grouped 3x3 on the bf16 codes and
+   elementwise requantization for int8; cuDNN bf16 convolutions for
+   bf16) and its bound (int8 at 1979 TOP/s).
+3. The ResNeXt slice in the per-block plan: the flagship CVCL (ResNeXt-50
+   at full width with seeded random weights and BN statistics, flat 512-d
+   head, embedding text encoder, fixed T = 0.07, running BN) with
+   ``trunk_int8=False`` and ``fused_plan=("blocks",) * 4``, 3 AdamW train
    steps at B = 128 on 224x224 uint8 frames with the augment on, then one
    eval step. Checks: finite losses, 16 K1 launches per forward, trunk
    parameters bit-unchanged, heads changed. The eval forward's pooled
@@ -45,6 +58,18 @@ Phases (each raises on failure, and the script then exits non-zero):
    weights: per-row cosine >= 0.999; the cosine against the f32 plain
    blocks is printed. Then the ViT forward time of both paths, the step
    time and pairs/s.
+5. The published flagship (``bench.py:102-121``): phase 3's model with
+   ``trunk_int8=(False, False, True, True)`` and the default plan
+   ``("banded28", "blocks", "split", "full")``, calibrated once on 32
+   augment-off frames, then 3 AdamW train steps and 1 eval step at
+   B = 128. Checks: finite losses; per forward 4 K1, 1 K2, 2 K3a and 1
+   K3b launches; trunk tensors and amax buffers bit-unchanged, heads
+   changed; the eval pooled features and logits against the same plan run
+   through the plain versions on the card: per-row cosine >= 0.999; the
+   pooled features against the f32 conv path: per-row cosine > 0.99 (the
+   JAX package's gate, tests/test_quant_trunk.py:188-220). Then the trunk
+   forward time of the int8 plan, the bf16 per-block K1 path and the
+   plain bf16 conv path, the step time and pairs/s.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -52,6 +77,7 @@ Prints one JSON line of kernel results, the card line, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -67,6 +93,7 @@ from multimodal_baby_tpu_torch.core.config import (
     VisionConfig)
 from multimodal_baby_tpu_torch.core.constants import MAX_LEN_UTTERANCE
 from multimodal_baby_tpu_torch.data.augment import augment_batch
+from multimodal_baby_tpu_torch.models import vision_resnext
 from multimodal_baby_tpu_torch.models.multimodal import CVCL, l2_normalize
 from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
 from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm
@@ -75,9 +102,13 @@ from multimodal_baby_tpu_torch.ops.attention import (
     block_attention_reference, fused_block_attention)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
+from multimodal_baby_tpu_torch.ops.quant import (
+    bottleneck_reference_q, fold_block_params_q)
+from multimodal_baby_tpu_torch.ops.stage import (
+    fused_stage, fused_stage_banded, stage_reference)
 from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
 from multimodal_baby_tpu_torch.train.step import (
-    init_train_state, make_eval_step, make_train_step)
+    calibrate_trunk, init_train_state, make_eval_step, make_train_step)
 
 BATCH = 128          # the slices' batch: the kernels are checked and timed at it
 CHECK_BATCH = 8      # the batch of the small and odd-sized K1 checks
@@ -88,7 +119,10 @@ SLICE_COS_TOL = 0.999
 TRAIN_STEPS = 3
 TIMED_STEPS = 10
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, at 700 W
+PEAK_OPS_INT8 = 1979e12  # H100 SXM dense int8 tensor cores, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+Q_CHECK_BATCH = 32   # the int8 plans' batch multiple
+MIXED = (False, False, True, True)  # bench.py:117
 
 # (name, H, Cin, width, Cout, stride, downsample, blocks per forward)
 BLOCKS_224 = [
@@ -125,9 +159,9 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
     """(ms, what bounds it): the larger of the two least times."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -373,6 +407,255 @@ def phase_vit_kernels():
     return out
 
 
+# ---------------------------------------------------------------- phase 2c
+
+# the int8 blocks of layers 3-4 at 224 px: (name, H, Cin, width, Cout,
+# stride, downsample)
+Q_BLOCKS_224 = [
+    ("layer3.0", 28, 512, 512, 1024, 2, True),
+    ("layer3.1", 14, 1024, 512, 1024, 1, False),
+    ("layer4.0", 14, 1024, 1024, 2048, 2, True),
+    ("layer4.1", 7, 2048, 1024, 2048, 1, False),
+]
+Q_BLOCKS_EDGE = [
+    ("8x8 stride 1", 8, 256, 128, 256, 1, False),
+    ("8x8 stride 2", 8, 256, 128, 256, 2, True),
+    ("odd 7->4 stride 2", 7, 512, 512, 1024, 2, True),
+]
+# stages: (name, H, Cin, width, Cout, strides, int8, band); band None = K3a
+STAGES_224 = [
+    ("layer3 tail", 14, 1024, 512, 1024, [1] * 5, True, None),
+    ("layer4", 14, 1024, 1024, 2048, [2, 1, 1], True, None),
+    ("layer1", 56, 64, 128, 256, [1, 1, 1], False, 28),
+    ("layer3 tail", 14, 1024, 512, 1024, [1] * 5, False, None),
+    ("layer4", 14, 1024, 1024, 2048, [2, 1, 1], False, None),
+]
+STAGES_EDGE = [
+    ("8x8 stride-2 head", 8, 256, 128, 256, [2, 1, 1], True, None),
+    ("odd 7->4 stride-2 head", 7, 512, 512, 1024, [2, 1], True, None),
+    ("16x16, 4 bands", 16, 64, 128, 256, [1, 1, 1], False, 4),
+    ("16x16 stride-2 head, 4 bands", 16, 128, 128, 256, [2, 1, 1], False, 4),
+    ("16x16, 2 bands", 16, 64, 128, 256, [1, 1, 1], True, 8),
+]
+
+
+def random_block_state(gen, cin, width, cout, has_ds):
+    """A BottleneckX state dict (torch names): He-normal convolutions, BN
+    scale 1 + 0.1 N(0, 1), bias and mean 0.1 N(0, 1), var U(0.5, 2)."""
+    sd = {}
+    convs = [("conv1", width, cin, 1), ("conv2", width, width // 32, 3),
+             ("conv3", cout, width, 1)]
+    bns = [("bn1", width), ("bn2", width), ("bn3", cout)]
+    if has_ds:
+        convs.append(("downsample.0", cout, cin, 1))
+        bns.append(("downsample.1", cout))
+    for name, o, i, k in convs:
+        sd[f"{name}.weight"] = (torch.randn(o, i, k, k, generator=gen)
+                                * math.sqrt(2.0 / (i * k * k)))
+    for name, c in bns:
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_var"] = 0.5 + 1.5 * torch.rand(c, generator=gen)
+    return sd
+
+
+def random_q_block(gen, cin, width, cout, has_ds):
+    """int8 folded weights of one block on the card (amax as
+    tests/test_quant_trunk.py: in 2.0, h1 and h2 1.5, out 2.5)."""
+    fw = fold_block_params_q(random_block_state(gen, cin, width, cout,
+                                                has_ds), 2.0, 1.5, 1.5, 2.5)
+    return {k: v.cuda() for k, v in fw.items()}
+
+
+def random_codes(gen, batch, H, cin):
+    return torch.randint(0, 100, (batch, H, H, cin), generator=gen,
+                         dtype=torch.int8).cuda()
+
+
+def check_codes(what, got, want) -> float:
+    """An int8 kernel's codes against its plain version's."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.int8:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} int8")
+    diff = (got.int() - want.int()).abs()
+    n_diff = int((diff > 0).sum())
+    frac = n_diff / diff.numel()
+    log(f"  {what:34s} out {tuple(got.shape)}: {n_diff} of {diff.numel()} "
+        f"codes differ (max {int(diff.max())}); nonzero "
+        f"{float((want > 0).float().mean()):.3f}")
+    if int(diff.max()) > 1 or frac >= 1e-3:
+        raise AssertionError(f"{what}: {n_diff} codes differ, max "
+                             f"{int(diff.max())}")
+    return float(diff.max())
+
+
+def int8_chain(fw, stride):
+    """The library chain for K2: torch._int_mm for the 1x1 GEMMs, the cuDNN
+    grouped 3x3 on the codes in bf16 (channels-last), torch elementwise
+    requantization."""
+    width = fw["w1"].shape[0]
+    w2 = fw["w2"].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    # torch._int_mm takes B as [K, N]; the fold's 1x1 weights are [N, K]
+    wt = {k: fw[k].t().contiguous() for k in ("w1", "w3", "wd") if k in fw}
+
+    def rq(acc, a, b):
+        return torch.round(acc.float() * a + b).clamp_(0, 127).to(torch.int8)
+
+    def run(x):
+        B, H, W, cin = x.shape
+        h1 = rq(torch._int_mm(x.reshape(-1, cin), wt["w1"]), fw["a1"],
+                fw["b1"]).reshape(B, H, W, width)
+        acc2 = F.conv2d(h1.permute(0, 3, 1, 2).to(torch.bfloat16), w2,
+                        stride=stride, padding=1, groups=32)
+        h2 = rq(acc2.permute(0, 2, 3, 1).reshape(-1, width), fw["a2"],
+                fw["b2"])
+        y = torch._int_mm(h2, wt["w3"]).float() * fw["a3"] + fw["b3"]
+        if "wd" in fw:
+            xs = x[:, ::stride, ::stride].reshape(-1, cin)
+            ident = (torch._int_mm(xs, wt["wd"]).float() * fw["ad"]
+                     + fw["bd"])
+        else:
+            ident = x.reshape(-1, cin).float() * fw["ai"]
+        Ho = acc2.shape[2]
+        return torch.round(y + ident).clamp_(0, 127).to(torch.int8).reshape(
+            B, Ho, -1, fw["w3"].shape[0])
+
+    return run
+
+
+def block_cost(H, cin, width, cout, stride, has_ds, batch):
+    """(operations, activation bytes per element size) of one block."""
+    Ho = (H - 1) // stride + 1
+    ops = 2 * batch * (H * H * cin * width
+                       + Ho * Ho * (9 * width // 32 * width + width * cout
+                                    + (cin * cout if has_ds else 0)))
+    return ops, batch * (H * H * cin + Ho * Ho * cout)
+
+
+def weight_bytes(fws):
+    return sum(t.numel() * t.element_size() for fw in fws
+               for t in fw.values())
+
+
+def stage_inputs(gen, H, cin, width, cout, strides, int8, batch):
+    """A stage's input and folded blocks on the card; the head has a
+    downsample where it changes the shape."""
+    fws = []
+    for j, s in enumerate(strides):
+        c = cin if j == 0 else cout
+        ds = j == 0 and (c != cout or s != 1)
+        fws.append(random_q_block(gen, c, width, cout, ds) if int8 else
+                   random_block(gen, H, c, width, cout, s, ds, 1)[1])
+    if int8:
+        return random_codes(gen, batch, H, cin), fws
+    x = torch.randn(batch, H, H, cin, generator=gen).clamp_min(0.0)
+    return x.to("cuda", torch.bfloat16), fws
+
+
+def stage_cost(H, cin, width, cout, strides, fws, batch):
+    """(operations, bytes): every block's operations without halo
+    recompute; one read of the input, one write of the output, the
+    weights."""
+    ops, h, c = 0, H, cin
+    for fw, s in zip(fws, strides):
+        ops += block_cost(h, c, width, cout, s, "wd" in fw, batch)[0]
+        h, c = (h - 1) // s + 1, cout
+    esize = 1 if fws[0]["w1"].dtype == torch.int8 else 2
+    nbytes = (esize * batch * (H * H * cin + h * h * cout)
+              + weight_bytes(fws))
+    return ops, nbytes
+
+
+def phase_int8_and_stages():
+    gen = torch.Generator().manual_seed(3)
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   ops=0.0, nbytes=0.0) for k in ("K2", "K3a", "K3b")}
+    for name, H, cin, width, cout, s, ds in Q_BLOCKS_EDGE:
+        fw = random_q_block(gen, cin, width, cout, ds)
+        x = random_codes(gen, Q_CHECK_BATCH, H, cin)
+        res["K2"]["max_abs_err"] = max(res["K2"]["max_abs_err"], check_codes(
+            f"K2 {name}", fused_bottleneck(x, fw, stride=s),
+            bottleneck_reference_q(x, fw, stride=s)))
+    for name, H, cin, width, cout, s, ds in Q_BLOCKS_224:
+        fw = random_q_block(gen, cin, width, cout, ds)
+        x = random_codes(gen, BATCH, H, cin)
+        res["K2"]["max_abs_err"] = max(res["K2"]["max_abs_err"], check_codes(
+            f"K2 {name}", fused_bottleneck(x, fw, stride=s),
+            bottleneck_reference_q(x, fw, stride=s)))
+        k, p, li = time_in_turns(
+            lambda: fused_bottleneck(x, fw, stride=s),
+            lambda: bottleneck_reference_q(x, fw, stride=s),
+            lambda: int8_chain(fw, s)(x), 20)
+        ops, act = block_cost(H, cin, width, cout, s, ds, BATCH)
+        b_ms, b_by = bound(ops, act + weight_bytes([fw]), PEAK_OPS_INT8)
+        log(f"  K2 {name} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
+            f"library int8 chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+            f"kernel {ops / k / 1e9:.1f} TOP/s")
+        if name == "layer3.0":  # the one K2 launch of the published plan
+            res["K2"].update(ms=k, plain_ms=p, library_ms=li, ops=ops,
+                             nbytes=act + weight_bytes([fw]),
+                             peak=PEAK_OPS_INT8)
+        del x, fw
+
+    def run_stage(what, H, cin, width, cout, strides, int8, band, batch):
+        x, fws = stage_inputs(gen, H, cin, width, cout, strides, int8, batch)
+        row = "K3a" if band is None else "K3b"
+
+        def kernel():
+            return (fused_stage(x, fws, strides) if band is None
+                    else fused_stage_banded(x, fws, strides, band))
+
+        def plain():
+            return stage_reference(x, fws, strides)
+
+        desc = (f"{row} {'int8' if int8 else 'bf16'} {what}"
+                + (f" N={band}" if band else ""))
+        err = (check_codes if int8 else check)(desc, kernel(), plain())
+        res[row]["max_abs_err"] = max(res[row]["max_abs_err"], err)
+        return x, fws, kernel, plain, desc
+
+    for case in STAGES_EDGE:
+        run_stage(*case, Q_CHECK_BATCH)
+    for name, H, cin, width, cout, strides, int8, band in STAGES_224:
+        x, fws, kernel, plain, desc = run_stage(
+            name, H, cin, width, cout, strides, int8, band, BATCH)
+        chains = [int8_chain(fw, st) if int8 else conv_chain(fw, st)
+                  for fw, st in zip(fws, strides)]
+
+        def library():
+            y = x
+            for chain in chains:  # conv_chain gives an NCHW view: back
+                y = chain(y) if int8 else chain(y).permute(0, 2, 3, 1)
+            return y
+
+        k, p, li = time_in_turns(kernel, plain, library, 10)
+        ops, nbytes = stage_cost(H, cin, width, cout, strides, fws, BATCH)
+        peak = PEAK_OPS_INT8 if int8 else PEAK_FLOPS
+        b_ms, b_by = bound(ops, nbytes, peak)
+        log(f"  {desc} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
+            f"library chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+            f"kernel {ops / k / 1e9:.1f} T(FL)OP/s")
+        row = "K3a" if band is None else "K3b"
+        if int8 or band is not None:  # the published plan's launches
+            r = res[row]
+            for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
+                           ("ops", ops), ("nbytes", nbytes)):
+                r[key] += v
+            r["peak"] = peak
+        del x, fws, chains
+    for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bound(r["ops"], r["nbytes"],
+                                             r["peak"])
+        log(f"  {name} per B={BATCH} forward of the published plan: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
+    return res
+
+
 # ------------------------------------------------------------ phases 3 and 4
 
 def make_batch(rng, b):
@@ -389,16 +672,16 @@ def make_batch(rng, b):
             "text_len": torch.from_numpy(lens + 2).cuda()}
 
 
-def flagship_cfg(vit: bool) -> ExperimentConfig:
-    """bench.py's flagship (build_flagship, no int8) or ViT flagship
-    (build_vit_flagship), with the augment on."""
+def flagship_cfg(vit: bool, trunk_int8=False) -> ExperimentConfig:
+    """bench.py's flagship (build_flagship, with ``trunk_int8``) or ViT
+    flagship (build_vit_flagship), with the augment on."""
     if vit:
         vision = VisionConfig(vit_dino=True)
         text = TextConfig(text_encoder="transformer",
                           pos_embed_type="learned")
     else:
         vision = VisionConfig(cnn_dino=True, frozen_bn="running",
-                              trunk_int8=False)
+                              trunk_int8=trunk_int8)
         text = TextConfig(text_encoder="embedding")
     return ExperimentConfig(
         model=ModelConfig(
@@ -429,20 +712,20 @@ def build_vit_slice():
 
 def drive(model, cfg, batch, launch_counters):
     """TRAIN_STEPS train steps then one eval step, the kernel launch counts
-    set to 0 just before and read just after. Returns (state, train_step,
-    launches per counter)."""
+    (``(wrapper, attribute)`` pairs) set to 0 just before and read just
+    after. Returns (state, train_step, launches per counter)."""
     state = init_train_state(model, cfg)
     train_step = make_train_step(model, cfg)
     eval_step = make_eval_step(model, cfg)
     torch.cuda.synchronize()
-    for counter in launch_counters:
-        counter.launches = 0
+    for fn, attr in launch_counters:
+        setattr(fn, attr, 0)
     t0 = time.perf_counter()
     losses = [float(train_step(state, batch)["loss"])
               for _ in range(TRAIN_STEPS)]
     eval_loss = float(eval_step(batch)["loss"])
     torch.cuda.synchronize()
-    launches = [counter.launches for counter in launch_counters]
+    launches = [getattr(fn, attr) for fn, attr in launch_counters]
     log(f"  losses {losses}, eval loss {eval_loss:.5f} "
         f"({time.perf_counter() - t0:.2f} s for the first {TRAIN_STEPS} "
         f"steps + eval, weight preparation included)")
@@ -482,6 +765,7 @@ def compare_features(what, kernel, plain, f32):
 
 
 def time_steps(state, train_step, batch, what):
+    train_step(state, batch)  # untimed: e.g. a refold after a plan change
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TIMED_STEPS):
@@ -492,29 +776,43 @@ def time_steps(state, train_step, batch, what):
         f"{BATCH / step_s:.1f} pairs/s")
 
 
-def phase_resnext_slice():
-    cfg = flagship_cfg(vit=False)
+def build_resnext_slice(trunk_int8, fused_plan):
+    """(cfg, model, batch) of the ResNeXt flagship with seeded weights and
+    non-trivial BN statistics (so the fold matters)."""
+    cfg = flagship_cfg(vit=False, trunk_int8=trunk_int8)
     gen = torch.Generator().manual_seed(0)
     model = CVCL(cfg.model, dtype=torch.bfloat16, device="cuda",
-                 generator=gen)
-    trunk = model.vision_encoder.model
-    with torch.no_grad():  # non-trivial BN statistics, so the fold matters
-        for m in trunk.modules():
+                 generator=gen, fused_plan=fused_plan)
+    with torch.no_grad():
+        for m in model.vision_encoder.model.modules():
             if isinstance(m, InferenceBN):
                 c = m.weight.numel()
                 m.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
                 m.bias.copy_(0.1 * torch.randn(c, generator=gen))
                 m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
                 m.running_var.copy_(0.75 + 0.5 * torch.rand(c, generator=gen))
-    batch = make_batch(np.random.RandomState(0), BATCH)
+    return cfg, model, make_batch(np.random.RandomState(0), BATCH)
+
+
+def frozen_and_heads(model):
+    """Copies of the trunk's tensors (amax buffers included) and of the
+    head and text parameters, before the steps."""
+    trunk = model.vision_encoder.model
     frozen = {k: v.clone() for k, v in trunk.state_dict().items()
               if not k.startswith("fc.")}
     heads = {"vision_encoder.model.fc.weight": trunk.fc.weight.detach().clone(),
              "text_encoder.embedding.weight":
                  model.text_encoder.embedding.weight.detach().clone()}
+    return frozen, heads
 
-    state, train_step, (launches,) = drive(model, cfg, batch,
-                                           [fused_bottleneck])
+
+def phase_resnext_slice():
+    cfg, model, batch = build_resnext_slice(False, ("blocks",) * 4)
+    trunk = model.vision_encoder.model
+    frozen, heads = frozen_and_heads(model)
+
+    state, train_step, (launches,) = drive(
+        model, cfg, batch, [(fused_bottleneck, "launches")])
     forwards = TRAIN_STEPS + 1
     log(f"  K1 launches {launches} over {forwards} forwards")
     if launches != 16 * forwards:
@@ -560,7 +858,8 @@ def phase_vit_slice():
         layer + "linear1.weight", layer + "norm2.weight")}
 
     state, train_step, launches = drive(
-        model, cfg, batch, [fused_block_attention, fused_mlp])
+        model, cfg, batch, [(fused_block_attention, "launches"),
+                            (fused_mlp, "launches")])
     forwards = TRAIN_STEPS + 1
     log(f"  K5 launches {launches[0]}, K6 launches {launches[1]} over "
         f"{forwards} forwards")
@@ -593,6 +892,94 @@ def phase_vit_slice():
     return launches
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """The trunk's kernels replaced by their plain versions, on CUDA tensors
+    (the wrappers themselves take those only for CPU tensors)."""
+    names = ("fused_bottleneck", "fused_stage", "fused_stage_banded")
+    saved = {n: getattr(vision_resnext, n) for n in names}
+
+    def block(x, fw, stride=1):
+        ref = (bottleneck_reference_q if x.dtype == torch.int8
+               else bottleneck_reference)
+        return ref(x, fw, stride=stride)
+
+    def stage(x, fws, strides, band=None):
+        return stage_reference(x, fws, strides)
+
+    vision_resnext.fused_bottleneck = block
+    vision_resnext.fused_stage = vision_resnext.fused_stage_banded = stage
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(vision_resnext, n, fn)
+
+
+def phase_published_flagship():
+    cfg, model, batch = build_resnext_slice(MIXED, None)
+    trunk = model.vision_encoder.model
+    log(f"  plans: int8 {trunk.int8_plan}, kernels {trunk.fused_plan}")
+    t0 = time.perf_counter()
+    calibrate_trunk(model, batch)
+    torch.cuda.synchronize()
+    log(f"  calibrated on 32 augment-off frames in "
+        f"{time.perf_counter() - t0:.2f} s: stem_amax "
+        f"{float(trunk.stem_amax):.4f}, layer3.0 h1_amax "
+        f"{float(trunk.layer3[0].h1_amax):.4f}, layer4.2 out_amax "
+        f"{float(trunk.layer4[2].out_amax):.4f}")
+    frozen, heads = frozen_and_heads(model)
+
+    counters = [(fused_bottleneck, "launches"),
+                (fused_bottleneck, "launches_q"),
+                (fused_stage, "launches"), (fused_stage_banded, "launches")]
+    state, train_step, launches = drive(model, cfg, batch, counters)
+    forwards = TRAIN_STEPS + 1
+    want = [4 * forwards, forwards, 2 * forwards, forwards]
+    log(f"  launches over {forwards} forwards: K1 {launches[0]}, K2 "
+        f"{launches[1]}, K3a {launches[2]}, K3b {launches[3]}")
+    if launches != want:
+        raise AssertionError(f"K1/K2/K3a/K3b launched {launches} times, "
+                             f"expected {want}")
+    check_frozen_and_heads(model, frozen, heads)
+
+    with torch.no_grad():
+        img_bf16 = augment_batch(batch["image_u8"], augment=False,
+                                 dtype=torch.bfloat16)
+        img_f32 = augment_batch(batch["image_u8"], augment=False)
+        txt, _ = model.encode_text(batch["text"], batch["text_len"])
+
+        def logits(pooled):
+            f = l2_normalize(trunk.fc(pooled), dim=1)
+            return model.similarity(f, txt) * model.logit_scale()
+
+        kernels = trunk.forward_folded(img_bf16)["pooled"]
+        with plain_kernels():
+            plain = trunk.forward_folded(img_bf16)["pooled"]
+        f32 = trunk.forward_conv(img_f32)["pooled"]
+        pooled = [kernels, plain, f32]
+        compare_features("pooled", *pooled)
+        compare_features("logits", *map(logits, pooled))
+        cos_f32 = float(row_cosines(kernels, f32).min())
+        log(f"  int8 plan pooled vs the f32 conv path: per-row cosine min "
+            f"{cos_f32:.7f} (gate > 0.99)")
+        if not cos_f32 > 0.99:
+            raise AssertionError(f"pooled cosine vs f32 {cos_f32:.7f}")
+
+        img_aug = augment_batch(batch["image_u8"], dtype=torch.bfloat16)
+        t_int8 = time_ms(lambda: trunk.forward_folded(img_aug), 10)
+        plans = trunk.int8_plan, trunk.fused_plan
+        trunk.int8_plan, trunk.fused_plan = (False,) * 4, ("blocks",) * 4
+        t_k1 = time_ms(lambda: trunk.forward_folded(img_aug), 10)
+        trunk.int8_plan, trunk.fused_plan = plans
+        t_conv = time_ms(lambda: trunk.forward_conv(img_aug), 10)
+    log(f"  trunk forward B={BATCH}: int8 published plan {t_int8:.3f} ms, "
+        f"bf16 per-block K1 path {t_k1:.3f} ms, plain bf16 conv path "
+        f"{t_conv:.3f} ms")
+    time_steps(state, train_step, batch, "published flagship")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -611,23 +998,34 @@ def main() -> int:
     _build.library()
     log(f"  built {lib_path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds:.2f} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    lines = _build.build_log.splitlines()
+    for i, line in enumerate(lines):  # registers and spills per kernel
+        if "Function properties for" in line and i + 2 < len(lines):
+            log(f"  ptxas: ...{line.split('for ')[-1][-44:]}: "
+                f"{lines[i + 2].split(': ', 1)[-1]}; {lines[i + 1].strip()}")
 
     log("phase 2: K1 against its plain version")
     k1 = phase_k1()
     log("phase 2b: K5 and K6 against their plain versions")
     vit_kernels = phase_vit_kernels()
-    log("phase 3: the ResNeXt slice")
+    log("phase 2c: K2, K3a and K3b against their plain versions")
+    q = phase_int8_and_stages()
+    log("phase 3: the ResNeXt slice, per-block plan")
     k1["launches"] = phase_resnext_slice()
     log("phase 4: the ViT slice")
     vit_kernels["K5"]["launches"], vit_kernels["K6"]["launches"] = \
         phase_vit_slice()
+    log("phase 5: the published flagship, int8 layers 3-4, default plan")
+    (_, q["K2"]["launches"], q["K3a"]["launches"],
+     q["K3b"]["launches"]) = phase_published_flagship()
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
-    rows = [("fused_bottleneck", "bottleneck.cu",
-             "multimodal_baby_tpu/ops/bottleneck_hwbc.py:408", k1),
+    hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"
+    rows = [("fused_bottleneck", "bottleneck.cu", f"{hwbc}:408", k1),
+            ("fused_bottleneck_int8", "bottleneck.cu", f"{hwbc}:408",
+             q["K2"]),
+            ("fused_stage", "stage.cu", f"{hwbc}:758", q["K3a"]),
+            ("fused_stage_banded", "stage.cu", f"{hwbc}:1078", q["K3b"]),
             ("fused_block_attention", "vit.cu",
              "multimodal_baby_tpu/ops/attention.py:601", vit_kernels["K5"]),
             ("fused_mlp", "vit.cu", "multimodal_baby_tpu/ops/vit_mlp.py:186",

@@ -33,14 +33,21 @@ def _bn(out: Dict[str, np.ndarray], prefix: str, params: Tree,
     out[f"{prefix}.running_var"] = np.asarray(stats["var"])
 
 
-def resnext50_state_dict(params: Tree, stats: Tree, prefix: str = ""
+def resnext50_state_dict(params: Tree, stats: Tree, prefix: str = "",
+                         quant_scales: Tree | None = None
                          ) -> Dict[str, np.ndarray]:
     """Inverse of ``convert_resnext50``: flax ResNeXt50 trees -> torchvision
-    names under ``prefix``."""
+    names under ``prefix``. ``quant_scales`` is the trunk's subtree of the
+    JAX package's "quant_scales" collection (an int8 plan's activation
+    ranges: ``stem_amax``, ``layerS_B/{h1_amax, h2_amax, out_amax}``); its
+    entries become the port's amax buffers of the same names."""
     p = prefix
     sd: Dict[str, np.ndarray] = {f"{p}conv1.weight": _conv(
         params["conv1"]["kernel"])}
     _bn(sd, f"{p}bn1", params["bn1"], stats["bn1"])
+    qs = quant_scales or {}
+    if "stem_amax" in qs:
+        sd[f"{p}stem_amax"] = np.asarray(qs["stem_amax"])
     for stage, (_, n_blocks, _) in enumerate(RESNEXT50_STAGES, start=1):
         for b in range(n_blocks):
             bp = params[f"layer{stage}_{b}"]
@@ -54,6 +61,8 @@ def resnext50_state_dict(params: Tree, stats: Tree, prefix: str = ""
                     bp["downsample_conv"]["kernel"])
                 _bn(sd, f"{tp}.downsample.1", bp["downsample_bn"],
                     bs["downsample_bn"])
+            for name, v in qs.get(f"layer{stage}_{b}", {}).items():
+                sd[f"{tp}.{name}"] = np.asarray(v)
     return sd
 
 
@@ -113,20 +122,23 @@ def text_encoder_state_dict(params: Tree, prefix: str = "text_encoder."
     return sd
 
 
-def cvcl_state_dict(params: Tree, batch_stats: Tree, vit: bool = False
+def cvcl_state_dict(params: Tree, batch_stats: Tree, vit: bool = False,
+                    quant_scales: Tree | None = None
                     ) -> Dict[str, np.ndarray]:
     """Inverse of ``convert_cvcl_checkpoint`` for the port's CVCL: a
     ResNeXt-50 (``vit=False``) or ViT-B/14 trunk, the flat head, and the
-    embedding or transformer text encoder (read from the tree)."""
+    embedding or transformer text encoder (read from the tree).
+    ``quant_scales`` is the JAX model's "quant_scales" collection (an int8
+    trunk plan's activation ranges)."""
     vis = params["vision_encoder"]
     vp = "vision_encoder.model."
     if vit:
         sd = vit_state_dict(vis["backbone"], vp)
         _linear(sd, f"{vp}head", vis["head"])
     else:
-        sd = resnext50_state_dict(vis["backbone"],
-                                  batch_stats["vision_encoder"]["backbone"],
-                                  vp)
+        sd = resnext50_state_dict(
+            vis["backbone"], batch_stats["vision_encoder"]["backbone"], vp,
+            (quant_scales or {}).get("vision_encoder", {}).get("backbone"))
         _linear(sd, f"{vp}fc", vis["head"])
     sd.update(text_encoder_state_dict(params["text_encoder"]))
     if "logit_neg_log_temperature" in params:

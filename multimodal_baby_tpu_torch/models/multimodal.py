@@ -56,15 +56,18 @@ class CVCL(nn.Module):
     heads, logits and losses stay f32. The model is built on the card
     unless ``device`` says otherwise (``device="cpu"``); asking for the card
     where there is none raises. ``generator`` is a CPU generator for the
-    seeded init."""
+    seeded init. ``fused_plan`` is the ResNeXt trunk's kernel plan (None:
+    the JAX package's default)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
-                 device="cuda", generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None,
+                 fused_plan: Tuple[str, ...] | None = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.vision_encoder = VisionEncoder(cfg, dtype, device=device,
-                                            generator=generator)
+                                            generator=generator,
+                                            fused_plan=fused_plan)
         self.text_encoder = TextEncoder(cfg, device=device,
                                         generator=generator)
         init_val = -math.log(cfg.temperature)

@@ -1,11 +1,13 @@
 """VisionEncoder: trunk + projection head (counterpart of
 ``multimodal_baby_tpu/models/vision.py``; the flat head only).
 
-The trunk is ResNeXt-50 or DINO ViT-B/14. The head replaces the trunk's
-classifier with the projection, as in the reference: ``model.fc`` on the
-ResNeXt (2048 -> E), ``model.head`` on the ViT (768 -> E). A frozen trunk's
-outputs are detached; its parameters leave autograd when
-``train.optimizer.build_optimizer`` applies the frozen mask.
+The trunk is ResNeXt-50 (with the config's ``trunk_int8`` plan and the
+kernel plan ``fused_plan``, by default the JAX package's) or DINO
+ViT-B/14. The head replaces the trunk's classifier with the projection, as
+in the reference: ``model.fc`` on the ResNeXt (2048 -> E), ``model.head``
+on the ViT (768 -> E). A frozen trunk's outputs are detached; its
+parameters leave autograd when ``train.optimizer.build_optimizer`` applies
+the frozen mask.
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ import torch.nn as nn
 from multimodal_baby_tpu_torch.core.config import ModelConfig
 from multimodal_baby_tpu_torch.models.layers import (
     TorchLinear, resolve_device)
-from multimodal_baby_tpu_torch.models.vision_resnext import ResNeXt50
+from multimodal_baby_tpu_torch.models.vision_resnext import (
+    DEFAULT_PLAN, ResNeXt50)
 from multimodal_baby_tpu_torch.models.vision_vit import vit_base
 
 
 class VisionEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
-                 device="cuda", generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None,
+                 fused_plan: Tuple[str, ...] | None = None):
         super().__init__()
         v = cfg.vision
         if v.backbone not in ("resnext50", "vit_b14"):
@@ -34,16 +38,19 @@ class VisionEncoder(nn.Module):
         if cfg.embedding_type != "flat":
             raise NotImplementedError(
                 f"the port's head is flat; got {cfg.embedding_type!r}")
-        if v.trunk_int8:
-            raise NotImplementedError("the port has no int8 trunk yet")
         if v.frozen_bn not in ("batch", "running"):
             raise ValueError(f"frozen_bn must be batch|running, got "
                              f"{v.frozen_bn!r}")
         device = resolve_device(device)
         self.cfg = cfg
-        trunk = vit_base if v.vit_dino else ResNeXt50
-        self.model = trunk(dtype=dtype, frozen=not v.finetune_cnn,
-                           device=device, generator=generator)
+        if v.vit_dino:  # trunk_int8 is the ResNeXt's, as in the JAX package
+            self.model = vit_base(dtype=dtype, frozen=not v.finetune_cnn,
+                                  device=device, generator=generator)
+        else:
+            self.model = ResNeXt50(
+                dtype=dtype, frozen=not v.finetune_cnn, device=device,
+                generator=generator, trunk_int8=v.trunk_int8,
+                fused_plan=fused_plan or DEFAULT_PLAN)
         head = TorchLinear(v.last_out_dim, cfg.embedding_dim, device=device,
                            generator=generator)
         if v.vit_dino:

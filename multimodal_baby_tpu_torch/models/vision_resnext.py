@@ -13,19 +13,33 @@ Two paths compute the same function:
   running statistics, or on batch statistics when ``train`` is set (the
   reference's frozen-CNN quirk, ``frozen_bn="batch"``);
 - the folded path (``forward_folded``): running BatchNorm folded into the
-  weights once per weight state, then the 16 bottleneck blocks chained
-  through ``ops.bottleneck.fused_bottleneck`` (the hand-written kernel on
-  CUDA, its plain version on the CPU). It is the JAX package's fused trunk
-  in the all-``blocks`` plan.
+  weights once per weight state, then the 16 bottleneck blocks run stage
+  by stage as the plan says (the JAX package's fused trunk):
+  - ``trunk_int8`` picks the stages that run in int8 (a contiguous suffix;
+    the published recipe's ``(False, False, True, True)``): their blocks
+    are folded and quantized (``ops/quant.py``) with activation ranges from
+    the amax buffers (``models/quant_calib.py``; 0 = uncalibrated, then
+    the BatchNorm bound), and the chain quantizes once at the bf16 -> int8
+    boundary and dequantizes the pool and the feature map;
+  - ``fused_plan`` picks each stage's kernels: ``"blocks"`` (one
+    ``ops.bottleneck.fused_bottleneck`` per block: K1, or K2 in int8),
+    ``"full"`` (the stage in one ``ops.stage.fused_stage``: K3a),
+    ``"split"`` (the head block alone, then the tail as K3a),
+    ``"bandedN"`` (the stage as ``ops.stage.fused_stage_banded`` over N
+    output rows: K3b) and ``"splitbandN"`` (the head, then the tail as K3b).
+  The kernels run on CUDA, their plain versions on the CPU.
 
 ``forward`` takes the folded path exactly when the trunk is frozen, BN runs
 on running statistics, the compute dtype is bf16 and the input is on CUDA.
+No setting is read from the environment: the plans are constructor
+arguments, checked when the trunk is built.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+import re
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,6 +47,11 @@ import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     BN_EPS, GROUPS, fold_block_params, fused_bottleneck)
+from multimodal_baby_tpu_torch.ops.quant import (
+    activation_scale, bn_amax_bound, fold_block_params_q,
+    quantize_activation, resolve_amax)
+from multimodal_baby_tpu_torch.ops.stage import (
+    fused_stage, fused_stage_banded)
 
 # stage definition for resnext50_32x4d: (planes, num_blocks, stride)
 RESNEXT50_STAGES: Tuple[Tuple[int, int, int], ...] = (
@@ -40,6 +59,70 @@ RESNEXT50_STAGES: Tuple[Tuple[int, int, int], ...] = (
 )
 EXPANSION = 4
 BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
+# the JAX package's default kernel plan (multimodal_baby_tpu/models/
+# vision_resnext.py:617): layer 1 in bands of 28 rows, layer 2 block by
+# block, layer 3 as its head block then the tail, layer 4 whole
+DEFAULT_PLAN = ("banded28", "blocks", "split", "full")
+_PLAN_ENTRY = re.compile(r"(blocks|full|split|banded(\d*)|splitband(\d*))")
+INT8_BATCH = 32  # int8 plans run in bf16 unless the batch is a multiple
+
+
+def parse_int8_plan(raw: Any) -> Tuple[Any, ...]:
+    """Per-stage int8 plan from ``VisionConfig.trunk_int8``: a bool (every
+    stage), a 4-tuple of bools or entries, or a string "0,0,1,1" (one
+    entry: every stage). Entries are False (bf16) or "q" (int8): True,
+    "1", "q" and "true" mean "q"; False, "0", "false" and "" mean bf16.
+    The int8 stages must form a contiguous suffix (the chain switches to
+    int8 once). "t" (int8 transport) is not ported and raises."""
+    n = len(RESNEXT50_STAGES)
+
+    def tok(p):
+        if isinstance(p, str):
+            p = p.strip()
+            if p == "t":
+                raise NotImplementedError(
+                    "int8 transport (trunk_int8 entry 't') is not ported")
+            if p in ("q", "1", "true", "True"):
+                return "q"
+            if p in ("0", "false", "False", ""):
+                return False
+            raise ValueError(f"int8-plan entry must be 0/1/t/q, got {p!r}")
+        return "q" if p else False
+
+    if isinstance(raw, str):
+        parts = raw.split(",") if "," in raw else [raw] * n
+    elif isinstance(raw, (tuple, list)):
+        parts = list(raw)
+    else:
+        parts = [raw] * n
+    if len(parts) != n:
+        raise ValueError(f"trunk_int8 plan needs {n} entries, got {raw!r}")
+    plan = tuple(tok(p) for p in parts)
+    for a, b in zip(plan, plan[1:]):
+        if a and not b:
+            raise ValueError(
+                "int8 stages must form a contiguous suffix of the trunk (got "
+                f"plan {plan}); an int8 -> bf16 boundary is not supported")
+    return plan
+
+
+def parse_fused_plan(plan: Any) -> Tuple[str, ...]:
+    """One kernel mode per stage: "blocks", "full", "split", "bandedN" or
+    "splitbandN" (N rows per band; 14 when N is left out)."""
+    plan = tuple(plan)
+    if len(plan) != len(RESNEXT50_STAGES):
+        raise ValueError(f"fused_plan needs {len(RESNEXT50_STAGES)} entries, "
+                         f"got {plan!r}")
+    for mode in plan:
+        m = _PLAN_ENTRY.fullmatch(str(mode))
+        rows = m and (m.group(2) or m.group(3))
+        if m is None or (rows and int(rows) < 1):
+            raise ValueError(f"unknown fused-plan entry {mode!r}")
+    return plan
+
+
+def _band_rows(mode: str, prefix: str) -> int:
+    return int(mode[len(prefix):] or 14)
 
 
 class InferenceBN(nn.Module):
@@ -154,13 +237,22 @@ class ResNeXt50(nn.Module):
     ``dtype``: compute dtype (None = f32); parameters stay f32.
     ``frozen``: the trunk is not trained (the folded path may run).
     ``generator``: a CPU generator for the seeded init (``reset_parameters``).
+    ``trunk_int8``: the int8 stages (``parse_int8_plan``); with any, the
+    trunk holds the activation-range buffers ``stem_amax`` and, per block,
+    ``out_amax`` and (int8 blocks) ``h1_amax`` and ``h2_amax``, where the
+    JAX package declares its "quant_scales" variables; 0 = uncalibrated.
+    ``fused_plan``: the kernel mode of each stage (``parse_fused_plan``).
     """
 
     def __init__(self, dtype: torch.dtype | None = None, frozen: bool = True,
-                 *, device=None, generator: torch.Generator | None = None):
+                 *, device=None, generator: torch.Generator | None = None,
+                 trunk_int8: Any = False,
+                 fused_plan: Tuple[str, ...] = DEFAULT_PLAN):
         super().__init__()
         self.dtype = dtype or torch.float32
         self.frozen = frozen
+        self.int8_plan = parse_int8_plan(trunk_int8)
+        self.fused_plan = parse_fused_plan(fused_plan)
         self.conv1 = _Conv(64, 3, 7, device=device)
         self.bn1 = InferenceBN(64, device=device)
         in_ch = 64
@@ -174,8 +266,20 @@ class ResNeXt50(nn.Module):
                                          device=device))
                 in_ch = planes * EXPANSION
             setattr(self, f"layer{stage_idx + 1}", nn.Sequential(*layer))
+        if any(self.int8_plan):
+            def amax():
+                return torch.zeros((), device=device)
+            self.register_buffer("stem_amax", amax())
+            for stage_idx, q in enumerate(self.int8_plan):
+                for block in getattr(self, f"layer{stage_idx + 1}"):
+                    if q:
+                        block.register_buffer("h1_amax", amax())
+                        block.register_buffer("h2_amax", amax())
+                    block.register_buffer("out_amax", amax())
         self._fold_key: tuple | None = None
         self._folded: List[Tuple[Dict[str, torch.Tensor], int]] = []
+        self._fold_amax: Tuple[torch.Tensor | None, torch.Tensor | None] = (
+            None, None)
         self.reset_parameters(generator)
 
     def blocks(self) -> List[BottleneckX]:
@@ -221,12 +325,33 @@ class ResNeXt50(nn.Module):
         return self._outputs(y.permute(0, 2, 3, 1))
 
     def forward_folded(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The folded path in x's dtype: BN on running statistics."""
+        """The folded path in x's dtype: BN on running statistics, the
+        stages run as ``int8_plan`` and ``fused_plan`` say. An int8 plan
+        runs in bf16 unless the batch is a multiple of 32, as in the JAX
+        package."""
         with torch.no_grad():
             y = self.stem(_nchw_view(x))
             y = y.permute(0, 2, 3, 1).contiguous()  # no copy: channels-last
-            for fw, stride in self.folded(x.dtype):
-                y = fused_bottleneck(y, fw, stride)
+            plan = (self.int8_plan if y.shape[0] % INT8_BATCH == 0
+                    else (False,) * len(RESNEXT50_STAGES))
+            folded = self.folded(x.dtype, plan)
+            entry_amax, out_amax = self._fold_amax
+            i = 0
+            for stage_idx, (_, n_blocks, _) in enumerate(RESNEXT50_STAGES):
+                fws = [fw for fw, _ in folded[i:i + n_blocks]]
+                strides = [s for _, s in folded[i:i + n_blocks]]
+                i += n_blocks
+                q = plan[stage_idx]
+                if q and not (stage_idx and plan[stage_idx - 1]):
+                    # the bf16 -> int8 boundary (or the stem, for stage 1)
+                    y = quantize_activation(y, entry_amax)
+                y = _run_stage(y, fws, strides,
+                               _stage_mode(self.fused_plan[stage_idx], q))
+            if plan[-1]:
+                # dequantize: pool in f32, the map in the compute dtype
+                y_f = y.float() * activation_scale(out_amax)
+                return {"pooled": y_f.mean(dim=(1, 2)),
+                        "feature_map": y_f.to(x.dtype)}
         return self._outputs(y)
 
     @staticmethod
@@ -235,19 +360,105 @@ class ResNeXt50(nn.Module):
         return {"pooled": fmap.float().mean(dim=(1, 2)),
                 "feature_map": fmap}
 
-    def folded(self, dtype: torch.dtype
+    def folded(self, dtype: torch.dtype, int8_plan: Tuple[Any, ...] = None
                ) -> List[Tuple[Dict[str, torch.Tensor], int]]:
-        """Every block's folded weights, computed once per weight state:
-        the cache key holds each block tensor's storage and version
-        counter, so an in-place update (a loaded state dict, BN statistics
-        updated in batch mode) refolds, and frozen weights fold once."""
+        """Every block's folded weights and stride, computed once per weight
+        state: the cache key holds the plan and each tensor's storage and
+        version counter, so an in-place update (a loaded state dict, BN
+        statistics updated in batch mode, a calibration) refolds, and
+        frozen weights fold once. Blocks of the plan's int8 stages are
+        quantized (``fold_block_params_q``), the others folded in
+        ``dtype``. Sets ``_fold_amax``: the activation range at the
+        bf16 -> int8 boundary and at the trunk's output (None, None for a
+        bf16 plan)."""
+        plan = self.int8_plan if int8_plan is None else tuple(int8_plan)
         tensors = [t for b in self.blocks()
                    for t in (*b.parameters(), *b.buffers())]
-        key = (dtype, *((t.data_ptr(), t._version) for t in tensors))
+        if any(plan):
+            tensors += [self.stem_amax, self.bn1.weight, self.bn1.bias]
+        key = (dtype, plan, *((t.data_ptr(), t._version) for t in tensors))
         if key != self._fold_key:
             with torch.no_grad():
-                self._folded = [
-                    (fold_block_params(b.state_dict(), dtype), b.stride)
-                    for b in self.blocks()]
+                self._folded, self._fold_amax = self._fold_chain(dtype, plan)
             self._fold_key = key
         return self._folded
+
+    def _fold_chain(self, dtype, plan):
+        """The JAX package's fold phase (``_fused_stages``): bf16 folds, and
+        with any int8 stage the activation-range chain from the stem's
+        range through every block's output range, each the calibrated
+        value or the BatchNorm bound."""
+        folded = []
+        amax = entry = None
+        if any(plan):
+            amax = entry = resolve_amax(self.stem_amax, self.bn1.weight,
+                                        self.bn1.bias)
+        for stage_idx, q in enumerate(plan):
+            if q and not (stage_idx and plan[stage_idx - 1]):
+                entry = amax  # the first int8 stage's input range
+            for b in getattr(self, f"layer{stage_idx + 1}"):
+                sd = b.state_dict()
+                if q:
+                    out_amax = _block_out_amax(b, amax)
+                    fw = fold_block_params_q(
+                        sd, amax, resolve_amax(b.h1_amax, b.bn1.weight,
+                                               b.bn1.bias),
+                        resolve_amax(b.h2_amax, b.bn2.weight, b.bn2.bias),
+                        out_amax)
+                    amax = out_amax
+                else:
+                    fw = fold_block_params(sd, dtype)
+                    if amax is not None:
+                        amax = _block_out_amax(b, amax)
+                folded.append((fw, b.stride))
+        return folded, (entry, amax)
+
+
+def _block_out_amax(block: BottleneckX, in_amax: torch.Tensor
+                    ) -> torch.Tensor:
+    """A block's output range: the calibrated ``out_amax`` where set, else
+    the bn3 bound plus the incoming range (the residual sum)."""
+    return torch.where(block.out_amax > 0, block.out_amax,
+                       bn_amax_bound(block.bn3.weight, block.bn3.bias)
+                       + in_amax)
+
+
+def _stage_mode(mode: str, q: Any) -> str:
+    """The plan's mode for a stage; an int8 stage runs "bandedN" as
+    "blocks" and "splitbandN" as "split", as the JAX package demotes them
+    (its banded kernel takes no int8 dots)."""
+    if q and mode.startswith("banded"):
+        return "blocks"
+    if q and mode.startswith("splitband"):
+        return "split"
+    return mode
+
+
+def _run_stage(y: torch.Tensor, fws: List[Dict[str, torch.Tensor]],
+               strides: List[int], mode: str) -> torch.Tensor:
+    """One stage's blocks on NHWC ``y`` through the kernels ``mode`` names
+    (the chain of the JAX package's ``_fused_stages``)."""
+    if mode.startswith("splitband") or mode == "split":
+        y = fused_bottleneck(y, fws[0], strides[0])
+        fws, strides = fws[1:], strides[1:]
+        if not fws:
+            return y
+        if mode == "split":
+            return fused_stage(y, fws, strides)
+        ho = y.shape[1]
+        band = min(_band_rows(mode, "splitband"), ho)
+        # the band must tile the tail's output rows
+        return (fused_stage(y, fws, strides) if ho % band
+                else fused_stage_banded(y, fws, strides, band))
+    if mode == "full":
+        return fused_stage(y, fws, strides)
+    if mode.startswith("banded"):
+        ho = (y.shape[1] - 1) // strides[0] + 1
+        band = min(_band_rows(mode, "banded"), ho)
+        if ho % band == 0:
+            return fused_stage_banded(y, fws, strides, band)
+        mode = "blocks"  # the band does not tile the output rows
+    assert mode == "blocks", mode
+    for fw, s in zip(fws, strides):
+        y = fused_bottleneck(y, fw, s)
+    return y

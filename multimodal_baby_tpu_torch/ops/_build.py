@@ -20,8 +20,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bottleneck.cu", "vit.cu")
-HEADERS = ("gemm.cuh",)
+SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu")
+HEADERS = ("gemm.cuh", "bottleneck.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -92,7 +92,11 @@ def library() -> ctypes.CDLL:
                 [ptr] * 11 + [i32] * 4 + [f32] * 2 + [ptr])
             lib.mmb_vit_mlp_bf16.argtypes = (
                 [ptr] * 10 + [i32] * 3 + [f32, ptr])
-            for fn in (lib.mmb_bottleneck_bf16, lib.mmb_vit_attention_bf16,
+            lib.mmb_bottleneck_s8.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
+            lib.mmb_stage.argtypes = (
+                [i32, i32, ptr, ptr] + [ptr] * 7 + [i32] * 7 + [ptr])
+            for fn in (lib.mmb_bottleneck_bf16, lib.mmb_bottleneck_s8,
+                       lib.mmb_stage, lib.mmb_vit_attention_bf16,
                        lib.mmb_vit_mlp_bf16):
                 fn.restype = i32
             lib.mmb_cuda_error_string.argtypes = [i32]

@@ -1,9 +1,11 @@
-"""The fused ResNeXt bottleneck block (K1) for the PyTorch port.
+"""The fused ResNeXt bottleneck block (K1 in bf16, K2 in int8) for the
+PyTorch port.
 
 Counterpart of ``multimodal_baby_tpu/ops/bottleneck_hwbc.py``: the
 BatchNorm fold, the plain reference of one block, and ``fused_bottleneck``,
-which runs the hand-written Hopper kernel in ``csrc/bottleneck.cu`` on a
-CUDA tensor and the plain reference on a CPU tensor.
+which runs the hand-written Hopper kernels in ``csrc/bottleneck.cu`` on a
+CUDA tensor and the plain reference on a CPU tensor. The int8 fold and
+plain version are in ``ops/quant.py``.
 
 Layout is NHWC ``[B, H, W, C]`` at the public functions. The TPU's
 ``[H, B/16, W, 16, C]`` layout and the block-diagonal packing of the
@@ -116,17 +118,31 @@ def bottleneck_reference(x: torch.Tensor, fw: Folded, *,
     return torch.relu(y + identity).to(x.dtype).reshape(B, Ho, Wo, -1)
 
 
-def _check_args(x: torch.Tensor, fw: Folded, stride: int) -> None:
+def block_dims(fw: Folded):
+    """(width, Cout) of a folded block: bf16 1x1 weights are [K, N], the
+    int8 ones output-major [N, K] (``ops.quant.fold_block_params_q``)."""
+    axis = 0 if fw["w1"].dtype == torch.int8 else 1
+    return fw["w1"].shape[axis], fw["w3"].shape[axis]
+
+
+def _check_args(x: torch.Tensor, fw: Folded, stride: int,
+                shape=None) -> None:
+    """Raise ValueError on anything the CUDA kernels cannot take: a bf16
+    block (K1) or an int8 block (K2: int8 codes and weights, f32 scales).
+    ``shape`` stands for ``x.shape`` where a stage kernel feeds the block
+    an intermediate of that shape."""
     def need(cond, msg):
         if not cond:
             raise ValueError(f"fused_bottleneck: {msg}")
 
-    need(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
-    need(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
+    shape = tuple(x.shape if shape is None else shape)
+    need(len(shape) == 4, f"x must be [B, H, W, C], got {shape}")
+    need(x.dtype in (torch.bfloat16, torch.int8),
+         f"x must be bfloat16 or int8, got {x.dtype}")
+    int8 = x.dtype == torch.int8
     need(stride in (1, 2), f"stride must be 1 or 2, got {stride}")
-    cin = x.shape[3]
-    width = fw["w1"].shape[1]
-    cout = fw["w3"].shape[1]
+    cin = shape[3]
+    width, cout = block_dims(fw)
     has_ds = "wd" in fw
     need(has_ds == ("bd" in fw), "wd and bd come together")
     shapes = {"w1": (cin, width), "w2": (3, 3, width // GROUPS, width),
@@ -134,61 +150,94 @@ def _check_args(x: torch.Tensor, fw: Folded, stride: int) -> None:
               "b3": (cout,)}
     if has_ds:
         shapes.update(wd=(cin, cout), bd=(cout,))
-    else:
+    if int8:  # output-major 1x1 weights, and the scales
+        for k in ("w1", "w3", "wd"):
+            if k in shapes:
+                shapes[k] = shapes[k][::-1]
+        shapes.update(a1=(width,), a2=(width,), a3=(cout,))
+        shapes["ad" if has_ds else "ai"] = (cout,)
+    if not has_ds:
         need(stride == 1 and cin == cout,
              "a block without downsample needs stride 1 and Cin == Cout")
-    for name, shape in shapes.items():
+    need(sorted(fw) == sorted(shapes),
+         f"weights must be {sorted(shapes)}, got {sorted(fw)}")
+    for name, want_shape in shapes.items():
         t = fw[name]
-        want = torch.float32 if name.startswith("b") else torch.bfloat16
-        need(tuple(t.shape) == shape,
-             f"{name} must be {shape}, got {tuple(t.shape)}")
+        want = (torch.float32 if name[0] in "ab" else
+                torch.int8 if int8 else torch.bfloat16)
+        need(tuple(t.shape) == want_shape,
+             f"{name} must be {want_shape}, got {tuple(t.shape)}")
         need(t.dtype == want, f"{name} must be {want}, got {t.dtype}")
-    need(cin % 32 == 0 and width in (128, 256, 512, 1024)
+    k_tile = 64 if int8 else 32
+    need(cin % k_tile == 0 and width in (128, 256, 512, 1024)
          and cout % 128 == 0,
-         f"needs Cin % 32 == 0, W in (128, 256, 512, 1024), Cout % 128 == 0;"
-         f" got Cin={cin}, W={width}, Cout={cout}")
+         f"needs Cin % {k_tile} == 0, W in (128, 256, 512, 1024), "
+         f"Cout % 128 == 0; got Cin={cin}, W={width}, Cout={cout}")
     for name, t in [("x", x), *fw.items()]:
         need(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         need(t.is_contiguous(), f"{name} must be contiguous")
         need(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    need(x.numel() < 2**31, "x is too large for 32-bit indexing")
+    need(shape[0] * shape[1] * shape[2] * max(cin, width, cout) < 2**31,
+         "x is too large for 32-bit indexing")
 
 
 def fused_bottleneck(x: torch.Tensor, fw: Folded, stride: int = 1
                      ) -> torch.Tensor:
-    """One bottleneck block on NHWC ``x`` with folded weights ``fw``.
+    """One bottleneck block on NHWC ``x`` with folded weights ``fw``: bf16
+    (or f32) activations with ``fold_block_params`` weights, or int8 codes
+    with ``ops.quant.fold_block_params_q`` weights.
 
-    On a CUDA tensor this launches the Hopper kernel (bf16 only, shapes as
-    ``_check_args`` states) and raises on anything it cannot take; it never
-    falls back. On a CPU tensor it runs ``bottleneck_reference``.
-    ``fused_bottleneck.launches`` counts kernel launches."""
+    On a CUDA tensor this launches the Hopper kernel (K1 for bf16, K2 for
+    int8; shapes as ``_check_args`` states) and raises on anything it
+    cannot take; it never falls back. On a CPU tensor it runs
+    ``bottleneck_reference`` or ``ops.quant.bottleneck_reference_q``.
+    ``fused_bottleneck.launches`` counts K1 launches,
+    ``fused_bottleneck.launches_q`` K2 launches."""
     if x.device.type == "cpu":
+        if x.dtype == torch.int8:
+            from multimodal_baby_tpu_torch.ops.quant import (
+                bottleneck_reference_q)
+            return bottleneck_reference_q(x, fw, stride=stride)
         return bottleneck_reference(x, fw, stride=stride)
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck: no kernel for device {x.device}")
     _check_args(x, fw, stride)
     lib = _build.library()
     B, H, W, cin = x.shape
-    width = fw["w1"].shape[1]
-    cout = fw["w3"].shape[1]
+    width, cout = block_dims(fw)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     h1 = torch.empty((B, H, W, width), dtype=x.dtype, device=x.device)
     h2 = torch.empty((B, Ho, Wo, width), dtype=x.dtype, device=x.device)
     out = torch.empty((B, Ho, Wo, cout), dtype=x.dtype, device=x.device)
-    wd = fw.get("wd")
-    bd = fw.get("bd")
+
+    def ptr(name):
+        t = fw.get(name)
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mmb_bottleneck_bf16(
-            x.data_ptr(), fw["w1"].data_ptr(), fw["b1"].data_ptr(),
-            fw["w2"].data_ptr(), fw["b2"].data_ptr(), fw["w3"].data_ptr(),
-            fw["b3"].data_ptr(), None if wd is None else wd.data_ptr(),
-            None if bd is None else bd.data_ptr(), h1.data_ptr(),
-            h2.data_ptr(), out.data_ptr(), B, H, W, cin, width, cout, stride,
-            stream)
+        if x.dtype == torch.int8:
+            code = lib.mmb_bottleneck_s8(
+                x.data_ptr(), *map(ptr, _Q_ORDER), h1.data_ptr(),
+                h2.data_ptr(), out.data_ptr(), B, H, W, cin, width, cout,
+                stride, stream)
+        else:
+            code = lib.mmb_bottleneck_bf16(
+                x.data_ptr(), *map(ptr, ("w1", "b1", "w2", "b2", "w3", "b3",
+                                         "wd", "bd")),
+                h1.data_ptr(), h2.data_ptr(), out.data_ptr(), B, H, W, cin,
+                width, cout, stride, stream)
     _build.check(lib, code, "fused_bottleneck")
-    fused_bottleneck.launches += 1
+    if x.dtype == torch.int8:
+        fused_bottleneck.launches_q += 1
+    else:
+        fused_bottleneck.launches += 1
     return out
 
 
+# the int8 weights in the order of the kernels' C interfaces
+_Q_ORDER = ("w1", "a1", "b1", "w2", "a2", "b2", "w3", "a3", "b3", "wd", "ad",
+            "bd", "ai")
+
 fused_bottleneck.launches = 0
+fused_bottleneck.launches_q = 0

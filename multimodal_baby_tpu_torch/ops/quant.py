@@ -1,0 +1,177 @@
+"""int8 quantization of the frozen ResNeXt trunk (counterpart of
+``multimodal_baby_tpu/ops/quant.py``, its "q" mode).
+
+Weights are per-output-channel symmetric int8 (BatchNorm folded first, so
+the scales absorb its multiply); activations are per-tensor int8 codes of
+ReLU outputs, in [0, 127], with the scale amax / 127. The amax values come
+from calibration (``models/quant_calib.py``) or, where a value is 0
+(uncalibrated), from the folded BatchNorm: a post-BN channel is about
+N(beta, gamma^2), so amax <~ max |beta| + K_SIGMA |gamma|.
+
+Requantization folds into one per-channel multiply-add on the int32 sum:
+
+    h_q = clip(round(acc * a_c + b_c), 0, 127)
+    a_c = s_in * s_w_c / s_out,  b_c = bias_c / s_out
+
+``bottleneck_reference_q`` is K2's plain version. Its dots are exact: the
+int8 products are summed in float64 (exact for |sum| < 2**53; the trunk's
+largest, 127 * 127 * 2048, is about 3.3e7), then converted to f32 as the
+int32 sum would be. Every rounding is half to even (``torch.round``, as
+``jnp.round`` and CUDA's ``rintf``), the multiply and the add each rounded
+once. The grouped weight stays compact, ``[3, 3, cg, W]``; the int8
+transport mode ("t") is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from multimodal_baby_tpu_torch.ops.bottleneck import _bn_fold
+
+__all__ = ["K_SIGMA", "activation_scale", "quantize_weight",
+           "quantize_activation", "bn_amax_bound", "resolve_amax",
+           "fold_block_params_q", "bottleneck_reference_q"]
+
+K_SIGMA = 4.0  # uncalibrated fallback: amax = max|beta| + K_SIGMA*|gamma|
+
+Folded = Dict[str, torch.Tensor]
+
+
+def activation_scale(amax) -> torch.Tensor:
+    """Per-tensor activation scale max(amax, 1e-12) / 127, in f32."""
+    return torch.as_tensor(amax, dtype=torch.float32).clamp_min(1e-12) / 127.0
+
+
+def quantize_weight(w: torch.Tensor, axis: int = -1):
+    """Per-output-channel symmetric int8: returns (w_q, scale[C]) with
+    scale = max(amax, 1e-12) / 127 over every axis but ``axis``."""
+    w = w.float()
+    axis %= w.dim()
+    red = [i for i in range(w.dim()) if i != axis]
+    scale = w.abs().amax(dim=red).clamp_min(1e-12) / 127.0
+    shape = [1] * w.dim()
+    shape[axis] = -1
+    w_q = torch.round(w / scale.reshape(shape)).clamp(-127, 127)
+    return w_q.to(torch.int8), scale
+
+
+def quantize_activation(x: torch.Tensor, amax) -> torch.Tensor:
+    """ReLU output -> int8 codes in [0, 127] with scale amax / 127."""
+    q = torch.round(x.float() / activation_scale(amax))
+    return q.clamp(0, 127).to(torch.int8)
+
+
+def bn_amax_bound(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Data-free activation bound from a BatchNorm's affine parameters."""
+    return (bias.float().abs() + K_SIGMA * weight.float().abs()).max()
+
+
+def resolve_amax(calibrated: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """The calibrated value where it is set (> 0), else the BN bound."""
+    calibrated = torch.as_tensor(calibrated, dtype=torch.float32,
+                                 device=weight.device)
+    return torch.where(calibrated > 0, calibrated,
+                       bn_amax_bound(weight, bias))
+
+
+def fold_block_params_q(sd: Dict[str, torch.Tensor], in_amax, h1_amax,
+                        h2_amax, out_amax) -> Folded:
+    """Fold running BatchNorm into one ``BottleneckX`` block and quantize it.
+
+    ``sd`` is the block's state dict (torch names, as
+    ``ops.bottleneck.fold_block_params`` takes it). Returns int8 ``w1
+    [W, Cin]``, ``w2 [3, 3, cg, W]``, ``w3 [Cout, W]`` and f32 ``a1/b1,
+    a2/b2 [W]``, ``a3/b3 [Cout]``, then ``wd [Cout, Cin]`` int8 with
+    ``ad/bd`` for a block with a downsample, else ``ai [Cout]`` (the
+    identity's dequantize-requantize factor s_in / s_out). The 1x1
+    weights are output-major (torch's conv layout, the JAX package's
+    transposed): each output channel's K bytes are contiguous, as the
+    Hopper int8 GEMM reads its B operand."""
+    s_in, s_h1, s_h2, s_out = map(activation_scale,
+                                  (in_amax, h1_amax, h2_amax, out_amax))
+    out: Folded = {}
+
+    def conv(name, mul, add, s_a, s_b, key, perm):
+        w = sd[f"{name}.weight"].float().permute(*perm) * mul
+        w_q, sw = quantize_weight(w)
+        out[f"w{key}"] = w_q.contiguous()
+        out[f"a{key}"] = (s_a * sw / s_b).contiguous()
+        out[f"b{key}"] = (add / s_b).contiguous()
+
+    one_by_one = (2, 3, 1, 0)   # [O, I, 1, 1] -> [1, 1, I, O]
+    mul1, add1 = _bn_fold(sd, "bn1")
+    conv("conv1", mul1, add1, s_in, s_h1, "1", one_by_one)
+    out["w1"] = out["w1"][0, 0].t().contiguous()
+    mul2, add2 = _bn_fold(sd, "bn2")
+    conv("conv2", mul2, add2, s_h1, s_h2, "2", (2, 3, 1, 0))
+    mul3, add3 = _bn_fold(sd, "bn3")
+    conv("conv3", mul3, add3, s_h2, s_out, "3", one_by_one)
+    out["w3"] = out["w3"][0, 0].t().contiguous()
+    cout = out["w3"].shape[0]
+    if "downsample.0.weight" in sd:
+        muld, addd = _bn_fold(sd, "downsample.1")
+        conv("downsample.0", muld, addd, s_in, s_out, "d", one_by_one)
+        out["wd"] = out["wd"][0, 0].t().contiguous()
+    else:
+        out["ai"] = torch.full((cout,), float(s_in / s_out),
+                               dtype=torch.float32,
+                               device=out["w3"].device)
+    return out
+
+
+def _exact_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 . [N, K] int8 (output-major) -> [M, N], summed exactly
+    (float64)."""
+    return a.double() @ w.double().t()
+
+
+def _exact_grouped_conv(h: torch.Tensor, w2: torch.Tensor, stride: int
+                        ) -> torch.Tensor:
+    """The 32-group 3x3 (pad 1) on NHWC int8 codes with the compact int8
+    weight [3, 3, cg, W], summed exactly: nine tap products in float64 (a
+    library convolution may take a transform that rounds)."""
+    B, H, W, width = h.shape
+    cg = w2.shape[2]
+    groups = width // cg
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    hp = F.pad(h.double(), (0, 0, 1, 1, 1, 1))
+    # [3, 3, cg, G, cg_out] -> per tap [G, cg_in, cg_out]
+    wg = w2.double().reshape(3, 3, cg, groups, cg).permute(0, 1, 3, 2, 4)
+    acc = 0
+    for ky in range(3):
+        for kx in range(3):
+            tap = hp[:, ky:ky + stride * (Ho - 1) + 1:stride,
+                     kx:kx + stride * (Wo - 1) + 1:stride, :]
+            tap = tap.reshape(-1, groups, cg).transpose(0, 1)  # [G, M, cg]
+            acc = acc + torch.bmm(tap, wg[ky, kx])
+    return acc.transpose(0, 1).reshape(B, Ho, Wo, width)
+
+
+def _requant(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    return torch.round(acc.float() * a + b).clamp(0, 127).to(torch.int8)
+
+
+def bottleneck_reference_q(x_q: torch.Tensor, fw: Folded, *,
+                           stride: int = 1) -> torch.Tensor:
+    """K2's plain version: one int8 block, NHWC ``[B, H, W, C]`` codes in and
+    out, with the folded weights of ``fold_block_params_q``."""
+    B, H, W, cin = x_q.shape
+    width = fw["w1"].shape[0]
+    h1 = _requant(_exact_dot(x_q.reshape(-1, cin), fw["w1"]), fw["a1"],
+                  fw["b1"]).reshape(B, H, W, width)
+    acc2 = _exact_grouped_conv(h1, fw["w2"], stride)
+    Ho, Wo = acc2.shape[1:3]
+    h2 = _requant(acc2.reshape(-1, width), fw["a2"], fw["b2"])
+    y = _exact_dot(h2, fw["w3"]).float() * fw["a3"] + fw["b3"]
+    x_id = x_q[:, ::stride, ::stride, :].reshape(-1, cin)
+    if "wd" in fw:
+        ident = _exact_dot(x_id, fw["wd"]).float() * fw["ad"] + fw["bd"]
+    else:
+        ident = x_id.float() * fw["ai"]
+    out = torch.round(y + ident).clamp(0, 127).to(torch.int8)
+    return out.reshape(B, Ho, Wo, -1)

@@ -1,0 +1,141 @@
+"""A whole ResNeXt stage in one launch (K3a and K3b) for the PyTorch port.
+
+Counterpart of ``fused_stage_hwbc`` (K3a: the stage with its full spatial
+extent resident) and ``fused_stage_banded`` (K3b: banded over N output
+rows, halo rows recomputed per band) of
+``multimodal_baby_tpu/ops/bottleneck_hwbc.py``, and of its
+``stage_reference``. Both TPU kernels compute the chain of the stage's
+blocks; one Hopper kernel (``csrc/stage.cu``) serves both: ``fused_stage``
+runs it with one band, ``fused_stage_banded`` with bands of N rows. It takes
+bf16 blocks (``ops.bottleneck.fold_block_params``) or int8 blocks
+(``ops.quant.fold_block_params_q``), NHWC at the public functions.
+
+On a CUDA tensor the wrappers launch the kernel and raise on anything it
+cannot take; on a CPU tensor they run ``stage_reference``.
+``fused_stage.launches`` and ``fused_stage_banded.launches`` count launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Sequence
+
+import torch
+
+from multimodal_baby_tpu_torch.ops import _build
+from multimodal_baby_tpu_torch.ops.bottleneck import (
+    _Q_ORDER, _check_args, block_dims, bottleneck_reference)
+from multimodal_baby_tpu_torch.ops.quant import bottleneck_reference_q
+
+__all__ = ["stage_reference", "fused_stage", "fused_stage_banded",
+           "MAX_STAGE_BLOCKS"]
+
+MAX_STAGE_BLOCKS = 6  # ResNeXt-50's longest stage (layer 3)
+
+Folded = Dict[str, torch.Tensor]
+
+
+def stage_reference(x: torch.Tensor, fws: Sequence[Folded],
+                    strides: Sequence[int]) -> torch.Tensor:
+    """The stage's plain version: its blocks' plain versions in a chain
+    (int8 codes through ``bottleneck_reference_q``)."""
+    ref = bottleneck_reference_q if x.dtype == torch.int8 else \
+        bottleneck_reference
+    for fw, s in zip(fws, strides):
+        x = ref(x, fw, stride=s)
+    return x
+
+
+def _out_size(n: int, stride: int) -> int:
+    return (n - 1) // stride + 1
+
+
+def _check_stage(x: torch.Tensor, fws: Sequence[Folded],
+                 strides: Sequence[int], band: int) -> None:
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(f"fused_stage: {msg}")
+
+    need(1 <= len(fws) <= MAX_STAGE_BLOCKS and len(fws) == len(strides),
+         f"needs 1 to {MAX_STAGE_BLOCKS} blocks, one stride each; got "
+         f"{len(fws)} blocks, {len(strides)} strides")
+    need(all(s == 1 for s in strides[1:]), "a stride only in the first block")
+    width, cout = block_dims(fws[0])
+    need(all(block_dims(fw) == (width, cout) for fw in fws),
+         "every block needs one width and one Cout")
+    B, H, W, _ = x.shape
+    ho = _out_size(H, strides[0])
+    need(band >= 1 and ho % band == 0,
+         f"band {band} must divide the output rows {ho}")
+    # each block as the per-block kernels take it, at its input's shape
+    shape = tuple(x.shape)
+    for fw, s in zip(fws, strides):
+        _check_args(x, fw, s, shape)
+        shape = (B, _out_size(shape[1], s), _out_size(shape[2], s), cout)
+
+
+def _launch(x: torch.Tensor, fws: Sequence[Folded], strides: Sequence[int],
+            band: int) -> torch.Tensor:
+    _check_stage(x, fws, strides, band)
+    lib = _build.library()
+    B, H, W, cin = x.shape
+    width, cout = block_dims(fws[0])
+    Ho, Wo = _out_size(H, strides[0]), _out_size(W, strides[0])
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    h1, h2 = empty(B, H, W, width), empty(B, Ho, Wo, width)
+    t0, t1, out = (empty(B, Ho, Wo, cout) for _ in range(3))
+    bar = torch.zeros(2, dtype=torch.int32, device=x.device)
+    int8 = x.dtype == torch.int8
+    ptrs: List[int | None] = []
+    for fw in fws:
+        ptrs += [None if fw.get(k) is None else fw[k].data_ptr()
+                 for k in _Q_ORDER]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_strides = (ctypes.c_int * len(strides))(*strides)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mmb_stage(
+            int(int8), len(fws), c_ptrs, c_strides, x.data_ptr(),
+            h1.data_ptr(), h2.data_ptr(), t0.data_ptr(), t1.data_ptr(),
+            out.data_ptr(), bar.data_ptr(), B, H, W, cin, width, cout, band,
+            stream)
+    _build.check(lib, code, "fused_stage")
+    return out
+
+
+def _dispatch(x, fws, strides, band):
+    if x.device.type == "cpu":
+        return stage_reference(x, fws, strides)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_stage: no kernel for device {x.device}")
+    return _launch(x, fws, strides, band)
+
+
+def fused_stage(x: torch.Tensor, fws: Sequence[Folded],
+                strides: Sequence[int]) -> torch.Tensor:
+    """K3a: every block of a stage (or of a stage's tail) in one launch,
+    the full output extent as one band. ``x`` NHWC bf16 or int8; a stride
+    only in the first block."""
+    out = _dispatch(x, fws, strides,
+                    _out_size(x.shape[1], strides[0]) if len(strides) else 1)
+    if x.is_cuda:
+        fused_stage.launches += 1
+    return out
+
+
+def fused_stage_banded(x: torch.Tensor, fws: Sequence[Folded],
+                       strides: Sequence[int], band: int) -> torch.Tensor:
+    """K3b: the stage in one launch, banded over ``band`` output rows of
+    every image, each band recomputing the halo rows its 3x3 convolutions
+    need (``band`` must divide the output rows)."""
+    out = _dispatch(x, fws, strides, band)
+    if x.is_cuda:
+        fused_stage_banded.launches += 1
+    return out
+
+
+fused_stage.launches = 0
+fused_stage_banded.launches = 0

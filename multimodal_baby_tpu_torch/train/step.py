@@ -12,6 +12,7 @@ from multimodal_baby_tpu_torch.core.config import ExperimentConfig
 from multimodal_baby_tpu_torch.data.augment import augment_batch
 from multimodal_baby_tpu_torch.models import losses as L
 from multimodal_baby_tpu_torch.models.multimodal import CVCL
+from multimodal_baby_tpu_torch.models.quant_calib import calibrate_cvcl
 from multimodal_baby_tpu_torch.train.optimizer import build_optimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -33,6 +34,20 @@ def init_train_state(model: CVCL, cfg: ExperimentConfig) -> TrainState:
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.train.seed)
     return TrainState(model, build_optimizer(cfg, model), generator)
+
+
+def calibrate_trunk(model: CVCL, batch: Batch, n: int = 32):
+    """Measure the int8 trunk's activation ranges once, before the first
+    step, as the published recipe does (``bench.py:146-151``): on the
+    first ``n`` frames of ``batch`` with the augment off, written into the
+    trunk's amax buffers. Returns the scales, or None for a trunk without
+    an int8 stage."""
+    trunk = model.vision_encoder.model
+    if not any(getattr(trunk, "int8_plan", ())):
+        return None
+    images = (batch["image"] if "image" in batch
+              else augment_batch(batch["image_u8"][:n], augment=False))
+    return calibrate_cvcl(model, images[:n])
 
 
 def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:

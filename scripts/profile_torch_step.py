@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's train step spends its time on the card.
 
-Builds one of ``chip_smoke.py``'s slices (the ViT flagship or the
-ResNeXt flagship, seeded random weights, B = 128, augment on), runs a few
-warm-up steps, times steps on the host clock without the profiler, then
-traces steps with ``torch.profiler`` and prints the device time per step
-by kernel name, the kernel time per step and the device's busy share
-(kernel time over step time). Run from the root of the repository on a
-machine with an NVIDIA GPU:
+Builds one of ``chip_smoke.py``'s slices (seeded random weights, B = 128,
+augment on): the ViT flagship (``vit``), the ResNeXt flagship in bf16 with
+every stage block by block (``resnext``, phase 3), or the published
+ResNeXt recipe, int8 layers 3-4 in the default kernel plan, calibrated
+first (``int8``, phase 5). It runs a few warm-up steps, times steps on the
+host clock without the profiler, then traces steps with ``torch.profiler``
+and prints the device time per step by kernel name, the kernel time per
+step and the device's busy share (kernel time over step time). Run from
+the root of the repository on a machine with an NVIDIA GPU:
 
-    python3 scripts/profile_torch_step.py [--slice vit|resnext] [--steps 5]
+    python3 scripts/profile_torch_step.py [--slice vit|resnext|int8]
+        [--steps 5]
 """
 
 from __future__ import annotations
@@ -20,31 +23,31 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
-from multimodal_baby_tpu_torch.models.multimodal import CVCL  # noqa: E402
 from multimodal_baby_tpu_torch.train.step import (  # noqa: E402
-    init_train_state, make_train_step)
+    calibrate_trunk, init_train_state, make_train_step)
 
 
 def build(which: str):
     if which == "vit":
         return chip_smoke.build_vit_slice()
-    cfg = chip_smoke.flagship_cfg(vit=False)
-    model = CVCL(cfg.model, dtype=torch.bfloat16, device="cuda",
-                 generator=torch.Generator().manual_seed(0))
-    return cfg, model, chip_smoke.make_batch(np.random.RandomState(0),
-                                             chip_smoke.BATCH)
+    if which == "resnext":
+        return chip_smoke.build_resnext_slice(False, ("blocks",) * 4)
+    cfg, model, batch = chip_smoke.build_resnext_slice(chip_smoke.MIXED,
+                                                       None)
+    calibrate_trunk(model, batch)
+    return cfg, model, batch
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--slice", choices=("vit", "resnext"), default="vit")
+    ap.add_argument("--slice", choices=("vit", "resnext", "int8"),
+                    default="vit")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():

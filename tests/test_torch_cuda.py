@@ -1,13 +1,17 @@
-"""The K1, K5 and K6 kernels on a CUDA card: against their plain versions
-(K1 at the shapes of tests/test_hwbc_kernels.py, K5 and K6 at small, odd
-and ViT-B shapes, with kv_valid) and on the arguments they refuse.
+"""The K1, K2, K3a/K3b, K5 and K6 kernels on a CUDA card: against their
+plain versions (K1 at the shapes of tests/test_hwbc_kernels.py, K2 and the
+stage kernel at those of tests/test_quant_trunk.py and
+tests/test_hwbc_kernels.py, K5 and K6 at small, odd and ViT-B shapes, with
+kv_valid) and on the arguments they refuse.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
 comparison at the trunk's real shapes. Tolerances as chip_smoke.py: max
 error relative to the largest output <= 1e-2 and cosine >= 0.9999 (both
 versions bf16 with the same rounding points; f32 sums in other orders can
-move a bf16 rounding of h1 or h2 by one ulp).
+move a bf16 rounding of h1 or h2 by one ulp). int8: at most 1 code apart
+and fewer than 1e-3 of the codes differing (tests/test_quant_trunk.py's
+envelope; both versions sum exactly and round alike, so 0 is expected).
 """
 
 import pytest
@@ -17,6 +21,10 @@ from multimodal_baby_tpu_torch.ops.attention import (
     block_attention_reference, fused_block_attention)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
+from multimodal_baby_tpu_torch.ops.quant import (
+    bottleneck_reference_q, fold_block_params_q)
+from multimodal_baby_tpu_torch.ops.stage import (
+    fused_stage, fused_stage_banded, stage_reference)
 from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
 
 pytestmark = pytest.mark.gpu
@@ -89,6 +97,123 @@ def test_kernel_refuses_what_it_cannot_take(cuda, bad):
     with pytest.raises(ValueError):
         fused_bottleneck(x, fw, stride=2)
     assert fused_bottleneck.launches == before
+
+
+def block_state(g, cin, width, cout, has_ds):
+    """A random BottleneckX state dict (torch names) with non-trivial BN."""
+    def bn(c):
+        return {"weight": 1 + .1 * torch.randn(c, generator=g),
+                "bias": .1 * torch.randn(c, generator=g),
+                "running_mean": .1 * torch.randn(c, generator=g),
+                "running_var": .5 + 1.5 * torch.rand(c, generator=g)}
+
+    convs = {"conv1": (width, cin, 1), "conv2": (width, width // 32, 3),
+             "conv3": (cout, width, 1)}
+    bns = {"bn1": width, "bn2": width, "bn3": cout}
+    if has_ds:
+        convs["downsample.0"] = (cout, cin, 1)
+        bns["downsample.1"] = cout
+    sd = {f"{k}.weight": torch.randn(o, i, kk, kk, generator=g)
+          / (i * kk * kk) ** 0.5 for k, (o, i, kk) in convs.items()}
+    for k, c in bns.items():
+        sd.update({f"{k}.{n}": v for n, v in bn(c).items()})
+    return sd
+
+
+def q_block(g, cin, width, cout, has_ds, device):
+    fw = fold_block_params_q(block_state(g, cin, width, cout, has_ds),
+                             2.0, 1.5, 1.5, 2.5)
+    return {k: v.to(device) for k, v in fw.items()}
+
+
+def codes_close(got, want):
+    diff = (got.int() - want.int()).abs()
+    assert got.shape == want.shape and got.dtype == torch.int8
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    assert 0.05 < float((want > 0).float().mean())  # not all clipped
+
+
+@pytest.mark.parametrize("stride,has_ds,H,cin,width,cout", [
+    (1, False, 8, 256, 128, 256),
+    (2, True, 8, 256, 128, 256),
+    (1, True, 8, 64, 128, 256),
+    (2, True, 7, 512, 512, 1024),   # odd size: 7 -> 4
+    (1, False, 5, 1024, 512, 1024),
+    (1, False, 2, 2048, 1024, 2048),
+])
+def test_int8_kernel_matches_plain_version(cuda, stride, has_ds, H, cin,
+                                           width, cout):
+    g = torch.Generator().manual_seed(cin + width + H)
+    fw = q_block(g, cin, width, cout, has_ds, cuda)
+    x = torch.randint(0, 100, (32, H, H, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    before = fused_bottleneck.launches_q
+    got = fused_bottleneck(x, fw, stride=stride)
+    want = bottleneck_reference_q(x, fw, stride=stride)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches_q == before + 1
+    codes_close(got, want)
+
+
+def stage_weights(g, cin, width, cout, strides, int8, device):
+    """A stage's folded blocks; the head has a downsample where it changes
+    the shape."""
+    fws = []
+    for j in range(len(strides)):
+        c = cin if j == 0 else cout
+        ds = j == 0 and (c != cout or strides[0] != 1)
+        fws.append(q_block(g, c, width, cout, ds, device) if int8 else
+                   make_block(c, width, cout, ds, 2, 1, device)[1])
+    return fws
+
+
+@pytest.mark.parametrize("int8,H,cin,width,cout,strides,band", [
+    (True, 8, 256, 128, 256, [2, 1, 1], None),       # test_quant_trunk:100
+    (True, 14, 1024, 512, 1024, [1, 1, 1, 1, 1], None),  # layer 3 tail
+    (True, 14, 1024, 1024, 2048, [2, 1, 1], None),   # layer 4
+    (False, 12, 256, 128, 256, [2, 1, 1], None),     # test_hwbc_kernels:91
+    (False, 16, 64, 128, 256, [1, 1, 1], 4),         # banded, 4 bands
+    (False, 16, 128, 128, 256, [2, 1, 1], 4),        # banded, stride-2 head
+    (True, 16, 64, 128, 256, [1, 1, 1], 8),          # banded int8
+])
+def test_stage_kernel_matches_plain_version(cuda, int8, H, cin, width, cout,
+                                            strides, band):
+    g = torch.Generator().manual_seed(H + cin + len(strides))
+    fws = stage_weights(g, cin, width, cout, strides, int8, cuda)
+    if int8:
+        x = torch.randint(0, 100, (32, H, H, cin), generator=g,
+                          dtype=torch.int8).to(cuda)
+    else:
+        x = torch.randn(32, H, H, cin, generator=g).to(cuda, torch.bfloat16)
+    counter = fused_stage if band is None else fused_stage_banded
+    before = counter.launches
+    got = (fused_stage(x, fws, strides) if band is None
+           else fused_stage_banded(x, fws, strides, band))
+    want = stage_reference(x, fws, strides)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    if int8:
+        codes_close(got, want)
+    else:
+        assert_close_bf16(got, want)
+    if band is not None:  # a halo row is computed as in the full stage
+        assert torch.equal(got, fused_stage(x, fws, strides))
+
+
+@pytest.mark.parametrize("bad", ["band", "float32", "weights"])
+def test_stage_kernel_refuses_what_it_cannot_take(cuda, bad):
+    g = torch.Generator().manual_seed(0)
+    fws = stage_weights(g, 64, 128, 256, [1, 1], False, cuda)
+    x = torch.randn(2, 8, 8, 64, generator=g).to(cuda, torch.bfloat16)
+    band = 3 if bad == "band" else 4
+    if bad == "float32":
+        x = x.float()
+    elif bad == "weights":  # int8 codes with bf16 weights
+        x = x.to(torch.int8)
+    before = fused_stage_banded.launches
+    with pytest.raises(ValueError):
+        fused_stage_banded(x, fws, [1, 1], band)
+    assert fused_stage_banded.launches == before
 
 
 def vit_inputs(kind, B, N, C, F, device):

@@ -17,11 +17,14 @@ MODULES = [
     "multimodal_baby_tpu_torch",
     "multimodal_baby_tpu_torch.core",
     "multimodal_baby_tpu_torch.ops.bottleneck",
+    "multimodal_baby_tpu_torch.ops.quant",
+    "multimodal_baby_tpu_torch.ops.stage",
     "multimodal_baby_tpu_torch.ops.vit_common",
     "multimodal_baby_tpu_torch.ops.attention",
     "multimodal_baby_tpu_torch.ops.vit_mlp",
     "multimodal_baby_tpu_torch.models.layers",
     "multimodal_baby_tpu_torch.models.vision_resnext",
+    "multimodal_baby_tpu_torch.models.quant_calib",
     "multimodal_baby_tpu_torch.models.vision_vit",
     "multimodal_baby_tpu_torch.models.vision",
     "multimodal_baby_tpu_torch.models.text",

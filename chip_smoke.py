@@ -58,6 +58,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    weights: per-row cosine >= 0.999; the cosine against the f32 plain
    blocks is printed. Then the ViT forward time of both paths, the step
    time and pairs/s.
+2d. K7 (``fused_vit_block``), K8a (``fused_attention``), K8b
+   (``fused_attention_pairs``) and K8c (``fused_qkv_attention_pairs``)
+   against their plain versions on phase 2b's cases, with 2b's gates; K6
+   and K7 also in the tanh and sigmoid GELU forms; K7 against K5 then K6
+   bit for bit in every form (the count of differing bf16 words is
+   printed). Each ViT-B case is timed beside its plain version, its
+   library call (scaled_dot_product_attention for K8a and K8b; Linear and
+   scaled_dot_product_attention for K8c; 2b's LayerNorm / Linear / SDPA /
+   GELU chain for K7, and K5 then K6) and its bound.
 5. The published flagship (``bench.py:102-121``): phase 3's model with
    ``trunk_int8=(False, False, True, True)`` and the default plan
    ``("banded28", "blocks", "split", "full")``, calibrated once on 32
@@ -70,6 +79,17 @@ Phases (each raises on failure, and the script then exits non-zero):
    JAX package's gate, tests/test_quant_trunk.py:188-220). Then the trunk
    forward time of the int8 plan, the bf16 per-block K1 path and the
    plain bf16 conv path, the step time and pairs/s.
+6. The ViT slice of phase 4 (the same model, switched through the trunk's
+   ``vit_kernels``) in each further kernel configuration: ``attn="1"``
+   (K8a), ``"pairs"`` (K8b), ``"qkv"`` (K8c), ``whole_block=True`` (K7)
+   and ``gelu="tanh"`` (K5, K6): 3 AdamW train steps and 1 eval step each
+   at B = 128. Checks: finite losses; per forward 12 launches of the
+   configuration's kernels (12 K6 beside each K8, no K5 or K6 beside K7)
+   and none of the others; ViT tensors bit-unchanged, heads changed; eval
+   CLS and logits against the same configuration with its kernels
+   swapped for their plain versions on the card and against the plain
+   bf16 blocks: per-row cosine >= 0.999 (the cosine against f32 is
+   printed). Then the ViT forward and step time of each.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -93,19 +113,25 @@ from multimodal_baby_tpu_torch.core.config import (
     VisionConfig)
 from multimodal_baby_tpu_torch.core.constants import MAX_LEN_UTTERANCE
 from multimodal_baby_tpu_torch.data.augment import augment_batch
-from multimodal_baby_tpu_torch.models import vision_resnext
+from multimodal_baby_tpu_torch.models import vision_resnext, vision_vit
 from multimodal_baby_tpu_torch.models.multimodal import CVCL, l2_normalize
 from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
-from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm
+from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm, ViTKernels
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.attention import (
-    block_attention_reference, fused_block_attention)
+    attention_pairs_reference, attention_reference,
+    block_attention_reference, fused_attention, fused_attention_pairs,
+    fused_block_attention, fused_qkv_attention_pairs,
+    qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
 from multimodal_baby_tpu_torch.ops.quant import (
     bottleneck_reference_q, fold_block_params_q)
 from multimodal_baby_tpu_torch.ops.stage import (
     fused_stage, fused_stage_banded, stage_reference)
+from multimodal_baby_tpu_torch.ops.vit_block import (
+    fused_vit_block, vit_block_reference)
+from multimodal_baby_tpu_torch.ops.vit_common import GELU_MODES
 from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
 from multimodal_baby_tpu_torch.train.step import (
     calibrate_trunk, init_train_state, make_eval_step, make_train_step)
@@ -146,6 +172,20 @@ BLOCKS_EDGE = [
 VIT_CASES = [(2, 10, 256, 4, 1024, 7), (2, 17, 256, 4, 1024, None),
              (BATCH, 257, 768, 12, 3072, None)]
 VIT_DEPTH = 12
+# the ViT kernel wrappers, by the TPU kernel each replaces
+VIT_KERNELS = {"K5": fused_block_attention, "K6": fused_mlp,
+               "K7": fused_vit_block, "K8a": fused_attention,
+               "K8b": fused_attention_pairs, "K8c": fused_qkv_attention_pairs}
+# phase 6: configuration -> (ViTKernels, launches per forward)
+VIT_CONFIGS = {
+    "attn=1": (ViTKernels(attn="1"), {"K8a": VIT_DEPTH, "K6": VIT_DEPTH}),
+    "attn=pairs": (ViTKernels(attn="pairs"),
+                   {"K8b": VIT_DEPTH, "K6": VIT_DEPTH}),
+    "attn=qkv": (ViTKernels(attn="qkv"), {"K8c": VIT_DEPTH, "K6": VIT_DEPTH}),
+    "whole_block": (ViTKernels(whole_block=True), {"K7": VIT_DEPTH}),
+    "gelu=tanh": (ViTKernels(gelu="tanh"), {"K5": VIT_DEPTH,
+                                            "K6": VIT_DEPTH}),
+}
 
 
 def log(msg: str) -> None:
@@ -347,18 +387,23 @@ def attention_library(x, params, heads):
     return run
 
 
-def mlp_library(x, params):
-    """The library call for K6, in bf16: LayerNorm, Linear, GELU, Linear
-    and the residual."""
+def mlp_chain(params):
+    """The library call for K6 as a function of x, in bf16: LayerNorm,
+    Linear, GELU, Linear and the residual."""
     g, b, w1, b1, w2, b2 = params
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-    C = x.shape[-1]
 
-    def run():
-        h = F.gelu(F.linear(F.layer_norm(x, (C,), g, b, 1e-6), w1t, b1))
+    def run(x):
+        h = F.gelu(F.linear(F.layer_norm(x, (x.shape[-1],), g, b, 1e-6), w1t,
+                            b1))
         return x + F.linear(h, w2t, b2)
 
     return run
+
+
+def mlp_library(x, params):
+    chain = mlp_chain(params)
+    return lambda: chain(x)
 
 
 def phase_vit_kernels():
@@ -399,6 +444,124 @@ def phase_vit_kernels():
             res.update(ms=VIT_DEPTH * k, plain_ms=VIT_DEPTH * p,
                        library_ms=VIT_DEPTH * li, bound_ms=b_fwd,
                        bound_by=b_by)
+    for name, res in out.items():
+        log(f"  {name} over the {VIT_DEPTH} blocks of one forward at "
+            f"B={BATCH}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
+            f" ms, library bf16 {res['library_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.3f} ms ({res['bound_by']})")
+    return out
+
+
+# ---------------------------------------------------------------- phase 2d
+
+def sdpa_token_major(q, k, v, heads):
+    """scaled_dot_product_attention on [B, N, C] views, heads (head, d)."""
+    B, N, C = q.shape
+
+    def split(t):
+        return t.reshape(B, N, heads, C // heads).transpose(1, 2)
+
+    y = F.scaled_dot_product_attention(split(q), split(k), split(v))
+    return y.transpose(1, 2).reshape(B, N, C)
+
+
+def phase_vit_more_kernels():
+    gen = torch.Generator().manual_seed(4)
+    out = {k: {"max_abs_err": 0.0} for k in ("K7", "K8a", "K8b", "K8c")}
+    for B, N, C, heads, F_, kv in VIT_CASES:
+        scale = (C // heads) ** -0.5
+        x, pa = vit_half_inputs(gen, "attention", B, N, C, F_)
+        _, pm = vit_half_inputs(gen, "mlp", 1, 1, C, F_)
+        blk = pa + pm
+        qkv = torch.randn(B, N, 3 * C, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+        def heads_first(t):
+            return (t.reshape(B, N, heads, C // heads).transpose(1, 2)
+                    .reshape(B * heads, N, C // heads))
+
+        qh, kh, vh = map(heads_first, (q, k, v))
+        tag = f"B={B} N={N} C={C}" + (f" kv_valid={kv}" if kv else "")
+
+        def note(name, err):
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+
+        with torch.no_grad():
+            for gelu in GELU_MODES:
+                if gelu != "erf":  # 2b checks the erf form
+                    check(f"K6 {gelu} {tag}", fused_mlp(x, *pm, 1e-6, gelu),
+                          mlp_reference(x, *pm, 1e-6, gelu))
+                k7 = fused_vit_block(x, *blk, heads, scale, kv, 1e-6, gelu)
+                note("K7", check(f"K7 {gelu} {tag}", k7, vit_block_reference(
+                    x, *blk, heads, scale, kv, 1e-6, gelu)))
+                two = fused_mlp(fused_block_attention(x, *pa, heads, scale,
+                                                      kv), *pm, 1e-6, gelu)
+                n_diff = int((k7.view(torch.int16)
+                              != two.view(torch.int16)).sum())
+                log(f"  K7 {gelu} {tag}: {n_diff} of {k7.numel()} bf16 words "
+                    f"differ from K5 then K6")
+                if n_diff:
+                    raise AssertionError(f"K7 {gelu} {tag}: {n_diff} words "
+                                         f"differ from K5 then K6")
+            note("K8a", check(f"K8a {tag}", fused_attention(qh, kh, vh, scale,
+                                                            kv),
+                              attention_reference(qh, kh, vh, scale, kv)))
+            note("K8b", check(f"K8b {tag}",
+                              fused_attention_pairs(q, k, v, heads, scale, kv),
+                              attention_pairs_reference(q, k, v, heads, scale,
+                                                        kv)))
+            note("K8c", check(f"K8c {tag}", fused_qkv_attention_pairs(
+                x, pa[2], pa[3], heads, scale, kv),
+                qkv_attention_pairs_reference(x, pa[2], pa[3], heads, scale,
+                                              kv)))
+        if B != BATCH:
+            continue
+        wqkv_t = pa[2].t().contiguous()
+        block_chain = (attention_library(x, pa, heads), mlp_chain(pm))
+        act = 2 * B * N * C  # bytes of one [B, N, C] bf16 tensor
+        attn_flops = 4 * B * N * N * C
+        runs = {
+            "K7": (lambda: fused_vit_block(x, *blk, heads, scale),
+                   lambda: vit_block_reference(x, *blk, heads, scale),
+                   lambda: block_chain[1](block_chain[0]()),
+                   (2 * B * N * C * 3 * C + 2 * B * N * C * C + attn_flops
+                    + 4 * B * N * C * F_),
+                   2 * act + 2 * (4 * C * C + 2 * C * F_)),
+            "K8a": (lambda: fused_attention(qh, kh, vh, scale),
+                    lambda: attention_reference(qh, kh, vh, scale),
+                    lambda: F.scaled_dot_product_attention(
+                        qh[None], kh[None], vh[None])[0],
+                    attn_flops, 4 * act),
+            "K8b": (lambda: fused_attention_pairs(q, k, v, heads, scale),
+                    lambda: attention_pairs_reference(q, k, v, heads, scale),
+                    lambda: sdpa_token_major(q, k, v, heads),
+                    attn_flops, 4 * act),
+            "K8c": (lambda: fused_qkv_attention_pairs(x, pa[2], pa[3], heads,
+                                                      scale),
+                    lambda: qkv_attention_pairs_reference(x, pa[2], pa[3],
+                                                          heads, scale),
+                    lambda: sdpa_token_major(
+                        *F.linear(x, wqkv_t, pa[3]).split(C, -1), heads),
+                    2 * B * N * C * 3 * C + attn_flops,
+                    2 * act + 2 * (3 * C * C + 3 * C))}
+        with torch.no_grad():
+            for name, (kernel, plain, library, flops, nbytes) in runs.items():
+                kms, pms, lms = time_in_turns(kernel, plain, library, 20)
+                b_ms, b_by = bound(flops, nbytes)
+                log(f"  {name} B={B} N={N} C={C}: kernel {kms:.3f} ms, plain "
+                    f"{pms:.3f} ms, library bf16 {lms:.3f} ms, bound "
+                    f"{b_ms:.3f} ms ({b_by}); kernel "
+                    f"{flops / kms / 1e9:.1f} TFLOP/s")
+                b_fwd, _ = bound(VIT_DEPTH * flops, VIT_DEPTH * nbytes)
+                out[name].update(ms=VIT_DEPTH * kms, plain_ms=VIT_DEPTH * pms,
+                                 library_ms=VIT_DEPTH * lms, bound_ms=b_fwd,
+                                 bound_by=b_by)
+            two_ms = time_ms(lambda: fused_mlp(fused_block_attention(
+                x, *pa, heads, scale), *pm), 20)
+        log(f"  K7 against the port's own K5 then K6 at B={B}: "
+            f"{out['K7']['ms'] / VIT_DEPTH:.3f} against {two_ms:.3f} ms per "
+            f"block")
     for name, res in out.items():
         log(f"  {name} over the {VIT_DEPTH} blocks of one forward at "
             f"B={BATCH}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
@@ -845,8 +1008,9 @@ def phase_resnext_slice():
     return launches
 
 
-def phase_vit_slice():
-    cfg, model, batch = build_vit_slice()
+def vit_frozen_and_heads(model):
+    """Copies of the ViT's tensors and of the head and text parameters,
+    before the steps."""
     trunk = model.vision_encoder.model
     frozen = {k: v.clone() for k, v in trunk.state_dict().items()
               if not k.startswith("head.")}
@@ -856,6 +1020,15 @@ def phase_vit_slice():
         "vision_encoder.model.head.weight", "text_encoder.embedding.weight",
         "text_encoder.pos_embed", layer + "self_attn.in_proj_weight",
         layer + "linear1.weight", layer + "norm2.weight")}
+    return frozen, heads
+
+
+def phase_vit_slice():
+    cfg, model, batch = build_vit_slice()
+    trunk = model.vision_encoder.model
+    frozen, heads = vit_frozen_and_heads(model)
+    # the state phase 6 restarts every configuration from
+    start = {k: v.clone() for k, v in model.state_dict().items()}
 
     state, train_step, launches = drive(
         model, cfg, batch, [(fused_block_attention, "launches"),
@@ -889,16 +1062,69 @@ def phase_vit_slice():
     log(f"  ViT forward B={BATCH}: K5/K6 path {vit_k:.3f} ms, plain bf16 "
         f"path {vit_p:.3f} ms")
     time_steps(state, train_step, batch, "ViT")
+    return launches, (cfg, model, batch, start)
+
+
+def phase_vit_configs(cfg, model, batch, start):
+    """Phase 4's model in each configuration of VIT_CONFIGS, each started
+    from phase 4's initial weights (``start``), so that every
+    configuration's eval gates are taken where phase 4's are: after 3 steps
+    on one batch (training on from the last configuration sharpens the
+    logits, and with them the bf16 noise the logits gate sees). Returns the
+    launches of each ViT kernel in the configuration that runs it."""
+    trunk = model.vision_encoder.model
+    forwards = TRAIN_STEPS + 1
+    counters = [(fn, "launches") for fn in VIT_KERNELS.values()]
+    launches = {}
+    with torch.no_grad():
+        img_bf16 = augment_batch(batch["image_u8"], augment=False,
+                                 dtype=torch.bfloat16)
+        img_f32 = augment_batch(batch["image_u8"], augment=False)
+        img_aug = augment_batch(batch["image_u8"], dtype=torch.bfloat16)
+    for name, (kernels, per_forward) in VIT_CONFIGS.items():
+        log(f"  -- {name}: {kernels}")
+        model.load_state_dict(start)
+        trunk.vit_kernels = kernels
+        frozen, heads = vit_frozen_and_heads(model)
+        state, train_step, counts = drive(model, cfg, batch, counters)
+        got = dict(zip(VIT_KERNELS, counts))
+        want = {k: per_forward.get(k, 0) * forwards for k in VIT_KERNELS}
+        log(f"  launches over {forwards} forwards: {got}")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        launches.update({k: got[k] for k in per_forward if k[:2] in
+                         ("K7", "K8")})
+        check_frozen_and_heads(model, frozen, heads)
+
+        with torch.no_grad():
+            txt, _ = model.encode_text(batch["text"], batch["text_len"])
+
+            def logits(cls):
+                f = l2_normalize(trunk.head(cls), dim=1)
+                return model.similarity(f, txt) * model.logit_scale()
+
+            kern = trunk(img_bf16)
+            with plain_kernels():
+                plain = trunk(img_bf16)
+            blocks = trunk.forward_plain(img_bf16)
+            f32 = trunk.forward_plain(img_f32)
+            for what, ref in (("its plain versions", plain),
+                              ("the plain bf16 blocks", blocks)):
+                log(f"  against {what}:")
+                cls = [kern, ref, f32]
+                compare_features("CLS", *cls)
+                compare_features("logits", *map(logits, cls))
+            fwd = time_ms(lambda: trunk(img_aug), 5)
+        log(f"  ViT forward B={BATCH}, {name}: {fwd:.3f} ms")
+        time_steps(state, train_step, batch, f"ViT {name}")
+    trunk.vit_kernels = ViTKernels()
     return launches
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The trunk's kernels replaced by their plain versions, on CUDA tensors
+    """The trunks' kernels replaced by their plain versions, on CUDA tensors
     (the wrappers themselves take those only for CPU tensors)."""
-    names = ("fused_bottleneck", "fused_stage", "fused_stage_banded")
-    saved = {n: getattr(vision_resnext, n) for n in names}
-
     def block(x, fw, stride=1):
         ref = (bottleneck_reference_q if x.dtype == torch.int8
                else bottleneck_reference)
@@ -907,13 +1133,25 @@ def plain_kernels():
     def stage(x, fws, strides, band=None):
         return stage_reference(x, fws, strides)
 
-    vision_resnext.fused_bottleneck = block
-    vision_resnext.fused_stage = vision_resnext.fused_stage_banded = stage
+    plain = {
+        vision_resnext: {"fused_bottleneck": block, "fused_stage": stage,
+                         "fused_stage_banded": stage},
+        vision_vit: {"fused_block_attention": block_attention_reference,
+                     "fused_mlp": mlp_reference,
+                     "fused_vit_block": vit_block_reference,
+                     "fused_attention": attention_reference,
+                     "fused_attention_pairs": attention_pairs_reference,
+                     "fused_qkv_attention_pairs":
+                         qkv_attention_pairs_reference}}
+    saved = [(m, n, getattr(m, n)) for m, fns in plain.items() for n in fns]
+    for m, fns in plain.items():
+        for n, fn in fns.items():
+            setattr(m, n, fn)
     try:
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(vision_resnext, n, fn)
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 def phase_published_flagship():
@@ -1012,12 +1250,17 @@ def main() -> int:
     q = phase_int8_and_stages()
     log("phase 3: the ResNeXt slice, per-block plan")
     k1["launches"] = phase_resnext_slice()
+    log("phase 2d: K7, K8a, K8b and K8c against their plain versions")
+    vit_kernels.update(phase_vit_more_kernels())
     log("phase 4: the ViT slice")
-    vit_kernels["K5"]["launches"], vit_kernels["K6"]["launches"] = \
+    (vit_kernels["K5"]["launches"], vit_kernels["K6"]["launches"]), vit = \
         phase_vit_slice()
     log("phase 5: the published flagship, int8 layers 3-4, default plan")
     (_, q["K2"]["launches"], q["K3a"]["launches"],
      q["K3b"]["launches"]) = phase_published_flagship()
+    log("phase 6: the ViT slice in its other kernel configurations")
+    for name, n in phase_vit_configs(*vit).items():
+        vit_kernels[name]["launches"] = n
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"
@@ -1029,7 +1272,15 @@ def main() -> int:
             ("fused_block_attention", "vit.cu",
              "multimodal_baby_tpu/ops/attention.py:601", vit_kernels["K5"]),
             ("fused_mlp", "vit.cu", "multimodal_baby_tpu/ops/vit_mlp.py:186",
-             vit_kernels["K6"])]
+             vit_kernels["K6"]),
+            ("fused_vit_block", "vit_block.cu",
+             "multimodal_baby_tpu/ops/vit_block.py:130", vit_kernels["K7"]),
+            ("fused_attention", "attention.cu",
+             "multimodal_baby_tpu/ops/attention.py:90", vit_kernels["K8a"]),
+            ("fused_attention_pairs", "attention.cu",
+             "multimodal_baby_tpu/ops/attention.py:239", vit_kernels["K8b"]),
+            ("fused_qkv_attention_pairs", "attention.cu",
+             "multimodal_baby_tpu/ops/attention.py:392", vit_kernels["K8c"])]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [

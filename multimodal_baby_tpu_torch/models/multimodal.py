@@ -26,6 +26,7 @@ from multimodal_baby_tpu_torch.core.config import ModelConfig
 from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision import VisionEncoder
+from multimodal_baby_tpu_torch.models.vision_vit import ViTKernels
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -57,17 +58,20 @@ class CVCL(nn.Module):
     unless ``device`` says otherwise (``device="cpu"``); asking for the card
     where there is none raises. ``generator`` is a CPU generator for the
     seeded init. ``fused_plan`` is the ResNeXt trunk's kernel plan (None:
-    the JAX package's default)."""
+    the JAX package's default), ``vit_kernels`` the ViT trunk's kernel
+    configuration (None: ``ViTKernels()``)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
                  device="cuda", generator: torch.Generator | None = None,
-                 fused_plan: Tuple[str, ...] | None = None):
+                 fused_plan: Tuple[str, ...] | None = None,
+                 vit_kernels: ViTKernels | None = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.vision_encoder = VisionEncoder(cfg, dtype, device=device,
                                             generator=generator,
-                                            fused_plan=fused_plan)
+                                            fused_plan=fused_plan,
+                                            vit_kernels=vit_kernels)
         self.text_encoder = TextEncoder(cfg, device=device,
                                         generator=generator)
         init_val = -math.log(cfg.temperature)

@@ -3,7 +3,8 @@
 
 The trunk is ResNeXt-50 (with the config's ``trunk_int8`` plan and the
 kernel plan ``fused_plan``, by default the JAX package's) or DINO
-ViT-B/14. The head replaces the trunk's classifier with the projection, as
+ViT-B/14 (with the kernel configuration ``vit_kernels``, by default K5 +
+K6 with the erf GELU). The head replaces the trunk's classifier with the projection, as
 in the reference: ``model.fc`` on the ResNeXt (2048 -> E), ``model.head``
 on the ViT (768 -> E). A frozen trunk's outputs are detached; its
 parameters leave autograd when ``train.optimizer.build_optimizer`` applies
@@ -22,13 +23,14 @@ from multimodal_baby_tpu_torch.models.layers import (
     TorchLinear, resolve_device)
 from multimodal_baby_tpu_torch.models.vision_resnext import (
     DEFAULT_PLAN, ResNeXt50)
-from multimodal_baby_tpu_torch.models.vision_vit import vit_base
+from multimodal_baby_tpu_torch.models.vision_vit import ViTKernels, vit_base
 
 
 class VisionEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
                  device="cuda", generator: torch.Generator | None = None,
-                 fused_plan: Tuple[str, ...] | None = None):
+                 fused_plan: Tuple[str, ...] | None = None,
+                 vit_kernels: ViTKernels | None = None):
         super().__init__()
         v = cfg.vision
         if v.backbone not in ("resnext50", "vit_b14"):
@@ -45,7 +47,8 @@ class VisionEncoder(nn.Module):
         self.cfg = cfg
         if v.vit_dino:  # trunk_int8 is the ResNeXt's, as in the JAX package
             self.model = vit_base(dtype=dtype, frozen=not v.finetune_cnn,
-                                  device=device, generator=generator)
+                                  device=device, generator=generator,
+                                  vit_kernels=vit_kernels)
         else:
             self.model = ResNeXt50(
                 dtype=dtype, frozen=not v.finetune_cnn, device=device,

@@ -1,44 +1,97 @@
 """DINO ViT-B/14 trunk (counterpart of
 ``multimodal_baby_tpu/models/vision_vit.py``): pre-norm blocks, qkv bias,
-erf-GELU MLP of ratio 4, LayerNorm eps 1e-6, a CLS token and learned
-absolute positional embeddings, bicubically resized for off-grid inputs.
+GELU MLP of ratio 4, LayerNorm eps 1e-6, a CLS token and learned absolute
+positional embeddings, bicubically resized for off-grid inputs.
 
 Parameters carry the reference's names (``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.{norm1, attn.qkv, attn.proj,
 norm2, mlp.fc1, mlp.fc2}``, ``norm``), so a reference state dict loads as
-it is. Images come in NHWC, as in the JAX package.
+it is, in every kernel configuration. Images come in NHWC, as in the JAX
+package.
 
 Two paths compute each block:
 
 - the plain path (``forward_plain``): LayerNorm, the Dense layers and
   softmax attention as plain ops in the input's dtype (the JAX package's
   XLA path). In f32 it is the parity mode, on any device;
-- the kernel path: ``ops.attention.fused_block_attention`` (K5) then
-  ``ops.vit_mlp.fused_mlp`` (K6), the hand-written kernels on CUDA and
-  their plain versions on the CPU. ``forward`` casts the input to the
-  compute dtype and takes this path exactly when that is bf16, as the JAX
-  package dispatches both kernels by default.
+- the kernel path, in the configuration of ``ViTKernels`` (the JAX
+  package's ``MMB_FUSED_ATTN``, ``MMB_VIT_MLP``, ``MMB_VIT_BLOCK`` and
+  ``MMB_VIT_GELU``, resolved once when the model is built): by default
+  ``ops.attention.fused_block_attention`` (K5) then
+  ``ops.vit_mlp.fused_mlp`` (K6); the whole block in one kernel (K7,
+  ``ops.vit_block.fused_vit_block``); or LayerNorm 1 and the attention
+  module with K8a, K8b or K8c (``ops.attention``) between the qkv and proj
+  Denses. The kernels run on CUDA and their plain versions on the CPU.
+  ``forward`` casts the input to the compute dtype and takes this path
+  exactly when that is bf16, as the JAX package dispatches its kernels.
 
-The JAX package pads the 257 tokens to 272 for the TPU's sublane tile and
-masks the pad keys; the port runs at 257 tokens, which gives the same
-real-token result. Not ported: ``get_last_selfattention``,
-``get_intermediate_layers``, the int8 Denses and the LN fold.
+The GELU form is part of the function: both paths use it. The JAX package
+pads the 257 tokens to 272 for the TPU's sublane tile and masks the pad
+keys; the port runs at 257 tokens, which gives the same real-token
+result. Not ported: the int8 Denses and the LN fold.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List
+from typing import Iterator, List
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from multimodal_baby_tpu_torch.ops.attention import fused_block_attention
-from multimodal_baby_tpu_torch.ops.vit_common import layer_norm
-from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp
+from multimodal_baby_tpu_torch.ops.attention import (
+    fused_attention, fused_attention_pairs, fused_block_attention,
+    fused_qkv_attention_pairs, should_fuse_attention,
+    should_fuse_attention_pairs, should_fuse_block_attention,
+    should_fuse_qkv_attention_pairs)
+from multimodal_baby_tpu_torch.ops.vit_block import (
+    fused_vit_block, should_fuse_vit_block)
+from multimodal_baby_tpu_torch.ops.vit_common import (
+    GELU_MODES, gelu, layer_norm)
+from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, should_fuse_mlp
 
 LN_EPS = 1e-6
+
+# the JAX package's spellings (MMB_FUSED_ATTN, MMB_VIT_MLP) -> the port's
+ATTN_MODES = {"block": "block", "1": "1", "2": "pairs", "pairs": "pairs",
+              "3": "qkv", "qkv": "qkv", "0": "off", "off": "off"}
+MLP_MODES = {"fused": "fused", "": "off", "off": "off"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTKernels:
+    """The ViT's kernel configuration, checked when it is made.
+
+    ``attn``: ``block`` (K5, the default), ``1`` (K8a on heads-first
+    q, k, v), ``2``/``pairs`` (K8b), ``3``/``qkv`` (K8c, the qkv projection
+    inside) or ``0``/``off`` (plain softmax attention); a mode whose shape
+    gate fails falls through to the next, as in the JAX package.
+    ``mlp``: ``fused`` (K6) or ``""``/``off``. ``whole_block``: K7 for the
+    whole block (the JAX package's ``MMB_VIT_BLOCK=1``), before any other
+    mode. ``gelu``: ``erf``, ``tanh`` or ``sigmoid``. Unknown values raise
+    ValueError; spellings are stored in their port form (``pairs``,
+    ``qkv``, ``off``)."""
+
+    attn: str = "block"
+    mlp: str = "fused"
+    whole_block: bool = False
+    gelu: str = "erf"
+
+    def __post_init__(self):
+        for name, table in (("attn", ATTN_MODES), ("mlp", MLP_MODES)):
+            value = getattr(self, name)
+            if not isinstance(value, str) or value not in table:
+                raise ValueError(f"ViTKernels.{name} must be one of "
+                                 f"{sorted(table)}, got {value!r}")
+            object.__setattr__(self, name, table[value])
+        if not isinstance(self.whole_block, bool):
+            raise ValueError(f"ViTKernels.whole_block must be a bool, got "
+                             f"{self.whole_block!r}")
+        if self.gelu not in GELU_MODES:
+            raise ValueError(f"ViTKernels.gelu must be one of {GELU_MODES}, "
+                             f"got {self.gelu!r}")
 
 
 class LayerNorm(nn.Module):
@@ -59,8 +112,21 @@ def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+def _attention_probs(q, k, scale):
+    """softmax(q k^T scale) of q, k [B, N, H, d] in their dtype, [B, H, N,
+    N]."""
+    return (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).softmax(-1)
+
+
+def _softmax_attention(q, k, v, scale):
+    """Plain softmax attention on [B, N, H, d] in their dtype."""
+    return torch.einsum("bhqk,bkhd->bqhd", _attention_probs(q, k, scale), v)
+
+
 class ViTAttention(nn.Module):
-    """Multi-head self-attention, plain path only."""
+    """Multi-head self-attention: the plain path (``forward``), the
+    kernel-mode dispatch of ``ViTAttention.__call__`` in the JAX package
+    (``forward_kernels``) and the attention probabilities (``probs``)."""
 
     def __init__(self, dim: int, num_heads: int, *, device=None):
         super().__init__()
@@ -72,9 +138,49 @@ class ViTAttention(nn.Module):
         B, N, C = x.shape
         H = self.num_heads
         q, k, v = _dense(x, self.qkv).reshape(B, N, 3, H, C // H).unbind(2)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * (C // H) ** -0.5
-        y = torch.einsum("bhqk,bkhd->bqhd", attn.softmax(-1), v)
+        y = _softmax_attention(q, k, v, (C // H) ** -0.5)
         return _dense(y.reshape(B, N, C), self.proj)
+
+    def probs(self, x: torch.Tensor) -> torch.Tensor:
+        """softmax(q k^T scale) of x's tokens, [B, H, N, N] in x's
+        dtype (the JAX package's ``return_attention``)."""
+        B, N, C = x.shape
+        H = self.num_heads
+        q, k, _ = _dense(x, self.qkv).reshape(B, N, 3, H, C // H).unbind(2)
+        return _attention_probs(q, k, (C // H) ** -0.5)
+
+    def forward_kernels(self, x: torch.Tensor, w: List[torch.Tensor],
+                        mode: str) -> torch.Tensor:
+        """Attention of the LayerNormed x in attention mode ``mode``, on
+        ``w = [wqkv [C, 3C], bqkv, wproj [C, C], bproj]`` in x's dtype: K8c
+        on (x, wqkv, bqkv); or the qkv Dense, then K8b on its column
+        slices, K8a on heads-first views, or plain softmax attention; then
+        the proj Dense. Each kernel needs its mode and its shape gate."""
+        B, N, C = x.shape
+        H = self.num_heads
+        d = C // H
+        scale = d ** -0.5
+        wqkv, bqkv, wproj, bproj = w
+        if mode == "qkv" and should_fuse_qkv_attention_pairs(N, H, d):
+            y = fused_qkv_attention_pairs(x, wqkv, bqkv, H, scale)
+            return F.linear(y, wproj.t(), bproj)
+        qkv = F.linear(x, wqkv.t(), bqkv)
+        if (mode in ("pairs", "qkv", "block")
+                and should_fuse_attention_pairs(N, H, d)):
+            y = fused_attention_pairs(qkv[..., :C], qkv[..., C:2 * C],
+                                      qkv[..., 2 * C:], H, scale)
+            return F.linear(y, wproj.t(), bproj)
+        q, k, v = qkv.reshape(B, N, 3, H, d).unbind(2)       # [B, N, H, d]
+        if mode == "1" and should_fuse_attention(N, d):
+            def heads_first(t):
+                return t.permute(0, 2, 1, 3).reshape(B * H, N, d)
+
+            y = fused_attention(heads_first(q), heads_first(k),
+                                heads_first(v), scale)
+            y = y.reshape(B, H, N, d).permute(0, 2, 1, 3)
+        else:
+            y = _softmax_attention(q, k, v, scale)
+        return F.linear(y.reshape(B, N, C), wproj.t(), bproj)
 
 
 class ViTBlock(nn.Module):
@@ -89,10 +195,14 @@ class ViTBlock(nn.Module):
         self.mlp.fc1 = nn.Linear(dim, hidden, device=device)
         self.mlp.fc2 = nn.Linear(hidden, dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gelu_mode: str = "erf"
+                ) -> torch.Tensor:
         """The plain path."""
-        x = x + self.attn(self.norm1(x))
-        h = F.gelu(_dense(self.norm2(x), self.mlp.fc1))
+        return self._mlp(x + self.attn(self.norm1(x)), gelu_mode)
+
+    def _mlp(self, x: torch.Tensor, gelu_mode: str) -> torch.Tensor:
+        """The plain MLP half."""
+        h = gelu(_dense(self.norm2(x), self.mlp.fc1), gelu_mode)
         return x + _dense(h, self.mlp.fc2)
 
     def kernel_weights(self, dtype: torch.dtype) -> List[torch.Tensor]:
@@ -108,13 +218,29 @@ class ViTBlock(nn.Module):
             t(a.proj.weight), a.proj.bias, self.norm2.weight, self.norm2.bias,
             t(m.fc1.weight), m.fc1.bias, t(m.fc2.weight), m.fc2.bias)]
 
-    def forward_kernels(self, x: torch.Tensor, w: List[torch.Tensor]
-                        ) -> torch.Tensor:
-        """The kernel path on ``kernel_weights(x.dtype)``."""
+    def forward_kernels(self, x: torch.Tensor, w: List[torch.Tensor],
+                        kernels: ViTKernels) -> torch.Tensor:
+        """The kernel path on ``kernel_weights(x.dtype)`` in the
+        configuration ``kernels``, in the order of the JAX package's
+        ``ViTBlock.__call__``: K7 for the whole block; else K5, or LayerNorm
+        1 and the attention module's mode; then K6, or LayerNorm 2, fc1,
+        the GELU and fc2. Each kernel needs its mode and its shape gate."""
+        B, N, C = x.shape
         H = self.attn.num_heads
-        x = fused_block_attention(x, *w[:6], H, (x.shape[-1] // H) ** -0.5,
-                                  None, LN_EPS)
-        return fused_mlp(x, *w[6:], LN_EPS)
+        d = C // H
+        hidden = self.mlp.fc1.out_features
+        scale = d ** -0.5
+        if kernels.whole_block and should_fuse_vit_block(N, H, d, hidden):
+            return fused_vit_block(x, *w, H, scale, None, LN_EPS,
+                                   kernels.gelu)
+        if kernels.attn == "block" and should_fuse_block_attention(N, H, d):
+            x = fused_block_attention(x, *w[:6], H, scale, None, LN_EPS)
+        else:
+            x = x + self.attn.forward_kernels(self.norm1(x), w[2:6],
+                                              kernels.attn)
+        if kernels.mlp == "fused" and should_fuse_mlp(N, C, hidden):
+            return fused_mlp(x, *w[6:], LN_EPS, kernels.gelu)
+        return self._mlp(x, kernels.gelu)
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +275,9 @@ class VisionTransformerDino(nn.Module):
     ``dtype``: compute dtype (None = f32); parameters stay f32.
     ``frozen``: the trunk is not trained; it then runs without autograd and
     casts the kernels' weights once per weight state.
+    ``vit_kernels``: the kernel configuration (None = ``ViTKernels()``,
+    K5 + K6 with the erf GELU); it may be reassigned on a live model,
+    through a setter that takes only a ``ViTKernels``.
     ``generator``: a CPU generator for the seeded init
     (``reset_parameters``)."""
 
@@ -156,8 +285,10 @@ class VisionTransformerDino(nn.Module):
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  base_img_size: int = 224, dtype: torch.dtype | None = None,
                  frozen: bool = True, *, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 vit_kernels: ViTKernels | None = None):
         super().__init__()
+        self.vit_kernels = vit_kernels
         self.patch_size = patch_size
         self.dtype = dtype or torch.float32
         self.frozen = frozen
@@ -176,6 +307,19 @@ class VisionTransformerDino(nn.Module):
         self._kernel_key: tuple | None = None
         self._kernel_weights: List[List[torch.Tensor]] = []
         self.reset_parameters(generator)
+
+    @property
+    def vit_kernels(self) -> ViTKernels:
+        return self._vit_kernels
+
+    @vit_kernels.setter
+    def vit_kernels(self, value: ViTKernels | None) -> None:
+        if value is None:
+            value = ViTKernels()
+        if not isinstance(value, ViTKernels):
+            raise TypeError(f"vit_kernels must be a ViTKernels, got "
+                            f"{value!r}")
+        self._vit_kernels = value
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -240,16 +384,54 @@ class VisionTransformerDino(nn.Module):
         """Every block on the plain path, in x's dtype."""
         return self._run(x, kernels=False)
 
+    def _grad_mode(self):
+        return torch.set_grad_enabled(torch.is_grad_enabled()
+                                      and not self.frozen)
+
+    def _blocks(self, tokens: torch.Tensor, kernels: bool,
+                depth: int | None = None) -> Iterator[torch.Tensor]:
+        """The tokens after each of the first ``depth`` blocks (all by
+        default), on the kernel path of ``vit_kernels`` or the plain
+        path."""
+        weights = self.kernel_weights(tokens.dtype) if kernels else None
+        k = self.vit_kernels
+        for i, blk in enumerate(self.blocks[:depth]):
+            tokens = (blk.forward_kernels(tokens, weights[i], k) if kernels
+                      else blk(tokens, k.gelu))
+            yield tokens
+
     def _run(self, x: torch.Tensor, kernels: bool) -> torch.Tensor:
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not self.frozen):
+        with self._grad_mode():
             tokens = self.prepare_tokens(x)
-            weights = self.kernel_weights(x.dtype) if kernels else None
-            for i, blk in enumerate(self.blocks):
-                tokens = (blk.forward_kernels(tokens, weights[i]) if kernels
-                          else blk(tokens))
+            for tokens in self._blocks(tokens, kernels):
+                pass
             # LayerNorm is per token: normalise only the CLS row
             return self.norm(tokens[:, :1])[:, 0].float()
+
+    def get_last_selfattention(self, x: torch.Tensor) -> torch.Tensor:
+        """The last block's attention probabilities ``[B, H, N, N]``: every
+        block before it as ``forward`` runs them, then the plain attention
+        of the last block's LayerNormed input."""
+        x = x.to(self.dtype)
+        with self._grad_mode():
+            tokens = self.prepare_tokens(x)
+            for tokens in self._blocks(tokens, self.dtype == torch.bfloat16,
+                                       len(self.blocks) - 1):
+                pass
+            last = self.blocks[-1]
+            return last.attn.probs(last.norm1(tokens))
+
+    def get_intermediate_layers(self, x: torch.Tensor, n: int = 1
+                                ) -> List[torch.Tensor]:
+        """The final-LayerNormed tokens ``[B, N, E]`` after each of the
+        last ``n`` blocks, the blocks run as ``forward`` runs them."""
+        x = x.to(self.dtype)
+        depth = len(self.blocks)
+        with self._grad_mode():
+            return [self.norm(tokens) for i, tokens in enumerate(
+                self._blocks(self.prepare_tokens(x),
+                             self.dtype == torch.bfloat16))
+                if depth - i <= n]
 
     def kernel_weights(self, dtype: torch.dtype
                        ) -> List[List[torch.Tensor]]:
@@ -271,8 +453,9 @@ class VisionTransformerDino(nn.Module):
 
 def vit_base(patch_size: int = 14, dtype: torch.dtype | None = None,
              frozen: bool = True, *, device=None,
-             generator: torch.Generator | None = None
-             ) -> VisionTransformerDino:
+             generator: torch.Generator | None = None,
+             vit_kernels: ViTKernels | None = None) -> VisionTransformerDino:
     return VisionTransformerDino(
         patch_size=patch_size, embed_dim=768, depth=12, num_heads=12,
-        dtype=dtype, frozen=frozen, device=device, generator=generator)
+        dtype=dtype, frozen=frozen, device=device, generator=generator,
+        vit_kernels=vit_kernels)

@@ -20,8 +20,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu")
-HEADERS = ("gemm.cuh", "bottleneck.cuh")
+SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "attention.cu",
+           "vit_block.cu")
+HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -86,18 +87,26 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            i64 = ctypes.c_longlong
             lib.mmb_bottleneck_bf16.argtypes = (
                 [ptr] * 12 + [i32] * 7 + [ptr])
             lib.mmb_vit_attention_bf16.argtypes = (
                 [ptr] * 11 + [i32] * 4 + [f32] * 2 + [ptr])
             lib.mmb_vit_mlp_bf16.argtypes = (
-                [ptr] * 10 + [i32] * 3 + [f32, ptr])
+                [ptr] * 10 + [i32] * 4 + [f32, ptr])
+            lib.mmb_attention_bf16.argtypes = (
+                [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32, i32, ptr])
+            lib.mmb_qkv_attention_bf16.argtypes = (
+                [ptr] * 4 + [i32] * 4 + [f32, ptr])
+            lib.mmb_vit_block_bf16.argtypes = (
+                [ptr] * 20 + [i32] * 6 + [f32] * 2 + [ptr])
             lib.mmb_bottleneck_s8.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
             lib.mmb_stage.argtypes = (
                 [i32, i32, ptr, ptr] + [ptr] * 7 + [i32] * 7 + [ptr])
             for fn in (lib.mmb_bottleneck_bf16, lib.mmb_bottleneck_s8,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
-                       lib.mmb_vit_mlp_bf16):
+                       lib.mmb_vit_mlp_bf16, lib.mmb_attention_bf16,
+                       lib.mmb_qkv_attention_bf16, lib.mmb_vit_block_bf16):
                 fn.restype = i32
             lib.mmb_cuda_error_string.argtypes = [i32]
             lib.mmb_cuda_error_string.restype = ctypes.c_char_p

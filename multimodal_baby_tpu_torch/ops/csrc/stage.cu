@@ -40,6 +40,7 @@
 #include <type_traits>
 
 #include "bottleneck.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -75,35 +76,6 @@ struct StageArgs {
   void* out;  // [B, Ho, Wo, cout]
   unsigned* bar;  // two zeroed words: arrivals, generation
 };
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// All blocks of the grid meet here; the writes of each are visible to all
-// after it. The cooperative launch makes every block resident at once.
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned gen = load_acquire(bar + 1);
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (load_acquire(bar + 1) == gen) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 // bf16: two blocks per SM (128 registers a thread), measured 11-13% faster
 // on layer 1 and layer 3's tail than one; int8 keeps one: its downsample
@@ -246,27 +218,12 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
 
 template <bool S8, int CG>
 cudaError_t launch_stage(const StageArgs& p, cudaStream_t stream) {
-  const auto kernel = stage_kernel<S8, CG>;
   constexpr int gemm_smem = S8 ? GEMM8_SMEM : GEMM_SMEM;
   constexpr int conv_smem =
       S8 ? gconv_s8_smem<STAGE_CBM>() : gconv_bf16_smem<STAGE_CBM>();
   constexpr int smem = gemm_smem > conv_smem ? gemm_smem : conv_smem;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, device = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      STAGE_THREADS, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  void* args[] = {const_cast<StageArgs*>(&p)};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3(per_sm * sms), dim3(STAGE_THREADS),
-                                     args, smem, stream);
+  return launch_persistent(stage_kernel<S8, CG>, p, STAGE_THREADS, smem,
+                           stream);
 }
 
 template <bool S8>

@@ -2,7 +2,9 @@
 """Where the PyTorch port's train step spends its time on the card.
 
 Builds one of ``chip_smoke.py``'s slices (seeded random weights, B = 128,
-augment on): the ViT flagship (``vit``), the ResNeXt flagship in bf16 with
+augment on): the ViT flagship (``vit``) in the kernel configuration
+``--vit-kernels`` (``default``: K5 and K6; or one of chip_smoke.py's
+phase-6 configurations, e.g. ``whole_block``), the ResNeXt flagship in bf16 with
 every stage block by block (``resnext``, phase 3), or the published
 ResNeXt recipe, int8 layers 3-4 in the default kernel plan, calibrated
 first (``int8``, phase 5). It runs a few warm-up steps, times steps on the
@@ -12,7 +14,8 @@ step and the device's busy share (kernel time over step time). Run from
 the root of the repository on a machine with an NVIDIA GPU:
 
     python3 scripts/profile_torch_step.py [--slice vit|resnext|int8]
-        [--steps 5]
+        [--vit-kernels default|attn=1|attn=pairs|attn=qkv|whole_block|
+        gelu=tanh] [--steps 5]
 """
 
 from __future__ import annotations
@@ -33,9 +36,13 @@ from multimodal_baby_tpu_torch.train.step import (  # noqa: E402
     calibrate_trunk, init_train_state, make_train_step)
 
 
-def build(which: str):
+def build(which: str, vit_kernels: str):
     if which == "vit":
-        return chip_smoke.build_vit_slice()
+        cfg, model, batch = chip_smoke.build_vit_slice()
+        if vit_kernels != "default":
+            model.vision_encoder.model.vit_kernels = \
+                chip_smoke.VIT_CONFIGS[vit_kernels][0]
+        return cfg, model, batch
     if which == "resnext":
         return chip_smoke.build_resnext_slice(False, ("blocks",) * 4)
     cfg, model, batch = chip_smoke.build_resnext_slice(chip_smoke.MIXED,
@@ -48,13 +55,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--slice", choices=("vit", "resnext", "int8"),
                     default="vit")
+    ap.add_argument("--vit-kernels", default="default",
+                    choices=("default", *chip_smoke.VIT_CONFIGS))
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 1
     print(chip_smoke.card_line(), flush=True)
-    cfg, model, batch = build(args.slice)
+    cfg, model, batch = build(args.slice, args.vit_kernels)
     state = init_train_state(model, cfg)
     step = make_train_step(model, cfg)
     for _ in range(3):
@@ -83,7 +92,9 @@ def main() -> int:
         print("profile_torch_step: the profiler recorded no device time",
               file=sys.stderr)
         return 1
-    print(f"{args.slice} train step B={chip_smoke.BATCH}: {step_ms:.3f} ms "
+    what = args.slice + (f" ({args.vit_kernels})" if args.slice == "vit"
+                         else "")
+    print(f"{what} train step B={chip_smoke.BATCH}: {step_ms:.3f} ms "
           f"without the profiler; device time {kernel_ms:.3f} ms per step; "
           f"busy {100 * kernel_ms / step_ms:.1f}%")
     print(f"{'ms/step':>9} {'calls/step':>10}  kernel")

@@ -1,8 +1,10 @@
-"""The K1, K2, K3a/K3b, K5 and K6 kernels on a CUDA card: against their
-plain versions (K1 at the shapes of tests/test_hwbc_kernels.py, K2 and the
-stage kernel at those of tests/test_quant_trunk.py and
-tests/test_hwbc_kernels.py, K5 and K6 at small, odd and ViT-B shapes, with
-kv_valid) and on the arguments they refuse.
+"""The K1, K2, K3a/K3b, K5, K6, K7 and K8a-c kernels on a CUDA card:
+against their plain versions (K1 at the shapes of
+tests/test_hwbc_kernels.py, K2 and the stage kernel at those of
+tests/test_quant_trunk.py and tests/test_hwbc_kernels.py, the ViT kernels
+at small, odd and ViT-B shapes, with kv_valid, K6 and K7 in every GELU
+form), K7 against K5 then K6 bit for bit, and on the arguments they
+refuse.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -18,13 +20,18 @@ import pytest
 import torch
 
 from multimodal_baby_tpu_torch.ops.attention import (
-    block_attention_reference, fused_block_attention)
+    attention_pairs_reference, attention_reference,
+    block_attention_reference, fused_attention, fused_attention_pairs,
+    fused_block_attention, fused_qkv_attention_pairs,
+    qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
 from multimodal_baby_tpu_torch.ops.quant import (
     bottleneck_reference_q, fold_block_params_q)
 from multimodal_baby_tpu_torch.ops.stage import (
     fused_stage, fused_stage_banded, stage_reference)
+from multimodal_baby_tpu_torch.ops.vit_block import (
+    fused_vit_block, vit_block_reference)
 from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
 
 pytestmark = pytest.mark.gpu
@@ -252,16 +259,130 @@ def test_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid):
     assert_close_bf16(got, want)
 
 
+@pytest.mark.parametrize("gelu", ["erf", "tanh", "sigmoid"])
 @pytest.mark.parametrize("B,N,C,F", [
     (2, 10, 256, 1024), (2, 17, 256, 512), (4, 257, 768, 3072)])
-def test_mlp_kernel_matches_plain_version(cuda, B, N, C, F):
+def test_mlp_kernel_matches_plain_version(cuda, B, N, C, F, gelu):
     x, p = vit_inputs("mlp", B, N, C, F, cuda)
     before = fused_mlp.launches
-    got = fused_mlp(x, *p)
-    want = mlp_reference(x, *p)
+    got = fused_mlp(x, *p, 1e-6, gelu)
+    want = mlp_reference(x, *p, 1e-6, gelu)
     torch.cuda.synchronize()
     assert fused_mlp.launches == before + 1
     assert_close_bf16(got, want)
+
+
+def block_inputs(B, N, C, F, device):
+    """x and the 12 operands of a whole block (K5's then K6's)."""
+    x, pa = vit_inputs("attention", B, N, C, F, device)
+    _, pm = vit_inputs("mlp", B, N + 1, C, F, device)
+    return x, pa + pm
+
+
+@pytest.mark.parametrize("gelu", ["erf", "tanh", "sigmoid"])
+@pytest.mark.parametrize("B,N,C,F,kv_valid", [
+    (2, 10, 256, 1024, 7), (2, 17, 256, 512, None),
+    (4, 257, 768, 3072, None)])
+def test_vit_block_kernel_matches_plain_and_composition(cuda, B, N, C, F,
+                                                        kv_valid, gelu):
+    x, p = block_inputs(B, N, C, F, cuda)
+    heads, scale = C // 64, 64 ** -0.5
+    before = fused_vit_block.launches
+    got = fused_vit_block(x, *p, heads, scale, kv_valid, 1e-6, gelu)
+    want = vit_block_reference(x, *p, heads, scale, kv_valid, 1e-6, gelu)
+    composed = fused_mlp(fused_block_attention(x, *p[:6], heads, scale,
+                                               kv_valid), *p[6:], 1e-6, gelu)
+    torch.cuda.synchronize()
+    assert fused_vit_block.launches == before + 1
+    assert_close_bf16(got, want)
+    # the same tile routines in one launch: K5 then K6 bit for bit
+    assert torch.equal(got.view(torch.int16), composed.view(torch.int16))
+
+
+def attention_inputs(B, N, C, device, qkv_view):
+    """q, k, v [B, N, C] (column slices of one [B, N, 3C] tensor when
+    qkv_view) with scores of order 1."""
+    g = torch.Generator().manual_seed(B + N + C)
+    qkv = (torch.randn(B, N, 3 * C, generator=g) * 0.35).to(device,
+                                                            torch.bfloat16)
+    if qkv_view:
+        return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    return tuple(t.contiguous() for t in qkv.split(C, -1))
+
+
+@pytest.mark.parametrize("B,N,C,kv_valid", [
+    (2, 10, 256, 7), (2, 17, 256, None), (3, 65, 128, 64),
+    (4, 257, 768, None), (1, 752, 256, 700)])
+def test_attention_kernels_match_plain_versions(cuda, B, N, C, kv_valid):
+    """K8a on heads-first copies, K8b on the qkv slices in place."""
+    heads, scale = C // 64, 64 ** -0.5
+    q, k, v = attention_inputs(B, N, C, cuda, True)
+    before = fused_attention_pairs.launches
+    got = fused_attention_pairs(q, k, v, heads, scale, kv_valid)
+    want = attention_pairs_reference(q, k, v, heads, scale, kv_valid)
+    torch.cuda.synchronize()
+    assert fused_attention_pairs.launches == before + 1
+    assert_close_bf16(got, want)
+
+    def heads_first(t):
+        return t.reshape(B, N, heads, 64).transpose(1, 2).reshape(-1, N, 64)
+
+    qh, kh, vh = map(heads_first, (q, k, v))
+    before = fused_attention.launches
+    got = fused_attention(qh, kh, vh, scale, kv_valid)
+    want = attention_reference(qh, kh, vh, scale, kv_valid)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    assert_close_bf16(got, want)
+    # p at f32 grade: K8a is the f32 result rounded once to bf16, give or
+    # take 2e-5 of max |v| (a bf16 p would add ~2^-9 p |v| per key)
+    exact = attention_reference(qh.float(), kh.float(), vh.float(), scale,
+                                kv_valid)
+    slack = (got.float() - exact).abs() - 2 ** -8 * exact.abs()
+    assert float(slack.max()) <= 2e-5 * float(vh.float().abs().max())
+
+
+@pytest.mark.parametrize("B,N,C,kv_valid,bias", [
+    (2, 10, 256, 7, True), (2, 17, 256, None, False), (3, 65, 128, 64, True),
+    (4, 257, 768, None, True), (1, 416, 256, 400, True)])
+def test_qkv_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid,
+                                                    bias):
+    x, p = vit_inputs("attention", B, N, C, 0, cuda)
+    wqkv, bqkv = p[2], (p[3] if bias else None)
+    heads, scale = C // 64, 64 ** -0.5
+    before = fused_qkv_attention_pairs.launches
+    got = fused_qkv_attention_pairs(x, wqkv, bqkv, heads, scale, kv_valid)
+    want = qkv_attention_pairs_reference(x, wqkv, bqkv, heads, scale,
+                                         kv_valid)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention_pairs.launches == before + 1
+    assert_close_bf16(got, want)
+
+
+@pytest.mark.parametrize("bad", ["float32", "heads", "too_long", "stride"])
+def test_attention_kernels_refuse_what_they_cannot_take(cuda, bad):
+    N = {"too_long": 753}.get(bad, 10)
+    q, k, v = attention_inputs(2, N, 256, cuda, True)
+    heads = 8 if bad == "heads" else 4
+    if bad == "float32":
+        q = q.float()
+    elif bad == "stride":  # rows 4 elements apart
+        q = torch.zeros(2, N, 260, dtype=torch.bfloat16,
+                        device=cuda)[..., :256]
+    before = fused_attention_pairs.launches
+    with pytest.raises(ValueError):
+        fused_attention_pairs(q, k, v, heads, 0.125)
+    assert fused_attention_pairs.launches == before
+    x, p = vit_inputs("attention", 2, 417 if bad == "too_long" else 10, 256,
+                      0, cuda)
+    if bad == "float32":
+        x = x.float()
+    elif bad == "stride":  # K8c takes contiguous tensors only
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    before = fused_qkv_attention_pairs.launches
+    with pytest.raises(ValueError):
+        fused_qkv_attention_pairs(x, p[2], p[3], heads, 0.125)
+    assert fused_qkv_attention_pairs.launches == before
 
 
 @pytest.mark.parametrize("bad", ["float32", "heads", "too_long"])

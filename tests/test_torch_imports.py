@@ -22,6 +22,7 @@ MODULES = [
     "multimodal_baby_tpu_torch.ops.vit_common",
     "multimodal_baby_tpu_torch.ops.attention",
     "multimodal_baby_tpu_torch.ops.vit_mlp",
+    "multimodal_baby_tpu_torch.ops.vit_block",
     "multimodal_baby_tpu_torch.models.layers",
     "multimodal_baby_tpu_torch.models.vision_resnext",
     "multimodal_baby_tpu_torch.models.quant_calib",

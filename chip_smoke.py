@@ -90,6 +90,35 @@ Phases (each raises on failure, and the script then exits non-zero):
    swapped for their plain versions on the card and against the plain
    bf16 blocks: per-row cosine >= 0.999 (the cosine against f32 is
    printed). Then the ViT forward and step time of each.
+2e. K9 (``lstm_fused``) against the plain scan at (B, L, H) = (128, 25,
+   512) and (128, 64, 512) with random lengths (max absolute error <= 1e-4
+   on out, h_last and c_last), and K4's forward and backward
+   (``fused_infonce_forward``, ``fused_infonce_backward``) against their
+   plain versions at B = 128 and 1024, E = 512, on unit-norm rows at
+   T = 0.07 (loss relative error <= 1e-5, LSEs absolute 1e-5, accuracies
+   exact, entropies relative 1e-4, gradients atol 1e-4 and rtol 1e-3 of
+   autograd through the plain loss; a repeated backward gives the same
+   bits). Each timed beside its plain version (f32, TF32 off), its library
+   call (cuDNN nn.LSTM over the packed embeddings, which also projects the
+   inputs; torch.matmul with two F.cross_entropy calls, forward and
+   autograd backward) and its f32 bound (67 TFLOP/s).
+7. The LSTM text encoders on phase 5's calibrated published trunk, at
+   B = 128, vocab 2350, E = H = 512, augment on. (a) The LSTM contrastive
+   recipe (dropout_i 0.5, lambda_mm 1), 3 train steps and 1 eval step from
+   the same weights with ``fused_lstm=None`` (the JAX length rule: no K9 at
+   L = 25) and ``fused_lstm=True`` (one K9 launch per forward): eval text
+   features per-row cosine >= 0.9999 and logits >= 0.999 between the two;
+   ``infonce_loss`` (K4, forward and backward) on the eval features equals
+   the eval step's infonce_loss to rtol 1e-5, its gradients those of
+   autograd through the plain loss (atol 1e-4, rtol 1e-3); a biLSTM
+   encoder's eval forward: exactly 2 K9 launches, features against the
+   plain scan cosine >= 0.9999. (b) The joint recipe (lambda_mm = lambda_lm
+   = 0.5, tied head with bias, ``fused_lstm=True``): 3 train steps and 1
+   eval step with the LM cross-entropy and its breakdown printed, then
+   beam search over 8 sequences, width 3, length 25, timed. (c) The LM
+   recipe (lambda_mm 0: no image forward) at L = 64 with
+   ``fused_lstm=None``: the length rule picks K9, one launch per forward.
+   Each run: finite losses, trunk bit-unchanged, heads changed, step time.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -114,7 +143,11 @@ from multimodal_baby_tpu_torch.core.config import (
 from multimodal_baby_tpu_torch.core.constants import MAX_LEN_UTTERANCE
 from multimodal_baby_tpu_torch.data.augment import augment_batch
 from multimodal_baby_tpu_torch.models import vision_resnext, vision_vit
+from multimodal_baby_tpu_torch.models.beam_search import NEG_INF
+from multimodal_baby_tpu_torch.models.losses import (
+    contrastive_loss_from_logits)
 from multimodal_baby_tpu_torch.models.multimodal import CVCL, l2_normalize
+from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
 from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm, ViTKernels
 from multimodal_baby_tpu_torch.ops import _build
@@ -125,6 +158,11 @@ from multimodal_baby_tpu_torch.ops.attention import (
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
+from multimodal_baby_tpu_torch.ops.infonce import (
+    fused_infonce_backward, fused_infonce_forward,
+    fused_infonce_with_metrics, infonce_backward_reference, infonce_loss,
+    infonce_reference)
+from multimodal_baby_tpu_torch.ops.lstm import lstm_fused, scan_reference
 from multimodal_baby_tpu_torch.ops.quant import (
     bottleneck_reference_q, fold_block_params_q)
 from multimodal_baby_tpu_torch.ops.stage import (
@@ -570,6 +608,182 @@ def phase_vit_more_kernels():
     return out
 
 
+# ---------------------------------------------------------------- phase 2e
+
+PEAK_FLOPS_F32 = 67e12  # H100 SXM f32 outside the tensor cores, at 700 W
+LSTM_H = 512            # CVCL's hidden width (= the embedding width)
+LM_LEN = 64             # the JAX package's length rule: K9 from 64 steps
+INFONCE_E = 512
+INFONCE_BATCHES = (BATCH, 1024)  # the slice's batch; MAX_FUSED_BATCH
+
+
+def lstm_case(gen, B, L, H):
+    """K9's inputs at (B, L, H) with the lengths make_batch gives (1 to L),
+    the time-major input projection of N(0, 1) embeddings, and cuDNN's
+    nn.LSTM with the same weights over the packed embeddings (the library
+    call, which also does the input projection)."""
+    k = 1.0 / math.sqrt(H)
+
+    def u(*shape):
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * k
+
+    lens = torch.randint(1, L + 1, (B,), generator=gen)
+    lens[0] = L
+    w_ih, w_hh, b_ih, b_hh = u(4 * H, H), u(4 * H, H), u(4 * H), u(4 * H)
+    emb = torch.randn(B, L, H, generator=gen)
+    h0, c0 = 0.1 * torch.randn(B, H, generator=gen), torch.zeros(B, H)
+    lib = torch.nn.LSTM(H, H, batch_first=True)
+    with torch.no_grad():
+        for name, w in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                        ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+            getattr(lib, name).copy_(w)
+    lib = lib.cuda()
+    emb, h0, c0 = emb.cuda(), h0.cuda(), c0.cuda()
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        emb, lens, batch_first=True, enforce_sorted=False)
+    x_proj = (emb @ w_ih.cuda().T + (b_ih + b_hh).cuda()).transpose(0, 1)
+    mask = (torch.arange(L)[:, None] < lens[None, :]).float().cuda()
+    args = (x_proj.contiguous(), mask, w_hh.T.contiguous().cuda(), h0, c0)
+    return args, (lambda: lib(packed, (h0[None], c0[None]))), lens
+
+
+def lstm_cost(L, B, H, lens):
+    """(flops, bytes) K9 needs: the h W_hh products of the valid steps (the
+    gates' few operations per unit are left out), each input read once and
+    each output written once, in f32."""
+    flops = 2 * int(lens.sum()) * H * 4 * H
+    nbytes = 4 * (L * B * 4 * H + L * B + H * 4 * H + 2 * B * H
+                  + L * B * H + 2 * B * H)
+    return flops, nbytes
+
+
+def phase_lstm_kernel():
+    gen = torch.Generator().manual_seed(7)
+    res = {"max_abs_err": 0.0}
+    for L in (MAX_LEN_UTTERANCE, LM_LEN):
+        args, library, lens = lstm_case(gen, BATCH, L, LSTM_H)
+        with torch.no_grad():
+            got = lstm_fused(*args)
+            want = scan_reference(*args)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("out", "h_last", "c_last"), got, want):
+                err = float((g - w).abs().max())
+                log(f"  K9 B={BATCH} L={L} H={LSTM_H} {name} "
+                    f"{tuple(g.shape)}: max_abs_err {err:.3g}")
+                if not err <= 1e-4:
+                    raise AssertionError(f"K9 L={L} {name}: max abs err "
+                                         f"{err:.3g} > 1e-4")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+            out_lib, _ = library()
+            unpacked, _ = torch.nn.utils.rnn.pad_packed_sequence(
+                out_lib, batch_first=True, total_length=L)
+            lib_err = float((unpacked.transpose(0, 1) - want[0]).abs().max())
+            log(f"  cuDNN nn.LSTM against the plain scan: max abs err "
+                f"{lib_err:.3g}")
+            kms, pms, lms = time_in_turns(lambda: lstm_fused(*args),
+                                          lambda: scan_reference(*args),
+                                          library, 20)
+        flops, nbytes = lstm_cost(L, BATCH, LSTM_H, lens)
+        b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_F32)
+        log(f"  K9 B={BATCH} L={L} H={LSTM_H} ({int(lens.sum())} valid "
+            f"steps): kernel {kms:.3f} ms, plain scan {pms:.3f} ms, cuDNN "
+            f"nn.LSTM {lms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); kernel "
+            f"{flops / kms / 1e9:.2f} TFLOP/s")
+        if L == MAX_LEN_UTTERANCE:  # the slice's window
+            res.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=b_ms,
+                       bound_by=b_by)
+    return res
+
+
+def infonce_library(img, txt, nlt):
+    """torch.matmul and two F.cross_entropy calls: (forward, backward by
+    autograd on a graph built once)."""
+    labels = torch.arange(img.shape[0], device=img.device)
+
+    def loss_of(i, t, n):
+        logits = n.exp() * (i @ t.T)
+        return (F.cross_entropy(logits, labels)
+                + F.cross_entropy(logits.T, labels)) / 2
+
+    leaves = [x.clone().requires_grad_() for x in (img, txt, nlt)]
+    loss = loss_of(*leaves)
+    return (lambda: loss_of(img, txt, nlt),
+            lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
+
+
+def phase_infonce_kernels():
+    gen = torch.Generator().manual_seed(8)
+    nlt = torch.tensor(math.log(1 / 0.07), device="cuda")
+    out = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
+    for B in INFONCE_BATCHES:
+        E = INFONCE_E
+        x = torch.randn(2, B, E, generator=gen)
+        img, txt = (l2_normalize(x, dim=-1)).cuda().unbind(0)
+        g = torch.tensor(1.0, device="cuda")
+        loss, lse_i, lse_t, metrics = fused_infonce_forward(img, txt, nlt)
+        leaves = [t.clone().requires_grad_() for t in (img, txt, nlt)]
+        loss_w, lse_i_w, lse_t_w, m_w = infonce_reference(*leaves)
+        grads_w = torch.autograd.grad(loss_w, leaves)
+        grads = fused_infonce_backward(img, txt, nlt, lse_i, lse_t, g)
+        torch.cuda.synchronize()
+        loss_w, lse_i_w, lse_t_w = (t.detach()
+                                    for t in (loss_w, lse_i_w, lse_t_w))
+        rel = abs(float(loss) - float(loss_w)) / abs(float(loss_w))
+        lse_err = max(float((lse_i - lse_i_w).abs().max()),
+                      float((lse_t - lse_t_w).abs().max()))
+        acc_same = torch.equal(metrics[:2], m_w[:2])
+        ent_rel = float(((metrics[2:] - m_w[2:]).abs() / m_w[2:].abs()).max())
+        log(f"  K4 forward B={B} E={E}: loss {float(loss):.6f} rel err "
+            f"{rel:.3g}, lse max abs err {lse_err:.3g}, accuracies "
+            f"{metrics[:2].tolist()} (plain {m_w[:2].tolist()}), entropies "
+            f"rel err {ent_rel:.3g}")
+        if not (rel <= 1e-5 and lse_err <= 1e-5 and acc_same
+                and ent_rel <= 1e-4):
+            raise AssertionError(f"K4 forward B={B} against its plain version")
+        bwd_err = 0.0
+        for name, a, w in zip(("d_img", "d_txt", "d_neg_log_temp"), grads,
+                              grads_w):
+            err = float((a - w).abs().max())
+            bwd_err = max(bwd_err, err)
+            log(f"  K4 backward B={B} {name} {tuple(a.shape)}: max abs err "
+                f"{err:.3g}")
+            if not torch.allclose(a, w, atol=1e-4, rtol=1e-3):
+                raise AssertionError(f"K4 backward B={B} {name}: outside "
+                                     f"atol 1e-4, rtol 1e-3")
+        again = fused_infonce_backward(img, txt, nlt, lse_i, lse_t, g)
+        if not all(torch.equal(a, b) for a, b in zip(again, grads)):
+            raise AssertionError(f"K4 backward B={B}: a repeated call gave "
+                                 f"other bits")
+        out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"],
+                                        abs(float(loss) - float(loss_w)),
+                                        lse_err)
+        out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], bwd_err)
+
+        lib_fwd, lib_bwd = infonce_library(img, txt, nlt)
+        with torch.no_grad():
+            fwd = time_in_turns(
+                lambda: fused_infonce_forward(img, txt, nlt),
+                lambda: infonce_reference(img, txt, nlt), lib_fwd, 20)
+            bwd = time_in_turns(
+                lambda: fused_infonce_backward(img, txt, nlt, lse_i, lse_t,
+                                               g),
+                lambda: infonce_backward_reference(img, txt, nlt, lse_i,
+                                                   lse_t, g), lib_bwd, 20)
+        act = 4 * 2 * B * E  # bytes of img and txt in f32
+        costs = {"fwd": (2 * B * B * E, act + 4 * (2 * B + 5)),
+                 "bwd": (6 * B * B * E, 2 * act + 4 * (2 * B + 3))}
+        for (key, (flops, nbytes)), (kms, pms, lms) in zip(costs.items(),
+                                                           (fwd, bwd)):
+            b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_F32)
+            log(f"  K4 {key} B={B} E={E}: kernel {kms:.4f} ms, plain "
+                f"{pms:.4f} ms, library {lms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}); kernel {flops / kms / 1e9:.2f} TFLOP/s")
+            if B == BATCH:  # the slice's batch
+                out[key].update(ms=kms, plain_ms=pms, library_ms=lms,
+                                bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
 # ---------------------------------------------------------------- phase 2c
 
 # the int8 blocks of layers 3-4 at 224 px: (name, H, Cin, width, Cout,
@@ -873,10 +1087,11 @@ def build_vit_slice():
     return cfg, model, make_batch(np.random.RandomState(0), BATCH)
 
 
-def drive(model, cfg, batch, launch_counters):
+def drive(model, cfg, batch, launch_counters, show=()):
     """TRAIN_STEPS train steps then one eval step, the kernel launch counts
     (``(wrapper, attribute)`` pairs) set to 0 just before and read just
-    after. Returns (state, train_step, launches per counter)."""
+    after; the train steps' metrics named in ``show`` are printed. Returns
+    (state, train_step, launches per counter)."""
     state = init_train_state(model, cfg)
     train_step = make_train_step(model, cfg)
     eval_step = make_eval_step(model, cfg)
@@ -884,11 +1099,13 @@ def drive(model, cfg, batch, launch_counters):
     for fn, attr in launch_counters:
         setattr(fn, attr, 0)
     t0 = time.perf_counter()
-    losses = [float(train_step(state, batch)["loss"])
-              for _ in range(TRAIN_STEPS)]
+    metrics = [train_step(state, batch) for _ in range(TRAIN_STEPS)]
     eval_loss = float(eval_step(batch)["loss"])
     torch.cuda.synchronize()
     launches = [getattr(fn, attr) for fn, attr in launch_counters]
+    losses = [float(m["loss"]) for m in metrics]
+    for k in show:
+        log(f"  {k} {[round(float(m[k]), 6) for m in metrics]}")
     log(f"  losses {losses}, eval loss {eval_loss:.5f} "
         f"({time.perf_counter() - t0:.2f} s for the first {TRAIN_STEPS} "
         f"steps + eval, weight preparation included)")
@@ -939,10 +1156,10 @@ def time_steps(state, train_step, batch, what):
         f"{BATCH / step_s:.1f} pairs/s")
 
 
-def build_resnext_slice(trunk_int8, fused_plan):
-    """(cfg, model, batch) of the ResNeXt flagship with seeded weights and
-    non-trivial BN statistics (so the fold matters)."""
-    cfg = flagship_cfg(vit=False, trunk_int8=trunk_int8)
+def build_resnext_slice(trunk_int8, fused_plan, cfg=None):
+    """(cfg, model, batch) of the ResNeXt flagship (or of ``cfg``) with
+    seeded weights and non-trivial BN statistics (so the fold matters)."""
+    cfg = cfg or flagship_cfg(vit=False, trunk_int8=trunk_int8)
     gen = torch.Generator().manual_seed(0)
     model = CVCL(cfg.model, dtype=torch.bfloat16, device="cuda",
                  generator=gen, fused_plan=fused_plan)
@@ -1218,6 +1435,200 @@ def phase_published_flagship():
     return launches
 
 
+# ------------------------------------------------------------------ phase 7
+
+def recipe_cfg(lambda_mm: float, lambda_lm: float) -> ExperimentConfig:
+    """configs/saycam_contrastive.py with the lstm text encoder (lambda_mm
+    1), saycam_joint.py (0.5 and 0.5) or saycam_lm.py (lambda_lm 1) on
+    phase 5's published trunk: dropout_i 0.5 (configs/_base.py), flat
+    head, fixed T = 0.07, tied LM head with bias, unused terms skipped."""
+    cfg = flagship_cfg(vit=False, trunk_int8=MIXED)
+    cfg.model.text = TextConfig(text_encoder="lstm", dropout_i=0.5)
+    cfg.train.lambda_mm, cfg.train.lambda_lm = lambda_mm, lambda_lm
+    cfg.train.optimize_unused = True
+    return cfg
+
+
+def build_lstm_slice():
+    """(cfg, model, batch) of phase 7a: the published trunk, seeded and
+    calibrated as in phase 5, with the LSTM text encoder."""
+    cfg, model, batch = build_resnext_slice(MIXED, None, recipe_cfg(1.0, 0.0))
+    calibrate_trunk(model, batch)
+    return cfg, model, batch
+
+
+def lstm_heads(model):
+    named = dict(model.named_parameters())
+    return {k: named[k].detach().clone() for k in (
+        "vision_encoder.model.fc.weight", "text_encoder.embedding.weight",
+        "text_encoder.lstm.weight_hh_l0", "language_model.output_layer.bias")}
+
+
+def make_lm_batch(rng, b, length):
+    """Token ids in a window of ``length`` steps: SOS, words, EOS, PAD."""
+    text = np.zeros((b, length), np.int64)
+    lens = rng.randint(1, length - 1, b)
+    lens[0] = length - 2
+    text[:, 0] = 2
+    for i, n in enumerate(lens):
+        text[i, 1:1 + n] = rng.randint(4, VOCAB, n)
+        text[i, 1 + n] = 3
+    return {"text": torch.from_numpy(text).cuda(),
+            "text_len": torch.from_numpy(lens + 2).cuda()}
+
+
+def phase_lstm_slice():
+    """7a: the LSTM contrastive recipe with fused_lstm None and True from
+    the same weights, gated against each other; the biLSTM; infonce_loss
+    (K4) on the eval features. 7b: the joint recipe and beam search. 7c:
+    the LM recipe at L = 64. Returns the K9 launches and K4's forward and
+    backward launches, counted from 0 over the whole phase."""
+    cfg, model, batch = build_lstm_slice()
+    frozen, _ = frozen_and_heads(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    forwards = TRAIN_STEPS + 1
+    counters = [(lstm_fused, "launches"),
+                (fused_infonce_with_metrics, "launches"),
+                (fused_infonce_with_metrics, "launches_bwd")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    total = [0, 0, 0]
+    img_eval = augment_batch(batch["image_u8"], augment=False,
+                             dtype=torch.bfloat16)
+    evals = {}
+    for fused in (None, True):
+        log(f"  -- 7a lstm contrastive, fused_lstm={fused}")
+        model.load_state_dict(start)
+        model.text_encoder.fused_lstm = fused
+        heads = lstm_heads(model)
+        del heads["language_model.output_layer.bias"]  # no LM term
+        state, train_step, (k9,) = drive(model, cfg, batch,
+                                         [(lstm_fused, "launches")])
+        want = forwards if fused else 0
+        log(f"  K9 launches {k9} over {forwards} forwards")
+        if k9 != want:
+            raise AssertionError(f"fused_lstm={fused}: K9 launched {k9} "
+                                 f"times, expected {want}")
+        total[0] += k9
+        check_frozen_and_heads(model, frozen, heads)
+        with torch.no_grad():
+            out = model.joint_forward(img_eval, batch["text"],
+                                      batch["text_len"])
+            txt, _ = model.encode_text(batch["text"], batch["text_len"])
+            metrics = make_eval_step(model, cfg)(batch)
+        evals[fused] = (out["image_features"], txt, out["logits_per_image"],
+                        metrics)
+        time_steps(state, train_step, batch, f"LSTM fused_lstm={fused}")
+    (_, txt0, log0, _), (img1, txt1, log1, m1) = evals[None], evals[True]
+    for what, a, b, tol in (("text features", txt1, txt0, COS_TOL),
+                            ("logits", log1, log0, SLICE_COS_TOL)):
+        cos = row_cosines(a, b)
+        log(f"  eval {what}: fused_lstm=True against None: per-row cos min "
+            f"{float(cos.min()):.7f} (gate >= {tol})")
+        if not (torch.isfinite(a).all() and float(cos.min()) >= tol):
+            raise AssertionError(f"7a eval {what}: cosine "
+                                 f"{float(cos.min()):.7f} < {tol}")
+
+    # K4 through the entry point on 7a's eval features
+    nlt = model.logit_neg_log_temperature.detach()
+    leaves = [t.detach().clone().requires_grad_() for t in (img1, txt1, nlt)]
+    loss_k = infonce_loss(*leaves)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    plain = [t.detach().clone().requires_grad_() for t in (img1, txt1, nlt)]
+    logits = plain[2].exp() * (plain[0] @ plain[1].T)
+    loss_p, _ = contrastive_loss_from_logits(logits, logits.T)
+    grads_p = torch.autograd.grad(loss_p, plain)
+    step_loss = float(m1["infonce_loss"])
+    rel = abs(float(loss_k) - step_loss) / abs(step_loss)
+    log(f"  infonce_loss (K4) on the eval features {float(loss_k):.7f}, the "
+        f"eval step's infonce_loss {step_loss:.7f}: rel err {rel:.3g}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"K4 loss {float(loss_k)} != the step's "
+                             f"{step_loss}")
+    for name, a, b in zip(("d_img", "d_txt", "d_neg_log_temp"), grads_k,
+                          grads_p):
+        err = float((a - b).abs().max())
+        log(f"  K4 {name} against autograd through the plain loss: max abs "
+            f"err {err:.3g}")
+        if not torch.allclose(a, b, atol=1e-4, rtol=1e-3):
+            raise AssertionError(f"K4 {name}: outside atol 1e-4, rtol 1e-3")
+
+    # the biLSTM encoder: one eval forward, both directions through K9
+    bi_cfg = recipe_cfg(1.0, 0.0)
+    bi_cfg.model.text.text_encoder = "bilstm"
+    bi = TextEncoder(bi_cfg.model, device="cuda",
+                     generator=torch.Generator().manual_seed(3),
+                     fused_lstm=True)
+    before = lstm_fused.launches
+    with torch.no_grad():
+        feats, _ = bi(batch["text"], batch["text_len"])
+        n_bi = lstm_fused.launches - before
+        bi.fused_lstm = False
+        feats_plain, _ = bi(batch["text"], batch["text_len"])
+    cos = row_cosines(feats, feats_plain)
+    log(f"  biLSTM eval forward: {n_bi} K9 launches; features against the "
+        f"plain scan: per-row cos min {float(cos.min()):.7f}")
+    if n_bi != 2 or float(cos.min()) < COS_TOL:
+        raise AssertionError(f"biLSTM: {n_bi} K9 launches (expected 2), "
+                             f"cos {float(cos.min()):.7f}")
+    total[0] += n_bi
+
+    log("  -- 7b joint recipe (lambda_mm = lambda_lm = 0.5), fused_lstm=True")
+    cfg_b = recipe_cfg(0.5, 0.5)
+    model.load_state_dict(start)
+    model.text_encoder.fused_lstm = True
+    heads = lstm_heads(model)
+    state, train_step, (k9,) = drive(model, cfg_b, batch,
+                                     [(lstm_fused, "launches")],
+                                     show=("infonce_loss", "ce_loss",
+                                           "ce_loss_wo_sos",
+                                           "ce_loss_wo_sos_eos", "n_tokens"))
+    log(f"  K9 launches {k9} over {forwards} forwards")
+    if k9 != forwards:
+        raise AssertionError(f"7b: K9 launched {k9} times, expected "
+                             f"{forwards}")
+    total[0] += k9
+    check_frozen_and_heads(model, frozen, heads)
+    time_steps(state, train_step, batch, "joint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq, scores = model.beam_search_decode(8, beam_width=3, decode_length=25)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    # a row returns its finished hypotheses, padded with empty slots
+    # (score NEG_INF), or its alive beams when none finished
+    found = int((scores > NEG_INF / 2).sum())
+    log(f"  beam search, 8 sequences, width 3, length 25: {beam_s * 1e3:.1f} "
+        f"ms; best: {seq[0, 0, :12].tolist()}..., best scores "
+        f"{scores[:, 0].tolist()}; {found} of 24 slots hold a hypothesis")
+    if not (seq.shape == (8, 3, 26) and bool((seq[:, 0, 0] == 2).all())
+            and bool((scores[:, 0] > NEG_INF / 2).all())):
+        raise AssertionError(f"beam search: {tuple(seq.shape)}, scores "
+                             f"{scores.tolist()}")
+
+    log(f"  -- 7c LM recipe (lambda_mm = 0) at L = {LM_LEN}, fused_lstm=None")
+    cfg_c = recipe_cfg(0.0, 1.0)
+    model.load_state_dict(start)
+    model.text_encoder.fused_lstm = None
+    heads = lstm_heads(model)
+    lm_batch = make_lm_batch(np.random.RandomState(5), BATCH, LM_LEN)
+    state, train_step, (k9,) = drive(model, cfg_c, lm_batch,
+                                     [(lstm_fused, "launches")],
+                                     show=("ce_loss", "n_tokens"))
+    log(f"  K9 launches {k9} over {forwards} forwards")
+    if k9 != forwards:
+        raise AssertionError(f"7c: K9 launched {k9} times, expected "
+                             f"{forwards}")
+    total[0] += k9
+    check_frozen_and_heads(model, frozen, heads)
+    time_steps(state, train_step, lm_batch, f"LM L={LM_LEN}")
+    total[1:] = [fused_infonce_with_metrics.launches,
+                 fused_infonce_with_metrics.launches_bwd]
+    log(f"  phase 7 launches: K9 {total[0]}, K4 forward {total[1]}, K4 "
+        f"backward {total[2]}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1261,6 +1672,12 @@ def main() -> int:
     log("phase 6: the ViT slice in its other kernel configurations")
     for name, n in phase_vit_configs(*vit).items():
         vit_kernels[name]["launches"] = n
+    log("phase 2e: K9 and K4 against their plain versions")
+    k9 = phase_lstm_kernel()
+    k4 = phase_infonce_kernels()
+    log("phase 7: the LSTM text encoders and their language model")
+    (k9["launches"], k4["fwd"]["launches"],
+     k4["bwd"]["launches"]) = phase_lstm_slice()
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"
@@ -1280,7 +1697,13 @@ def main() -> int:
             ("fused_attention_pairs", "attention.cu",
              "multimodal_baby_tpu/ops/attention.py:239", vit_kernels["K8b"]),
             ("fused_qkv_attention_pairs", "attention.cu",
-             "multimodal_baby_tpu/ops/attention.py:392", vit_kernels["K8c"])]
+             "multimodal_baby_tpu/ops/attention.py:392", vit_kernels["K8c"]),
+            ("fused_infonce_forward", "infonce.cu",
+             "multimodal_baby_tpu/ops/infonce.py:145", k4["fwd"]),
+            ("fused_infonce_backward", "infonce.cu",
+             "multimodal_baby_tpu/ops/infonce.py:171", k4["bwd"]),
+            ("lstm_fused", "lstm.cu", "multimodal_baby_tpu/ops/lstm.py:147",
+             k9)]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -102,11 +102,21 @@ def vit_state_dict(params: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def text_encoder_state_dict(params: Tree, prefix: str = "text_encoder."
                             ) -> Dict[str, np.ndarray]:
-    """Inverse of ``convert_text_encoder`` for the embedding and
-    transformer encoders (the learned pos-embed in the reference layout
-    ``[L, 1, E]``)."""
+    """Inverse of ``convert_text_encoder`` (and its ``_lstm_dir``) for every
+    text encoder: the token embedding, the LSTM directions (torch layout
+    ``[4H, in]``, the backward one with the suffix ``_reverse``), the
+    transformer layer and its learned pos-embed (reference layout
+    ``[L, 1, E]``), the captioning ``connector``, the additive
+    ``attention`` and its gate."""
     p = prefix
     sd = {f"{p}embedding.weight": np.asarray(params["token_embedding"])}
+    for name, suffix in (("lstm_fwd", ""), ("lstm_bwd", "_reverse")):
+        if name in params:
+            lp = params[name]
+            for w in ("weight_ih", "weight_hh"):
+                sd[f"{p}lstm.{w}_l0{suffix}"] = np.asarray(lp[w]).T
+            for b in ("bias_ih", "bias_hh"):
+                sd[f"{p}lstm.{b}_l0{suffix}"] = np.asarray(lp[b])
     if "transformer_layer" in params:
         tl, lp = params["transformer_layer"], f"{p}transformer_encoder.layers.0"
         sd[f"{lp}.self_attn.in_proj_weight"] = np.asarray(
@@ -119,6 +129,14 @@ def text_encoder_state_dict(params: Tree, prefix: str = "text_encoder."
         _ln(sd, f"{lp}.norm2", tl["norm2"])
     if "pos_embed" in params:
         sd[f"{p}pos_embed"] = np.asarray(params["pos_embed"])[:, None]
+    if "connector" in params:
+        _linear(sd, f"{p}connector", params["connector"])
+    for name in ("encoder_projection", "decoder_projection", "attn_layer"):
+        if name in params.get("attention", {}):
+            _linear(sd, f"{p}attention.{name}", params["attention"][name])
+    if "attention_gate_projection" in params:
+        _linear(sd, f"{p}attention_gate_projection",
+                params["attention_gate_projection"])
     return sd
 
 
@@ -126,8 +144,8 @@ def cvcl_state_dict(params: Tree, batch_stats: Tree, vit: bool = False,
                     quant_scales: Tree | None = None
                     ) -> Dict[str, np.ndarray]:
     """Inverse of ``convert_cvcl_checkpoint`` for the port's CVCL: a
-    ResNeXt-50 (``vit=False``) or ViT-B/14 trunk, the flat head, and the
-    embedding or transformer text encoder (read from the tree).
+    ResNeXt-50 (``vit=False``) or ViT-B/14 trunk, its head, the text
+    encoder (read from the tree) and the LM head.
     ``quant_scales`` is the JAX model's "quant_scales" collection (an int8
     trunk plan's activation ranges)."""
     vis = params["vision_encoder"]

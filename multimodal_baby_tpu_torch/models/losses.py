@@ -1,10 +1,14 @@
-"""Contrastive loss (counterpart of ``multimodal_baby_tpu/models/losses.py``)."""
+"""The losses (counterpart of ``multimodal_baby_tpu/models/losses.py``):
+symmetric InfoNCE, the LM cross-entropy and the attention regulariser."""
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from multimodal_baby_tpu_torch.core.constants import (
+    EOS_TOKEN_ID, PAD_TOKEN_ID, SOS_TOKEN_ID)
 
 
 def get_entropy(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -57,3 +61,39 @@ def contrastive_loss_from_logits(
         "text_entropy": wmean(get_entropy(logits_per_text)),
     }
     return infonce, metrics
+
+
+def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                     weight: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tokenwise CE of logits [B, L, V] against labels [B, L], PAD ignored
+    (``ignore_index``); ``weight`` [V] weights each class. Returns (ce
+    [B, L], zero at PAD; mask [B, L])."""
+    ce = cross_entropy_with_int_labels(logits, labels)
+    if weight is not None:
+        ce = ce * weight[labels]
+    mask = labels != PAD_TOKEN_ID
+    return torch.where(mask, ce, 0.0), mask
+
+
+def lm_loss_breakdown(ce: torch.Tensor, labels: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+    """Means of ``ce`` over the tokens, then without SOS, then without SOS
+    and EOS, with the token counts."""
+    mask = labels != PAD_TOKEN_ID
+    n = mask.sum()
+    out = {"ce_loss": ce.sum() / n, "n_tokens": n}
+    mask = mask & (labels != SOS_TOKEN_ID)
+    n = mask.sum()
+    out.update(ce_loss_wo_sos=(ce * mask).sum() / n, n_tokens_wo_sos=n)
+    mask = mask & (labels != EOS_TOKEN_ID)
+    n = mask.sum()
+    out.update(ce_loss_wo_sos_eos=(ce * mask).sum() / n,
+               n_tokens_wo_sos_eos=n)
+    return out
+
+
+def attn_reg_loss(attns: torch.Tensor) -> torch.Tensor:
+    """((sum over steps of attn - 1)^2).mean(): each spatial position's
+    total attention over the utterance near 1."""
+    return ((attns.sum(dim=1) - 1.0) ** 2).mean()

@@ -1,32 +1,39 @@
-"""CVCL dual encoder (counterpart of
-``multimodal_baby_tpu/models/multimodal.py``): the contrastive half, with
-flat similarity.
+"""CVCL dual encoder and language model (counterpart of
+``multimodal_baby_tpu/models/multimodal.py``): the contrastive half with
+flat similarity, and the LM half (the head over the text encoder's
+per-step outputs, the joint forward of the train step, and beam-search
+decoding).
 
 Parameter names follow the reference's Lightning checkpoint, so
 ``multimodal_baby_tpu/api/convert.py::convert_cvcl_checkpoint`` maps this
 module's ``state_dict()`` to the JAX package's parameter tree:
 ``vision_encoder.model.{conv1,bn1,layerS.B.*,fc}`` (ResNeXt-50) or
 ``vision_encoder.model.{patch_embed,cls_token,pos_embed,blocks.*,norm,head}``
-(ViT-B/14), ``text_encoder.{embedding.weight,transformer_encoder.*,
-pos_embed}``, ``model.logit_neg_log_temperature``
-(learned temperature only) and ``language_model.output_layer.{weight,bias}``
-(weight only when untied). The LM head is held for the state dict and the
-optimizer; the slice runs no LM forward.
+(ViT-B/14), ``text_encoder.*`` (``models/text.py``),
+``model.logit_neg_log_temperature`` (learned temperature only) and
+``language_model.output_layer.{weight,bias}`` (weight only when untied:
+tied, the head reads the token embedding).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.core.config import ModelConfig
+from multimodal_baby_tpu_torch.core.constants import (
+    EOS_TOKEN_ID, SOS_TOKEN_ID)
+from multimodal_baby_tpu_torch.models.beam_search import beam_search
 from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision import VisionEncoder
 from multimodal_baby_tpu_torch.models.vision_vit import ViTKernels
+
+Tensor = torch.Tensor
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -59,12 +66,15 @@ class CVCL(nn.Module):
     where there is none raises. ``generator`` is a CPU generator for the
     seeded init. ``fused_plan`` is the ResNeXt trunk's kernel plan (None:
     the JAX package's default), ``vit_kernels`` the ViT trunk's kernel
-    configuration (None: ``ViTKernels()``)."""
+    configuration (None: ``ViTKernels()``), ``fused_lstm`` the LSTM text
+    encoders' recurrence kernel rule (None, True or False; see
+    ``models/layers.py::use_fused_lstm``)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
                  device="cuda", generator: torch.Generator | None = None,
                  fused_plan: Tuple[str, ...] | None = None,
-                 vit_kernels: ViTKernels | None = None):
+                 vit_kernels: ViTKernels | None = None,
+                 fused_lstm: bool | None = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -72,8 +82,9 @@ class CVCL(nn.Module):
                                             generator=generator,
                                             fused_plan=fused_plan,
                                             vit_kernels=vit_kernels)
-        self.text_encoder = TextEncoder(cfg, device=device,
-                                        generator=generator)
+        self.text_encoder = TextEncoder(
+            cfg, cfg.vision.last_out_dim, device=device, generator=generator,
+            fused_lstm=fused_lstm)
         init_val = -math.log(cfg.temperature)
         if cfg.fix_temperature:
             self.register_buffer(
@@ -97,7 +108,7 @@ class CVCL(nn.Module):
     def encode_image(self, image: torch.Tensor, train: bool = False):
         features, feature_map = self.vision_encoder(image, train=train)
         if self.cfg.normalize_features:
-            features = l2_normalize(features, dim=1)
+            features = l2_normalize(features, dim=-1)
         return features, feature_map
 
     def encode_text(self, text: torch.Tensor, text_length: torch.Tensor,
@@ -111,6 +122,10 @@ class CVCL(nn.Module):
 
     def similarity(self, image_features: torch.Tensor,
                    text_features: torch.Tensor) -> torch.Tensor:
+        if self.cfg.embedding_type != "flat":
+            raise NotImplementedError(
+                "the port's similarity is flat; the spatial mean and max "
+                "similarities are not ported")
         return image_features @ text_features.T
 
     def logit_scale(self) -> torch.Tensor:
@@ -126,24 +141,136 @@ class CVCL(nn.Module):
             ret = ret + (out["image_features"], out["image_feature_map"])
         return ret
 
-    def joint_forward(self, image: torch.Tensor, text: torch.Tensor,
-                      text_length: torch.Tensor, train: bool = False,
-                      generator: torch.Generator | None = None
-                      ) -> Dict[str, torch.Tensor]:
-        """The contrastive outputs the train and eval steps need. In
+    def joint_forward(self, image: Optional[Tensor], text: Tensor,
+                      text_length: Tensor, train: bool = False,
+                      generator: torch.Generator | None = None,
+                      use_mm: bool = True, use_lm: bool = False
+                      ) -> Dict[str, Tensor]:
+        """Everything the train and eval steps need, with the JAX
+        package's reuse rules: the contrastive logits when ``use_mm``; the
+        LM's shifted labels and logits when ``use_lm``, reusing the
+        contrastive text outputs unless the LM is conditioned on the image
+        (captioning or attention), which encodes the text again. In
         training, ``generator`` draws the text encoder's dropout; eval is
-        deterministic."""
-        image_features, image_feature_map = self.encode_image(
-            image, train=train)
-        text_features, text_outputs = self.encode_text(
-            text, text_length, generator if train else None)
-        match = self.similarity(image_features, text_features)
-        scale = self.logit_scale()
-        return {
-            "logits_per_image": match * scale,
-            "logits_per_text": match.T * scale,
-            "image_features": image_features,
-            "image_feature_map": image_feature_map,
-            "text_outputs": text_outputs,
-            "logit_neg_log_temperature": self.logit_neg_log_temperature,
-        }
+        deterministic. ``image`` may be None when neither half reads it."""
+        out: Dict[str, Tensor] = {}
+        image_features = image_feature_map = text_outputs = None
+        t = self.cfg.text
+        gen = generator if train else None
+        if use_mm:
+            image_features, image_feature_map = self.encode_image(
+                image, train=train)
+            text_features, text_outputs = self.encode_text(
+                text, text_length, gen)
+            match = self.similarity(image_features, text_features)
+            scale = self.logit_scale()
+            out.update(logits_per_image=match * scale,
+                       logits_per_text=match.T * scale,
+                       image_features=image_features,
+                       image_feature_map=image_feature_map,
+                       text_outputs=text_outputs)
+        if use_lm:
+            conditioned = t.captioning or t.attention
+            if conditioned and image_features is None:
+                image_features, image_feature_map = self.encode_image(
+                    image, train=train)
+            _, lm_logits, attns = self.lm_forward(
+                text, text_length,
+                outputs=None if conditioned else text_outputs,
+                image_features=image_features if t.captioning else None,
+                image_feature_map=image_feature_map if t.attention else None,
+                generator=gen)
+            out["lm_labels"], out["lm_logits"] = self.lm_labels_and_logits(
+                text, lm_logits)
+            out["attns"] = attns
+            if image_features is not None:
+                out["image_features"] = image_features
+                out["image_feature_map"] = image_feature_map
+        out["logit_neg_log_temperature"] = self.logit_neg_log_temperature
+        return out
+
+    # ---------------------------------------------------------------- LM
+
+    def lm_output_layer(self, outputs: Tensor) -> Tensor:
+        """[.., H] -> [.., V] logits. Tied, the kernel is the raw token
+        embedding, with full gradient (the PAD row's included: only lookups
+        stop it)."""
+        weight = (self.text_encoder.embedding.weight if self.cfg.tie
+                  else self.language_model.output_layer.weight)
+        return F.linear(outputs, weight,
+                        self.language_model.output_layer.bias
+                        if self.cfg.bias else None)
+
+    def lm_forward(self, y: Tensor, y_len: Tensor,
+                   outputs: Optional[Tensor] = None,
+                   image_features: Optional[Tensor] = None,
+                   image_feature_map: Optional[Tensor] = None,
+                   generator: torch.Generator | None = None
+                   ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+        """(outputs [B, L, H], logits [B, L, V], attns); encodes ``y`` unless
+        ``outputs`` are given."""
+        attns = None
+        if outputs is None:
+            _, outputs, attns = self.text_encoder.encode(
+                y, y_len, generator, image_features, image_feature_map)
+        return outputs, self.lm_output_layer(outputs), attns
+
+    def lm_labels_and_logits(self, y: Tensor, logits: Tensor
+                             ) -> Tuple[Tensor, Tensor]:
+        """Shift by one for the regressional (lstm) encoder."""
+        if self.cfg.text.regressional:
+            return y[:, 1:], logits[:, :-1]
+        return y, logits
+
+    def decode_step(self, ids: Tensor, states: Tuple[Tensor, Tensor],
+                    image_feature_map: Optional[Tensor] = None,
+                    projected_image_feature_map: Optional[Tensor] = None):
+        """One decode step: ids [B] -> (logits [B, V], new states)."""
+        outputs, states, _ = self.text_encoder.ids_to_outputs(
+            ids, states, image_feature_map, projected_image_feature_map)
+        return self.lm_output_layer(outputs), states
+
+    def init_decode_states(self, batch_size: int,
+                           image_features: Optional[Tensor] = None):
+        h0, c0 = self.text_encoder.init_hidden(batch_size, image_features)
+        return h0[0], c0[0]  # single layer, unidirectional
+
+    def project_feature_map(self, image_feature_map: Tensor) -> Tensor:
+        return self.text_encoder.attention.project_encoder_features(
+            image_feature_map)
+
+    @torch.no_grad()
+    def beam_search_decode(self, batch_size: int, beam_width: int = 3,
+                           decode_length: int = 25,
+                           length_penalty_alpha: float = 0.0,
+                           image_features: Optional[Tensor] = None,
+                           image_feature_map: Optional[Tensor] = None
+                           ) -> Tuple[Tensor, Tensor]:
+        """Beam-search text generation from SOS (``models/beam_search.py``)
+        with the lstm encoder, optionally conditioned on the image. Returns
+        (sequences [B, W, decode_length + 1] with the SOS, scores [B, W]),
+        best first."""
+        t = self.cfg.text
+        if not t.regressional:
+            raise ValueError("beam search needs the regressional (lstm) "
+                             "text encoder")
+        h0, c0 = self.init_decode_states(batch_size, image_features)
+        states = (h0, c0)
+        if t.attention and image_feature_map is not None:
+            # the map and its projection, flattened over space, ride in
+            # the states so that the search expands them over the beams
+            proj_map = self.project_feature_map(image_feature_map)
+            states += (
+                image_feature_map.reshape(batch_size, -1,
+                                          image_feature_map.shape[-1]),
+                proj_map.reshape(batch_size, -1, proj_map.shape[-1]))
+
+        def step(ids, states):
+            logits, hc = self.decode_step(ids, states[:2], *states[2:])
+            return logits, hc + states[2:]
+
+        start = torch.full((batch_size,), SOS_TOKEN_ID, dtype=torch.long,
+                           device=h0.device)
+        return beam_search(step, start, beam_width, decode_length,
+                           self.cfg.vocab_size, length_penalty_alpha,
+                           states=states, eos_id=EOS_TOKEN_ID)

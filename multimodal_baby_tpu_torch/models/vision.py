@@ -1,14 +1,16 @@
 """VisionEncoder: trunk + projection head (counterpart of
-``multimodal_baby_tpu/models/vision.py``; the flat head only).
+``multimodal_baby_tpu/models/vision.py``).
 
 The trunk is ResNeXt-50 (with the config's ``trunk_int8`` plan and the
 kernel plan ``fused_plan``, by default the JAX package's) or DINO
 ViT-B/14 (with the kernel configuration ``vit_kernels``, by default K5 +
 K6 with the erf GELU). The head replaces the trunk's classifier with the projection, as
 in the reference: ``model.fc`` on the ResNeXt (2048 -> E), ``model.head``
-on the ViT (768 -> E). A frozen trunk's outputs are detached; its
-parameters leave autograd when ``train.optimizer.build_optimizer`` applies
-the frozen mask.
+on the ViT (768 -> E). For spatial embeddings (ResNeXt only) the head maps
+every position of the feature map: a 1x1 convolution, which on the NHWC
+map is the same Linear on the channel axis. A frozen trunk's outputs are
+detached; its parameters leave autograd when
+``train.optimizer.build_optimizer`` applies the frozen mask.
 """
 
 from __future__ import annotations
@@ -37,9 +39,11 @@ class VisionEncoder(nn.Module):
             raise NotImplementedError(
                 "the port's vision trunks are ResNeXt-50 and ViT-B/14; got "
                 f"{v.backbone!r}")
-        if cfg.embedding_type != "flat":
-            raise NotImplementedError(
-                f"the port's head is flat; got {cfg.embedding_type!r}")
+        if cfg.embedding_type not in ("flat", "spatial"):
+            raise ValueError(f"embedding_type must be flat|spatial, got "
+                             f"{cfg.embedding_type!r}")
+        if cfg.embedding_type == "spatial" and v.vit_dino:
+            raise ValueError("spatial embeddings require the CNN backbone")
         if v.frozen_bn not in ("batch", "running"):
             raise ValueError(f"frozen_bn must be batch|running, got "
                              f"{v.frozen_bn!r}")
@@ -64,8 +68,9 @@ class VisionEncoder(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x: [B, H, W, 3] NHWC, ImageNet-normalized. Returns
-        (features [B, E], feature_map [B, h, w, 2048]); the ViT has no
-        feature map (None), as in the reference."""
+        (features [B, E] (flat) or [B, h, w, E] (spatial), feature_map
+        [B, h, w, 2048]); the ViT has no feature map (None), as in the
+        reference."""
         v = self.cfg.vision
         if v.vit_dino:
             cls = self.model(x)
@@ -79,4 +84,6 @@ class VisionEncoder(nn.Module):
         if not v.finetune_cnn:
             pooled = pooled.detach()
             feature_map = feature_map.detach()
+        if self.cfg.embedding_type == "spatial":
+            return self.model.fc(feature_map), feature_map
         return self.model.fc(pooled), feature_map

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "attention.cu",
-           "vit_block.cu")
+           "vit_block.cu", "lstm.cu", "infonce.cu")
 HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -103,10 +103,15 @@ def library() -> ctypes.CDLL:
             lib.mmb_bottleneck_s8.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
             lib.mmb_stage.argtypes = (
                 [i32, i32, ptr, ptr] + [ptr] * 7 + [i32] * 7 + [ptr])
+            lib.mmb_lstm_f32.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+            lib.mmb_infonce_fwd_f32.argtypes = [ptr] * 9 + [i32] * 2 + [ptr]
+            lib.mmb_infonce_bwd_f32.argtypes = [ptr] * 12 + [i32] * 2 + [ptr]
             for fn in (lib.mmb_bottleneck_bf16, lib.mmb_bottleneck_s8,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
                        lib.mmb_vit_mlp_bf16, lib.mmb_attention_bf16,
-                       lib.mmb_qkv_attention_bf16, lib.mmb_vit_block_bf16):
+                       lib.mmb_qkv_attention_bf16, lib.mmb_vit_block_bf16,
+                       lib.mmb_lstm_f32, lib.mmb_infonce_fwd_f32,
+                       lib.mmb_infonce_bwd_f32):
                 fn.restype = i32
             lib.mmb_cuda_error_string.argtypes = [i32]
             lib.mmb_cuda_error_string.restype = ctypes.c_char_p

@@ -1,9 +1,10 @@
 // A grid-wide barrier for the port's persistent cooperative kernels
-// (stage.cu, vit_block.cu). The launch (cudaLaunchCooperativeKernel, as
-// many blocks as fit on the card at once) makes every block resident, which
-// the barrier needs. Writes made before it are visible to every block after
-// it, as long as the reads after it go through L2 (cp.async.cg, __ldcg): a
-// plain load could hit a stale line of the reading SM's L1.
+// (stage.cu, vit_block.cu, lstm.cu, infonce.cu). The launch
+// (cudaLaunchCooperativeKernel, as many blocks as fit on the card at once)
+// makes every block resident, which the barrier needs. Writes made before
+// it are visible to every block after it, as long as the reads after it go
+// through L2 (cp.async.cg, __ldcg): a plain load could hit a stale line of
+// the reading SM's L1.
 
 #pragma once
 
@@ -40,10 +41,12 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
 }
 
 // Launch `kernel` cooperatively with as many blocks of `threads` as fit on
-// the card at once with `smem` bytes of dynamic shared memory each.
+// the card at once with `smem` bytes of dynamic shared memory each, and at
+// most `max_blocks`.
 template <class Kernel, class Args>
 cudaError_t launch_persistent(Kernel kernel, const Args& args, int threads,
-                              int smem, cudaStream_t stream) {
+                              int smem, cudaStream_t stream,
+                              int max_blocks = 1 << 30) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -57,8 +60,9 @@ cudaError_t launch_persistent(Kernel kernel, const Args& args, int threads,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   void* params[] = {const_cast<Args*>(&args)};
+  const int grid = per_sm * sms < max_blocks ? per_sm * sms : max_blocks;
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3(per_sm * sms), dim3(threads),
+                                     dim3(grid), dim3(threads),
                                      params, smem, stream);
 }
 

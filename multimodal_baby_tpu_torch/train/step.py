@@ -1,5 +1,6 @@
-"""Train and eval steps (counterpart of ``multimodal_baby_tpu/train/step.py``),
-for the contrastive loss (lambda_mm = 1, lambda_lm = 0) on one device."""
+"""Train and eval steps (counterpart of ``multimodal_baby_tpu/train/step.py``)
+on one device: the joint loss lambda_mm InfoNCE + lambda_lm LM
+cross-entropy + lambda_ar attention regulariser."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from multimodal_baby_tpu_torch.core.config import ExperimentConfig
+from multimodal_baby_tpu_torch.core.constants import PAD_TOKEN_ID
 from multimodal_baby_tpu_torch.data.augment import augment_batch
 from multimodal_baby_tpu_torch.models import losses as L
 from multimodal_baby_tpu_torch.models.multimodal import CVCL
@@ -56,10 +58,16 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
 
     ``batch`` holds ``text`` [B, L], ``text_len`` [B], optional ``valid``
     [B], and either ``image`` (normalized [B, H, W, 3]) or ``image_u8``
-    (raw frames, augmented and normalized here on the device)."""
+    (raw frames, augmented and normalized here on the device). The
+    contrastive half runs when ``lambda_mm`` is nonzero or unused terms are
+    not skipped (``optimize_unused`` False), the LM half likewise with
+    ``lambda_lm``; the frames are read only when a half needs them."""
     t = cfg.train
-    if t.lambda_lm or t.lambda_ar:
-        raise NotImplementedError("the port's loss is contrastive only")
+    use_mm = bool(t.lambda_mm) or not t.optimize_unused
+    use_lm = bool(t.lambda_lm) or not t.optimize_unused
+    text_cfg = cfg.model.text
+    needs_image = use_mm or (use_lm and (text_cfg.captioning
+                                         or text_cfg.attention))
     compute_dtype = (torch.bfloat16
                      if cfg.parallel.compute_dtype == "bfloat16"
                      else torch.float32)
@@ -67,23 +75,42 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
     def loss_fn(batch: Batch, train: bool,
                 generator: torch.Generator | None = None
                 ) -> Tuple[torch.Tensor, Metrics]:
-        if "image" in batch:
+        image = None
+        if needs_image and "image" in batch:
             image = batch["image"]
-        else:
+        elif needs_image:
             image = augment_batch(
                 batch["image_u8"], augment=cfg.data.augment_frames and train,
                 dtype=compute_dtype, generator=generator)
         out = model.joint_forward(image, batch["text"], batch["text_len"],
-                                  train=train, generator=generator)
+                                  train=train, generator=generator,
+                                  use_mm=use_mm, use_lm=use_lm)
+        # a padded tail batch marks its real rows: they alone count
         valid = batch.get("valid")
-        infonce, metrics = L.contrastive_loss_from_logits(
-            out["logits_per_image"], out["logits_per_text"], valid=valid)
-        metrics["batch_size"] = (
-            valid.sum().float() if valid is not None
-            else torch.tensor(float(image.shape[0])))
-        metrics["temperature"] = torch.exp(-out["logit_neg_log_temperature"])
-        metrics["infonce_loss"] = infonce
-        loss = t.lambda_mm * infonce
+        metrics: Metrics = {
+            "batch_size": (valid.sum().float() if valid is not None
+                           else torch.tensor(float(batch["text"].shape[0]))),
+            "temperature": torch.exp(-out["logit_neg_log_temperature"]),
+        }
+        infonce = lm_ce = attn_reg = 0.0
+        if use_mm:
+            infonce, m = L.contrastive_loss_from_logits(
+                out["logits_per_image"], out["logits_per_text"], valid=valid)
+            metrics.update(m)
+            metrics["infonce_loss"] = infonce
+        if use_lm:
+            labels = out["lm_labels"]
+            if valid is not None:  # padded rows add no tokens
+                labels = torch.where(valid[:, None], labels, PAD_TOKEN_ID)
+            ce, _ = L.lm_cross_entropy(out["lm_logits"], labels)
+            breakdown = L.lm_loss_breakdown(ce, labels)
+            metrics.update(breakdown)
+            lm_ce = breakdown["ce_loss"]
+            if text_cfg.attention and out.get("attns") is not None:
+                attn_reg = L.attn_reg_loss(out["attns"])
+                metrics["attn_reg_loss"] = attn_reg
+        loss = torch.as_tensor(t.lambda_mm * infonce + t.lambda_lm * lm_ce
+                               + t.lambda_ar * attn_reg)
         metrics["loss"] = loss
         return loss, metrics
 
@@ -104,9 +131,9 @@ def make_train_step(model: CVCL, cfg: ExperimentConfig
         # optax's masked AdamW updates every trainable leaf, a zero gradient
         # included (its weight decay still applies); torch's AdamW skips a
         # parameter whose .grad is None. Zero-filling keeps the two equal.
-        # It matters only for parameters outside the contrastive graph: the
-        # LM bias, which decay shrinks when a checkpoint made it nonzero
-        # (from its zero init it stays zero either way).
+        # It matters for parameters outside the graph of the terms in use:
+        # e.g. the vision head in the LM-only recipe, or the LM bias, which
+        # decay shrinks when a checkpoint made it nonzero.
         for group in opt.param_groups:
             for p in group["params"]:
                 if p.grad is None:

@@ -5,17 +5,21 @@ Builds one of ``chip_smoke.py``'s slices (seeded random weights, B = 128,
 augment on): the ViT flagship (``vit``) in the kernel configuration
 ``--vit-kernels`` (``default``: K5 and K6; or one of chip_smoke.py's
 phase-6 configurations, e.g. ``whole_block``), the ResNeXt flagship in bf16 with
-every stage block by block (``resnext``, phase 3), or the published
-ResNeXt recipe, int8 layers 3-4 in the default kernel plan, calibrated
-first (``int8``, phase 5). It runs a few warm-up steps, times steps on the
-host clock without the profiler, then traces steps with ``torch.profiler``
-and prints the device time per step by kernel name, the kernel time per
-step and the device's busy share (kernel time over step time). Run from
-the root of the repository on a machine with an NVIDIA GPU:
+every stage block by block (``resnext``, phase 3), the published ResNeXt
+recipe, int8 layers 3-4 in the default kernel plan, calibrated first
+(``int8``, phase 5), or that trunk with the LSTM text encoder in the LSTM
+contrastive recipe (``lstm``, phase 7a) with ``--fused-lstm none`` (the
+JAX length rule: the plain scan at L = 25) or ``true`` (K9). It runs a few
+warm-up steps, times steps on the host clock without the profiler, then
+traces steps with ``torch.profiler`` and prints the device time per step
+by kernel name, the kernel time per step, the device's busy share (kernel
+time over step time) and, for ``lstm``, the share of the step that K9
+takes. Run from the root of the repository on a machine with an NVIDIA
+GPU:
 
-    python3 scripts/profile_torch_step.py [--slice vit|resnext|int8]
+    python3 scripts/profile_torch_step.py [--slice vit|resnext|int8|lstm]
         [--vit-kernels default|attn=1|attn=pairs|attn=qkv|whole_block|
-        gelu=tanh] [--steps 5]
+        gelu=tanh] [--fused-lstm none|true] [--steps 5]
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from multimodal_baby_tpu_torch.train.step import (  # noqa: E402
     calibrate_trunk, init_train_state, make_train_step)
 
 
-def build(which: str, vit_kernels: str):
+def build(which: str, vit_kernels: str, fused_lstm: str):
     if which == "vit":
         cfg, model, batch = chip_smoke.build_vit_slice()
         if vit_kernels != "default":
@@ -45,6 +49,11 @@ def build(which: str, vit_kernels: str):
         return cfg, model, batch
     if which == "resnext":
         return chip_smoke.build_resnext_slice(False, ("blocks",) * 4)
+    if which == "lstm":
+        cfg, model, batch = chip_smoke.build_lstm_slice()
+        model.text_encoder.fused_lstm = {"none": None, "true": True}[
+            fused_lstm]
+        return cfg, model, batch
     cfg, model, batch = chip_smoke.build_resnext_slice(chip_smoke.MIXED,
                                                        None)
     calibrate_trunk(model, batch)
@@ -53,8 +62,9 @@ def build(which: str, vit_kernels: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--slice", choices=("vit", "resnext", "int8"),
+    ap.add_argument("--slice", choices=("vit", "resnext", "int8", "lstm"),
                     default="vit")
+    ap.add_argument("--fused-lstm", choices=("none", "true"), default="true")
     ap.add_argument("--vit-kernels", default="default",
                     choices=("default", *chip_smoke.VIT_CONFIGS))
     ap.add_argument("--steps", type=int, default=5)
@@ -63,7 +73,7 @@ def main() -> int:
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 1
     print(chip_smoke.card_line(), flush=True)
-    cfg, model, batch = build(args.slice, args.vit_kernels)
+    cfg, model, batch = build(args.slice, args.vit_kernels, args.fused_lstm)
     state = init_train_state(model, cfg)
     step = make_train_step(model, cfg)
     for _ in range(3):
@@ -92,11 +102,17 @@ def main() -> int:
         print("profile_torch_step: the profiler recorded no device time",
               file=sys.stderr)
         return 1
-    what = args.slice + (f" ({args.vit_kernels})" if args.slice == "vit"
-                         else "")
+    what = args.slice + {"vit": f" ({args.vit_kernels})",
+                         "lstm": f" (fused_lstm={args.fused_lstm})"}.get(
+                             args.slice, "")
     print(f"{what} train step B={chip_smoke.BATCH}: {step_ms:.3f} ms "
           f"without the profiler; device time {kernel_ms:.3f} ms per step; "
           f"busy {100 * kernel_ms / step_ms:.1f}%")
+    if args.slice == "lstm":
+        k9_ms = sum(ms for name, ms in by_name.items()
+                    if "lstm_kernel" in name)
+        print(f"K9 (lstm_kernel): {k9_ms:.3f} ms per step, "
+              f"{100 * k9_ms / step_ms:.2f}% of the step")
     print(f"{'ms/step':>9} {'calls/step':>10}  kernel")
     for name, ms in by_name.most_common(30):
         print(f"{ms:9.3f} {launches[name] / args.steps:10.1f}  {name[:110]}")

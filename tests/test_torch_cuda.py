@@ -1,10 +1,11 @@
-"""The K1, K2, K3a/K3b, K5, K6, K7 and K8a-c kernels on a CUDA card:
-against their plain versions (K1 at the shapes of
+"""The K1, K2, K3a/K3b, K4, K5, K6, K7, K8a-c and K9 kernels on a CUDA
+card: against their plain versions (K1 at the shapes of
 tests/test_hwbc_kernels.py, K2 and the stage kernel at those of
 tests/test_quant_trunk.py and tests/test_hwbc_kernels.py, the ViT kernels
 at small, odd and ViT-B shapes, with kv_valid, K6 and K7 in every GELU
-form), K7 against K5 then K6 bit for bit, and on the arguments they
-refuse.
+form, K9 at small, odd and CVCL shapes, K4 forward and backward at
+B = 16, 72 and 128), K7 against K5 then K6 bit for bit, and on the
+arguments they refuse.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -14,6 +15,11 @@ versions bf16 with the same rounding points; f32 sums in other orders can
 move a bf16 rounding of h1 or h2 by one ulp). int8: at most 1 code apart
 and fewer than 1e-3 of the codes differing (tests/test_quant_trunk.py's
 envelope; both versions sum exactly and round alike, so 0 is expected).
+K9 and K4 are f32 FMA kernels against f32 plain versions (TF32 off):
+K9 max absolute error <= 1e-4 on out, h_last and c_last; K4 loss
+relative error <= 1e-5, LSEs absolute 1e-5, accuracies exact, entropies
+relative 1e-4, gradients atol 1e-4 and rtol 1e-3 (chip_smoke.py's gates),
+and a repeated call gives the same bits.
 """
 
 import pytest
@@ -24,6 +30,7 @@ from multimodal_baby_tpu_torch.ops.attention import (
     block_attention_reference, fused_attention, fused_attention_pairs,
     fused_block_attention, fused_qkv_attention_pairs,
     qkv_attention_pairs_reference)
+from multimodal_baby_tpu_torch.ops import infonce
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     bottleneck_reference, fused_bottleneck)
 from multimodal_baby_tpu_torch.ops.quant import (
@@ -32,6 +39,7 @@ from multimodal_baby_tpu_torch.ops.stage import (
     fused_stage, fused_stage_banded, stage_reference)
 from multimodal_baby_tpu_torch.ops.vit_block import (
     fused_vit_block, vit_block_reference)
+from multimodal_baby_tpu_torch.ops.lstm import lstm_fused, scan_reference
 from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
 
 pytestmark = pytest.mark.gpu
@@ -396,3 +404,93 @@ def test_vit_kernels_refuse_what_they_cannot_take(cuda, bad):
     with pytest.raises(ValueError):
         fused_block_attention(x, *p, heads, 0.125)
     assert fused_block_attention.launches == before
+
+
+def lstm_inputs(L, B, H, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, L + 1, (B,), generator=g)
+    lens[0] = L
+    t = {"xp": torch.randn(L, B, 4 * H, generator=g),
+         "mask": (torch.arange(L)[:, None] < lens[None, :]).float(),
+         "whh": torch.randn(H, 4 * H, generator=g) / H ** 0.5,
+         "h0": 0.1 * torch.randn(B, H, generator=g),
+         "c0": 0.1 * torch.randn(B, H, generator=g)}
+    return {k: v.to(device) for k, v in t.items()}
+
+
+@pytest.mark.parametrize("L,B,H", [(1, 1, 16), (9, 8, 16), (7, 37, 48),
+                                   (25, 128, 512), (64, 128, 512),
+                                   (3, 5, 576)])
+def test_lstm_kernel_matches_plain_version(cuda, L, B, H):
+    a = lstm_inputs(L, B, H, cuda)
+    args = (a["xp"], a["mask"], a["whh"], a["h0"], a["c0"])
+    before = lstm_fused.launches
+    with torch.no_grad():
+        got = lstm_fused(*args)
+        want = scan_reference(*args)
+        again = lstm_fused(*args)
+    torch.cuda.synchronize()
+    assert lstm_fused.launches == before + 2
+    for name, g, w, r in zip(("out", "h_last", "c_last"), got, want, again):
+        assert g.shape == w.shape, name
+        assert float((g - w).abs().max()) <= 1e-4, name
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("bad", ["float64", "hidden", "non_contiguous"])
+def test_lstm_kernel_refuses_what_it_cannot_take(cuda, bad):
+    a = lstm_inputs(4, 8, 32, cuda)
+    if bad == "float64":
+        a["xp"] = a["xp"].double()
+    elif bad == "hidden":
+        a = lstm_inputs(4, 8, 20, cuda)
+    else:
+        a["whh"] = a["whh"].t().contiguous().t()
+    with pytest.raises(ValueError):
+        lstm_fused(a["xp"], a["mask"], a["whh"], a["h0"], a["c0"])
+
+
+def unit_rows(B, E, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, B, E, generator=g)
+    x = x / x.norm(dim=-1, keepdim=True)
+    return x[0].to(device), x[1].to(device)
+
+
+@pytest.mark.parametrize("B,E", [(16, 32), (72, 68), (128, 512)])
+def test_infonce_kernels_match_plain_versions(cuda, B, E):
+    img, txt = unit_rows(B, E, cuda, B + E)
+    nlt = torch.tensor(float(torch.log(torch.tensor(1 / 0.07))), device=cuda)
+    f = infonce.fused_infonce_with_metrics
+    before = (f.launches, f.launches_bwd)
+    args = [t.clone().requires_grad_() for t in (img, txt, nlt)]
+    loss, metrics = f(*args)
+    (0.7 * loss).backward()
+    _, lse_i, lse_t, _ = infonce.fused_infonce_forward(img, txt, nlt)
+    loss_w, lse_i_w, lse_t_w, m_w = infonce.infonce_reference(img, txt, nlt)
+    ref = [t.clone().requires_grad_() for t in (img, txt, nlt)]
+    (0.7 * infonce.infonce_reference(*ref)[0]).backward()
+    again = infonce.fused_infonce_forward(img, txt, nlt)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_bwd) == (before[0] + 3, before[1] + 1)
+    loss, loss_w = loss.detach(), loss_w.detach()
+    assert abs(float(loss) - float(loss_w)) <= 1e-5 * abs(float(loss_w))
+    assert float((lse_i - lse_i_w).abs().max()) <= 1e-5
+    assert float((lse_t - lse_t_w).abs().max()) <= 1e-5
+    got_m = torch.stack([metrics[k] for k in infonce.METRICS])
+    assert torch.equal(got_m[:2], m_w[:2])
+    torch.testing.assert_close(got_m[2:], m_w[2:], rtol=1e-4, atol=0)
+    for a, r in zip(args, ref):
+        torch.testing.assert_close(a.grad, r.grad, atol=1e-4, rtol=1e-3)
+    assert all(torch.equal(x, y) for x, y in zip(again, (loss, lse_i, lse_t)))
+
+
+@pytest.mark.parametrize("bad", ["odd_batch", "too_large", "float64"])
+def test_infonce_kernel_refuses_what_it_cannot_take(cuda, bad):
+    B = {"odd_batch": 10, "too_large": 1032}.get(bad, 16)
+    img, txt = unit_rows(B, 32, cuda, 0)
+    nlt = torch.tensor(2.0, device=cuda)
+    if bad == "float64":
+        img = img.double()
+    with pytest.raises(ValueError):
+        infonce.fused_infonce_forward(img, txt, nlt)

@@ -23,7 +23,11 @@ MODULES = [
     "multimodal_baby_tpu_torch.ops.attention",
     "multimodal_baby_tpu_torch.ops.vit_mlp",
     "multimodal_baby_tpu_torch.ops.vit_block",
+    "multimodal_baby_tpu_torch.ops.lstm",
+    "multimodal_baby_tpu_torch.ops.infonce",
     "multimodal_baby_tpu_torch.models.layers",
+    "multimodal_baby_tpu_torch.models.attention",
+    "multimodal_baby_tpu_torch.models.beam_search",
     "multimodal_baby_tpu_torch.models.vision_resnext",
     "multimodal_baby_tpu_torch.models.quant_calib",
     "multimodal_baby_tpu_torch.models.vision_vit",

@@ -119,6 +119,38 @@ Phases (each raises on failure, and the script then exits non-zero):
    recipe (lambda_mm 0: no image forward) at L = 64 with
    ``fused_lstm=None``: the length rule picks K9, one launch per forward.
    Each run: finite losses, trunk bit-unchanged, heads changed, step time.
+2f. K10a, the int8-transport mode (``fused_bottleneck``, ``fused_stage``,
+   ``fused_stage_banded`` with ``fold_block_params_t`` weights), K10b
+   (``fused_bottleneck_tiles``) and K11 (``conv1x1_bn_residual_relu``)
+   against their plain versions at B = 128: K10a on the blocks of the "t"
+   plan (layer 2's head and tail, layer 3's head) at most 1 code apart and
+   fewer than 1e-3 of the codes differing, its stages (layer 3's tail,
+   layer 4, layer 1 banded at N = 28) equal to their blocks' K10a launches
+   code for code, each of those in the same envelope against its plain
+   version on the same input, the whole at cosine >= 0.9999 against the
+   plain chain (a moved code rides the residual path on; the count is
+   printed); K10b at tests/test_hwbc_kernels.py:74's shape and layer 2's
+   head against its plain version (phase 2's gates) and against K1
+   (< 5e-5 relative, tests/test_hwbc_kernels.py:22); K11 at every conv3
+   shape of a forward (phase 2's gates), its gradients at layers 1 and 4
+   equal to the plain version's autograd. Each timed beside its plain
+   version, its library chain (the codes in bf16 through cuDNN, then the
+   output scale and rounding; cuDNN's block; bf16 matmul and the f32
+   epilogue) and its bound (K10a's activations at one byte).
+8. The int8-transport plans: phase 5's model with ``trunk_int8="t"`` and
+   ``("t", "t", "q", "q")``, calibrated once, 3 AdamW train steps and 1
+   eval step each at B = 128. Checks: finite losses; per forward "t": 5
+   K10a block, 2 K10a stage and 1 K10a banded launches, "t,t,1,1": 4
+   K10a block, 1 K10a banded, 1 K2 and 2 K3a, and no other; trunk
+   bit-unchanged, heads changed; eval pooled features and logits against
+   the same plan through the plain versions (per-row cosine >= 0.999) and
+   pooled against the f32 conv path (> 0.99, tests/test_quant_trunk.py:
+   295-331). Then the trunk forward and the step times of both plans and
+   of phase 5's, in turns. 8c: the entry points of K10b
+   (``fused_bottleneck_tiles`` on layer 2's head, its launches counted)
+   and K11 (the conv path with ``BottleneckX(fused_epilogue=True)`` on all
+   16 blocks: 16 launches per forward, pooled against the conv path
+   without it at per-row cosine >= 0.999).
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -126,6 +158,7 @@ Prints one JSON line of kernel results, the card line, and last
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -157,14 +190,18 @@ from multimodal_baby_tpu_torch.ops.attention import (
     fused_block_attention, fused_qkv_attention_pairs,
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
-    bottleneck_reference, fused_bottleneck)
+    block_reference, bottleneck_reference, default_band, fused_bottleneck,
+    fused_bottleneck_tiles, tiles_reference)
+from multimodal_baby_tpu_torch.ops.conv_epilogue import (
+    conv1x1_bn_residual_relu, epilogue_reference)
 from multimodal_baby_tpu_torch.ops.infonce import (
     fused_infonce_backward, fused_infonce_forward,
     fused_infonce_with_metrics, infonce_backward_reference, infonce_loss,
     infonce_reference)
 from multimodal_baby_tpu_torch.ops.lstm import lstm_fused, scan_reference
 from multimodal_baby_tpu_torch.ops.quant import (
-    bottleneck_reference_q, fold_block_params_q)
+    bottleneck_reference_q, bottleneck_reference_t, fold_block_params_q,
+    fold_block_params_t)
 from multimodal_baby_tpu_torch.ops.stage import (
     fused_stage, fused_stage_banded, stage_reference)
 from multimodal_baby_tpu_torch.ops.vit_block import (
@@ -1343,9 +1380,7 @@ def plain_kernels():
     """The trunks' kernels replaced by their plain versions, on CUDA tensors
     (the wrappers themselves take those only for CPU tensors)."""
     def block(x, fw, stride=1):
-        ref = (bottleneck_reference_q if x.dtype == torch.int8
-               else bottleneck_reference)
-        return ref(x, fw, stride=stride)
+        return block_reference(x, fw, stride=stride)
 
     def stage(x, fws, strides, band=None):
         return stage_reference(x, fws, strides)
@@ -1432,7 +1467,7 @@ def phase_published_flagship():
         f"bf16 per-block K1 path {t_k1:.3f} ms, plain bf16 conv path "
         f"{t_conv:.3f} ms")
     time_steps(state, train_step, batch, "published flagship")
-    return launches
+    return launches, (state, train_step, batch)
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1629,6 +1664,365 @@ def phase_lstm_slice():
     return total
 
 
+# ---------------------------------------------------------------- phase 2f
+
+# the transport blocks and stages of the "t" plan at 224 px: (name, H, Cin,
+# width, Cout, stride(s), downsample or band, per forward)
+T_BLOCKS_224 = [
+    ("layer2.0", 56, 256, 256, 512, 2, True, 1),
+    ("layer2.1", 28, 512, 256, 512, 1, False, 3),
+    ("layer3.0", 28, 512, 512, 1024, 2, True, 1),
+]
+T_STAGES_224 = [
+    ("layer3 tail", 14, 1024, 512, 1024, [1] * 5, None),
+    ("layer4", 14, 1024, 1024, 2048, [2, 1, 1], None),
+    ("layer1", 56, 64, 128, 256, [1, 1, 1], 28),
+]
+# K10b: (name, B, H, Cin, width, Cout, stride, Bc, hh); hh None = the TPU
+# package's default band
+TILES_CASES = [
+    ("tests/test_hwbc_kernels.py:74", 32, 16, 128, 256, 512, 2, 16, 2),
+    ("layer2.0", BATCH, 56, 256, 256, 512, 2, 16, None),
+]
+
+
+def random_t_block(gen, cin, width, cout, has_ds):
+    """int8-transport folded weights of one block on the card (amax as
+    tests/test_quant_trunk.py:228: in 2.0, out 2.5)."""
+    fw = fold_block_params_t(random_block_state(gen, cin, width, cout,
+                                                has_ds), 2.0, 2.5)
+    return {k: v.cuda() for k, v in fw.items()}
+
+
+def transport_chain(fw, stride):
+    """The library chain for K10a: the codes as bf16 (the input scale rides
+    in w1 and wd), cuDNN bf16 convolutions channels-last, then the output
+    scale and the rounding as torch elementwise ops."""
+    cl = torch.channels_last
+
+    def conv_w(w):  # [in, out] -> [out, in, 1, 1]
+        return w.t()[:, :, None, None].contiguous(memory_format=cl)
+
+    cw = {k: conv_w(fw[k]) for k in ("w1", "w3", "wd") if k in fw}
+    w2 = fw["w2"].permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    b1, b2 = fw["b1"].to(torch.bfloat16), fw["b2"].to(torch.bfloat16)
+
+    def run(x):
+        xc = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # NCHW view, codes
+        h = F.relu(F.conv2d(xc, cw["w1"], b1))
+        h = F.relu(F.conv2d(h, w2, b2, stride=stride, padding=1, groups=32))
+        y = F.conv2d(h, cw["w3"]).float().permute(0, 2, 3, 1)
+        y = y * fw["a3"] + fw["b3"]
+        if "wd" in cw:
+            ident = (F.conv2d(xc, cw["wd"], stride=stride).float()
+                     .permute(0, 2, 3, 1) * fw["ad"] + fw["bd"])
+        else:
+            ident = x.float() * fw["ai"]
+        return torch.round(y + ident).clamp_(0, 127).to(torch.int8)
+
+    return run
+
+
+def check_transport_stage(what, got, x, fws, strides) -> float:
+    """A transport stage's codes: equal to the chain of its blocks' K10a
+    launches (the same tile routines in the same order), each of those
+    within check_codes' envelope of its plain version on the same input,
+    and the whole against the plain chain at cosine >= 0.9999 (a code that
+    one rounding moves rides the residual path into the next block, so the
+    chain's differences add up; their count is printed). Returns the max
+    abs error against the plain chain, in codes."""
+    y = x
+    for j, (fw, st) in enumerate(zip(fws, strides)):
+        want = bottleneck_reference_t(y, fw, stride=st)
+        y = fused_bottleneck(y, fw, stride=st)
+        check_codes(f"{what} block {j}", y, want)
+    torch.cuda.synchronize()
+    same = int((got != y).sum())
+    log(f"  {what}: {same} codes differ from the chain of K10a block "
+        f"launches (0 expected)")
+    if same:
+        raise AssertionError(f"{what}: {same} codes differ from the "
+                             f"per-block kernels")
+    want = stage_reference(x, fws, strides)
+    diff = (got.int() - want.int()).abs()
+    cos = cosine(got, want)
+    log(f"  {what:34s} against its plain chain: {int((diff > 0).sum())} of "
+        f"{diff.numel()} codes differ (max {int(diff.max())}), cos "
+        f"{cos:.7f}")
+    if not cos >= COS_TOL:
+        raise AssertionError(f"{what}: cos {cos:.7f} against the plain chain")
+    return float(diff.max())
+
+
+def phase_transport_kernels():
+    """K10a (block, stage, banded stage), K10b and K11 against their plain
+    versions, then timed beside the plain versions, the library calls and
+    the bounds. Returns the kernel rows (launches filled in by phase 8)."""
+    gen = torch.Generator().manual_seed(6)
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                    ops=0.0, nbytes=0.0)
+            for k in ("K10a block", "K10a stage", "K10a banded")}
+    for name, H, cin, width, cout, s, ds, count in T_BLOCKS_224:
+        fw = random_t_block(gen, cin, width, cout, ds)
+        x = random_codes(gen, BATCH, H, cin)
+        r = rows["K10a block"]
+        r["max_abs_err"] = max(r["max_abs_err"], check_codes(
+            f"K10a {name}", fused_bottleneck(x, fw, stride=s),
+            bottleneck_reference_t(x, fw, stride=s)))
+        k, p, li = time_in_turns(
+            lambda: fused_bottleneck(x, fw, stride=s),
+            lambda: bottleneck_reference_t(x, fw, stride=s),
+            lambda: transport_chain(fw, s)(x), 20)
+        ops, act = block_cost(H, cin, width, cout, s, ds, BATCH)
+        b_ms, b_by = bound(ops, act + weight_bytes([fw]))
+        log(f"  K10a {name} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
+            f"library chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+            f"kernel {ops / k / 1e9:.1f} TFLOP/s")
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
+                       ("ops", ops), ("nbytes", act + weight_bytes([fw]))):
+            r[key] += count * v
+        del x, fw
+
+    for name, H, cin, width, cout, strides, band in T_STAGES_224:
+        fws = []
+        for j, st in enumerate(strides):
+            c = cin if j == 0 else cout
+            fws.append(random_t_block(gen, c, width, cout,
+                                      j == 0 and (c != cout or st != 1)))
+        x = random_codes(gen, BATCH, H, cin)
+        row = "K10a stage" if band is None else "K10a banded"
+
+        def kernel():
+            return (fused_stage(x, fws, strides) if band is None
+                    else fused_stage_banded(x, fws, strides, band))
+
+        def plain():
+            return stage_reference(x, fws, strides)
+
+        desc = f"{row} {name}" + (f" N={band}" if band else "")
+        rows[row]["max_abs_err"] = max(
+            rows[row]["max_abs_err"],
+            check_transport_stage(desc, kernel(), x, fws, strides))
+        chains = [transport_chain(fw, st) for fw, st in zip(fws, strides)]
+
+        def library():
+            y = x
+            for chain in chains:
+                y = chain(y)
+            return y
+
+        k, p, li = time_in_turns(kernel, plain, library, 10)
+        ops, nbytes = stage_cost(H, cin, width, cout, strides, fws, BATCH)
+        nbytes -= BATCH * (H * H * cin + (H // strides[0]) ** 2 * cout)
+        b_ms, b_by = bound(ops, nbytes)  # int8 activations: 1 byte each
+        log(f"  {desc} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
+            f"library chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+            f"kernel {ops / k / 1e9:.1f} TFLOP/s")
+        r = rows[row]
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
+                       ("ops", ops), ("nbytes", nbytes)):
+            r[key] += v
+        del x, fws, chains
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r["ops"], r["nbytes"])
+        log(f"  {name} per B={BATCH} forward of the \"t\" plan: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
+
+    # K10b: the tile-by-tile K1
+    for name, B, H, cin, width, cout, s, Bc, hh in TILES_CASES:
+        hh = hh or default_band(H, cin, (H - 1) // s + 1, s, Bc)
+        x, fw = random_block(gen, H, cin, width, cout, s, True, B)
+        got = fused_bottleneck_tiles(x, fw, s, Bc, hh)
+        err = check(f"K10b {name}", got, tiles_reference(x, fw, s, Bc, hh))
+        k1 = fused_bottleneck(x, fw, stride=s)
+        torch.cuda.synchronize()
+        apart = float((got.float() - k1.float()).abs().max() /
+                      k1.float().abs().max())
+        log(f"  K10b {name}: max error relative to K1's largest output "
+            f"{apart:.3g} (gate < 5e-5, tests/test_hwbc_kernels.py:22)")
+        if not apart < 5e-5:
+            raise AssertionError(f"K10b {name}: {apart} from K1")
+        if B != BATCH:
+            continue
+        lib = conv_chain(fw, s)
+        k, p, li = time_in_turns(
+            lambda: fused_bottleneck_tiles(x, fw, s, Bc, hh),
+            lambda: tiles_reference(x, fw, s, Bc, hh),
+            lambda: lib(x), 10)
+        ops, act = block_cost(H, cin, width, cout, s, True, B)
+        b_ms, b_by = bound(ops, 2 * act + weight_bytes([fw]))
+        log(f"  K10b {name} B={B}, Bc {Bc}, hh {hh}: kernel {k:.3f} ms, "
+            f"plain {p:.3f} ms, cuDNN bf16 {li:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by})")
+        rows["K10b"] = dict(max_abs_err=err, ms=k, plain_ms=p, library_ms=li,
+                            bound_ms=b_ms, bound_by=b_by)
+        del x, fw, lib
+
+    # K11: every conv3 shape of a B = 128 forward
+    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0,
+             nbytes=0.0)
+    for name, H, _, width, cout, s, _, count in BLOCKS_224:
+        Ho = (H - 1) // s + 1
+        M = BATCH * Ho * Ho
+        x = torch.randn(M, width, generator=gen).clamp_min(0).to(
+            "cuda", torch.bfloat16)
+        w = (torch.randn(width, cout, generator=gen) / width ** 0.5).to(
+            "cuda", torch.bfloat16)
+        mul = (0.5 + torch.rand(cout, generator=gen)).cuda()
+        add = (0.1 * torch.randn(cout, generator=gen)).cuda()
+        res = torch.randn(M, cout, generator=gen).to("cuda", torch.bfloat16)
+        args = (x, w, mul, add, res)
+        r["max_abs_err"] = max(r["max_abs_err"], check(
+            f"K11 {name} conv3 M={M}", conv1x1_bn_residual_relu(*args),
+            epilogue_reference(*args)))
+        if name in ("layer1.0", "layer4.0"):  # the backward
+            leaves = [t.clone().requires_grad_() for t in args]
+            plain_leaves = [t.clone().requires_grad_() for t in args]
+            g = torch.randn(M, cout, generator=gen).to("cuda", torch.bfloat16)
+            got = torch.autograd.grad(conv1x1_bn_residual_relu(*leaves),
+                                      leaves, g)
+            want = torch.autograd.grad(epilogue_reference(*plain_leaves),
+                                       plain_leaves, g)
+            for gname, a, b in zip(("x", "w", "mul", "add", "residual"), got,
+                                   want):
+                if not torch.equal(a, b):  # both the plain autograd
+                    raise AssertionError(f"K11 {name} d{gname} differs")
+            log(f"  K11 {name}: the gradients of x, w, mul, add and the "
+                f"residual equal the plain version's autograd")
+
+        def library():
+            y = torch.matmul(x, w).float() * mul + add + res.float()
+            return torch.relu(y).to(torch.bfloat16)
+
+        k, p, li = time_in_turns(lambda: conv1x1_bn_residual_relu(*args),
+                                 lambda: epilogue_reference(*args),
+                                 library, 20)
+        ops = 2 * M * width * cout
+        nbytes = 2 * (M * width + 2 * M * cout + width * cout) + 8 * cout
+        b_ms, b_by = bound(ops, nbytes)
+        log(f"  K11 {name} conv3 M={M} Cin={width} Cout={cout}: kernel "
+            f"{k:.3f} ms, plain {p:.3f} ms, matmul chain {li:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by})")
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
+                       ("ops", ops), ("nbytes", nbytes)):
+            r[key] += count * v
+        del x, w, res, args
+    r["bound_ms"], r["bound_by"] = bound(r["ops"], r["nbytes"])
+    log(f"  K11 over the 16 conv3 of one B={BATCH} forward: kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, matmul chain "
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']})")
+    rows["K11"] = r
+    return rows
+
+
+# ------------------------------------------------------------------ phase 8
+
+T_PLANS = {  # trunk_int8 -> launches per forward by counter
+    "t": {"K10a block": 5, "K10a stage": 2, "K10a banded": 1},
+    "t,t,1,1": {"K10a block": 4, "K10a banded": 1, "K2": 1, "K3a": 2},
+}
+T_COUNTERS = {
+    "K1": (fused_bottleneck, "launches"), "K2": (fused_bottleneck,
+                                                 "launches_q"),
+    "K10a block": (fused_bottleneck, "launches_t"),
+    "K3a": (fused_stage, "launches"), "K10a stage": (fused_stage,
+                                                     "launches_t"),
+    "K3b": (fused_stage_banded, "launches"),
+    "K10a banded": (fused_stage_banded, "launches_t"),
+}
+
+
+def phase_transport_slice(published):
+    """8a/8b: phase 5's published model under trunk_int8 "t" and
+    ("t", "t", "q", "q"), calibrated once, 3 train and 1 eval steps each,
+    gated as phase 5; then the step times of both and of phase 5's
+    (``published``: (state, train_step, batch)) in turns. 8c: the entry
+    points of K10b and K11. Returns the launches by kernel row."""
+    forwards = TRAIN_STEPS + 1
+    launches = collections.Counter()
+    timed = {"published \"0,0,1,1\"": published}
+    for plan, per_forward in T_PLANS.items():
+        log(f"  -- trunk_int8={plan!r}, default kernel plan")
+        cfg, model, batch = build_resnext_slice(plan, None)
+        trunk = model.vision_encoder.model
+        calibrate_trunk(model, batch)
+        frozen, heads = frozen_and_heads(model)
+        state, train_step, counts = drive(model, cfg, batch,
+                                          list(T_COUNTERS.values()))
+        got = dict(zip(T_COUNTERS, counts))
+        want = {k: per_forward.get(k, 0) * forwards for k in T_COUNTERS}
+        log(f"  launches over {forwards} forwards: {got}")
+        if got != want:
+            raise AssertionError(f"{plan}: launches {got}, expected {want}")
+        launches.update({k: v for k, v in got.items() if k[:3] == "K10"})
+        check_frozen_and_heads(model, frozen, heads)
+        with torch.no_grad():
+            img_bf16 = augment_batch(batch["image_u8"], augment=False,
+                                     dtype=torch.bfloat16)
+            img_f32 = augment_batch(batch["image_u8"], augment=False)
+            txt, _ = model.encode_text(batch["text"], batch["text_len"])
+
+            def logits(pooled):
+                f = l2_normalize(trunk.fc(pooled), dim=1)
+                return model.similarity(f, txt) * model.logit_scale()
+
+            kernels = trunk.forward_folded(img_bf16)["pooled"]
+            with plain_kernels():
+                plain = trunk.forward_folded(img_bf16)["pooled"]
+            f32 = trunk.forward_conv(img_f32)["pooled"]
+            compare_features("pooled", kernels, plain, f32)
+            compare_features("logits", *map(logits, (kernels, plain, f32)))
+            cos_f32 = float(row_cosines(kernels, f32).min())
+            log(f"  {plan} pooled vs the f32 conv path: per-row cosine min "
+                f"{cos_f32:.7f} (gate > 0.99)")
+            if not cos_f32 > 0.99:
+                raise AssertionError(f"pooled cosine vs f32 {cos_f32:.7f}")
+            img_aug = augment_batch(batch["image_u8"], dtype=torch.bfloat16)
+            fwd = time_ms(lambda: trunk.forward_folded(img_aug), 10)
+        log(f"  trunk forward B={BATCH}, trunk_int8={plan!r}: {fwd:.3f} ms")
+        timed[plan] = (state, train_step, batch)
+    log("  step times in turns (published, t, t,t,1,1, then back):")
+    order = list(timed) + list(timed)[::-1]
+    for what in order:
+        time_steps(*timed[what], f"trunk_int8={what}")
+
+    log("  -- 8c the entry points of K10b and K11")
+    x, fw = random_block(torch.Generator().manual_seed(8), 56, 256, 256, 512,
+                         2, True, BATCH)
+    fused_bottleneck_tiles.launches = 0
+    got = fused_bottleneck_tiles(x, fw, 2)
+    n_tiles = fused_bottleneck_tiles.launches
+    check("K10b layer2.0 entry point", got, fused_bottleneck(x, fw, 2))
+    log(f"  fused_bottleneck_tiles(layer2.0, B={BATCH}, Bc 16, default "
+        f"band): {n_tiles} launches")
+    launches["K10b"] = n_tiles
+    cfg, model, batch = build_resnext_slice(False, None)
+    trunk = model.vision_encoder.model
+    for block in trunk.blocks():
+        block.fused_epilogue = True
+    conv1x1_bn_residual_relu.launches = 0
+    with torch.no_grad():
+        img = augment_batch(batch["image_u8"], augment=False,
+                            dtype=torch.bfloat16)
+        fused = trunk.forward_conv(img)["pooled"]
+        n_k11 = conv1x1_bn_residual_relu.launches
+        for block in trunk.blocks():
+            block.fused_epilogue = False
+        conv = trunk.forward_conv(img)["pooled"]
+        cos = row_cosines(fused, conv)
+    log(f"  conv path with BottleneckX(fused_epilogue=True): {n_k11} K11 "
+        f"launches per forward; pooled against the conv path without it: "
+        f"per-row cos min {float(cos.min()):.7f} (gate >= {SLICE_COS_TOL})")
+    if n_k11 != 16 or float(cos.min()) < SLICE_COS_TOL:
+        raise AssertionError(f"K11: {n_k11} launches, cos "
+                             f"{float(cos.min()):.7f}")
+    launches["K11"] = n_k11
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1668,7 +2062,7 @@ def main() -> int:
         phase_vit_slice()
     log("phase 5: the published flagship, int8 layers 3-4, default plan")
     (_, q["K2"]["launches"], q["K3a"]["launches"],
-     q["K3b"]["launches"]) = phase_published_flagship()
+     q["K3b"]["launches"]), published = phase_published_flagship()
     log("phase 6: the ViT slice in its other kernel configurations")
     for name, n in phase_vit_configs(*vit).items():
         vit_kernels[name]["launches"] = n
@@ -1678,6 +2072,11 @@ def main() -> int:
     log("phase 7: the LSTM text encoders and their language model")
     (k9["launches"], k4["fwd"]["launches"],
      k4["bwd"]["launches"]) = phase_lstm_slice()
+    log("phase 2f: K10a, K10b and K11 against their plain versions")
+    t = phase_transport_kernels()
+    log("phase 8: the int8-transport trunk plans, K10b and K11 entry points")
+    for name, n in phase_transport_slice(published).items():
+        t[name]["launches"] = n
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"
@@ -1703,7 +2102,17 @@ def main() -> int:
             ("fused_infonce_backward", "infonce.cu",
              "multimodal_baby_tpu/ops/infonce.py:171", k4["bwd"]),
             ("lstm_fused", "lstm.cu", "multimodal_baby_tpu/ops/lstm.py:147",
-             k9)]
+             k9),
+            ("fused_bottleneck_transport", "bottleneck.cu", f"{hwbc}:408",
+             t["K10a block"]),
+            ("fused_stage_transport", "stage.cu", f"{hwbc}:758",
+             t["K10a stage"]),
+            ("fused_stage_banded_transport", "stage.cu", f"{hwbc}:1078",
+             t["K10a banded"]),
+            ("fused_bottleneck_tiles", "bottleneck.cu", f"{hwbc}:531",
+             t["K10b"]),
+            ("conv1x1_bn_residual_relu", "conv_epilogue.cu",
+             "multimodal_baby_tpu/ops/conv_epilogue.py:78", t["K11"])]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [

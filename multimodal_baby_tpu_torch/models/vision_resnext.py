@@ -16,17 +16,20 @@ Two paths compute the same function:
   weights once per weight state, then the 16 bottleneck blocks run stage
   by stage as the plan says (the JAX package's fused trunk):
   - ``trunk_int8`` picks the stages that run in int8 (a contiguous suffix;
-    the published recipe's ``(False, False, True, True)``): their blocks
-    are folded and quantized (``ops/quant.py``) with activation ranges from
-    the amax buffers (``models/quant_calib.py``; 0 = uncalibrated, then
-    the BatchNorm bound), and the chain quantizes once at the bf16 -> int8
-    boundary and dequantizes the pool and the feature map;
+    the published recipe's ``(False, False, True, True)``), each "q" (int8
+    products) or "t" (int8 transport: int8 codes between the blocks, bf16
+    products inside): their blocks are folded (``ops/quant.py``) with
+    activation ranges from the amax buffers (``models/quant_calib.py``;
+    0 = uncalibrated, then the BatchNorm bound), and the chain quantizes
+    once at the bf16 -> int8 boundary (a "t" -> "q" boundary passes the
+    codes as they are) and dequantizes the pool and the feature map;
   - ``fused_plan`` picks each stage's kernels: ``"blocks"`` (one
     ``ops.bottleneck.fused_bottleneck`` per block: K1, or K2 in int8),
     ``"full"`` (the stage in one ``ops.stage.fused_stage``: K3a),
     ``"split"`` (the head block alone, then the tail as K3a),
     ``"bandedN"`` (the stage as ``ops.stage.fused_stage_banded`` over N
-    output rows: K3b) and ``"splitbandN"`` (the head, then the tail as K3b).
+    output rows: K3b) and ``"splitbandN"`` (the head, then the tail as K3b);
+    a "t" stage runs the same kernels in their transport mode (K10a).
   The kernels run on CUDA, their plain versions on the CPU.
 
 ``forward`` takes the folded path exactly when the trunk is frozen, BN runs
@@ -47,9 +50,11 @@ import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     BN_EPS, GROUPS, fold_block_params, fused_bottleneck)
+from multimodal_baby_tpu_torch.ops.conv_epilogue import (
+    conv1x1_bn_residual_relu)
 from multimodal_baby_tpu_torch.ops.quant import (
     activation_scale, bn_amax_bound, fold_block_params_q,
-    quantize_activation, resolve_amax)
+    fold_block_params_t, quantize_activation, resolve_amax)
 from multimodal_baby_tpu_torch.ops.stage import (
     fused_stage, fused_stage_banded)
 
@@ -69,20 +74,20 @@ INT8_BATCH = 32  # int8 plans run in bf16 unless the batch is a multiple
 
 def parse_int8_plan(raw: Any) -> Tuple[Any, ...]:
     """Per-stage int8 plan from ``VisionConfig.trunk_int8``: a bool (every
-    stage), a 4-tuple of bools or entries, or a string "0,0,1,1" (one
-    entry: every stage). Entries are False (bf16) or "q" (int8): True,
-    "1", "q" and "true" mean "q"; False, "0", "false" and "" mean bf16.
-    The int8 stages must form a contiguous suffix (the chain switches to
-    int8 once). "t" (int8 transport) is not ported and raises."""
+    stage), a 4-tuple of bools or entries, or a string "0,0,1,1" or
+    "t,t,1,1" (one entry: every stage). Entries are False (bf16), "q"
+    (int8) or "t" (int8 transport): True, "1", "q" and "true" mean "q";
+    False, "0", "false" and "" mean bf16. The int8 stages, "t" and "q"
+    alike, must form a contiguous suffix (the chain switches to int8
+    codes once)."""
     n = len(RESNEXT50_STAGES)
 
     def tok(p):
         if isinstance(p, str):
             p = p.strip()
-            if p == "t":
-                raise NotImplementedError(
-                    "int8 transport (trunk_int8 entry 't') is not ported")
-            if p in ("q", "1", "true", "True"):
+            if p in ("t", "q"):
+                return p
+            if p in ("1", "true", "True"):
                 return "q"
             if p in ("0", "false", "False", ""):
                 return False
@@ -191,14 +196,23 @@ class _Conv(nn.Module):
 
 
 class BottleneckX(nn.Module):
-    """torchvision Bottleneck with groups=32, base_width=4 (conv path)."""
+    """torchvision Bottleneck with groups=32, base_width=4 (conv path).
+
+    ``fused_epilogue`` (the JAX package's flag of the same name): conv3,
+    bn3, the residual add and ReLU as one kernel call
+    (``ops.conv_epilogue.conv1x1_bn_residual_relu``, K11) where the block
+    runs on CUDA in bf16 with BatchNorm on running statistics; elsewhere
+    the plain convolutions. ``ResNeXt50`` leaves it off, as the JAX
+    package does."""
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False, *, device=None):
+                 has_downsample: bool = False, *, device=None,
+                 fused_epilogue: bool = False):
         super().__init__()
         width = planes * 4 // 64 * GROUPS
         out_ch = planes * EXPANSION
         self.stride = stride
+        self.fused_epilogue = fused_epilogue
         self.conv1 = _Conv(width, in_ch, 1, device=device)
         self.bn1 = InferenceBN(width, device=device)
         self.conv2 = _Conv(width, width // GROUPS, 3, device=device)
@@ -215,12 +229,36 @@ class BottleneckX(nn.Module):
         y = torch.relu(self.bn1(self.conv1(x), batch_stats))
         y = self.conv2(y, stride=self.stride, padding=1, groups=GROUPS)
         y = torch.relu(self.bn2(y, batch_stats))
-        y = self.bn3(self.conv3(y), batch_stats)
         identity = x
         if self.downsample is not None:
             conv, bn = self.downsample
             identity = bn(conv(x, stride=self.stride), batch_stats)
+        if self.use_epilogue(y, batch_stats):
+            return self._conv3_epilogue(y, identity)
+        y = self.bn3(self.conv3(y), batch_stats)
         return torch.relu(y + identity)
+
+    def use_epilogue(self, y: torch.Tensor, batch_stats: bool) -> bool:
+        """Whether conv3 and what follows go through K11 (the JAX package's
+        condition, with CUDA in place of the TPU)."""
+        return (self.fused_epilogue and not batch_stats
+                and y.dtype == torch.bfloat16 and y.is_cuda)
+
+    def _conv3_epilogue(self, y: torch.Tensor, identity: torch.Tensor
+                        ) -> torch.Tensor:
+        """relu(bn3(conv3(y)) + identity) through K11, on NCHW views of
+        channels-last data: the pixels are the GEMM's rows."""
+        B, _, Ho, Wo = y.shape
+
+        def rows(t):  # NCHW view -> [pixels, C], a view when channels-last
+            return t.permute(0, 2, 3, 1).reshape(B * Ho * Wo, -1).contiguous()
+
+        w3 = self.conv3.weight[:, :, 0, 0].t().to(y.dtype).contiguous()
+        mul, add = self.bn3.fold()
+        out = conv1x1_bn_residual_relu(rows(y), w3, mul.float().contiguous(),
+                                       add.float().contiguous(),
+                                       rows(identity))
+        return out.reshape(B, Ho, Wo, -1).permute(0, 3, 1, 2)
 
 
 def _nchw_view(x: torch.Tensor) -> torch.Tensor:
@@ -239,7 +277,7 @@ class ResNeXt50(nn.Module):
     ``generator``: a CPU generator for the seeded init (``reset_parameters``).
     ``trunk_int8``: the int8 stages (``parse_int8_plan``); with any, the
     trunk holds the activation-range buffers ``stem_amax`` and, per block,
-    ``out_amax`` and (int8 blocks) ``h1_amax`` and ``h2_amax``, where the
+    ``out_amax`` and ("q" blocks) ``h1_amax`` and ``h2_amax``, where the
     JAX package declares its "quant_scales" variables; 0 = uncalibrated.
     ``fused_plan``: the kernel mode of each stage (``parse_fused_plan``).
     """
@@ -263,7 +301,8 @@ class ResNeXt50(nn.Module):
                 needs_ds = block_idx == 0 and (
                     s != 1 or in_ch != planes * EXPANSION)
                 layer.append(BottleneckX(in_ch, planes, s, needs_ds,
-                                         device=device))
+                                         device=device,
+                                         fused_epilogue=False))
                 in_ch = planes * EXPANSION
             setattr(self, f"layer{stage_idx + 1}", nn.Sequential(*layer))
         if any(self.int8_plan):
@@ -272,7 +311,7 @@ class ResNeXt50(nn.Module):
             self.register_buffer("stem_amax", amax())
             for stage_idx, q in enumerate(self.int8_plan):
                 for block in getattr(self, f"layer{stage_idx + 1}"):
-                    if q:
+                    if q == "q":
                         block.register_buffer("h1_amax", amax())
                         block.register_buffer("h2_amax", amax())
                     block.register_buffer("out_amax", amax())
@@ -367,10 +406,11 @@ class ResNeXt50(nn.Module):
         version counter, so an in-place update (a loaded state dict, BN
         statistics updated in batch mode, a calibration) refolds, and
         frozen weights fold once. Blocks of the plan's int8 stages are
-        quantized (``fold_block_params_q``), the others folded in
-        ``dtype``. Sets ``_fold_amax``: the activation range at the
-        bf16 -> int8 boundary and at the trunk's output (None, None for a
-        bf16 plan)."""
+        quantized (``fold_block_params_q``), those of its transport stages
+        folded for int8 codes with products in ``dtype``
+        (``fold_block_params_t``), the others folded in ``dtype``. Sets
+        ``_fold_amax``: the activation range at the bf16 -> int8 boundary
+        and at the trunk's output (None, None for a bf16 plan)."""
         plan = self.int8_plan if int8_plan is None else tuple(int8_plan)
         tensors = [t for b in self.blocks()
                    for t in (*b.parameters(), *b.buffers())]
@@ -398,7 +438,11 @@ class ResNeXt50(nn.Module):
                 entry = amax  # the first int8 stage's input range
             for b in getattr(self, f"layer{stage_idx + 1}"):
                 sd = b.state_dict()
-                if q:
+                if q == "t":
+                    out_amax = _block_out_amax(b, amax)
+                    fw = fold_block_params_t(sd, amax, out_amax, dtype)
+                    amax = out_amax
+                elif q:
                     out_amax = _block_out_amax(b, amax)
                     fw = fold_block_params_q(
                         sd, amax, resolve_amax(b.h1_amax, b.bn1.weight,
@@ -424,12 +468,13 @@ def _block_out_amax(block: BottleneckX, in_amax: torch.Tensor
 
 
 def _stage_mode(mode: str, q: Any) -> str:
-    """The plan's mode for a stage; an int8 stage runs "bandedN" as
+    """The plan's mode for a stage; an int8 ("q") stage runs "bandedN" as
     "blocks" and "splitbandN" as "split", as the JAX package demotes them
-    (its banded kernel takes no int8 dots)."""
-    if q and mode.startswith("banded"):
+    (its banded kernel takes no int8 dots); transport ("t") stages stay
+    banded."""
+    if q == "q" and mode.startswith("banded"):
         return "blocks"
-    if q and mode.startswith("splitband"):
+    if q == "q" and mode.startswith("splitband"):
         return "split"
     return mode
 

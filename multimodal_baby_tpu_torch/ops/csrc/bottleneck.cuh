@@ -1,6 +1,7 @@
 // The pieces of one ResNeXt-50 bottleneck block on Hopper (sm_90a), shared
-// by the per-block kernels (bottleneck.cu: K1 in bf16, K2 in int8) and the
-// whole-stage kernel (stage.cu: K3a, K3b):
+// by the per-block kernels (bottleneck.cu: K1 in bf16, K2 in int8, K10a in
+// int8 transport) and the whole-stage kernel (stage.cu: K3a, K3b, and their
+// transport mode):
 //
 //   - the epilogue functors of the two 1x1 GEMMs (gemm.cuh);
 //   - the grouped 3x3 (32 groups, pad 1, stride 1 or 2) as an implicit GEMM
@@ -103,6 +104,47 @@ struct RequantResidual {
     for (int e = 0; e < 8; ++e)
       c[e] = clip_code(__fadd_rn(
           madd_rn(__int2float_rn(v[e]), a3[n + e], b3[n + e]), id[e]));
+    *reinterpret_cast<uint2*>(out + off) = pack8_s8(c);
+  }
+};
+
+// int8-transport conv3 (f32 sums of bf16 products, int8 codes out):
+// out = clip(rint((acc3 * a3 + b3) + identity), 0, 127) with
+// identity = accd * ad + bd (downsample: the split GEMM's second segment)
+// or x * ai (the block's int8 input codes)
+struct TransportOut {
+  const float* a3;
+  const float* b3;
+  const float* ad;  // null without a downsample
+  const float* bd;
+  const float* ai;  // with no downsample
+  const int8_t* x;  // block input [pixels, N], with no downsample
+  int8_t* out;
+  int N;
+
+  __device__ void operator()(int p, int n, float (&v)[8]) const {
+    const size_t off = static_cast<size_t>(p) * N + n;
+    float id[8];
+    unpack8_s8(__ldcg(reinterpret_cast<const uint2*>(x + off)), id);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) id[e] = __fmul_rn(id[e], ai[n + e]);
+    store(off, n, v, id);
+  }
+
+  __device__ void operator()(int p, int n, const float (&v)[8],
+                             const float (&vd)[8]) const {
+    float id[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) id[e] = madd_rn(vd[e], ad[n + e], bd[n + e]);
+    store(static_cast<size_t>(p) * N + n, n, v, id);
+  }
+
+  __device__ void store(size_t off, int n, const float (&v)[8],
+                        const float (&id)[8]) const {
+    int8_t c[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      c[e] = clip_code(__fadd_rn(madd_rn(v[e], a3[n + e], b3[n + e]), id[e]));
     *reinterpret_cast<uint2*>(out + off) = pack8_s8(c);
   }
 };

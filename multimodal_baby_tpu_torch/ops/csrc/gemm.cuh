@@ -14,7 +14,9 @@
 // K may come in two segments: the second reads its A rows from an NHWC
 // tensor [*, H, W, k2] at (ho * stride, wo * stride) (the bottleneck
 // block's strided downsample). The bf16 GEMM sums both segments into one
-// accumulator; the int8 GEMM keeps one per segment (their scales differ).
+// accumulator, or keeps them apart in its SPLIT mode; the int8 GEMM keeps
+// one per segment (their scales differ). A bf16 GEMM's segment may read
+// int8 A rows (the int8-transport blocks' input codes).
 //
 // The M rows may be a band of image rows: `rows` maps row m to rows
 // [lo, lo + ext) of every image of a [*, H, W] pixel grid (ext = 0: every
@@ -52,6 +54,8 @@ constexpr int B_LD = BN + 8;  // skew keeps wmma loads off one bank
 constexpr int GEMM_THREADS = 256;  // 8 warps: 4 along M x 2 along N
 constexpr int GEMM_SMEM =          // bf16: A, B stages and per-warp scratch
     (2 * BM * A_LD + 2 * BK * B_LD) * 2 + (GEMM_THREADS / 32) * 256 * 4;
+constexpr int GEMM_HELD_SMEM =     // bf16 with a held first segment
+    GEMM_SMEM + BM * BN * 4;
 constexpr int GEMM8_SMEM =         // int8
     2 * BM * BK8 + 2 * BK8 * BN + (GEMM_THREADS / 32) * 256 * 4;
 
@@ -165,14 +169,24 @@ __device__ __forceinline__ uint2 pack8_s8(const int8_t (&c)[8]) {
 
 // ------------------------------------------------------------------ bf16
 
-template <class Epilogue>
+// Q1 / Q2: that K segment's A rows are int8 codes (the int8-transport
+// blocks' input), read into registers a tile ahead, converted to bf16 (exact:
+// |code| <= 127) and stored to shared memory after the current tile's
+// products; g.a1 / g.a2 then point at int8. SPLIT: the second segment gets
+// its own sums: at the segment boundary each warp parks the first segment's
+// sums in shared memory (GEMM_HELD_SMEM in all) and the epilogue is called
+// as epi(p, n, v, vd) with v the first segment's sums, vd the second's.
+template <bool Q1 = false, bool Q2 = false, bool SPLIT = false,
+          class Epilogue>
 __device__ __forceinline__ void gemm_bf16_tile(const GemmArgs& g,
                                                const Epilogue& epi, int m0,
                                                int n0, unsigned char* smem) {
   using namespace nvcuda;
+  constexpr bool ANY_Q = Q1 || Q2;
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + 2 * BM * A_LD;
   float* scratch = reinterpret_cast<float*>(Bs + 2 * BK * B_LD);
+  float* held = reinterpret_cast<float*>(smem + GEMM_SMEM);  // [BM][BN]
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -180,34 +194,74 @@ __device__ __forceinline__ void gemm_bf16_tile(const GemmArgs& g,
   const int wn = warp >> 2;  // 64-column slab
 
   // the two A rows this thread loads at every K step: their sources
+  // (bf16 segments), or their int8 sources (Q segments)
   const __nv_bfloat16* src1[2];
   const __nv_bfloat16* src2[2];
+  const int8_t* qsrc1[2];
+  const int8_t* qsrc2[2];
   bool ok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int m = m0 + ((tid + i * GEMM_THREADS) >> 2);
     const int col = ((tid + i * GEMM_THREADS) & 3) * 8;
     ok[i] = m < g.M;
-    src1[i] = ok[i] ? g.a1 + static_cast<size_t>(map_row(g.rows, m)) * g.k1 +
-                          col
-                    : g.a1;  // a valid address for masked rows
-    src2[i] = ok[i] && g.k2
-                  ? g.a2 + static_cast<size_t>(gather_row(g, m)) * g.k2 + col
-                  : g.a1;
+    const size_t off1 =
+        ok[i] ? static_cast<size_t>(map_row(g.rows, m)) * g.k1 + col : 0;
+    const size_t off2 =
+        ok[i] && g.k2 ? static_cast<size_t>(gather_row(g, m)) * g.k2 + col
+                      : 0;
+    // masked rows keep a valid address and read nothing
+    if constexpr (Q1)
+      qsrc1[i] = reinterpret_cast<const int8_t*>(g.a1) + off1;
+    else
+      src1[i] = g.a1 + off1;
+    if constexpr (Q2)
+      qsrc2[i] = reinterpret_cast<const int8_t*>(g.a2) + off2;
+    else
+      src2[i] = ok[i] && g.k2 ? g.a2 + off2 : g.a1;
   }
+  const auto quant = [&](int kt) {  // is tile kt's A int8?
+    return kt * BK >= g.k1 ? Q2 : Q1;
+  };
+  uint2 qreg[2];  // int8 A vectors of the next tile
+  const auto fetch_q = [&](int kt) {
+    const int kbase = kt * BK;
+    const bool second = kbase >= g.k1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int8_t* src =
+          second ? qsrc2[i] + (kbase - g.k1) : qsrc1[i] + kbase;
+      // L2, not L1: in the stage kernel another block wrote it
+      qreg[i] = ok[i] ? __ldcg(reinterpret_cast<const uint2*>(src))
+                      : make_uint2(0u, 0u);
+    }
+  };
+  const auto store_q = [&](int stage) {
+    __nv_bfloat16* as = As + stage * BM * A_LD;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + i * GEMM_THREADS;
+      float f[8];
+      unpack8_s8(qreg[i], f);
+      *reinterpret_cast<uint4*>(as + (v >> 2) * A_LD + (v & 3) * 8) =
+          pack8(f);
+    }
+  };
 
-  auto load_tile = [&](int kt, int stage) {
+  auto load_tile = [&](int kt, int stage, bool a_too) {
     const int kbase = kt * BK;
     const bool second = kbase >= g.k1;
     __nv_bfloat16* as = As + stage * BM * A_LD;
     __nv_bfloat16* bs = Bs + stage * BK * B_LD;
     // A: BM rows x BK columns = 512 vectors of 8 bf16, two per thread
+    if (a_too) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * GEMM_THREADS;
-      const __nv_bfloat16* src =
-          !ok[i] ? g.a1 : second ? src2[i] + (kbase - g.k1) : src1[i] + kbase;
-      cp_async16(as + (v >> 2) * A_LD + (v & 3) * 8, src, ok[i]);
+      for (int i = 0; i < 2; ++i) {
+        const int v = tid + i * GEMM_THREADS;
+        const __nv_bfloat16* src =
+            !ok[i] ? g.a1 : second ? src2[i] + (kbase - g.k1) : src1[i] + kbase;
+        cp_async16(as + (v >> 2) * A_LD + (v & 3) * 8, src, ok[i]);
+      }
     }
     // B: BK rows x BN columns = 512 vectors, two per thread
 #pragma unroll
@@ -229,10 +283,20 @@ __device__ __forceinline__ void gemm_bf16_tile(const GemmArgs& g,
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int ktiles = (g.k1 + g.k2) / BK;
-  load_tile(0, 0);
+  if (ANY_Q && quant(0)) {
+    load_tile(0, 0, false);
+    fetch_q(0);
+    store_q(0);
+  } else {
+    load_tile(0, 0, true);
+  }
   cp_async_commit();
   for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) load_tile(kt + 1, (kt + 1) & 1);
+    const bool next_q = ANY_Q && kt + 1 < ktiles && quant(kt + 1);
+    if (kt + 1 < ktiles) {
+      load_tile(kt + 1, (kt + 1) & 1, !next_q);
+      if (next_q) fetch_q(kt + 1);
+    }
     cp_async_commit();  // possibly empty: keeps the group count uniform
     cp_async_wait<1>();  // tile kt has landed
     __syncthreads();
@@ -260,6 +324,22 @@ __device__ __forceinline__ void gemm_bf16_tile(const GemmArgs& g,
         for (int j = 0; j < 4; ++j)
           wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
     }
+    // the stage written here was last read in iteration kt - 1, before its
+    // closing barrier
+    if (next_q) store_q((kt + 1) & 1);
+    if constexpr (SPLIT) {
+      if ((kt + 1) * BK == g.k1) {  // the first segment is complete
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            wmma::store_matrix_sync(
+                held + (wm * 32 + i * 16) * BN + wn * 64 + j * 16,
+                acc[i][j], BN, wmma::mem_row_major);
+            wmma::fill_fragment(acc[i][j], 0.0f);
+          }
+      }
+    }
     __syncthreads();  // the next iteration overwrites this stage
   }
 
@@ -280,7 +360,16 @@ __device__ __forceinline__ void gemm_bf16_tile(const GemmArgs& g,
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = sc[r * 16 + c0 + e];
-        epi(map_row(g.rows, m), n, v);
+        if constexpr (SPLIT) {
+          const float* h =
+              held + (wm * 32 + i * 16 + r) * BN + wn * 64 + j * 16 + c0;
+          float v1[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v1[e] = h[e];
+          epi(map_row(g.rows, m), n, v1, v);
+        } else {
+          epi(map_row(g.rows, m), n, v);
+        }
       }
       __syncwarp();
     }
@@ -299,6 +388,31 @@ cudaError_t launch_gemm(const GemmArgs& g, const Epilogue& epi,
                         cudaStream_t stream) {
   const dim3 grid(g.N / BN, (g.M + BM - 1) / BM);
   gemm_bf16<Epilogue><<<grid, GEMM_THREADS, 0, stream>>>(g, epi);
+  return cudaGetLastError();
+}
+
+// the same with int8 A segments and / or the split second segment, in
+// dynamic shared memory (the held sums take it past the 48 KB static limit)
+template <bool Q1, bool Q2, bool SPLIT, class Epilogue>
+__global__ void __launch_bounds__(GEMM_THREADS)
+    gemm_bf16_x(const GemmArgs g, const Epilogue epi) {
+  // (named apart from the other kernels' dynamic shared arrays, which
+  // some sources declare with another element type)
+  extern __shared__ __align__(128) unsigned char gemm_x_smem[];
+  gemm_bf16_tile<Q1, Q2, SPLIT>(g, epi, blockIdx.y * BM, blockIdx.x * BN,
+                                gemm_x_smem);
+}
+
+template <bool Q1, bool Q2, bool SPLIT, class Epilogue>
+cudaError_t launch_gemm_x(const GemmArgs& g, const Epilogue& epi,
+                          cudaStream_t stream) {
+  constexpr int smem = SPLIT ? GEMM_HELD_SMEM : GEMM_SMEM;
+  const auto kernel = gemm_bf16_x<Q1, Q2, SPLIT, Epilogue>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(g.N / BN, (g.M + BM - 1) / BM);
+  kernel<<<grid, GEMM_THREADS, smem, stream>>>(g, epi);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // A whole ResNeXt-50 stage (or the tail of one) in one launch on Hopper
-// (sm_90a), bf16 or int8: every block of the chain of bottleneck.cu (K1 or
-// K2) in turn, in one persistent cooperative kernel.
+// (sm_90a), bf16, int8 or int8 transport: every block of the chain of
+// bottleneck.cu (K1, K2 or K10a) in turn, in one persistent cooperative
+// kernel.
 //
 // Replaces two TPU kernels of multimodal_baby_tpu/ops/bottleneck_hwbc.py,
 // which compute the same function, the chain of the stage's blocks:
@@ -8,7 +9,11 @@
 //     its full spatial extent resident in VMEM per batch tile;
 //   - fused_stage_banded (`_banded_kernel`, K3b): the stage banded over N
 //     output rows, each band carrying the halo rows its 3x3 convolutions
-//     need through every block, recomputed per band.
+//     need through every block, recomputed per band;
+//   and the transport mode of both (K10a: int8 x, weights from
+//   ops/quant.py::fold_block_params_t), whose blocks pass int8 codes to
+//   each other and run bf16 products inside; the banded form reads its halo
+//   rows as int8.
 // Here the band is the kernel's `band` argument: the launch walks the
 // stage's output band by band (N output rows of every image); for each band
 // it runs every block on the rows that band needs (the band widened by one
@@ -50,7 +55,7 @@ constexpr int MAX_STAGE_BLOCKS = 6;
 
 struct StageBlock {
   const void* w1;
-  const float* a1;  // int8 only (a1, a2, a3, ad, ai)
+  const float* a1;  // int8 only (a1, a2); a3, ad, ai int8 and transport
   const float* b1;
   const void* w2;
   const float* a2;
@@ -77,15 +82,25 @@ struct StageArgs {
   unsigned* bar;  // two zeroed words: arrivals, generation
 };
 
+// The kernel's three bodies: bf16 (K1's chain), int8 (K2's) and int8
+// transport (K10a's: int8 codes between the blocks, K1's bf16 chain inside
+// each).
+constexpr int BF16 = 0;
+constexpr int S8 = 1;
+constexpr int TRANSPORT = 2;
+
 // bf16: two blocks per SM (128 registers a thread), measured 11-13% faster
 // on layer 1 and layer 3's tail than one; int8 keeps one: its downsample
 // GEMM holds two sets of int32 accumulators, which spill at 128 registers
 // (measured 43% slower on layer 4). A/B on an H100 with
-// scripts/ab_stage_kernel.sh.
-template <bool S8, int CG>
-__global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
+// scripts/ab_stage_kernel.sh. Transport runs the bf16 body at two blocks
+// per SM: its downsample keeps its sums in shared memory, not registers.
+template <int MODE, int CG>
+__global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
     stage_kernel(const StageArgs p) {
-  using T = std::conditional_t<S8, int8_t, __nv_bfloat16>;
+  constexpr bool Q = MODE == S8;
+  using T = std::conditional_t<Q, int8_t, __nv_bfloat16>;  // h1, h2
+  using TIO = std::conditional_t<MODE == BF16, __nv_bfloat16, int8_t>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = p.n_blocks;
   const StageBlock& last = p.blk[n - 1];
@@ -111,9 +126,11 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
 
     for (int j = 0; j < n; ++j) {
       const StageBlock& b = p.blk[j];
-      const T* in = static_cast<const T*>(
+      const TIO* in = static_cast<const TIO*>(
           j == 0 ? p.x : ((j - 1) & 1 ? p.t1 : p.t0));
-      T* out = static_cast<T*>(j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0));
+      TIO* out = static_cast<TIO*>(j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0));
+      // the GEMMs' A operand: transport's int8 codes ride in a bf16 pointer
+      const T* in_a = reinterpret_cast<const T*>(in);
       const int Ho = (b.H - 1) / b.stride + 1;
       const int Wo = (b.W - 1) / b.stride + 1;
       const RowMap rin{b.H, b.W, in_lo[j], in_hi[j] - in_lo[j]};
@@ -121,7 +138,7 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
 
       {  // conv1 on the input rows
         GemmArgsT<T> g{};
-        g.a1 = in;
+        g.a1 = in_a;
         g.b1 = static_cast<const T*>(b.w1);
         g.k1 = b.cin;
         g.rows = rin;
@@ -130,13 +147,15 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
         const int nt = p.width / BN;
         const int tiles = nt * ((g.M + BM - 1) / BM);
         for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          if constexpr (S8)
-            gemm_s8_tile<false>(g, Requant{b.a1, b.b1, h1, p.width},
-                                (t / nt) * BM, (t % nt) * BN, smem);
-          else
-            gemm_bf16_tile(
-                g, BiasResidualRelu{b.b1, nullptr, nullptr, h1, p.width},
-                (t / nt) * BM, (t % nt) * BN, smem);
+          const int m0 = (t / nt) * BM;
+          const int n0 = (t % nt) * BN;
+          if constexpr (Q) {
+            gemm_s8_tile<false>(g, Requant{b.a1, b.b1, h1, p.width}, m0, n0,
+                                smem);
+          } else {
+            const BiasResidualRelu e{b.b1, nullptr, nullptr, h1, p.width};
+            gemm_bf16_tile<MODE == TRANSPORT>(g, e, m0, n0, smem);
+          }
         }
       }
       grid_sync(p.bar);
@@ -157,7 +176,7 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
         const int nt = p.width / GC_BN;
         const int tiles = nt * ((c.M + STAGE_CBM - 1) / STAGE_CBM);
         for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          if constexpr (S8)
+          if constexpr (Q)
             gconv_s8_tile<CG, STAGE_CBM>(c, (t / nt) * STAGE_CBM,
                                          (t % nt) * GC_BN, smem);
           else
@@ -176,7 +195,7 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
         g.M = p.B * rout.ext * Wo;
         g.N = p.cout;
         if (b.wd != nullptr) {
-          g.a2 = in;
+          g.a2 = in_a;
           g.b2 = static_cast<const T*>(b.wd);
           g.k2 = b.cin;
           g.H = b.H;
@@ -188,7 +207,7 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
         for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
           const int m0 = (t / nt) * BM;
           const int n0 = (t % nt) * BN;
-          if constexpr (S8) {
+          if constexpr (Q) {
             if (b.wd != nullptr)
               gemm_s8_tile<true>(
                   g,
@@ -201,6 +220,18 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
                   RequantResidual{b.a3, b.b3, nullptr, nullptr, b.ai, in,
                                   out, p.cout},
                   m0, n0, smem);
+          } else if constexpr (MODE == TRANSPORT) {
+            if (b.wd != nullptr)
+              gemm_bf16_tile<false, true, true>(
+                  g,
+                  TransportOut{b.a3, b.b3, b.ad, b.bd, nullptr, nullptr, out,
+                               p.cout},
+                  m0, n0, smem);
+            else
+              gemm_bf16_tile(g,
+                             TransportOut{b.a3, b.b3, nullptr, nullptr, b.ai,
+                                          in, out, p.cout},
+                             m0, n0, smem);
           } else {
             gemm_bf16_tile(
                 g,
@@ -216,27 +247,29 @@ __global__ void __launch_bounds__(STAGE_THREADS, S8 ? 1 : 2)
   }
 }
 
-template <bool S8, int CG>
+template <int MODE, int CG>
 cudaError_t launch_stage(const StageArgs& p, cudaStream_t stream) {
-  constexpr int gemm_smem = S8 ? GEMM8_SMEM : GEMM_SMEM;
-  constexpr int conv_smem =
-      S8 ? gconv_s8_smem<STAGE_CBM>() : gconv_bf16_smem<STAGE_CBM>();
+  constexpr int gemm_smem = MODE == S8          ? GEMM8_SMEM
+                            : MODE == TRANSPORT ? GEMM_HELD_SMEM
+                                                : GEMM_SMEM;
+  constexpr int conv_smem = MODE == S8 ? gconv_s8_smem<STAGE_CBM>()
+                                       : gconv_bf16_smem<STAGE_CBM>();
   constexpr int smem = gemm_smem > conv_smem ? gemm_smem : conv_smem;
-  return launch_persistent(stage_kernel<S8, CG>, p, STAGE_THREADS, smem,
+  return launch_persistent(stage_kernel<MODE, CG>, p, STAGE_THREADS, smem,
                            stream);
 }
 
-template <bool S8>
+template <int MODE>
 cudaError_t launch_stage_cg(const StageArgs& p, int cg, cudaStream_t s) {
   switch (cg) {
     case 4:
-      return launch_stage<S8, 4>(p, s);
+      return launch_stage<MODE, 4>(p, s);
     case 8:
-      return launch_stage<S8, 8>(p, s);
+      return launch_stage<MODE, 8>(p, s);
     case 16:
-      return launch_stage<S8, 16>(p, s);
+      return launch_stage<MODE, 16>(p, s);
     case 32:
-      return launch_stage<S8, 32>(p, s);
+      return launch_stage<MODE, 32>(p, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -244,14 +277,15 @@ cudaError_t launch_stage_cg(const StageArgs& p, int cg, cudaStream_t s) {
 
 }  // namespace
 
-// Shapes and alignment are checked by the Python wrapper
+// mode: 0 bf16, 1 int8, 2 int8 transport (int8 x, t0, t1 and out; bf16 h1
+// and h2). Shapes and alignment are checked by the Python wrapper
 // (multimodal_baby_tpu_torch/ops/stage.py): 1 to 6 blocks, a stride only in
 // the first, every block of one width and one output width, the first
 // block's input cin0 and the rest's cout, the constraints of
 // mmb_bottleneck_*, and band dividing the stage's output rows. `ptrs` holds
 // 13 pointers per block, in the order of StageBlock (null where absent);
 // `strides` one stride per block. Returns the first CUDA error, or 0.
-extern "C" int mmb_stage(int is_s8, int n_blocks, const void* const* ptrs,
+extern "C" int mmb_stage(int mode, int n_blocks, const void* const* ptrs,
                          const int* strides, const void* x, void* h1,
                          void* h2, void* t0, void* t1, void* out, void* bar,
                          int B, int H, int W, int cin0, int width, int cout,
@@ -282,6 +316,14 @@ extern "C" int mmb_stage(int is_s8, int n_blocks, const void* const* ptrs,
     W = (W - 1) / strides[j] + 1;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_s8 ? launch_stage_cg<true>(p, width / 32, s)
-                                : launch_stage_cg<false>(p, width / 32, s));
+  switch (mode) {
+    case BF16:
+      return static_cast<int>(launch_stage_cg<BF16>(p, width / 32, s));
+    case S8:
+      return static_cast<int>(launch_stage_cg<S8>(p, width / 32, s));
+    case TRANSPORT:
+      return static_cast<int>(launch_stage_cg<TRANSPORT>(p, width / 32, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -18,8 +18,12 @@ int8 products are summed in float64 (exact for |sum| < 2**53; the trunk's
 largest, 127 * 127 * 2048, is about 3.3e7), then converted to f32 as the
 int32 sum would be. Every rounding is half to even (``torch.round``, as
 ``jnp.round`` and CUDA's ``rintf``), the multiply and the add each rounded
-once. The grouped weight stays compact, ``[3, 3, cg, W]``; the int8
-transport mode ("t") is not ported.
+once. The grouped weight stays compact, ``[3, 3, cg, W]``.
+
+The int8-transport mode ("t", K10a) passes int8 codes between blocks but
+multiplies in bf16: ``fold_block_params_t`` folds the input scale into w1
+and wd and the output scale into the conv3 and downsample epilogues, and
+``bottleneck_reference_t`` is its plain version.
 """
 
 from __future__ import annotations
@@ -29,11 +33,13 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from multimodal_baby_tpu_torch.ops.bottleneck import _bn_fold
+from multimodal_baby_tpu_torch.ops.bottleneck import (
+    _bn_fold, _conv1, _grouped)
 
 __all__ = ["K_SIGMA", "activation_scale", "quantize_weight",
            "quantize_activation", "bn_amax_bound", "resolve_amax",
-           "fold_block_params_q", "bottleneck_reference_q"]
+           "fold_block_params_q", "bottleneck_reference_q",
+           "fold_block_params_t", "bottleneck_reference_t"]
 
 K_SIGMA = 4.0  # uncalibrated fallback: amax = max|beta| + K_SIGMA*|gamma|
 
@@ -173,5 +179,75 @@ def bottleneck_reference_q(x_q: torch.Tensor, fw: Folded, *,
         ident = _exact_dot(x_id, fw["wd"]).float() * fw["ad"] + fw["bd"]
     else:
         ident = x_id.float() * fw["ai"]
+    out = torch.round(y + ident).clamp(0, 127).to(torch.int8)
+    return out.reshape(B, Ho, Wo, -1)
+
+
+def fold_block_params_t(sd: Dict[str, torch.Tensor], in_amax, out_amax,
+                        compute_dtype: torch.dtype = torch.bfloat16
+                        ) -> Folded:
+    """Fold running BatchNorm into one ``BottleneckX`` block for int8
+    transport (the JAX package's ``fold_block_params_t``): int8 codes in
+    and out, products in ``compute_dtype``.
+
+    Returns, in ``ops.bottleneck.fold_block_params``'s layouts, ``w1 [Cin,
+    W]`` scaled by the input scale s_in, the compact ``w2 [3, 3, cg, W]``,
+    ``w3 [W, Cout]`` in ``compute_dtype``; f32 ``b1, b2 [W]``, ``a3 = 1 /
+    s_out`` and ``b3 = add3 / s_out [Cout]``; then ``wd [Cin, Cout]``
+    scaled by s_in with ``ad = 1 / s_out``, ``bd = addd / s_out`` for a
+    block with a downsample, else ``ai = s_in / s_out [Cout]``."""
+    dev = sd["bn1.weight"].device
+    s_in = activation_scale(in_amax).to(dev)
+    s_out = activation_scale(out_amax).to(dev)
+
+    def cast(w):
+        return w.to(compute_dtype).contiguous()
+
+    mul1, add1 = _bn_fold(sd, "bn1")
+    mul2, add2 = _bn_fold(sd, "bn2")
+    mul3, add3 = _bn_fold(sd, "bn3")
+    cout = mul3.shape[0]
+    ones = torch.ones(cout, dtype=torch.float32, device=dev)
+    out = {
+        "w1": cast(sd["conv1.weight"][:, :, 0, 0].float().t() * mul1 * s_in),
+        "b1": add1.contiguous(),
+        "w2": cast(sd["conv2.weight"].float().permute(2, 3, 1, 0) * mul2),
+        "b2": add2.contiguous(),
+        "w3": cast(sd["conv3.weight"][:, :, 0, 0].float().t() * mul3),
+        "a3": ones / s_out,
+        "b3": (add3 / s_out).contiguous(),
+    }
+    if "downsample.0.weight" in sd:
+        muld, addd = _bn_fold(sd, "downsample.1")
+        out["wd"] = cast(sd["downsample.0.weight"][:, :, 0, 0].float().t()
+                         * muld * s_in)
+        out["ad"] = ones / s_out
+        out["bd"] = (addd / s_out).contiguous()
+    else:
+        out["ai"] = (ones * (s_in / s_out)).contiguous()
+    return out
+
+
+def bottleneck_reference_t(x_q: torch.Tensor, fw: Folded, *,
+                           stride: int = 1) -> torch.Tensor:
+    """K10a's plain version: one int8-transport block, NHWC ``[B, H, W, C]``
+    int8 codes in and out, with the weights of ``fold_block_params_t``.
+    Sums in f32; h1 and h2 rounded to the weights' dtype, as the TPU kernel
+    keeps them (the JAX package's ``bottleneck_reference_t`` keeps them in
+    f32: the two agree at f32 weights); the output is
+    ``clip(round((h2 . w3) * a3 + b3 + identity), 0, 127)`` with identity
+    ``(x . wd) * ad + bd`` or ``x * ai``."""
+    B, H, W, cin = x_q.shape
+    mid = fw["w1"].dtype
+    f32 = torch.float32
+    h2 = _grouped(_conv1(x_q, fw, mid), fw, stride, mid)
+    Ho, Wo, width = h2.shape[1:]
+    y = (h2.reshape(-1, width).to(f32) @ fw["w3"].to(f32)) * fw["a3"] \
+        + fw["b3"]
+    x_id = x_q[:, ::stride, ::stride, :].reshape(-1, cin).to(f32)
+    if "wd" in fw:
+        ident = (x_id @ fw["wd"].to(f32)) * fw["ad"] + fw["bd"]
+    else:
+        ident = x_id * fw["ai"]
     out = torch.round(y + ident).clamp(0, 127).to(torch.int8)
     return out.reshape(B, Ho, Wo, -1)

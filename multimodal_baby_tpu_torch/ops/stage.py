@@ -7,12 +7,15 @@ rows, halo rows recomputed per band) of
 ``stage_reference``. Both TPU kernels compute the chain of the stage's
 blocks; one Hopper kernel (``csrc/stage.cu``) serves both: ``fused_stage``
 runs it with one band, ``fused_stage_banded`` with bands of N rows. It takes
-bf16 blocks (``ops.bottleneck.fold_block_params``) or int8 blocks
-(``ops.quant.fold_block_params_q``), NHWC at the public functions.
+bf16 blocks (``ops.bottleneck.fold_block_params``), int8 blocks
+(``ops.quant.fold_block_params_q``) or int8-transport blocks
+(``ops.quant.fold_block_params_t``: the TPU kernels' transport mode, K10a),
+NHWC at the public functions.
 
 On a CUDA tensor the wrappers launch the kernel and raise on anything it
 cannot take; on a CPU tensor they run ``stage_reference``.
-``fused_stage.launches`` and ``fused_stage_banded.launches`` count launches.
+``fused_stage.launches`` and ``fused_stage_banded.launches`` count bf16 and
+int8 launches, ``.launches_t`` transport launches.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ import torch
 
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.bottleneck import (
-    _Q_ORDER, _check_args, block_dims, bottleneck_reference)
-from multimodal_baby_tpu_torch.ops.quant import bottleneck_reference_q
+    _Q_ORDER, _check_args, _out_size, _ptrs, block_dims, block_mode,
+    block_reference)
 
 __all__ = ["stage_reference", "fused_stage", "fused_stage_banded",
            "MAX_STAGE_BLOCKS"]
@@ -38,16 +41,10 @@ Folded = Dict[str, torch.Tensor]
 def stage_reference(x: torch.Tensor, fws: Sequence[Folded],
                     strides: Sequence[int]) -> torch.Tensor:
     """The stage's plain version: its blocks' plain versions in a chain
-    (int8 codes through ``bottleneck_reference_q``)."""
-    ref = bottleneck_reference_q if x.dtype == torch.int8 else \
-        bottleneck_reference
+    (``ops.bottleneck.block_reference``), on x's device."""
     for fw, s in zip(fws, strides):
-        x = ref(x, fw, stride=s)
+        x = block_reference(x, fw, stride=s)
     return x
-
-
-def _out_size(n: int, stride: int) -> int:
-    return (n - 1) // stride + 1
 
 
 def _check_stage(x: torch.Tensor, fws: Sequence[Folded],
@@ -63,6 +60,8 @@ def _check_stage(x: torch.Tensor, fws: Sequence[Folded],
     width, cout = block_dims(fws[0])
     need(all(block_dims(fw) == (width, cout) for fw in fws),
          "every block needs one width and one Cout")
+    need(len({fw["w1"].dtype for fw in fws}) == 1,
+         "every block needs one kind of fold (bf16, int8 or transport)")
     B, H, W, _ = x.shape
     ho = _out_size(H, strides[0])
     need(band >= 1 and ho % band == 0,
@@ -74,6 +73,9 @@ def _check_stage(x: torch.Tensor, fws: Sequence[Folded],
         shape = (B, _out_size(shape[1], s), _out_size(shape[2], s), cout)
 
 
+_MODES = {"bf16": 0, "q": 1, "t": 2}  # mmb_stage's mode argument
+
+
 def _launch(x: torch.Tensor, fws: Sequence[Folded], strides: Sequence[int],
             band: int) -> torch.Tensor:
     _check_stage(x, fws, strides, band)
@@ -82,36 +84,39 @@ def _launch(x: torch.Tensor, fws: Sequence[Folded], strides: Sequence[int],
     width, cout = block_dims(fws[0])
     Ho, Wo = _out_size(H, strides[0]), _out_size(W, strides[0])
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=x.dtype, device=x.device)
+    def empty(dtype, *shape):
+        return torch.empty(shape, dtype=dtype, device=x.device)
 
-    h1, h2 = empty(B, H, W, width), empty(B, Ho, Wo, width)
-    t0, t1, out = (empty(B, Ho, Wo, cout) for _ in range(3))
+    mid = fws[0]["w1"].dtype  # h1, h2: bf16 in the transport mode too
+    h1, h2 = empty(mid, B, H, W, width), empty(mid, B, Ho, Wo, width)
+    t0, t1, out = (empty(x.dtype, B, Ho, Wo, cout) for _ in range(3))
     bar = torch.zeros(2, dtype=torch.int32, device=x.device)
-    int8 = x.dtype == torch.int8
     ptrs: List[int | None] = []
     for fw in fws:
-        ptrs += [None if fw.get(k) is None else fw[k].data_ptr()
-                 for k in _Q_ORDER]
+        ptrs += _ptrs(fw, _Q_ORDER)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_strides = (ctypes.c_int * len(strides))(*strides)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mmb_stage(
-            int(int8), len(fws), c_ptrs, c_strides, x.data_ptr(),
-            h1.data_ptr(), h2.data_ptr(), t0.data_ptr(), t1.data_ptr(),
-            out.data_ptr(), bar.data_ptr(), B, H, W, cin, width, cout, band,
-            stream)
+            _MODES[block_mode(x, fws[0])], len(fws), c_ptrs, c_strides,
+            x.data_ptr(), h1.data_ptr(), h2.data_ptr(), t0.data_ptr(),
+            t1.data_ptr(), out.data_ptr(), bar.data_ptr(), B, H, W, cin,
+            width, cout, band, stream)
     _build.check(lib, code, "fused_stage")
     return out
 
 
-def _dispatch(x, fws, strides, band):
+def _dispatch(wrapper, x, fws, strides, band):
     if x.device.type == "cpu":
         return stage_reference(x, fws, strides)
     if x.device.type != "cuda":
         raise ValueError(f"fused_stage: no kernel for device {x.device}")
-    return _launch(x, fws, strides, band)
+    out = _launch(x, fws, strides, band)
+    transport = block_mode(x, fws[0]) == "t"
+    counter = "launches_t" if transport else "launches"
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    return out
 
 
 def fused_stage(x: torch.Tensor, fws: Sequence[Folded],
@@ -119,11 +124,8 @@ def fused_stage(x: torch.Tensor, fws: Sequence[Folded],
     """K3a: every block of a stage (or of a stage's tail) in one launch,
     the full output extent as one band. ``x`` NHWC bf16 or int8; a stride
     only in the first block."""
-    out = _dispatch(x, fws, strides,
-                    _out_size(x.shape[1], strides[0]) if len(strides) else 1)
-    if x.is_cuda:
-        fused_stage.launches += 1
-    return out
+    return _dispatch(fused_stage, x, fws, strides,
+                     _out_size(x.shape[1], strides[0]) if len(strides) else 1)
 
 
 def fused_stage_banded(x: torch.Tensor, fws: Sequence[Folded],
@@ -131,11 +133,10 @@ def fused_stage_banded(x: torch.Tensor, fws: Sequence[Folded],
     """K3b: the stage in one launch, banded over ``band`` output rows of
     every image, each band recomputing the halo rows its 3x3 convolutions
     need (``band`` must divide the output rows)."""
-    out = _dispatch(x, fws, strides, band)
-    if x.is_cuda:
-        fused_stage_banded.launches += 1
-    return out
+    return _dispatch(fused_stage_banded, x, fws, strides, band)
 
 
 fused_stage.launches = 0
+fused_stage.launches_t = 0
 fused_stage_banded.launches = 0
+fused_stage_banded.launches_t = 0

@@ -7,7 +7,8 @@ augment on): the ViT flagship (``vit``) in the kernel configuration
 phase-6 configurations, e.g. ``whole_block``), the ResNeXt flagship in bf16 with
 every stage block by block (``resnext``, phase 3), the published ResNeXt
 recipe, int8 layers 3-4 in the default kernel plan, calibrated first
-(``int8``, phase 5), or that trunk with the LSTM text encoder in the LSTM
+(``int8``, phase 5; with ``--trunk-int8 t`` or ``t,t,1,1`` that model under
+an int8-transport plan instead, phase 8), or that trunk with the LSTM text encoder in the LSTM
 contrastive recipe (``lstm``, phase 7a) with ``--fused-lstm none`` (the
 JAX length rule: the plain scan at L = 25) or ``true`` (K9). It runs a few
 warm-up steps, times steps on the host clock without the profiler, then
@@ -19,7 +20,8 @@ GPU:
 
     python3 scripts/profile_torch_step.py [--slice vit|resnext|int8|lstm]
         [--vit-kernels default|attn=1|attn=pairs|attn=qkv|whole_block|
-        gelu=tanh] [--fused-lstm none|true] [--steps 5]
+        gelu=tanh] [--fused-lstm none|true] [--trunk-int8 0,0,1,1|t|t,t,1,1]
+        [--steps 5]
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from multimodal_baby_tpu_torch.train.step import (  # noqa: E402
     calibrate_trunk, init_train_state, make_train_step)
 
 
-def build(which: str, vit_kernels: str, fused_lstm: str):
+def build(which: str, vit_kernels: str, fused_lstm: str, trunk_int8: str):
     if which == "vit":
         cfg, model, batch = chip_smoke.build_vit_slice()
         if vit_kernels != "default":
@@ -54,8 +56,8 @@ def build(which: str, vit_kernels: str, fused_lstm: str):
         model.text_encoder.fused_lstm = {"none": None, "true": True}[
             fused_lstm]
         return cfg, model, batch
-    cfg, model, batch = chip_smoke.build_resnext_slice(chip_smoke.MIXED,
-                                                       None)
+    plan = chip_smoke.MIXED if trunk_int8 == "0,0,1,1" else trunk_int8
+    cfg, model, batch = chip_smoke.build_resnext_slice(plan, None)
     calibrate_trunk(model, batch)
     return cfg, model, batch
 
@@ -67,13 +69,16 @@ def main() -> int:
     ap.add_argument("--fused-lstm", choices=("none", "true"), default="true")
     ap.add_argument("--vit-kernels", default="default",
                     choices=("default", *chip_smoke.VIT_CONFIGS))
+    ap.add_argument("--trunk-int8", choices=("0,0,1,1", "t", "t,t,1,1"),
+                    default="0,0,1,1")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 1
     print(chip_smoke.card_line(), flush=True)
-    cfg, model, batch = build(args.slice, args.vit_kernels, args.fused_lstm)
+    cfg, model, batch = build(args.slice, args.vit_kernels, args.fused_lstm,
+                              args.trunk_int8)
     state = init_train_state(model, cfg)
     step = make_train_step(model, cfg)
     for _ in range(3):
@@ -103,7 +108,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     what = args.slice + {"vit": f" ({args.vit_kernels})",
-                         "lstm": f" (fused_lstm={args.fused_lstm})"}.get(
+                         "lstm": f" (fused_lstm={args.fused_lstm})",
+                         "int8": f" (trunk_int8={args.trunk_int8})"}.get(
                              args.slice, "")
     print(f"{what} train step B={chip_smoke.BATCH}: {step_ms:.3f} ms "
           f"without the profiler; device time {kernel_ms:.3f} ms per step; "

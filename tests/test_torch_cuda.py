@@ -1,10 +1,13 @@
-"""The K1, K2, K3a/K3b, K4, K5, K6, K7, K8a-c and K9 kernels on a CUDA
-card: against their plain versions (K1 at the shapes of
+"""The K1, K2, K3a/K3b, K4, K5, K6, K7, K8a-c, K9, K10a, K10b and K11
+kernels on a CUDA card: against their plain versions (K1 at the shapes of
 tests/test_hwbc_kernels.py, K2 and the stage kernel at those of
 tests/test_quant_trunk.py and tests/test_hwbc_kernels.py, the ViT kernels
 at small, odd and ViT-B shapes, with kv_valid, K6 and K7 in every GELU
 form, K9 at small, odd and CVCL shapes, K4 forward and backward at
-B = 16, 72 and 128), K7 against K5 then K6 bit for bit, and on the
+B = 16, 72 and 128, K10a's block, stage and banded stage at
+tests/test_quant_trunk.py's transport shapes, K10b at
+tests/test_hwbc_kernels.py:74's and against K1 bit for bit, K11 forward
+and backward at odd M), K7 against K5 then K6 bit for bit, and on the
 arguments they refuse.
 
 Marked ``gpu``: each test skips, with its reason, where
@@ -32,9 +35,13 @@ from multimodal_baby_tpu_torch.ops.attention import (
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops import infonce
 from multimodal_baby_tpu_torch.ops.bottleneck import (
-    bottleneck_reference, fused_bottleneck)
+    bottleneck_reference, fused_bottleneck, fused_bottleneck_tiles,
+    tiles_reference)
+from multimodal_baby_tpu_torch.ops.conv_epilogue import (
+    conv1x1_bn_residual_relu, epilogue_reference)
 from multimodal_baby_tpu_torch.ops.quant import (
-    bottleneck_reference_q, fold_block_params_q)
+    bottleneck_reference_q, bottleneck_reference_t, fold_block_params_q,
+    fold_block_params_t)
 from multimodal_baby_tpu_torch.ops.stage import (
     fused_stage, fused_stage_banded, stage_reference)
 from multimodal_baby_tpu_torch.ops.vit_block import (
@@ -494,3 +501,148 @@ def test_infonce_kernel_refuses_what_it_cannot_take(cuda, bad):
         img = img.double()
     with pytest.raises(ValueError):
         infonce.fused_infonce_forward(img, txt, nlt)
+
+
+# ------------------------------------------------ K10a, K10b and K11
+
+def t_block(g, cin, width, cout, has_ds, device):
+    """An int8-transport fold (tests/test_quant_trunk.py's amax: in 2.0,
+    out 2.5) on the card."""
+    fw = fold_block_params_t(block_state(g, cin, width, cout, has_ds),
+                             2.0, 2.5)
+    return {k: v.to(device) for k, v in fw.items()}
+
+
+@pytest.mark.parametrize("stride,has_ds,H,cin,width,cout", [
+    (1, False, 8, 256, 128, 256),   # tests/test_quant_trunk.py:234
+    (2, True, 8, 256, 128, 256),
+    (1, True, 8, 64, 128, 256),     # layer 1's head
+    (2, True, 7, 512, 256, 512),    # odd size: 7 -> 4
+    (1, False, 5, 512, 256, 512),
+])
+def test_transport_kernel_matches_plain_version(cuda, stride, has_ds, H, cin,
+                                                width, cout):
+    g = torch.Generator().manual_seed(cin + width + H + 1)
+    fw = t_block(g, cin, width, cout, has_ds, cuda)
+    x = torch.randint(0, 100, (32, H, H, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    before = fused_bottleneck.launches_t
+    got = fused_bottleneck(x, fw, stride=stride)
+    want = bottleneck_reference_t(x, fw, stride=stride)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches_t == before + 1
+    codes_close(got, want)
+
+
+@pytest.mark.parametrize("H,cin,width,cout,strides,band", [
+    (8, 256, 128, 256, [2, 1, 1], None),       # test_quant_trunk.py:255
+    (14, 1024, 512, 1024, [1, 1, 1], None),    # layer 3's tail, shortened
+    (14, 1024, 1024, 2048, [2, 1, 1], None),   # layer 4
+    (8, 256, 128, 256, [1, 1, 1], 4),          # test_quant_trunk.py:273
+    (16, 64, 128, 256, [1, 1, 1], 4),          # layer 1's head, 4 bands
+])
+def test_transport_stage_kernel_matches_plain_version(cuda, H, cin, width,
+                                                      cout, strides, band):
+    g = torch.Generator().manual_seed(H + cin + len(strides) + 1)
+    fws = []
+    for j, s in enumerate(strides):
+        c = cin if j == 0 else cout
+        fws.append(t_block(g, c, width, cout, j == 0 and (c != cout or s != 1),
+                           cuda))
+    x = torch.randint(0, 100, (32, H, H, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    counter = fused_stage if band is None else fused_stage_banded
+    before = (counter.launches, counter.launches_t)
+    got = (fused_stage(x, fws, strides) if band is None
+           else fused_stage_banded(x, fws, strides, band))
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.launches_t) == (before[0],
+                                                      before[1] + 1)
+    # the stage is its blocks' K10a launches in a chain, bit for bit, and
+    # each of those is within one code of its plain version on its input
+    y = x
+    for fw, s in zip(fws, strides):
+        want = bottleneck_reference_t(y, fw, stride=s)
+        y = fused_bottleneck(y, fw, stride=s)
+        codes_close(y, want)
+    assert torch.equal(got, y)
+    # through the chain a moved code rides the residual path into the
+    # next block, so the whole is held to the plain chain by its cosine
+    assert_close_codes(got, stage_reference(x, fws, strides))
+    if band is not None:  # a halo row is computed as in the full stage
+        assert torch.equal(got, fused_stage(x, fws, strides))
+
+
+def assert_close_codes(got, want):
+    a, b = got.double().flatten(), want.double().flatten()
+    assert float(a @ b / (a.norm() * b.norm())) >= COS_TOL
+
+
+@pytest.mark.parametrize("stride,has_ds,B,H,cin,width,cout,Bc,hh", [
+    (2, True, 32, 16, 128, 256, 512, 16, 2),   # test_hwbc_kernels.py:74
+    (1, False, 16, 8, 256, 128, 256, 8, 4),
+    (1, True, 8, 7, 64, 128, 256, 4, 7),       # odd size, one band
+])
+def test_tiles_kernel_matches_plain_version_and_k1(cuda, stride, has_ds, B,
+                                                   H, cin, width, cout, Bc,
+                                                   hh):
+    x, fw = make_block(cin, width, cout, has_ds, H, B, cuda)
+    x = x.clamp_min(0)
+    before = fused_bottleneck_tiles.launches
+    got = fused_bottleneck_tiles(x, fw, stride=stride, Bc=Bc, hh=hh)
+    torch.cuda.synchronize()
+    ho = (H - 1) // stride + 1
+    assert fused_bottleneck_tiles.launches == before + (B // Bc) * (ho // hh)
+    assert_close_bf16(got, tiles_reference(x, fw, stride, Bc, hh))
+    # each output's sums run in K1's order: the tiles are K1's values
+    assert torch.equal(got, fused_bottleneck(x, fw, stride=stride))
+
+
+@pytest.mark.parametrize("M,cin,cout", [(1, 32, 128), (100, 128, 256),
+                                        (4096, 1024, 2048)])
+def test_conv_epilogue_kernel_matches_plain_version(cuda, M, cin, cout):
+    g = torch.Generator().manual_seed(M + cin)
+    x = torch.randn(M, cin, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(cin, cout, generator=g) / cin ** 0.5).to(
+        cuda, torch.bfloat16)
+    mul = (0.5 + torch.rand(cout, generator=g)).to(cuda)
+    add = (0.1 * torch.randn(cout, generator=g)).to(cuda)
+    res = torch.randn(M, cout, generator=g).to(cuda, torch.bfloat16)
+    args = [t.requires_grad_() for t in (x, w, mul, add, res)]
+    before = conv1x1_bn_residual_relu.launches
+    got = conv1x1_bn_residual_relu(*args)
+    want = epilogue_reference(*args)
+    torch.cuda.synchronize()
+    assert conv1x1_bn_residual_relu.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert_close_bf16(got, want)
+    gout = torch.randn(M, cout, generator=g).to(cuda, torch.bfloat16)
+    for a, b, name in zip(torch.autograd.grad(got, args, gout),
+                          torch.autograd.grad(want, args, gout),
+                          ("x", "w", "mul", "add", "residual")):
+        assert torch.equal(a, b), name  # both the plain version's autograd
+
+
+@pytest.mark.parametrize("bad", ["transport_keys", "tiles_int8",
+                                 "epilogue_f32", "epilogue_cout"])
+def test_new_kernels_refuse_what_they_cannot_take(cuda, bad):
+    g = torch.Generator().manual_seed(1)
+    with pytest.raises(ValueError):
+        if bad == "transport_keys":  # a transport fold without its ai
+            fw = t_block(g, 256, 128, 256, False, cuda)
+            del fw["ai"]
+            fused_bottleneck(torch.zeros(32, 4, 4, 256, dtype=torch.int8,
+                                         device=cuda), fw)
+        elif bad == "tiles_int8":
+            fw = t_block(g, 256, 128, 256, False, cuda)
+            fused_bottleneck_tiles(torch.zeros(32, 4, 4, 256,
+                                               dtype=torch.int8,
+                                               device=cuda), fw, 1, 16, 2)
+        else:
+            cout = 256 if bad == "epilogue_f32" else 200
+            dt = torch.float32 if bad == "epilogue_f32" else torch.bfloat16
+            conv1x1_bn_residual_relu(
+                torch.zeros(8, 64, dtype=dt, device=cuda),
+                torch.zeros(64, cout, dtype=dt, device=cuda),
+                torch.ones(cout, device=cuda), torch.zeros(cout, device=cuda),
+                torch.zeros(8, cout, dtype=dt, device=cuda))

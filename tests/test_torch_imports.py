@@ -25,6 +25,7 @@ MODULES = [
     "multimodal_baby_tpu_torch.ops.vit_block",
     "multimodal_baby_tpu_torch.ops.lstm",
     "multimodal_baby_tpu_torch.ops.infonce",
+    "multimodal_baby_tpu_torch.ops.conv_epilogue",
     "multimodal_baby_tpu_torch.models.layers",
     "multimodal_baby_tpu_torch.models.attention",
     "multimodal_baby_tpu_torch.models.beam_search",

@@ -1,8 +1,9 @@
 """The port's int8 ResNeXt trunk and kernel plan against the JAX package on
-the CPU: the plan rules, the amax buffers and their weight bridge, the
-calibration, and the whole trunk under ``trunk_int8=(0, 0, 1, 1)`` and the
-default plan (the int8 CVCL train step is in
-``tests/test_torch_int8_step.py``).
+the CPU: the plan rules (the int8-transport plans "t" and "t,t,1,1" among
+them), the amax buffers and their weight bridge, the calibration, and the
+whole trunk under ``trunk_int8=(0, 0, 1, 1)`` and the default plan (the
+int8 CVCL train step is in ``tests/test_torch_int8_step.py``; the transport
+trunks against JAX's in ``tests/test_torch_transport.py``).
 
 The JAX side runs its fused trunk (``MMB_FUSED_TRUNK=1``,
 ``MMB_TRUNK_INT8=0,0,1,1``, set with ``monkeypatch``; the Pallas kernels in
@@ -93,10 +94,10 @@ def jax_fused_pooled(monkeypatch, params, stats, scales, x):
         jnp.asarray(x).astype(jnp.bfloat16)), np.float32)
 
 
-def jax_declared_scales(monkeypatch, x):
+def jax_declared_scales(monkeypatch, x, plan="0,0,1,1"):
     """The "quant_scales" tree JAX's fused int8 trunk declares (zeros)."""
     monkeypatch.setenv("MMB_FUSED_TRUNK", "1")
-    monkeypatch.setenv("MMB_TRUNK_INT8", "0,0,1,1")
+    monkeypatch.setenv("MMB_TRUNK_INT8", plan)
     shapes = jax.eval_shape(
         lambda: JResNeXt50(dtype=jnp.bfloat16).init(
             jax.random.PRNGKey(0), jnp.asarray(x).astype(jnp.bfloat16)))
@@ -108,7 +109,7 @@ def jax_declared_scales(monkeypatch, x):
 
 @pytest.mark.parametrize("raw", [
     False, True, MIXED, (0, 0, 1, 1), "0,0,1,1", "1", "0", "q", (0, 0, 0, 1),
-    "0, 0, 1, 1"])
+    "0, 0, 1, 1", "t,t,1,1", "t", ("t", "t", "q", "q")])
 def test_int8_plan_matches_jax(monkeypatch, raw):
     monkeypatch.delenv("MMB_TRUNK_INT8", raising=False)
     assert TR.parse_int8_plan(raw) == JResNeXt50(trunk_int8=raw)._int8_plan()
@@ -118,8 +119,7 @@ def test_int8_plan_matches_jax(monkeypatch, raw):
     ((True, False, True, True), ValueError),   # not a suffix
     ((True,), ValueError),                     # wrong length
     ("0,0,x,1", ValueError),                   # unknown entry
-    ("t,t,1,1", NotImplementedError),          # transport: not ported
-    ("t", NotImplementedError)])
+    ("t,0,t,1", ValueError)])                  # transport: a suffix too
 def test_int8_plan_rejects(raw, error):
     with pytest.raises(error):
         TR.parse_int8_plan(raw)
@@ -144,13 +144,18 @@ def test_fused_plan_validation(plan, ok):
 
 
 def count_calls(monkeypatch):
-    """Count the folded path's kernel calls by (kernel, dtype)."""
+    """Count the folded path's kernel calls by (kernel, kind): "bf16",
+    "int8" (int8 codes and weights) or "t" (int8 codes, transport
+    weights)."""
     calls = []
 
     def wrap(name, fn):
-        def run(x, *args, **kw):
-            calls.append((name, "int8" if x.dtype == torch.int8 else "bf16"))
-            return fn(x, *args, **kw)
+        def run(x, fw, *args, **kw):
+            w1 = (fw if isinstance(fw, dict) else fw[0])["w1"]
+            kind = ("bf16" if x.dtype != torch.int8 else
+                    "int8" if w1.dtype == torch.int8 else "t")
+            calls.append((name, kind))
+            return fn(x, fw, *args, **kw)
         monkeypatch.setattr(TR, name, run)
 
     for name in ("fused_bottleneck", "fused_stage", "fused_stage_banded"):
@@ -158,29 +163,45 @@ def count_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("plan,batch,want", [
+@pytest.mark.parametrize("int8,plan,batch,want", [
     # the default plan under (0, 0, 1, 1): K3b, 4 K1, K2 + K3a, K3a
-    (TR.DEFAULT_PLAN, 32,
+    (MIXED, TR.DEFAULT_PLAN, 32,
      [("fused_stage_banded", "bf16")] + [("fused_bottleneck", "bf16")] * 4
      + [("fused_bottleneck", "int8"), ("fused_stage", "int8"),
         ("fused_stage", "int8")]),
     # B % 32 != 0: the same plan all in bf16
-    (TR.DEFAULT_PLAN, 16,
+    (MIXED, TR.DEFAULT_PLAN, 16,
      [("fused_stage_banded", "bf16")] + [("fused_bottleneck", "bf16")] * 4
      + [("fused_bottleneck", "bf16"), ("fused_stage", "bf16"),
         ("fused_stage", "bf16")]),
     # int8 stages demote banded -> blocks and splitband -> split; a band
     # that does not tile the rows (16 % 5) falls back to blocks
-    (("banded5", "splitband4", "banded", "splitband"), 32,
+    (MIXED, ("banded5", "splitband4", "banded", "splitband"), 32,
      [("fused_bottleneck", "bf16")] * 3
      + [("fused_bottleneck", "bf16"), ("fused_stage_banded", "bf16")]
      + [("fused_bottleneck", "int8")] * 6
      + [("fused_bottleneck", "int8"), ("fused_stage", "int8")]),
+    # "t,t,1,1": transport layers 1-2 (K3b, K1 in transport mode), then
+    # int8 from the transport codes, with no quantization between
+    ("t,t,1,1", TR.DEFAULT_PLAN, 32,
+     [("fused_stage_banded", "t")] + [("fused_bottleneck", "t")] * 4
+     + [("fused_bottleneck", "int8"), ("fused_stage", "int8"),
+        ("fused_stage", "int8")]),
+    # transport stages stay banded (vision_resnext.py:692-694)
+    ("t", ("banded5", "splitband4", "banded", "splitband"), 32,
+     [("fused_bottleneck", "t")] * 3
+     + [("fused_bottleneck", "t"), ("fused_stage_banded", "t")]
+     + [("fused_stage_banded", "t")]
+     + [("fused_bottleneck", "t"), ("fused_stage_banded", "t")]),
+    ("t", TR.DEFAULT_PLAN, 16,  # B % 32 != 0: bf16
+     [("fused_stage_banded", "bf16")] + [("fused_bottleneck", "bf16")] * 4
+     + [("fused_bottleneck", "bf16"), ("fused_stage", "bf16"),
+        ("fused_stage", "bf16")]),
 ])
-def test_plan_dispatch(monkeypatch, plan, batch, want):
+def test_plan_dispatch(monkeypatch, int8, plan, batch, want):
     """Which kernel each stage runs at 64 px (stem output 16 x 16)."""
     params, stats = random_variables()
-    trunk = port_trunk(params, stats, plan=plan)
+    trunk = port_trunk(params, stats, trunk_int8=int8, plan=plan)
     calls = count_calls(monkeypatch)
     x = torch.from_numpy(np.random.RandomState(1).randn(
         batch, 64, 64, 3).astype(np.float32)).to(torch.bfloat16)
@@ -192,14 +213,15 @@ def test_plan_dispatch(monkeypatch, plan, batch, want):
     assert tuple(out["feature_map"].shape) == (batch, 2, 2, 2048)
 
 
-def test_batch_off_32_computes_the_bf16_plan():
+@pytest.mark.parametrize("int8", [MIXED, "t,t,1,1", "t"])
+def test_batch_off_32_computes_the_bf16_plan(int8):
     """JAX's rule (vision_resnext.py:570): an int8 plan runs all-bf16 when
     B % 32 != 0, so the result is the bf16 trunk's, bit for bit."""
     params, stats = random_variables()
     x = torch.from_numpy(np.random.RandomState(2).randn(
         8, 64, 64, 3).astype(np.float32)).to(torch.bfloat16)
     with torch.no_grad():
-        got = port_trunk(params, stats).forward_folded(x)
+        got = port_trunk(params, stats, trunk_int8=int8).forward_folded(x)
         want = port_trunk(params, stats, trunk_int8=False).forward_folded(x)
     for k in ("pooled", "feature_map"):
         assert torch.equal(got[k], want[k]), k
@@ -207,33 +229,39 @@ def test_batch_off_32_computes_the_bf16_plan():
 
 # --------------------------------------------------- buffers and bridge
 
-def test_amax_buffers_where_jax_declares_them(monkeypatch):
-    """The port's amax buffers are JAX's "quant_scales" variables (the
-    mixed plan: out_amax on every block, h1/h2 on int8 blocks, stem_amax);
-    a bf16 trunk has none, so its state dict is unchanged."""
+@pytest.mark.parametrize("plan,n_amax", [
+    ("0,0,1,1", 1 + 16 + 2 * 9), ("t,t,1,1", 1 + 16 + 2 * 9),
+    ("t", 1 + 16)])
+def test_amax_buffers_where_jax_declares_them(monkeypatch, plan, n_amax):
+    """The port's amax buffers are JAX's "quant_scales" variables
+    (stem_amax, out_amax on every block, h1/h2 on "q" blocks only: a
+    transport block declares out_amax alone); a bf16 trunk has none, so
+    its state dict is unchanged."""
     params, stats = random_variables()
-    scales = jax_declared_scales(monkeypatch, np.zeros((32, 64, 64, 3)))
+    scales = jax_declared_scales(monkeypatch, np.zeros((32, 64, 64, 3)),
+                                 plan)
     want = sorted(k for k in resnext50_state_dict(params, stats,
                                                   quant_scales=scales)
                   if k.endswith("amax"))
-    got = sorted(k for k in ResNeXt50(trunk_int8=MIXED).state_dict()
+    got = sorted(k for k in ResNeXt50(trunk_int8=plan).state_dict()
                  if k.endswith("amax"))
-    assert got == want and len(got) == 1 + 16 + 2 * 9
+    assert got == want and len(got) == n_amax
     assert not any(k.endswith("amax")
                    for k in ResNeXt50().state_dict())
 
 
-def test_quant_scales_bridge_round_trip(monkeypatch):
+@pytest.mark.parametrize("plan", ["0,0,1,1", "t,t,1,1", "t"])
+def test_quant_scales_bridge_round_trip(monkeypatch, plan):
     """The port's state dict -> JAX's convert_cvcl_checkpoint -> with JAX's
     "quant_scales" collection -> cvcl_state_dict -> the port: every amax
     lands in its buffer exactly, and the fold is redone."""
     rng = np.random.RandomState(3)
     scales = jax.tree.map(
         lambda z: rng.uniform(.5, 4., z.shape).astype(np.float32),
-        jax_declared_scales(monkeypatch, np.zeros((32, 64, 64, 3))))
+        jax_declared_scales(monkeypatch, np.zeros((32, 64, 64, 3)), plan))
     cfg = tcfg.ModelConfig(
         embedding_dim=32, vocab_size=64, embedding_type="flat",
-        vision=tcfg.VisionConfig(frozen_bn="running", trunk_int8=MIXED),
+        vision=tcfg.VisionConfig(frozen_bn="running", trunk_int8=plan),
         text=tcfg.TextConfig(text_encoder="embedding"))
     model = CVCL(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
     sd = {k: v.numpy() for k, v in model.state_dict().items()

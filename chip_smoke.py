@@ -8,7 +8,10 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 Phases (each raises on failure, and the script then exits non-zero):
 
 1. The card's name and power limit; the build of the kernels
-   (``multimodal_baby_tpu_torch/ops/csrc/*.cu``) with nvcc.
+   (``multimodal_baby_tpu_torch/ops/csrc/*.cu``) with nvcc, and ptxas's
+   registers, spills and stack of each kernel (K8a's ``attention_f32p``
+   and K8c's ``qkv_attention_mma`` named, each in its one-pass and
+   two-pass form, with their shared memory at N = 257).
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
    same bf16 inputs with the same rounding points, for four small and
    odd-sized cases at B = 8 and the 8 distinct ResNeXt-50 block shapes at
@@ -63,7 +66,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    against their plain versions on phase 2b's cases, with 2b's gates; K6
    and K7 also in the tanh and sigmoid GELU forms; K7 against K5 then K6
    bit for bit in every form (the count of differing bf16 words is
-   printed). Each ViT-B case is timed beside its plain version, its
+   printed); then K8a at N = 257, 272, 273, 416 and 752 and K8c at the
+   first four (B = 2, C = 768), each with and without kv_valid = N - 20:
+   the edges of their register-resident design (one chunk of 272 keys,
+   then two passes). Each ViT-B case is timed beside its plain version, its
    library call (scaled_dot_product_attention for K8a and K8b; Linear and
    scaled_dot_product_attention for K8c; 2b's LayerNorm / Linear / SDPA /
    GELU chain for K7, and K5 then K6) and its bound.
@@ -89,7 +95,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    CLS and logits against the same configuration with its kernels
    swapped for their plain versions on the card and against the plain
    bf16 blocks: per-row cosine >= 0.999 (the cosine against f32 is
-   printed). Then the ViT forward and step time of each.
+   printed). Then the ViT forward and step time of each, and the step
+   times of the default, attn=1 and attn=qkv in turns (default, 1, qkv,
+   qkv, 1, default), each from phase 4's weights.
 2e. K9 (``lstm_fused``) against the plain scan at (B, L, H) = (128, 25,
    512) and (128, 64, 512) with random lengths (max absolute error <= 1e-4
    on out, h_last and c_last), and K4's forward and backward
@@ -185,9 +193,9 @@ from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
 from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm, ViTKernels
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.attention import (
-    attention_pairs_reference, attention_reference,
-    block_attention_reference, fused_attention, fused_attention_pairs,
-    fused_block_attention, fused_qkv_attention_pairs,
+    MAX_TOKENS_QKV, attention_geometry, attention_pairs_reference,
+    attention_reference, block_attention_reference, fused_attention,
+    fused_attention_pairs, fused_block_attention, fused_qkv_attention_pairs,
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     block_reference, bottleneck_reference, default_band, fused_bottleneck,
@@ -261,6 +269,15 @@ VIT_CONFIGS = {
     "gelu=tanh": (ViTKernels(gelu="tanh"), {"K5": VIT_DEPTH,
                                             "K6": VIT_DEPTH}),
 }
+# phase 6: the configurations whose step times are taken in turns
+VIT_TURNS = {"default": ViTKernels(), "attn=1": ViTKernels(attn="1"),
+             "attn=qkv": ViTKernels(attn="qkv")}
+# phase 2d: K8a and K8c at the edges of their register-resident design
+# (N = 257 and 272: a row's scores in one chunk of registers; 273: the
+# first N over it, two passes; K8c's cap 416, K8a's 752), with and without
+# kv_valid: (B, N, C, heads, kv_valid)
+K8_EDGE_CASES = [(2, n, 768, 12, kv) for n in (257, 272, 273, 416, 752)
+                 for kv in (None, n - 20)]
 
 
 def log(msg: str) -> None:
@@ -637,6 +654,25 @@ def phase_vit_more_kernels():
         log(f"  K7 against the port's own K5 then K6 at B={B}: "
             f"{out['K7']['ms'] / VIT_DEPTH:.3f} against {two_ms:.3f} ms per "
             f"block")
+    with torch.no_grad():
+        for B, N, C, heads, kv in K8_EDGE_CASES:
+            scale = (C // heads) ** -0.5
+            tag = f"B={B} N={N} C={C}" + (f" kv_valid={kv}" if kv else "")
+            qh, kh, vh = (torch.randn(B * heads, N, C // heads, generator=gen)
+                          .to("cuda", torch.bfloat16) for _ in range(3))
+            out["K8a"]["max_abs_err"] = max(
+                out["K8a"]["max_abs_err"],
+                check(f"K8a {tag}", fused_attention(qh, kh, vh, scale, kv),
+                      attention_reference(qh, kh, vh, scale, kv)))
+            if N > MAX_TOKENS_QKV:
+                continue
+            x, pa = vit_half_inputs(gen, "attention", B, N, C, 4 * C)
+            out["K8c"]["max_abs_err"] = max(
+                out["K8c"]["max_abs_err"],
+                check(f"K8c {tag}", fused_qkv_attention_pairs(
+                    x, pa[2], pa[3], heads, scale, kv),
+                    qkv_attention_pairs_reference(x, pa[2], pa[3], heads,
+                                                  scale, kv)))
     for name, res in out.items():
         log(f"  {name} over the {VIT_DEPTH} blocks of one forward at "
             f"B={BATCH}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
@@ -1371,8 +1407,39 @@ def phase_vit_configs(cfg, model, batch, start):
             fwd = time_ms(lambda: trunk(img_aug), 5)
         log(f"  ViT forward B={BATCH}, {name}: {fwd:.3f} ms")
         time_steps(state, train_step, batch, f"ViT {name}")
+    vit_steps_in_turns(cfg, model, batch, start)
     trunk.vit_kernels = ViTKernels()
     return launches
+
+
+def vit_steps_in_turns(cfg, model, batch, start):
+    """The ViT train step of the default configuration (K5 + K6), attn=1
+    (K8a + K6) and attn=qkv (K8c + K6), each from phase 4's weights with an
+    optimizer state of its own, timed in turns (default, 1, qkv, qkv, 1,
+    default; TIMED_STEPS steps a turn) on one model whose ``vit_kernels``
+    is switched before each turn."""
+    trunk = model.vision_encoder.model
+    model.load_state_dict(start)
+    runs = {}
+    for name, kernels in VIT_TURNS.items():
+        trunk.vit_kernels = kernels
+        state, step = init_train_state(model, cfg), make_train_step(model, cfg)
+        step(state, batch)  # untimed: first use of the configuration
+        runs[name] = (kernels, state, step)
+    times = collections.defaultdict(list)
+    for name in list(VIT_TURNS) + list(VIT_TURNS)[::-1]:
+        kernels, state, step = runs[name]
+        trunk.vit_kernels = kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step(state, batch)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
+    for name, ms in times.items():
+        log(f"  ViT train step B={BATCH} in turns, {name}: "
+            f"{' / '.join(f'{t:.3f}' for t in ms)} ms (mean "
+            f"{sum(ms) / len(ms):.3f})")
 
 
 @contextlib.contextmanager
@@ -2046,6 +2113,19 @@ def main() -> int:
         if "Function properties for" in line and i + 2 < len(lines):
             log(f"  ptxas: ...{line.split('for ')[-1][-44:]}: "
                 f"{lines[i + 2].split(': ', 1)[-1]}; {lines[i + 1].strip()}")
+    for name, kernel in (("K8a", "attention_f32p"),
+                         ("K8c", "qkv_attention_mma")):
+        found = [i for i, line in enumerate(lines)
+                 if "Function properties for" in line and kernel in line]
+        if len(found) != 2:
+            raise AssertionError(f"ptxas reported {len(found)} {kernel} "
+                                 f"kernels, expected 2 (one and two passes)")
+        for i in found:
+            rows = "one" if "Lb1E" in lines[i] else "two"
+            log(f"  ptxas {name} ({kernel}, {rows} pass): "
+                f"{lines[i + 2].split(': ', 1)[-1]}; {lines[i + 1].strip()}")
+        log(f"  {name} dynamic shared memory at N = 257: "
+            f"{attention_geometry(257, qkv=name == 'K8c').smem} bytes")
 
     log("phase 2: K1 against its plain version")
     k1 = phase_k1()

@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "attention.cu",
            "vit_block.cu", "lstm.cu", "infonce.cu", "conv_epilogue.cu")
-HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh")
+HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
+           "attn_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -95,9 +96,12 @@ def library() -> ctypes.CDLL:
             lib.mmb_vit_mlp_bf16.argtypes = (
                 [ptr] * 10 + [i32] * 4 + [f32, ptr])
             lib.mmb_attention_bf16.argtypes = (
-                [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32, i32, ptr])
+                [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32, ptr])
+            lib.mmb_attention_f32p_bf16.argtypes = (
+                [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32] + [i32] * 6
+                + [ptr])
             lib.mmb_qkv_attention_bf16.argtypes = (
-                [ptr] * 4 + [i32] * 4 + [f32, ptr])
+                [ptr] * 4 + [i32] * 4 + [f32] + [i32] * 6 + [ptr])
             lib.mmb_vit_block_bf16.argtypes = (
                 [ptr] * 20 + [i32] * 6 + [f32] * 2 + [ptr])
             lib.mmb_bottleneck_s8.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
@@ -116,6 +120,7 @@ def library() -> ctypes.CDLL:
                        lib.mmb_conv1x1_bn_residual_relu_bf16,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
                        lib.mmb_vit_mlp_bf16, lib.mmb_attention_bf16,
+                       lib.mmb_attention_f32p_bf16,
                        lib.mmb_qkv_attention_bf16, lib.mmb_vit_block_bf16,
                        lib.mmb_lstm_f32, lib.mmb_infonce_fwd_f32,
                        lib.mmb_infonce_bwd_f32):

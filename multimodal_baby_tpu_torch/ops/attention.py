@@ -17,7 +17,8 @@ version. Counterparts of ``multimodal_baby_tpu/ops/attention.py``:
   the qkv projection inside, then K8b.
 
 K8a-c divide by the row sum before the value contraction, as the TPU
-kernels do; their kernels are in ``csrc/attention.cu``. Each wrapper runs
+kernels do; their kernels are in ``csrc/attention.cu`` (K8a's and K8c's
+launch geometry from ``attention_geometry``). Each wrapper runs
 its kernel on a CUDA tensor and its plain version on a CPU tensor; the
 gradient is the plain version's VJP. ``should_fuse_*`` are the JAX
 package's shape gates, which the ViT's dispatch follows.
@@ -29,13 +30,16 @@ environment knobs, and the TPU kernels' two-heads-per-128-lanes packing
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.vit_common import (
     PlainVJP, check_args, layer_norm)
 
-__all__ = ["attention_pairs_reference", "attention_reference",
+__all__ = ["AttentionGeometry", "attention_geometry",
+           "attention_pairs_reference", "attention_reference",
            "block_attention_reference", "fused_attention",
            "fused_attention_pairs", "fused_block_attention",
            "fused_qkv_attention_pairs", "qkv_attention_pairs_reference",
@@ -44,7 +48,52 @@ __all__ = ["attention_pairs_reference", "attention_reference",
 
 HEAD_DIM = 64      # the kernels' head width
 MAX_TOKENS = 752   # K and V of one head for N tokens fit in shared memory
-MAX_TOKENS_QKV = 416  # K8c: q, k and v of one head in shared memory
+MAX_TOKENS_QKV = 416  # K8c: K and V of one head and the projection's ring
+KEY_CHUNK = 272    # K8a, K8c: keys whose scores a warp holds in registers
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
+# K8c's projection ring (csrc/attention.cu, QM_*): 3 stages of an x slice
+# [64][32] and two W atoms [32][64], bf16, plus 1 KB to align the swizzle
+# atoms
+QKV_RING_BYTES = 3 * (64 * 32 + 2 * 32 * 64) * 2 + 1024
+
+
+class AttentionGeometry(NamedTuple):
+    """The launch of K8a or K8c for N tokens (``csrc/attention.cu``): np
+    = N rounded up to 16; keys in chunks of ``kc`` (a multiple of 16, at
+    most ``KEY_CHUNK``), ``nchunks`` of them over np, the last np - (nchunks
+    - 1) kc; ``rows`` of K and V in shared memory, (nchunks - 1) kc +
+    KEY_CHUNK (each chunk is read as KEY_CHUNK keys, those past it masked);
+    ``threads`` a block; ``smem`` dynamic shared-memory bytes. The fields
+    are the kernels' launch arguments, in order."""
+    np: int
+    kc: int
+    nchunks: int
+    rows: int
+    threads: int
+    smem: int
+
+
+def attention_geometry(N: int, qkv: bool = False) -> AttentionGeometry:
+    """K8a's (``qkv`` False) or K8c's launch geometry for N tokens. K8a: one
+    warp per 16-row query slab up to 4 a block (a warp never gets an
+    all-padding slab), K and V of the head in shared memory (256 bytes a
+    row); K8c: 4 warps, K and V plus the projection ring. Raises ValueError
+    on an N the kernels cannot serve; never clamps."""
+    cap = MAX_TOKENS_QKV if qkv else MAX_TOKENS
+    if not 1 <= N <= cap:
+        raise ValueError(f"attention_geometry: needs 1 <= N <= {cap}; got "
+                         f"N={N}")
+    np_ = -(-N // 16) * 16
+    nchunks = -(-np_ // KEY_CHUNK)
+    kc = -(-np_ // (16 * nchunks)) * 16   # ceil(np / nchunks), up to 16
+    rows = (nchunks - 1) * kc + KEY_CHUNK
+    threads = 128 if qkv else 32 * min(4, np_ // 16)
+    smem = 2 * rows * HEAD_DIM * 2 + (QKV_RING_BYTES if qkv else 0)
+    if (smem > SMEM_LIMIT or kc > KEY_CHUNK
+            or not (nchunks - 1) * kc < np_ <= nchunks * kc):
+        raise ValueError(f"attention_geometry: N={N} needs {smem} bytes of "
+                         f"shared memory and chunks of {kc} keys")
+    return AttentionGeometry(np_, kc, nchunks, rows, threads, smem)
 
 
 # ------------------------------------------------ the JAX package's gates
@@ -253,20 +302,6 @@ fused_block_attention.launches = 0
 
 # ------------------------------------------------------------- K8a, K8b
 
-def _launch_attention(what, q, k, v, y, images, heads, n_keys, scale, split):
-    """The K8a/K8b kernel on [images, N, *] views whose head h is columns
-    64h .. 64h + 63 (strides in elements)."""
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        code = lib.mmb_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-            q.stride(0), k.stride(0), v.stride(0), y.stride(0),
-            q.stride(1), k.stride(1), v.stride(1), y.stride(1),
-            images, heads, q.shape[1], n_keys, scale, int(split),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, what)
-
-
 def _run_attention(q, k, v, scale, kv_valid):
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, kv_valid)
@@ -279,9 +314,17 @@ def _run_attention(q, k, v, scale, kv_valid):
         raise ValueError(f"fused_attention: needs heads of {HEAD_DIM}, got "
                          f"d={d}")
     n_keys = n_keys_checked("fused_attention", N, kv_valid, MAX_TOKENS)
+    geo = attention_geometry(N)
     y = torch.empty((BH, N, d), dtype=q.dtype, device=q.device)
-    _launch_attention("fused_attention", q, k, v, y, BH, 1, n_keys, scale,
-                      True)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = lib.mmb_attention_f32p_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
+            q.stride(0), k.stride(0), v.stride(0), y.stride(0),
+            q.stride(1), k.stride(1), v.stride(1), y.stride(1),
+            BH, 1, N, n_keys, scale, *geo,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "fused_attention")
     fused_attention.launches += 1
     return y
 
@@ -315,8 +358,15 @@ def _run_attention_pairs(q, k, v, num_heads, scale, kv_valid):
                          f" got C={C}, heads={num_heads}")
     n_keys = n_keys_checked("fused_attention_pairs", N, kv_valid, MAX_TOKENS)
     y = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
-    _launch_attention("fused_attention_pairs", q, k, v, y, B, num_heads,
-                      n_keys, scale, False)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = lib.mmb_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
+            q.stride(0), k.stride(0), v.stride(0), y.stride(0),
+            q.stride(1), k.stride(1), v.stride(1), y.stride(1),
+            B, num_heads, N, n_keys, scale,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "fused_attention_pairs")
     fused_attention_pairs.launches += 1
     return y
 
@@ -353,13 +403,15 @@ def _run_qkv_attention_pairs(x, wqkv, bqkv, num_heads, scale, kv_valid):
         raise ValueError(f"fused_qkv_attention_pairs: needs heads of "
                          f"{HEAD_DIM}; got C={C}, heads={num_heads}")
     n_keys = n_keys_checked("fused_qkv_attention_pairs", N, kv_valid,
-                     MAX_TOKENS_QKV)
+                            MAX_TOKENS_QKV)
+    geo = attention_geometry(N, qkv=True)
     lib = _build.library()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = lib.mmb_qkv_attention_bf16(
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), y.data_ptr(),
-            B, N, C, n_keys, scale, torch.cuda.current_stream().cuda_stream)
+            B, N, C, n_keys, scale, *geo,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "fused_qkv_attention_pairs")
     fused_qkv_attention_pairs.launches += 1
     return y

@@ -10,34 +10,63 @@
 //       [B, N, C] (any row stride: the column slices of the qkv projection's
 //       [B, N, 3C] output are read in place); p rounded to bf16;
 //   K8c fused_qkv_attention_pairs (`_qkv_attn_pairs_kernel`): the qkv
-//       projection inside, q, k, v = bf16(bf16(x . W) + b), then K8b.
+//       projection inside, q, k, v = bf16(bf16(x . W) + b), then K8b's
+//       attention (p rounded to bf16).
 // The TPU kernels pack two heads into one 128-lane contraction (their +/-
 // trick) to fill the TPU's matrix unit; here each warp computes one head's
-// scores directly as q . k^T on the tensor cores (wmma 16x16x16).
-//
-// K8a and K8b: one block per (64 query rows, head, image), K5's shape
-// (vit.cuh): K, V of all N keys and the tile's Q in shared memory (93,696
-// bytes at N = 257, two blocks per SM); each warp takes 16 query rows
-// through two passes over the keys, the scores recomputed in each
-// (slab_max_sum: the row max and sum, online; slab_exact: p . V). K8a's f32
-// p goes through the bf16 tensor cores as bf16(p) + bf16(p - bf16(p)), two
-// products against the exact bf16 V: p to ~2^-16 of itself, as the TPU
-// kernel's f32 dot.
-//
-// K8c: one block of 8 warps per (head, image). The prologue computes the
-// head's q, k and v for all N tokens (a [Np, C] x [C, 192] product: 64-row
-// tiles of x and 32-deep slices of the head's 192 weight columns in a
-// two-stage cp.async pipeline, wmma) into shared memory (3 x 272 x 72 x 2
-// = 117,504 bytes at N = 257), so the [B, N, 3C] tensor never reaches
-// device memory; the warps then walk the 16-row query slabs. 165,632 bytes
-// of shared memory: one block per SM.
+// scores directly as q . k^T on the tensor cores.
 //
 // What bounds them on an H100: at ViT-B/14 and B = 128, K8a/K8b do 26.0
 // GFLOP on 202 MB (bytes: 0.060 ms at 3.35 TB/s) and K8c 142.4 GFLOP on
-// 105 MB (operations: 0.144 ms at 989 TFLOP/s). This first version
-// recomputes q . k^T per pass (K8a also doubles the value products), on
-// mma.sync through wmma; wgmma and TMA are later work.
+// 105 MB (operations: 0.144 ms at 989 TFLOP/s).
+//
+// K8a and K8c run the register-resident core of attn_mma.cuh (mma.sync
+// m16n8k16, the scores of 16 query rows against up to 272 keys held in a
+// warp's registers, one Q . K^T pass, p packed from the accumulators into
+// the value product's operands). The launch geometry (key chunks, threads,
+// dynamic shared memory) comes from ops/attention.py::attention_geometry.
+//
+// K8a: one block per (head, image). K and V of the head's N keys are
+// loaded once into swizzled shared memory (256 bytes a row for rows up to
+// the last chunk's start + 272: 69,632 at N = 257, 200,704 at N = 752),
+// one cp.async group per key chunk and one for
+// V, so the first slabs' scores start as soon as their chunk lands and V
+// lands during the softmax. The block's warps (min(4, np / 16)) walk the
+// np / 16 slabs of 16 query rows; a warp reads its Q fragments straight
+// from device memory into registers. No warp is given an all-padding slab
+// (N = 257: 17 slabs, not the 20 of 64-row tiles). p at f32 grade goes
+// through the bf16 tensor cores as bf16(p) + bf16(p - bf16(p)) against the
+// exact bf16 V, two products per fragment: p to ~2^-16 of itself, as the
+// TPU kernel's f32 dot. __launch_bounds__(128, 2): up to 255 registers a
+// thread (136 of them the scores), two blocks per SM up to N = 352 (by
+// shared memory), one above. Rows of one chunk (np <= 272) and the
+// two-pass rows are separate kernels (the SINGLE template argument).
+//
+// K8c: one block of 4 warps (one warpgroup) per (head, image). Phase 1
+// projects the head's K and V for every token row in rounds of 64 rows: a
+// wgmma m64n128k16 tile of x . W[:, k | v] (warp w gets rows 16 w .. 16 w
+// + 15 in the mma accumulator layout), fed by a three-stage cp.async ring
+// of 32-deep slices (x [64][32] K-major with the 64-byte swizzle, W as two
+// [32][64] MN-major atoms with the 128-byte swizzle); the epilogue rounds
+// bf16(bf16(acc) + b) into the swizzled K and V, rows < np only. Phase 2
+// walks the query slabs in rounds of 4 (one a warp): the same ring, a
+// m64n64k16 tile of the round's Q; each warp turns its 16 x 64
+// accumulators into the A fragments of its Q . K^T in registers (Q never
+// goes to shared memory) and runs the attention core. Each step keeps the
+// copies of two slices and one wgmma group in flight.
+// wgmma, not mma.sync: with 16-row mma.sync warp tiles the projection's
+// time went to the per-slice barrier and fragment loads (PERF.md). Its
+// cost: 64-row granularity, 320 rows computed at N = 257 (272 loaded and
+// stored): 18% more tensor work, no more bytes.
+// Shared memory: 256 rows + 37,888 bytes (1 KB of it aligns the swizzle
+// atoms), 107,520 at N = 257, so two blocks share an SM and one block's
+// projection overlaps the other's attention (one block per SM for the
+// two-pass rows, N > 272: K and V then hold the last chunk's start + 272
+// rows; N <= 416). What bounds it now: the ring's barrier and copies per
+// 32-deep slice (x read twice and W's slices once a round from L2), not
+// the tensor cores (PERF.md).
 
+#include "attn_mma.cuh"
 #include "vit.cuh"
 
 namespace {
@@ -53,7 +82,13 @@ struct AttnIO {
   int q_rs, k_rs, v_rs, y_rs;
 };
 
-template <bool SPLIT>
+// ---------------------------------------------------------------- K8b
+
+// one block per (64 query rows, head, image), K5's shape (vit.cuh): K, V of
+// all N keys and the tile's Q in shared memory (93,696 bytes at N = 257,
+// two blocks per SM); each warp takes 16 query rows through two passes over
+// the keys, the scores recomputed in each (slab_max_sum: the row max and
+// sum, online; slab_exact: p . V), on wmma 16x16x16
 __global__ void __launch_bounds__(AT_THREADS, 2)
     attention_exact(const AttnIO io, int N, int kv_valid, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -95,7 +130,7 @@ __global__ void __launch_bounds__(AT_THREADS, 2)
   __syncthreads();
 
   AccFrag o[HD / 16];
-  slab_exact<SPLIT>(qf, Ks, Vs, np, kv_valid, scale, m, z, st, pt, o);
+  slab_exact(qf, Ks, Vs, np, kv_valid, scale, m, z, st, pt, o);
   const int row = q0 + warp * 16;
   slab_store(o, 1.0f, st,
              io.y + img * io.y_bs + static_cast<size_t>(row) * io.y_rs +
@@ -103,170 +138,407 @@ __global__ void __launch_bounds__(AT_THREADS, 2)
              io.y_rs, N - row);
 }
 
-template <bool SPLIT>
-cudaError_t launch_attention_exact(const AttnIO& io, int images, int heads,
-                                   int N, int kv_valid, float scale,
-                                   cudaStream_t s) {
-  const size_t smem = attention_smem((N + 15) & ~15);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_exact<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + AT_BQ - 1) / AT_BQ, heads, images);
-  attention_exact<SPLIT><<<grid, AT_THREADS, smem, s>>>(io, N, kv_valid,
-                                                        scale);
-  return cudaGetLastError();
+// ---------------------------------------------------------------- K8a
+
+// the slab's 16 query rows (row pitch rs) as the A fragments of Q . K^T
+// (k step kd: rows g and g + 8, columns 16 kd + 2 (lane % 4) and + 8),
+// read from device memory; rows >= valid are zeros
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[4][4],
+                                             const __nv_bfloat16* q,
+                                             size_t rs, int valid) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = 2 * (lane & 3);
+  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(q + g * rs + c);
+  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(q + (g + 8) * rs + c);
+  const bool ok0 = g < valid, ok1 = g + 8 < valid;
+#pragma unroll
+  for (int kd = 0; kd < 4; ++kd) {
+    qa[kd][0] = ok0 ? __ldg(r0 + 8 * kd) : 0u;
+    qa[kd][1] = ok1 ? __ldg(r1 + 8 * kd) : 0u;
+    qa[kd][2] = ok0 ? __ldg(r0 + 8 * kd + 4) : 0u;
+    qa[kd][3] = ok1 ? __ldg(r1 + 8 * kd + 4) : 0u;
+  }
+}
+
+template <bool SINGLE>
+__global__ void __launch_bounds__(128, 2)
+    attention_f32p(const AttnIO io, const AttnGeom gm, int N, int kv_valid,
+                   float c) {
+  extern __shared__ __align__(128) unsigned char attn_f32p_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(attn_f32p_smem);
+  __nv_bfloat16* Vs = Ks + gm.rows * AM_D;
+
+  const int head = blockIdx.x;
+  const long long img = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const __nv_bfloat16* q = io.q + img * io.q_bs + head * AM_D;
+  const __nv_bfloat16* k = io.k + img * io.k_bs + head * AM_D;
+  const __nv_bfloat16* v = io.v + img * io.v_bs + head * AM_D;
+  __nv_bfloat16* y = io.y + img * io.y_bs + head * AM_D;
+
+  // one group per key chunk (the last also zero-fills the rows past np),
+  // then V
+  for (int ch = 0; ch < gm.nchunks; ++ch) {
+    const int k0 = ch * gm.kc;
+    load_rows_sw(Ks, k, io.k_rs, N, k0,
+                 ch + 1 < gm.nchunks ? k0 + gm.kc : gm.rows, tid, blockDim.x);
+    cp_async_commit();
+  }
+  load_rows_sw(Vs, v, io.v_rs, N, 0, gm.rows, tid, blockDim.x);
+  cp_async_commit();
+
+  // the wrapper gives the block at most np / 16 warps: each has a slab in
+  // the first round, which waits for the chunks with block barriers
+  for (int sl = warp; sl < gm.np / 16; sl += nwarps) {
+    const int row = sl * 16;
+    uint32_t qa[4][4];
+    load_q_frags(qa, q + static_cast<size_t>(row) * io.q_rs, io.q_rs,
+                 N - row);
+    float o[8][4];
+    attention_slab<true, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, sl == warp, o);
+    store_slab(o, y + static_cast<size_t>(row) * io.y_rs, io.y_rs, N - row);
+  }
 }
 
 // ---------------------------------------------------------------- K8c
 
-constexpr int QA_THREADS = 256;
-constexpr int QA_WARPS = QA_THREADS / 32;
-constexpr int QA_BM = 64;           // token rows per projection tile
-constexpr int QA_BN = 3 * HD;       // the head's q | k | v columns
-constexpr int QA_LDB = QA_BN + 8;   // bf16 pitch of the weight slices
+constexpr int QM_THREADS = 128;  // one warpgroup: 4 warps, 16 rows each
+constexpr int QM_BM = 64;        // token rows a projection round (wgmma m64)
+constexpr int QM_BK = 32;        // depth of a ring slice
+constexpr int QM_STAGES = 3;     // ring depth
+// a ring stage: the x slice [64][32] (4 KB, 64-byte swizzle) at 0, then
+// the W slice as [32][64] atoms (4 KB each, 128-byte swizzle): two in phase
+// 1 (the head's k and v columns), one in phase 2 (q)
+constexpr int QM_X_ELEMS = QM_BM * QM_BK;
+constexpr int QM_ATOM_ELEMS = QM_BK * AM_D;
+constexpr int QM_STAGE_ELEMS = QM_X_ELEMS + 2 * QM_ATOM_ELEMS;
+constexpr int QM_ALIGN = 1024;   // the swizzle atoms' alignment
 
-size_t qkv_attention_smem(int np) {
-  return 3 * static_cast<size_t>(np) * KV_LD * 2  // Q, K, V
-         + 2 * QA_BM * A_LD * 2                   // x tiles, two stages
-         + 2 * BK * QA_LDB * 2                    // W slices, two stages
-         + QA_WARPS * 16 * 16 * (4 + 2);          // s, p tiles
+// element (r, c) of the x slice: K-major, 64-byte swizzle (the 16-byte
+// chunk c / 8 of row r at chunk c / 8 ^ (r / 2) % 4), as wgmma reads it
+__device__ __forceinline__ int swx(int r, int c) {
+  return r * QM_BK + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
 }
 
-__global__ void __launch_bounds__(QA_THREADS, 1)
-    qkv_attention(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
-                  const __nv_bfloat16* __restrict__ b,
-                  __nv_bfloat16* __restrict__ y, int N, int C, int kv_valid,
-                  float scale) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int np = (N + 15) & ~15;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + np * KV_LD;
-  __nv_bfloat16* Vs = Ks + np * KV_LD;
-  __nv_bfloat16* As = Vs + np * KV_LD;     // [2][QA_BM][A_LD]
-  __nv_bfloat16* Bs = As + 2 * QA_BM * A_LD;  // [2][BK][QA_LDB]
-  float* s_tiles = reinterpret_cast<float*>(Bs + 2 * BK * QA_LDB);
-  __nv_bfloat16* p_tiles =
-      reinterpret_cast<__nv_bfloat16*>(s_tiles + QA_WARPS * 256);
+// element (k, n) of the W slice: MN-major, atoms of 64 columns, each [32
+// rows of 128 bytes] with the 128-byte swizzle (chunk n / 8 % 8 of row k at
+// chunk (n / 8 ^ k) % 8)
+__device__ __forceinline__ int sww(int k, int n) {
+  return (n >> 6) * QM_ATOM_ELEMS + sw64(k, n & 63);
+}
+
+// a wgmma shared-memory descriptor: address, leading and stride byte
+// offsets, swizzle (1: 128 bytes, 2: 64 bytes)
+__device__ __forceinline__ uint64_t wg_desc(const void* p, int lbo, int sbo,
+                                            int swizzle) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+// d (+)= A . B on a 64 x 128 x 16 tile by the warpgroup: A K-major and B
+// MN-major (transposed) in shared memory through their descriptors; acc
+// false: d = A . B
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
+                                         uint64_t db, bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(static_cast<int>(acc)));
+}
+
+// d (+)= A . B on a 64 x 64 x 16 tile by the warpgroup: A K-major and B
+// MN-major (transposed) in shared memory through their descriptors; acc
+// false: d = A . B
+__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
+                                         uint64_t db, bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(static_cast<int>(acc)));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// acc (+)= x[64 rows] . W[:, cols] over one ring slice (two k16 steps),
+// issued and committed as one wgmma group, not waited for: the x
+// descriptor steps 32 bytes within its 64-byte rows, W's steps 16 rows of
+// 128 bytes; first: the round's first slice (acc overwritten)
+template <int NCOLS>
+__device__ __forceinline__ void slice_wgmma(const __nv_bfloat16* stage,
+                                            float (&acc)[NCOLS / 2],
+                                            bool first) {
+  const __nv_bfloat16* ws = stage + QM_X_ELEMS;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < QM_BK / 16; ++kk) {
+    // x: SBO 8 rows x 64 bytes; W: LBO one atom (4 KB), SBO 8 rows x 128 B
+    const uint64_t da = wg_desc(stage + 16 * kk, 16, 8 * QM_BK * 2, 2);
+    const uint64_t db = wg_desc(ws + 16 * kk * AM_D, QM_ATOM_ELEMS * 2,
+                                8 * AM_D * 2, 1);
+    if constexpr (NCOLS == 128)
+      wgmma_128(acc, da, db, kk > 0 || !first);
+    else
+      wgmma_64(acc, da, db, kk > 0 || !first);
+  }
+  wg_commit();
+}
+
+struct QkvArgs {
+  const __nv_bfloat16* x;  // the image's [N, C]
+  const __nv_bfloat16* w;  // [C, 3C]
+  const __nv_bfloat16* b;  // [3C]
+  int N, C, head;
+};
+
+// ring slice kt of projection round rg into stage: x rows 64 rg .. (rows <
+// np, zeros >= N), columns 32 kt ..; and W's head columns, KV: the head's
+// k then v columns (two atoms), else its q columns (one atom)
+template <bool KV>
+__device__ __forceinline__ void load_slice(const QkvArgs& a, int np,
+                                           __nv_bfloat16* stage, int rg,
+                                           int kt) {
+  constexpr int COLS = KV ? 2 * AM_D : AM_D;
+  const int tid = threadIdx.x;
+  const int k0 = kt * QM_BK;
+  const int r0 = rg * QM_BM;
+  const int rows = min(QM_BM, np - r0);
+  for (int v = tid; v < rows * (QM_BK / 8); v += QM_THREADS) {
+    const int r = v >> 2;
+    const int ch = v & 3;
+    const bool ok = r0 + r < a.N;
+    cp_async16(stage + swx(r, ch * 8),
+               ok ? a.x + static_cast<size_t>(r0 + r) * a.C + k0 + ch * 8
+                  : a.x,
+               ok);
+  }
+  __nv_bfloat16* ws = stage + QM_X_ELEMS;
+  const size_t ldw = 3 * static_cast<size_t>(a.C);
+  for (int v = tid; v < QM_BK * COLS / 8; v += QM_THREADS) {
+    const int k = v / (COLS / 8);
+    const int c = (v % (COLS / 8)) * 8;
+    // KV: columns C + 64 head + c (k), 2C + 64 head + c - 64 (v)
+    const int wc = KV ? (c < AM_D ? a.C : 2 * a.C - AM_D) + a.head * AM_D + c
+                      : a.head * AM_D + c;
+    cp_async16(ws + sww(k, c), a.w + (k0 + k) * ldw + wc, true);
+  }
+}
+
+// The projection ring: QM_STAGES stages, slice i of the flattened (round,
+// depth) sequence in stage i % QM_STAGES. Step i: ring_wait waits for
+// slice i's copies and makes them visible to every thread and to wgmma
+// (the async proxy); the step's wgmma group is issued; ring_refill waits
+// until only that group is in flight (so step i - 1's group, which read
+// the stage of slice i + QM_STAGES - 1, is done) and issues that slice's
+// copies. The copies of two slices and one wgmma group overlap every step.
+struct RingPos {
+  int rg, kt;  // projection round and depth slice
+};
+
+__device__ __forceinline__ void advance(RingPos& p, int by, int ktiles) {
+  p.kt += by;
+  while (p.kt >= ktiles) {
+    p.kt -= ktiles;
+    ++p.rg;
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat16* ring_stage(__nv_bfloat16* ring,
+                                                     int i) {
+  return ring + (i % QM_STAGES) * QM_STAGE_ELEMS;
+}
+
+template <bool KV>
+__device__ __forceinline__ void ring_start(const QkvArgs& a, int np,
+                                           __nv_bfloat16* ring, int steps) {
+  const int ktiles = a.C / QM_BK;
+  RingPos p{0, 0};
+#pragma unroll
+  for (int i = 0; i < QM_STAGES - 1; ++i) {
+    if (i < steps) load_slice<KV>(a, np, ring_stage(ring, i), p.rg, p.kt);
+    cp_async_commit();
+    advance(p, 1, ktiles);
+  }
+}
+
+__device__ __forceinline__ const __nv_bfloat16* ring_wait(
+    __nv_bfloat16* ring, int i) {
+  cp_async_wait<QM_STAGES - 2>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  return ring_stage(ring, i);
+}
+
+template <bool KV>
+__device__ __forceinline__ void ring_refill(const QkvArgs& a, int np,
+                                            __nv_bfloat16* ring, int steps,
+                                            int i, RingPos p) {
+  wg_wait<1>();
+  const int nx = i + QM_STAGES - 1;
+  advance(p, QM_STAGES - 1, a.C / QM_BK);
+  if (nx < steps) load_slice<KV>(a, np, ring_stage(ring, nx), p.rg, p.kt);
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void ring_end() {
+  wg_wait<0>();
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free again
+}
+
+template <bool SINGLE>
+__global__ void __launch_bounds__(QM_THREADS, 2)
+    qkv_attention_mma(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ w,
+                      const __nv_bfloat16* __restrict__ b,
+                      __nv_bfloat16* __restrict__ y, const AttnGeom gm, int N,
+                      int C, int kv_valid, float c) {
+  extern __shared__ __align__(128) unsigned char qkv_mma_smem[];
+  // the swizzle atoms need 1024-byte alignment (the wrapper adds the slack)
+  unsigned char* base =
+      qkv_mma_smem + ((QM_ALIGN - (smem_addr(qkv_mma_smem) & (QM_ALIGN - 1))) &
+                      (QM_ALIGN - 1));
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* Vs = Ks + gm.rows * AM_D;
+  __nv_bfloat16* ring = Vs + gm.rows * AM_D;
 
   const int head = blockIdx.x;
   const int img = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r = lane >> 1;
-  const int c8 = (lane & 1) * 8;
-  float* st = s_tiles + warp * 256;
-  __nv_bfloat16* pt = p_tiles + warp * 256;
-  const __nv_bfloat16* xi = x + static_cast<size_t>(img) * N * C;
-  const size_t ldw = 3 * static_cast<size_t>(C);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int cq = 2 * (lane & 3);
+  const QkvArgs a{x + static_cast<size_t>(img) * N * C, w, b, N, C, head};
+  const int ktiles = C / QM_BK;
+  const int rounds = (gm.np + QM_BM - 1) / QM_BM;
+  // the rows of K and V past np, which the attention core reads with p = 0
+  for (int v = threadIdx.x; v < (gm.rows - gm.np) * AM_D / 8;
+       v += QM_THREADS) {
+    reinterpret_cast<uint4*>(Ks + gm.np * AM_D)[v] = make_uint4(0, 0, 0, 0);
+    reinterpret_cast<uint4*>(Vs + gm.np * AM_D)[v] = make_uint4(0, 0, 0, 0);
+  }
 
-  // prologue: q | k | v = bf16(bf16(x . W[:, cols]) + b[cols]) for every
-  // token, the head's columns c of 192 being W's (c / 64) C + 64 head +
-  // c % 64; a warp owns 16 rows x 96 columns of each 64 x 192 tile
-  const int wr = (warp & 3) * 16;
-  const int wc = (warp >> 2) * 96;
-  const int ktiles = C / BK;
-  for (int r0 = 0; r0 < np; r0 += QA_BM) {
-    auto load_tile = [&](int kt, int stage) {
-      const int k0 = kt * BK;
-      __nv_bfloat16* as = As + stage * QA_BM * A_LD;
-      __nv_bfloat16* bs = Bs + stage * BK * QA_LDB;
-      {  // x: 64 rows x 4 vectors of 8, one per thread
-        const int row = tid >> 2;
-        const int col = (tid & 3) * 8;
-        const bool ok = r0 + row < N;
-        cp_async16(as + row * A_LD + col,
-                   ok ? xi + static_cast<size_t>(r0 + row) * C + k0 + col
-                      : xi,
-                   ok);
-      }
+  // phase 1: K and V of every token row, 64 rows a round (the warpgroup's
+  // 64 x 128 wgmma tile; warp w holds rows 16 w .. 16 w + 15 in the mma
+  // accumulator layout)
+  {
+    const int steps = rounds * ktiles;
+    float acc[64];
+    ring_start<true>(a, gm.np, ring, steps);
+    RingPos p{0, 0};
+    for (int i = 0; i < steps; ++i, advance(p, 1, ktiles)) {
+      slice_wgmma<128>(ring_wait(ring, i), acc, p.kt == 0);
+      ring_refill<true>(a, gm.np, ring, steps, i, p);
+      const int row = p.rg * QM_BM + warp * 16;
+      if (p.kt < ktiles - 1) continue;
+      wg_wait<0>();
+      if (row >= gm.np) continue;
+      // bf16(bf16(acc) + b) into K (tiles 0-7) and V (8-15); rows >= N zero
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {  // W: 32 rows x 24 vectors
-        const int vv = tid + i * QA_THREADS;
-        const int row = vv / 24;
-        const int c = (vv % 24) * 8;
-        cp_async16(bs + row * QA_LDB + c,
-                   w + static_cast<size_t>(k0 + row) * ldw + (c / HD) * C +
-                       head * HD + c % HD,
-                   true);
-      }
-    };
-
-    AccFrag acc[6];
+      for (int t = 0; t < 16; ++t) {
+        const int d = 8 * (t & 7) + cq;
+        const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(
+            b + (t < 8 ? C : 2 * C) + head * AM_D + d);
+        const float b0 = __bfloat162float(bb.x);
+        const float b1 = __bfloat162float(bb.y);
+        __nv_bfloat16* dst = t < 8 ? Ks : Vs;
 #pragma unroll
-    for (int jj = 0; jj < 6; ++jj) wmma::fill_fragment(acc[jj], 0.0f);
-    load_tile(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < ktiles; ++kt) {
-      if (kt + 1 < ktiles) load_tile(kt + 1, (kt + 1) & 1);
-      cp_async_commit();  // possibly empty: keeps the group count uniform
-      cp_async_wait<1>();  // tile kt has landed
-      __syncthreads();
-      const __nv_bfloat16* as = As + (kt & 1) * QA_BM * A_LD;
-      const __nv_bfloat16* bs = Bs + (kt & 1) * BK * QA_LDB;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af;
-        wmma::load_matrix_sync(af, as + wr * A_LD + kk, A_LD);
-#pragma unroll
-        for (int jj = 0; jj < 6; ++jj) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              bf;
-          wmma::load_matrix_sync(bf, bs + kk * QA_LDB + wc + jj * 16, QA_LDB);
-          wmma::mma_sync(acc[jj], af, bf, acc[jj]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = row + g + 8 * h;
+          const uint32_t val =
+              r < N ? pack_bf16(round_bf16(acc[4 * t + 2 * h]) + b0,
+                                round_bf16(acc[4 * t + 2 * h + 1]) + b1)
+                    : 0u;
+          *reinterpret_cast<uint32_t*>(dst + sw64(r, d)) = val;
         }
       }
-      __syncthreads();  // the next iteration overwrites this stage
     }
-    // epilogue through the warp's s tile: padded rows get zeros
-    const int row = r0 + wr + r;
-#pragma unroll
-    for (int jj = 0; jj < 6; ++jj) {
-      wmma::store_matrix_sync(st, acc[jj], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int c = wc + jj * 16 + c8;
-      const int which = c / HD;
-      const int cc = c % HD;
-      float f[8];
-      if (row < N) {
-        float bf[8];
-        unpack8(*reinterpret_cast<const uint4*>(b + which * C + head * HD +
-                                                 cc),
-                bf);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          f[e] = __bfloat162float(__float2bfloat16(st[r * 16 + c8 + e])) +
-                 bf[e];
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = 0.0f;
-      }
-      if (row < np) {
-        __nv_bfloat16* dst = which == 0 ? Qs : which == 1 ? Ks : Vs;
-        *reinterpret_cast<uint4*>(dst + row * KV_LD + cc) = pack8(f);
-      }
-      __syncwarp();
-    }
+    ring_end();
   }
-  __syncthreads();
 
-  // attention: the warps walk the 16-row query slabs
-  for (int sl = warp; sl < np / 16; sl += QA_WARPS) {
-    QFrag qf[HD / 16];
-    load_q(qf, Qs + sl * 16 * KV_LD);
-    float m, z;
-    slab_max_sum(qf, Ks, np, kv_valid, scale, st, m, z);
-    AccFrag o[HD / 16];
-    slab_exact<false>(qf, Ks, Vs, np, kv_valid, scale, m, z, st, pt, o);
-    slab_store(o, 1.0f, st,
-               y + (static_cast<size_t>(img) * N + sl * 16) * C + head * HD,
-               C, N - sl * 16);
+  // phase 2: rounds of 4 slabs (one a warp): the round's Q on a 64 x 64
+  // wgmma tile, each warp's 16 rows turned into the A fragments of its
+  // Q . K^T in registers, then its attention against the whole of K and V
+  {
+    const int steps = rounds * ktiles;
+    float acc[32];
+    ring_start<false>(a, gm.np, ring, steps);
+    RingPos p{0, 0};
+    for (int i = 0; i < steps; ++i, advance(p, 1, ktiles)) {
+      slice_wgmma<64>(ring_wait(ring, i), acc, p.kt == 0);
+      ring_refill<false>(a, gm.np, ring, steps, i, p);
+      const int row = p.rg * QM_BM + warp * 16;
+      if (p.kt < ktiles - 1) continue;
+      wg_wait<0>();
+      if (row >= gm.np) continue;
+      // q = bf16(bf16(acc) + b) as A fragments: k step kd takes tiles 2 kd
+      // (columns 16 kd + cq) and 2 kd + 1 (+ 8)
+      uint32_t qa[4][4];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(
+            b + head * AM_D + 8 * t + cq);
+        const float b0 = __bfloat162float(bb.x);
+        const float b1 = __bfloat162float(bb.y);
+        qa[t >> 1][(t & 1) * 2] = pack_bf16(round_bf16(acc[4 * t]) + b0,
+                                            round_bf16(acc[4 * t + 1]) + b1);
+        qa[t >> 1][(t & 1) * 2 + 1] =
+            pack_bf16(round_bf16(acc[4 * t + 2]) + b0,
+                      round_bf16(acc[4 * t + 3]) + b1);
+      }
+      float o[8][4];
+      attention_slab<false, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, false, o);
+      store_slab(o,
+                 y + (static_cast<size_t>(img) * N + row) * C + head * AM_D,
+                 C, N - row);
+    }
+    ring_end();
   }
 }
 
@@ -274,46 +546,78 @@ __global__ void __launch_bounds__(QA_THREADS, 1)
 
 // Shapes, strides and alignment are checked by the Python wrappers
 // (multimodal_baby_tpu_torch/ops/attention.py): bf16, heads of 64, 1 <=
-// kv_valid <= N <= 752 (K8c: 416, and C % 32 == 0), every pointer and
+// kv_valid <= N <= 752 (K8c: 416, and C % 64 == 0), every pointer and
 // stride 16-byte aligned, the last axis contiguous. Strides are in
-// elements; split = 1 keeps p at f32 grade (K8a). Returns the first CUDA
-// error, or 0.
+// elements. Each returns the first CUDA error, or 0.
+
+// K8b
 extern "C" int mmb_attention_bf16(const void* q, const void* k, const void* v,
                                   void* y, long long q_bs, long long k_bs,
                                   long long v_bs, long long y_bs, int q_rs,
                                   int k_rs, int v_rs, int y_rs, int images,
                                   int heads, int N, int kv_valid, float scale,
-                                  int split, void* stream) {
+                                  void* stream) {
   const AttnIO io{static_cast<const __nv_bfloat16*>(q),
                   static_cast<const __nv_bfloat16*>(k),
                   static_cast<const __nv_bfloat16*>(v),
                   static_cast<__nv_bfloat16*>(y),
                   q_bs, k_bs, v_bs, y_bs, q_rs, k_rs, v_rs, y_rs};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      split ? launch_attention_exact<true>(io, images, heads, N, kv_valid,
-                                           scale, s)
-            : launch_attention_exact<false>(io, images, heads, N, kv_valid,
-                                            scale, s));
+  const size_t smem = attention_smem((N + 15) & ~15);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_exact, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + AT_BQ - 1) / AT_BQ, heads, images);
+  attention_exact<<<grid, AT_THREADS, smem,
+                    static_cast<cudaStream_t>(stream)>>>(io, N, kv_valid,
+                                                         scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// x [B, N, C], w [C, 3C] (columns (q | k | v) x (head, feature)), b [3C],
-// y [B, N, C]
+// K8a, with the launch geometry of ops/attention.py::attention_geometry:
+// key chunks of kc keys, nchunks of them over np; rows of K and V in shared
+// memory; threads a block (32 to 128); smem dynamic shared-memory bytes
+extern "C" int mmb_attention_f32p_bf16(
+    const void* q, const void* k, const void* v, void* y, long long q_bs,
+    long long k_bs, long long v_bs, long long y_bs, int q_rs, int k_rs,
+    int v_rs, int y_rs, int images, int heads, int N, int kv_valid,
+    float scale, int np, int kc, int nchunks, int rows, int threads,
+    int smem, void* stream) {
+  const AttnIO io{static_cast<const __nv_bfloat16*>(q),
+                  static_cast<const __nv_bfloat16*>(k),
+                  static_cast<const __nv_bfloat16*>(v),
+                  static_cast<__nv_bfloat16*>(y),
+                  q_bs, k_bs, v_bs, y_bs, q_rs, k_rs, v_rs, y_rs};
+  // one kernel for rows of one chunk, one for the two-pass rows
+  const auto kernel =
+      nchunks == 1 ? attention_f32p<true> : attention_f32p<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(heads, images), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      io, AttnGeom{np, kc, nchunks, rows}, N, kv_valid, scale * AM_LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8c: x [B, N, C], w [C, 3C] (columns (q | k | v) x (head, feature)), b
+// [3C], y [B, N, C]; the geometry as K8a's (threads = 128)
 extern "C" int mmb_qkv_attention_bf16(const void* x, const void* w,
                                       const void* b, void* y, int B, int N,
                                       int C, int kv_valid, float scale,
+                                      int np, int kc, int nchunks,
+                                      int rows, int threads, int smem,
                                       void* stream) {
-  const size_t smem = qkv_attention_smem((N + 15) & ~15);
+  const auto kernel =
+      nchunks == 1 ? qkv_attention_mma<true> : qkv_attention_mma<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      qkv_attention, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(C / HD, B);
-  qkv_attention<<<grid, QA_THREADS, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(C / AM_D, B), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y),
-      N, C, kv_valid, scale);
+      AttnGeom{np, kc, nchunks, rows}, N, C, kv_valid, scale * AM_LOG2E);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Device code shared by the port's ViT kernels (sm_90a): K5 and K6
-// (vit.cu), K8a-c (attention.cu) and K7 (vit_block.cu). Every routine is
+// (vit.cu), K8b (attention.cu) and K7 (vit_block.cu). Every routine is
 // the one place its arithmetic is written, so that K7, which runs K5's and
 // K6's phases in one launch, computes the same bits as the two of them.
 //
@@ -14,10 +14,10 @@
 //     slab_max + slab_defer: K5's deferred softmax, p = exp(s - max) in
 //       f32, z summed from the unrounded p, p rounded to bf16 before the
 //       value contraction, the output scaled by 1 / z;
-//     slab_max_sum + slab_exact: K8's exact softmax, the max and the sum in
-//       one online pass, then p = exp(s - max) / z before the contraction,
-//       rounded to bf16 (K8b, K8c) or split into bf16(p) + bf16(p -
-//       bf16(p)) against the exact bf16 V in two products (K8a: f32 p).
+//     slab_max_sum + slab_exact: K8b's exact softmax, the max and the sum
+//       in one online pass, then p = exp(s - max) / z before the
+//       contraction, rounded to bf16 (K8a and K8c run the register-resident
+//       core of attn_mma.cuh instead).
 //   Key columns >= kv_valid get p = 0 (the TPU kernels add -1e9, whose exp
 //   is exactly 0).
 // Every load of data another block may have written in the same launch
@@ -153,7 +153,7 @@ __host__ __device__ inline GemmArgs dense(const void* a, const void* w, int M,
 constexpr int HD = 64;         // head dim
 constexpr int KV_LD = HD + 8;  // bf16 pitch of K, V and Q rows in shared
                                // memory (the skew keeps wmma off one bank)
-constexpr int AT_BQ = 64;      // query rows per block of K5, K8a, K8b
+constexpr int AT_BQ = 64;      // query rows per block of K5 and K8b
 constexpr int AT_THREADS = 128;
 
 using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
@@ -161,7 +161,7 @@ using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
 using AccFrag =
     nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
 
-// K5, K8a, K8b: K and V of N keys (rows padded to np, a multiple of 16),
+// K5, K8b: K and V of N keys (rows padded to np, a multiple of 16),
 // the tile's 64 query rows, and per warp a 16 x 16 f32 s tile and bf16 p
 // tile; the 227 KB a block may use caps N at 752
 inline size_t attention_smem(int np) {
@@ -285,7 +285,7 @@ __device__ __forceinline__ float slab_defer(const QFrag (&qf)[HD / 16],
   return z + __shfl_xor_sync(0xffffffffu, z, 1);
 }
 
-// K8 pass 1: the row max m of s * scale over the valid keys and z =
+// K8b pass 1: the row max m of s * scale over the valid keys and z =
 // sum(exp(s * scale - m)), carried online (z rescaled when m grows)
 __device__ __forceinline__ void slab_max_sum(const QFrag (&qf)[HD / 16],
                                              const __nv_bfloat16* Ks, int np,
@@ -319,9 +319,7 @@ __device__ __forceinline__ void slab_max_sum(const QFrag (&qf)[HD / 16],
   z_out = z + __shfl_xor_sync(0xffffffffu, z, 1);
 }
 
-// K8 pass 2: o = P . V with P = exp(s * scale - m) / z; SPLIT: P at f32
-// grade as bf16(P) + bf16(P - bf16(P)), two products against V
-template <bool SPLIT>
+// K8b pass 2: o = P . V with P = bf16(exp(s * scale - m) / z)
 __device__ __forceinline__ void slab_exact(const QFrag (&qf)[HD / 16],
                                            const __nv_bfloat16* Ks,
                                            const __nv_bfloat16* Vs, int np,
@@ -345,15 +343,6 @@ __device__ __forceinline__ void slab_exact(const QFrag (&qf)[HD / 16],
     *reinterpret_cast<uint4*>(pt + r * 16 + c8) = pack8(p);
     __syncwarp();
     slab_pv(pt, Vs, j, o);
-    if constexpr (SPLIT) {
-      __syncwarp();  // every lane has read pt
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        p[e] -= __bfloat162float(__float2bfloat16(p[e]));
-      *reinterpret_cast<uint4*>(pt + r * 16 + c8) = pack8(p);
-      __syncwarp();
-      slab_pv(pt, Vs, j, o);
-    }
     __syncwarp();  // the next tile overwrites st and pt
   }
 }

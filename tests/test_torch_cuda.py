@@ -325,9 +325,16 @@ def attention_inputs(B, N, C, device, qkv_view):
     return tuple(t.contiguous() for t in qkv.split(C, -1))
 
 
+# the edges of K8a's and K8c's register-resident design: N = 257 and 272
+# (a row's scores in one chunk of registers), 273 (the first N over it: two
+# chunks, two passes), 416 (K8c's cap) and 752 (K8a's cap, three chunks)
+EDGE_N = [257, 272, 273, 416, 752]
+
+
 @pytest.mark.parametrize("B,N,C,kv_valid", [
     (2, 10, 256, 7), (2, 17, 256, None), (3, 65, 128, 64),
-    (4, 257, 768, None), (1, 752, 256, 700)])
+    (4, 257, 768, None), (1, 752, 256, 700)] + [
+    (2, n, 128, kv) for n in EDGE_N for kv in (None, n - 20)])
 def test_attention_kernels_match_plain_versions(cuda, B, N, C, kv_valid):
     """K8a on heads-first copies, K8b on the qkv slices in place."""
     heads, scale = C // 64, 64 ** -0.5
@@ -359,7 +366,8 @@ def test_attention_kernels_match_plain_versions(cuda, B, N, C, kv_valid):
 
 @pytest.mark.parametrize("B,N,C,kv_valid,bias", [
     (2, 10, 256, 7, True), (2, 17, 256, None, False), (3, 65, 128, 64, True),
-    (4, 257, 768, None, True), (1, 416, 256, 400, True)])
+    (4, 257, 768, None, True), (1, 416, 256, 400, True)] + [
+    (2, n, 256, kv, True) for n in EDGE_N[:4] for kv in (None, n - 20)])
 def test_qkv_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid,
                                                     bias):
     x, p = vit_inputs("attention", B, N, C, 0, cuda)
@@ -372,6 +380,27 @@ def test_qkv_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid,
     torch.cuda.synchronize()
     assert fused_qkv_attention_pairs.launches == before + 1
     assert_close_bf16(got, want)
+
+
+def test_attention_pairs_kernel_on_fixed_inputs(cuda):
+    """K8b keeps its own kernel (attention_exact, slab_max_sum, slab_exact)
+    beside the K8a and K8c redesign: on fixed seeded inputs at ViT-B/14's
+    shape it stays within the gate of its plain version, and a second call
+    gives the same bits."""
+    g = torch.Generator().manual_seed(8)
+    B, N, C, heads = 2, 257, 768, 12
+    qkv = (torch.randn(B, N, 3 * C, generator=g) * 0.35).to(cuda,
+                                                            torch.bfloat16)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    for kv_valid in (None, 250):
+        before = fused_attention_pairs.launches
+        got = fused_attention_pairs(q, k, v, heads, 0.125, kv_valid)
+        again = fused_attention_pairs(q, k, v, heads, 0.125, kv_valid)
+        want = attention_pairs_reference(q, k, v, heads, 0.125, kv_valid)
+        torch.cuda.synchronize()
+        assert fused_attention_pairs.launches == before + 2
+        assert_close_bf16(got, want)
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16))
 
 
 @pytest.mark.parametrize("bad", ["float32", "heads", "too_long", "stride"])

@@ -9,9 +9,11 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 1. The card's name and power limit; the build of the kernels
    (``multimodal_baby_tpu_torch/ops/csrc/*.cu``) with nvcc, and ptxas's
-   registers, spills and stack of each kernel (K8a's ``attention_f32p``
-   and K8c's ``qkv_attention_mma`` named, each in its one-pass and
-   two-pass form, with their shared memory at N = 257).
+   registers, spills and stack of each kernel (K8a's and K8b's
+   ``attention_mma`` and K8c's ``qkv_attention_mma`` named, each in its
+   one-pass and two-pass form, with their shared memory at N = 257; K10b's
+   ``bottleneck_fused`` in its four group widths, and its band geometry at
+   layer 2's head).
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
    same bf16 inputs with the same rounding points, for four small and
    odd-sized cases at B = 8 and the 8 distinct ResNeXt-50 block shapes at
@@ -66,8 +68,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    against their plain versions on phase 2b's cases, with 2b's gates; K6
    and K7 also in the tanh and sigmoid GELU forms; K7 against K5 then K6
    bit for bit in every form (the count of differing bf16 words is
-   printed); then K8a at N = 257, 272, 273, 416 and 752 and K8c at the
-   first four (B = 2, C = 768), each with and without kv_valid = N - 20:
+   printed); then K8a and K8b (on the column slices of a [B, N, 3C]
+   tensor) at N = 257, 272, 273, 416 and 752 and K8c at the first four (B
+   = 2, C = 768), each with and without kv_valid = N - 20:
    the edges of their register-resident design (one chunk of 272 keys,
    then two passes). Each ViT-B case is timed beside its plain version, its
    library call (scaled_dot_product_attention for K8a and K8b; Linear and
@@ -96,8 +99,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    swapped for their plain versions on the card and against the plain
    bf16 blocks: per-row cosine >= 0.999 (the cosine against f32 is
    printed). Then the ViT forward and step time of each, and the step
-   times of the default, attn=1 and attn=qkv in turns (default, 1, qkv,
-   qkv, 1, default), each from phase 4's weights.
+   times of the default, attn=1, attn=pairs and attn=qkv in turns
+   (default, 1, pairs, qkv, qkv, pairs, 1, default), each from phase 4's
+   weights.
 2e. K9 (``lstm_fused``) against the plain scan at (B, L, H) = (128, 25,
    512) and (128, 64, 512) with random lengths (max absolute error <= 1e-4
    on out, h_last and c_last), and K4's forward and backward
@@ -137,9 +141,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    code for code, each of those in the same envelope against its plain
    version on the same input, the whole at cosine >= 0.9999 against the
    plain chain (a moved code rides the residual path on; the count is
-   printed); K10b at tests/test_hwbc_kernels.py:74's shape and layer 2's
-   head against its plain version (phase 2's gates) and against K1
-   (< 5e-5 relative, tests/test_hwbc_kernels.py:22); K11 at every conv3
+   printed); K10b (one launch a call) at tests/test_hwbc_kernels.py:74's
+   shape, the 8 ResNeXt-50 block shapes at B = 8 and layer 2's head at B
+   = 128 against its plain version (phase 2's gates) and against K1
+   (< 5e-5 relative, tests/test_hwbc_kernels.py:22; the share of outputs
+   that differ and the largest difference in bf16 ulps printed), timed at
+   layer 2's head beside K1 (before and after the turns); K11 at every conv3
    shape of a forward (phase 2's gates), its gradients at layers 1 and 4
    equal to the plain version's autograd. Each timed beside its plain
    version, its library chain (the codes in bf16 through cuDNN, then the
@@ -155,7 +162,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    pooled against the f32 conv path (> 0.99, tests/test_quant_trunk.py:
    295-331). Then the trunk forward and the step times of both plans and
    of phase 5's, in turns. 8c: the entry points of K10b
-   (``fused_bottleneck_tiles`` on layer 2's head, its launches counted)
+   (``fused_bottleneck_tiles`` on layer 2's head: one launch)
    and K11 (the conv path with ``BottleneckX(fused_epilogue=True)`` on all
    16 blocks: 16 launches per forward, pooled against the conv path
    without it at per-row cosine >= 0.999).
@@ -199,7 +206,7 @@ from multimodal_baby_tpu_torch.ops.attention import (
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     block_reference, bottleneck_reference, default_band, fused_bottleneck,
-    fused_bottleneck_tiles, tiles_reference)
+    fused_bottleneck_tiles, tiles_geometry, tiles_reference)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
     conv1x1_bn_residual_relu, epilogue_reference)
 from multimodal_baby_tpu_torch.ops.infonce import (
@@ -271,8 +278,9 @@ VIT_CONFIGS = {
 }
 # phase 6: the configurations whose step times are taken in turns
 VIT_TURNS = {"default": ViTKernels(), "attn=1": ViTKernels(attn="1"),
+             "attn=pairs": ViTKernels(attn="pairs"),
              "attn=qkv": ViTKernels(attn="qkv")}
-# phase 2d: K8a and K8c at the edges of their register-resident design
+# phase 2d: K8a-c at the edges of their register-resident design
 # (N = 257 and 272: a row's scores in one chunk of registers; 273: the
 # first N over it, two passes; K8c's cap 416, K8a's 752), with and without
 # kv_valid: (B, N, C, heads, kv_valid)
@@ -664,6 +672,14 @@ def phase_vit_more_kernels():
                 out["K8a"]["max_abs_err"],
                 check(f"K8a {tag}", fused_attention(qh, kh, vh, scale, kv),
                       attention_reference(qh, kh, vh, scale, kv)))
+            qkv = torch.randn(B, N, 3 * C, generator=gen).to("cuda",
+                                                             torch.bfloat16)
+            q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+            out["K8b"]["max_abs_err"] = max(
+                out["K8b"]["max_abs_err"],
+                check(f"K8b {tag}",
+                      fused_attention_pairs(q, k, v, heads, scale, kv),
+                      attention_pairs_reference(q, k, v, heads, scale, kv)))
             if N > MAX_TOKENS_QKV:
                 continue
             x, pa = vit_half_inputs(gen, "attention", B, N, C, 4 * C)
@@ -1414,10 +1430,11 @@ def phase_vit_configs(cfg, model, batch, start):
 
 def vit_steps_in_turns(cfg, model, batch, start):
     """The ViT train step of the default configuration (K5 + K6), attn=1
-    (K8a + K6) and attn=qkv (K8c + K6), each from phase 4's weights with an
-    optimizer state of its own, timed in turns (default, 1, qkv, qkv, 1,
-    default; TIMED_STEPS steps a turn) on one model whose ``vit_kernels``
-    is switched before each turn."""
+    (K8a + K6), attn=pairs (K8b + K6) and attn=qkv (K8c + K6), each from
+    phase 4's weights with an optimizer state of its own, timed in turns
+    (default, 1, pairs, qkv, qkv, pairs, 1, default; TIMED_STEPS steps a
+    turn) on one model whose ``vit_kernels`` is switched before each
+    turn."""
     trunk = model.vision_encoder.model
     model.load_state_dict(start)
     runs = {}
@@ -1745,12 +1762,15 @@ T_STAGES_224 = [
     ("layer4", 14, 1024, 1024, 2048, [2, 1, 1], None),
     ("layer1", 56, 64, 128, 256, [1, 1, 1], 28),
 ]
-# K10b: (name, B, H, Cin, width, Cout, stride, Bc, hh); hh None = the TPU
-# package's default band
+# K10b: (name, B, H, Cin, width, Cout, stride, downsample, Bc, hh); hh None
+# = the TPU package's default band; every block shape at B = 8, then layer
+# 2's head at the slice's batch (timed)
 TILES_CASES = [
-    ("tests/test_hwbc_kernels.py:74", 32, 16, 128, 256, 512, 2, 16, 2),
-    ("layer2.0", BATCH, 56, 256, 256, 512, 2, 16, None),
-]
+    ("tests/test_hwbc_kernels.py:74", 32, 16, 128, 256, 512, 2, True, 16,
+     2)] + [
+    (name, 8, H, cin, width, cout, s, ds, 8, (H - 1) // s + 1)
+    for name, H, cin, width, cout, s, ds, _ in BLOCKS_224] + [
+    ("layer2.0", BATCH, 56, 256, 256, 512, 2, True, 16, None)]
 
 
 def random_t_block(gen, cin, width, cout, has_ds):
@@ -1897,32 +1917,44 @@ def phase_transport_kernels():
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']})")
 
-    # K10b: the tile-by-tile K1
-    for name, B, H, cin, width, cout, s, Bc, hh in TILES_CASES:
+    # K10b: K1's function in one launch, h1 and h2 in shared memory
+    for name, B, H, cin, width, cout, s, ds, Bc, hh in TILES_CASES:
         hh = hh or default_band(H, cin, (H - 1) // s + 1, s, Bc)
-        x, fw = random_block(gen, H, cin, width, cout, s, True, B)
+        x, fw = random_block(gen, H, cin, width, cout, s, ds, B)
+        before = fused_bottleneck_tiles.launches
         got = fused_bottleneck_tiles(x, fw, s, Bc, hh)
+        if fused_bottleneck_tiles.launches != before + 1:
+            raise AssertionError(f"K10b {name}: "
+                                 f"{fused_bottleneck_tiles.launches - before}"
+                                 f" launches, expected 1")
         err = check(f"K10b {name}", got, tiles_reference(x, fw, s, Bc, hh))
         k1 = fused_bottleneck(x, fw, stride=s)
         torch.cuda.synchronize()
         apart = float((got.float() - k1.float()).abs().max() /
                       k1.float().abs().max())
-        log(f"  K10b {name}: max error relative to K1's largest output "
-            f"{apart:.3g} (gate < 5e-5, tests/test_hwbc_kernels.py:22)")
+        ulps = (got.view(torch.int16).int() -
+                k1.view(torch.int16).int()).abs()
+        log(f"  K10b {name}: against K1, max error relative to K1's largest "
+            f"output {apart:.3g} (gate < 5e-5, tests/test_hwbc_kernels.py:"
+            f"22), {float((ulps > 0).float().mean()):.3g} of the outputs "
+            f"differ, by at most {int(ulps.max())} bf16 ulps")
         if not apart < 5e-5:
             raise AssertionError(f"K10b {name}: {apart} from K1")
         if B != BATCH:
             continue
         lib = conv_chain(fw, s)
+        k1_ms = [time_ms(lambda: fused_bottleneck(x, fw, stride=s), 10)]
         k, p, li = time_in_turns(
             lambda: fused_bottleneck_tiles(x, fw, s, Bc, hh),
             lambda: tiles_reference(x, fw, s, Bc, hh),
             lambda: lib(x), 10)
-        ops, act = block_cost(H, cin, width, cout, s, True, B)
+        k1_ms.append(time_ms(lambda: fused_bottleneck(x, fw, stride=s), 10))
+        ops, act = block_cost(H, cin, width, cout, s, ds, B)
         b_ms, b_by = bound(ops, 2 * act + weight_bytes([fw]))
-        log(f"  K10b {name} B={B}, Bc {Bc}, hh {hh}: kernel {k:.3f} ms, "
-            f"plain {p:.3f} ms, cuDNN bf16 {li:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by})")
+        log(f"  K10b {name} B={B}: kernel {k:.3f} ms, plain {p:.3f} ms, "
+            f"cuDNN bf16 {li:.3f} ms, K1 {k1_ms[0]:.3f} / {k1_ms[1]:.3f} "
+            f"ms (before / after), bound {b_ms:.3f} ms ({b_by}); "
+            f"{tiles_geometry(H, H, cin, width, cout, s, ds)}")
         rows["K10b"] = dict(max_abs_err=err, ms=k, plain_ms=p, library_ms=li,
                             bound_ms=b_ms, bound_by=b_by)
         del x, fw, lib
@@ -2064,7 +2096,9 @@ def phase_transport_slice(published):
     n_tiles = fused_bottleneck_tiles.launches
     check("K10b layer2.0 entry point", got, fused_bottleneck(x, fw, 2))
     log(f"  fused_bottleneck_tiles(layer2.0, B={BATCH}, Bc 16, default "
-        f"band): {n_tiles} launches")
+        f"band): {n_tiles} launch(es)")
+    if n_tiles != 1:
+        raise AssertionError(f"K10b: {n_tiles} launches a call, expected 1")
     launches["K10b"] = n_tiles
     cfg, model, batch = build_resnext_slice(False, None)
     trunk = model.vision_encoder.model
@@ -2113,19 +2147,30 @@ def main() -> int:
         if "Function properties for" in line and i + 2 < len(lines):
             log(f"  ptxas: ...{line.split('for ')[-1][-44:]}: "
                 f"{lines[i + 2].split(': ', 1)[-1]}; {lines[i + 1].strip()}")
-    for name, kernel in (("K8a", "attention_f32p"),
-                         ("K8c", "qkv_attention_mma")):
+    # (name, mangled kernel name, its forms: template arguments -> what)
+    for name, kernel, forms in (
+            ("K8a", "13attention_mmaILb1E", {"Lb1EEEv": "one pass",
+                                           "Lb0EEEv": "two passes"}),
+            ("K8b", "13attention_mmaILb0E", {"Lb1EEEv": "one pass",
+                                           "Lb0EEEv": "two passes"}),
+            ("K8c", "17qkv_attention_mmaI", {"Lb1EEEv": "one pass",
+                                           "Lb0EEEv": "two passes"}),
+            ("K10b", "16bottleneck_fusedI", {f"Li{cg}EEEv": f"cg {cg}"
+                                           for cg in (4, 8, 16, 32)})):
         found = [i for i, line in enumerate(lines)
                  if "Function properties for" in line and kernel in line]
-        if len(found) != 2:
+        if len(found) != len(forms):
             raise AssertionError(f"ptxas reported {len(found)} {kernel} "
-                                 f"kernels, expected 2 (one and two passes)")
+                                 f"kernels, expected {len(forms)}")
         for i in found:
-            rows = "one" if "Lb1E" in lines[i] else "two"
-            log(f"  ptxas {name} ({kernel}, {rows} pass): "
+            form = next(v for k, v in forms.items() if k in lines[i])
+            log(f"  ptxas {name} ({kernel.strip('0123456789I')}, {form}): "
                 f"{lines[i + 2].split(': ', 1)[-1]}; {lines[i + 1].strip()}")
-        log(f"  {name} dynamic shared memory at N = 257: "
-            f"{attention_geometry(257, qkv=name == 'K8c').smem} bytes")
+        if name != "K10b":
+            log(f"  {name} dynamic shared memory at N = 257: "
+                f"{attention_geometry(257, qkv=name == 'K8c').smem} bytes")
+    geo = tiles_geometry(56, 56, 256, 256, 512, 2, True)
+    log(f"  K10b at layer 2's head: {geo}")
 
     log("phase 2: K1 against its plain version")
     k1 = phase_k1()
@@ -2189,7 +2234,7 @@ def main() -> int:
              t["K10a stage"]),
             ("fused_stage_banded_transport", "stage.cu", f"{hwbc}:1078",
              t["K10a banded"]),
-            ("fused_bottleneck_tiles", "bottleneck.cu", f"{hwbc}:531",
+            ("fused_bottleneck_tiles", "bottleneck_fused.cu", f"{hwbc}:531",
              t["K10b"]),
             ("conv1x1_bn_residual_relu", "conv_epilogue.cu",
              "multimodal_baby_tpu/ops/conv_epilogue.py:78", t["K11"])]

@@ -21,9 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "attention.cu",
-           "vit_block.cu", "lstm.cu", "infonce.cu", "conv_epilogue.cu")
+           "vit_block.cu", "lstm.cu", "infonce.cu", "conv_epilogue.cu",
+           "bottleneck_fused.cu")
 HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
-           "attn_mma.cuh")
+           "attn_mma.cuh", "wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -96,7 +97,8 @@ def library() -> ctypes.CDLL:
             lib.mmb_vit_mlp_bf16.argtypes = (
                 [ptr] * 10 + [i32] * 4 + [f32, ptr])
             lib.mmb_attention_bf16.argtypes = (
-                [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32, ptr])
+                [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32] + [i32] * 6
+                + [ptr])
             lib.mmb_attention_f32p_bf16.argtypes = (
                 [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32] + [i32] * 6
                 + [ptr])
@@ -106,8 +108,8 @@ def library() -> ctypes.CDLL:
                 [ptr] * 20 + [i32] * 6 + [f32] * 2 + [ptr])
             lib.mmb_bottleneck_s8.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
             lib.mmb_bottleneck_t.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
-            lib.mmb_bottleneck_band_bf16.argtypes = (
-                [ptr] * 12 + [i32] * 9 + [ptr])
+            lib.mmb_bottleneck_fused_bf16.argtypes = (
+                [ptr] * 10 + [i32] * 14 + [ptr])
             lib.mmb_conv1x1_bn_residual_relu_bf16.argtypes = (
                 [ptr] * 6 + [i32] * 3 + [ptr])
             lib.mmb_stage.argtypes = (
@@ -116,7 +118,7 @@ def library() -> ctypes.CDLL:
             lib.mmb_infonce_fwd_f32.argtypes = [ptr] * 9 + [i32] * 2 + [ptr]
             lib.mmb_infonce_bwd_f32.argtypes = [ptr] * 12 + [i32] * 2 + [ptr]
             for fn in (lib.mmb_bottleneck_bf16, lib.mmb_bottleneck_s8,
-                       lib.mmb_bottleneck_t, lib.mmb_bottleneck_band_bf16,
+                       lib.mmb_bottleneck_t, lib.mmb_bottleneck_fused_bf16,
                        lib.mmb_conv1x1_bn_residual_relu_bf16,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
                        lib.mmb_vit_mlp_bf16, lib.mmb_attention_bf16,

@@ -17,9 +17,9 @@ version. Counterparts of ``multimodal_baby_tpu/ops/attention.py``:
   the qkv projection inside, then K8b.
 
 K8a-c divide by the row sum before the value contraction, as the TPU
-kernels do; their kernels are in ``csrc/attention.cu`` (K8a's and K8c's
-launch geometry from ``attention_geometry``). Each wrapper runs
-its kernel on a CUDA tensor and its plain version on a CPU tensor; the
+kernels do; their kernels are in ``csrc/attention.cu``, with their launch
+geometry from ``attention_geometry`` (K8a and K8b share one). Each wrapper
+runs its kernel on a CUDA tensor and its plain version on a CPU tensor; the
 gradient is the plain version's VJP. ``should_fuse_*`` are the JAX
 package's shape gates, which the ViT's dispatch follows.
 
@@ -49,7 +49,7 @@ __all__ = ["AttentionGeometry", "attention_geometry",
 HEAD_DIM = 64      # the kernels' head width
 MAX_TOKENS = 752   # K and V of one head for N tokens fit in shared memory
 MAX_TOKENS_QKV = 416  # K8c: K and V of one head and the projection's ring
-KEY_CHUNK = 272    # K8a, K8c: keys whose scores a warp holds in registers
+KEY_CHUNK = 272    # K8a-c: keys whose scores a warp holds in registers
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 # K8c's projection ring (csrc/attention.cu, QM_*): 3 stages of an x slice
 # [64][32] and two W atoms [32][64], bf16, plus 1 KB to align the swizzle
@@ -58,7 +58,7 @@ QKV_RING_BYTES = 3 * (64 * 32 + 2 * 32 * 64) * 2 + 1024
 
 
 class AttentionGeometry(NamedTuple):
-    """The launch of K8a or K8c for N tokens (``csrc/attention.cu``): np
+    """The launch of K8a, K8b or K8c for N tokens (``csrc/attention.cu``): np
     = N rounded up to 16; keys in chunks of ``kc`` (a multiple of 16, at
     most ``KEY_CHUNK``), ``nchunks`` of them over np, the last np - (nchunks
     - 1) kc; ``rows`` of K and V in shared memory, (nchunks - 1) kc +
@@ -74,7 +74,8 @@ class AttentionGeometry(NamedTuple):
 
 
 def attention_geometry(N: int, qkv: bool = False) -> AttentionGeometry:
-    """K8a's (``qkv`` False) or K8c's launch geometry for N tokens. K8a: one
+    """K8a's and K8b's (``qkv`` False) or K8c's launch geometry for N
+    tokens. K8a, K8b: one
     warp per 16-row query slab up to 4 a block (a warp never gets an
     all-padding slab), K and V of the head in shared memory (256 bytes a
     row); K8c: 4 warps, K and V plus the projection ring. Raises ValueError
@@ -357,6 +358,7 @@ def _run_attention_pairs(q, k, v, num_heads, scale, kv_valid):
         raise ValueError(f"fused_attention_pairs: needs heads of {HEAD_DIM};"
                          f" got C={C}, heads={num_heads}")
     n_keys = n_keys_checked("fused_attention_pairs", N, kv_valid, MAX_TOKENS)
+    geo = attention_geometry(N)
     y = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -364,7 +366,7 @@ def _run_attention_pairs(q, k, v, num_heads, scale, kv_valid):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
             q.stride(0), k.stride(0), v.stride(0), y.stride(0),
             q.stride(1), k.stride(1), v.stride(1), y.stride(1),
-            B, num_heads, N, n_keys, scale,
+            B, num_heads, N, n_keys, scale, *geo,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "fused_attention_pairs")
     fused_attention_pairs.launches += 1

@@ -1,11 +1,13 @@
 """The fused ResNeXt bottleneck block (K1 in bf16, K2 in int8, K10a in int8
-transport, K10b tile by tile) for the PyTorch port.
+transport, K10b in one launch with h1 and h2 in shared memory) for the
+PyTorch port.
 
 Counterpart of ``multimodal_baby_tpu/ops/bottleneck_hwbc.py``: the
 BatchNorm fold, the plain reference of one block, ``fused_bottleneck``,
 which runs the hand-written Hopper kernels in ``csrc/bottleneck.cu`` on a
 CUDA tensor and the plain reference on a CPU tensor, and
-``fused_bottleneck_tiles`` (the TPU package's tile mode). The int8 folds
+``fused_bottleneck_tiles`` (the TPU package's tile mode; its kernel is
+``csrc/bottleneck_fused.cu``). The int8 folds
 and plain versions are in ``ops/quant.py``.
 
 Layout is NHWC ``[B, H, W, C]`` at the public functions. The TPU's
@@ -18,7 +20,7 @@ output channel), with cg = W / 32.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +29,8 @@ from multimodal_baby_tpu_torch.ops import _build
 
 __all__ = ["fold_block_params", "unpack_grouped_kernel", "bottleneck_reference",
            "block_reference", "tiles_reference", "fused_bottleneck",
-           "fused_bottleneck_tiles", "block_mode", "default_band", "BN_EPS",
-           "GROUPS"]
+           "fused_bottleneck_tiles", "block_mode", "default_band",
+           "tiles_geometry", "TilesGeometry", "BN_EPS", "GROUPS"]
 
 BN_EPS = 1e-5
 GROUPS = 32
@@ -337,15 +339,124 @@ def default_band(W: int, cin: int, Ho: int, stride: int, Bc: int) -> int:
     return next(h for h in range(min(Ho, cap), 0, -1) if Ho % h == 0)
 
 
+# K10b's kernel (csrc/bottleneck_fused.cu, FB_*): GEMM passes of 64 rows x
+# 256 columns (128 a warpgroup) fed by a 4-stage ring of 32-deep slices (an
+# x slice [64][32] and a weight slice [32][256], bf16); at most 8 16-pixel
+# tiles a band
+FUSED_BM, FUSED_BN, FUSED_BK, FUSED_STAGES = 64, 256, 32, 4
+FUSED_MAX_PIXELS = 128
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
+
+
+def fused_ring_bytes() -> int:
+    """The bytes of one ring (conv1's and conv3's are alike)."""
+    return FUSED_STAGES * (FUSED_BM * FUSED_BK + FUSED_BK * FUSED_BN) * 2
+
+
+class TilesGeometry(NamedTuple):
+    """K10b's launch for one block shape (``csrc/bottleneck_fused.cu``):
+    bands of ``R`` output rows, ``tiles`` of them an image (the last may be
+    shorter), each on an input window of ``rows_in`` = (R - 1) stride + 3
+    rows (row 0 is input row R t stride - 1; rows outside the image are
+    zeros); shared memory holds h1 ([rows_in][W + 2][width] bf16, zero
+    columns each side) at 0, h2 (width / 32 blocks of [ceil(R Wo / 16)
+    16][32]) at ``h2_off``, conv1's ring at ``ring1_off`` (over h2, not yet
+    written) and conv3's at ``ring3_off`` (over h1 where it fits, h1 then
+    being dead), w2's copy for the grouped 3x3 at ``w2_off`` (after h2,
+    where the block's shared memory can hold it; -1: w2 is read in place);
+    ``smem`` bytes in all, with 1 KB of slack to align the
+    base (the swizzle atoms need 1 KB alignment; the offsets are multiples
+    of 1 KB). ``R`` and the fields after ``tiles`` are the kernel's launch
+    arguments, in order."""
+    R: int
+    tiles: int
+    rows_in: int
+    h2_off: int
+    ring1_off: int
+    ring3_off: int
+    w2_off: int
+    smem: int
+
+
+def _fused_layout(R, W, width, stride):
+    """(rows_in, h1 bytes rounded to 1 KB, ring3 offset, smem) of bands of R
+    output rows: offsets 1 KB aligned for the swizzle atoms, and 1 KB of
+    slack to align the base. conv3 reads h2 64 rows at a time: past its
+    last column block it reads up to 63 rows (4 KB) of what follows, which
+    must be shared memory of the block."""
+    def align(n):
+        return -(-n // 1024) * 1024
+
+    ring = fused_ring_bytes()
+    M = R * _out_size(W, stride)
+    rows_in = (R - 1) * stride + 3
+    h1 = align(rows_in * (W + 2) * width * 2)
+    h2 = -(-M // 16) * 16 * width * 2
+    over = (-(-M // 64) * 64 - -(-M // 16) * 16) * 64
+    end = max(h1 + ring, h1 + h2 + over)
+    if ring <= h1:
+        return rows_in, h1, 0, end + 1024
+    at = h1 + align(h2)
+    return rows_in, h1, at, max(end, at + ring) + 1024
+
+
+def tiles_geometry(H: int, W: int, cin: int, width: int, cout: int,
+                   stride: int, has_ds: bool) -> TilesGeometry:
+    """K10b's band geometry for a block on [*, H, W, cin]: among the band
+    heights R whose shared memory fits and whose band has at most 128
+    output pixels, the one with the least tensor work, counted in the
+    kernel's padded passes (64 rows, 256 columns) over conv1's window and
+    conv3's band (ties: the larger R, fewer weight reads). Raises
+    ValueError on a shape the kernel cannot serve; never clamps."""
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(f"tiles_geometry: {msg}")
+
+    need(stride in (1, 2), f"stride must be 1 or 2, got {stride}")
+    need(cin % FUSED_BK == 0 and width in (128, 256, 512, 1024)
+         and cout % 128 == 0 and H >= 1 and W >= 1,
+         f"needs Cin % {FUSED_BK} == 0, W in (128, 256, 512, 1024), Cout % "
+         f"128 == 0; got H={H}, W={W}, Cin={cin}, width={width}, "
+         f"Cout={cout}")
+    Ho, Wo = _out_size(H, stride), _out_size(W, stride)
+
+    def passes(n, size):
+        return -(-n // size) * size
+
+    best = None
+    for R in range(1, min(Ho, FUSED_MAX_PIXELS // Wo) + 1):
+        rows_in, h1, ring3, smem = _fused_layout(R, W, width, stride)
+        if smem > SMEM_LIMIT:
+            break  # grows with R
+        tiles = -(-Ho // R)
+        work = tiles * (
+            passes(rows_in * W, FUSED_BM) * cin * passes(width, FUSED_BN)
+            + passes(R * Wo, FUSED_BM) * (width + (cin if has_ds else 0))
+            * passes(cout, FUSED_BN))
+        w2_off = h1 + -(-R * Wo // 16) * 16 * width * 2  # after h2
+        w2_end = w2_off + 9 * width ** 2 // 16
+        if w2_end + 1024 <= SMEM_LIMIT:
+            smem = max(smem, w2_end + 1024)
+        else:
+            w2_off = -1
+        if best is None or work <= best[0]:
+            best = (work, TilesGeometry(R, tiles, rows_in, h1, h1, ring3,
+                                        w2_off, smem))
+    need(best is not None,
+         f"no band fits {SMEM_LIMIT} bytes of shared memory with at most "
+         f"{FUSED_MAX_PIXELS} output pixels: H={H}, W={W}, width={width}")
+    return best[1]
+
+
 def fused_bottleneck_tiles(x: torch.Tensor, fw: Folded, stride: int = 1,
                            Bc: int = 16, hh: int | None = None
                            ) -> torch.Tensor:
-    """K10b: one bf16 block (K1's function) computed tile by tile, one
-    launch per (chunk of ``Bc`` images, band of ``hh`` output rows), as the
-    TPU package's ``fused_bottleneck_tiles`` calls its kernel once per tile
-    of an XLA scan. Each launch reads its band's halo rows from the input
-    (zero rows at the image border) and writes its band of the output.
-    ``hh`` defaults to the TPU package's choice (``default_band``).
+    """K10b: one bf16 block (K1's function) in the TPU package's tile mode.
+    ``Bc`` (images a chunk) and ``hh`` (output rows a band; default the TPU
+    package's choice, ``default_band``) are the JAX API's and are checked
+    as it checks them; the plain version computes tile by tile with them.
+    The kernel takes its own tiles (``tiles_geometry``): ONE launch a call,
+    a block per (image, band), h1 and h2 in shared memory.
 
     On a CUDA tensor (bf16 x and weights, shapes as K1) it launches the
     kernel and raises on anything it cannot take; on a CPU tensor it runs
@@ -366,24 +477,18 @@ def fused_bottleneck_tiles(x: torch.Tensor, fw: Folded, stride: int = 1,
     _check_args(x, fw, stride)
     if block_mode(x, fw) != "bf16":
         raise ValueError("fused_bottleneck_tiles: bf16 blocks only")
-    lib = _build.library()
     width, cout = block_dims(fw)
-    Wo = _out_size(W, stride)
-    # scratch for one chunk, reused by every launch (one stream: in order)
-    h1 = torch.empty((Bc, H, W, width), dtype=x.dtype, device=x.device)
-    h2 = torch.empty((Bc, Ho, Wo, width), dtype=x.dtype, device=x.device)
-    out = torch.empty((B, Ho, Wo, cout), dtype=x.dtype, device=x.device)
-    weights = _ptrs(fw, _BF16_ORDER)
+    geo = tiles_geometry(H, W, cin, width, cout, stride, "wd" in fw)
+    lib = _build.library()
+    out = torch.empty((B, Ho, _out_size(W, stride), cout), dtype=x.dtype,
+                      device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for b0 in range(0, B, Bc):
-            for lo in range(0, Ho, hh):
-                code = lib.mmb_bottleneck_band_bf16(
-                    x[b0].data_ptr(), *weights, h1.data_ptr(),
-                    h2.data_ptr(), out[b0].data_ptr(), Bc, H, W, cin, width,
-                    cout, stride, lo, hh, stream)
-                _build.check(lib, code, "fused_bottleneck_tiles")
-                fused_bottleneck_tiles.launches += 1
+        code = lib.mmb_bottleneck_fused_bf16(
+            x.data_ptr(), *_ptrs(fw, _BF16_ORDER), out.data_ptr(), B, H, W,
+            cin, width, cout, stride, geo.R, *geo[2:],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "fused_bottleneck_tiles")
+    fused_bottleneck_tiles.launches += 1
     return out
 
 

@@ -20,13 +20,16 @@
 // GFLOP on 202 MB (bytes: 0.060 ms at 3.35 TB/s) and K8c 142.4 GFLOP on
 // 105 MB (operations: 0.144 ms at 989 TFLOP/s).
 //
-// K8a and K8c run the register-resident core of attn_mma.cuh (mma.sync
+// All three run the register-resident core of attn_mma.cuh (mma.sync
 // m16n8k16, the scores of 16 query rows against up to 272 keys held in a
 // warp's registers, one Q . K^T pass, p packed from the accumulators into
 // the value product's operands). The launch geometry (key chunks, threads,
 // dynamic shared memory) comes from ops/attention.py::attention_geometry.
 //
-// K8a: one block per (head, image). K and V of the head's N keys are
+// K8a and K8b: one kernel (attention_mma), one block per (head, image),
+// q, k and v read in place through their strides (K8b's are the column
+// slices of the qkv tensor, row stride 3C: no heads-first copy). K and V
+// of the head's N keys are
 // loaded once into swizzled shared memory (256 bytes a row for rows up to
 // the last chunk's start + 272: 69,632 at N = 257, 200,704 at N = 752),
 // one cp.async group per key chunk and one for
@@ -34,7 +37,9 @@
 // lands during the softmax. The block's warps (min(4, np / 16)) walk the
 // np / 16 slabs of 16 query rows; a warp reads its Q fragments straight
 // from device memory into registers. No warp is given an all-padding slab
-// (N = 257: 17 slabs, not the 20 of 64-row tiles). p at f32 grade goes
+// (N = 257: 17 slabs, not the 20 of 64-row tiles). K8b rounds p to bf16
+// in the A fragments of one P . V product, as the TPU kernel's
+// p.astype(bf16). K8a (SPLIT) keeps p at f32 grade: it goes
 // through the bf16 tensor cores as bf16(p) + bf16(p - bf16(p)) against the
 // exact bf16 V, two products per fragment: p to ~2^-16 of itself, as the
 // TPU kernel's f32 dot. __launch_bounds__(128, 2): up to 255 registers a
@@ -67,7 +72,7 @@
 // the tensor cores (PERF.md).
 
 #include "attn_mma.cuh"
-#include "vit.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -81,62 +86,6 @@ struct AttnIO {
   long long q_bs, k_bs, v_bs, y_bs;
   int q_rs, k_rs, v_rs, y_rs;
 };
-
-// ---------------------------------------------------------------- K8b
-
-// one block per (64 query rows, head, image), K5's shape (vit.cuh): K, V of
-// all N keys and the tile's Q in shared memory (93,696 bytes at N = 257,
-// two blocks per SM); each warp takes 16 query rows through two passes over
-// the keys, the scores recomputed in each (slab_max_sum: the row max and
-// sum, online; slab_exact: p . V), on wmma 16x16x16
-__global__ void __launch_bounds__(AT_THREADS, 2)
-    attention_exact(const AttnIO io, int N, int kv_valid, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int np = (N + 15) & ~15;
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + np * KV_LD;
-  __nv_bfloat16* Qs = Vs + np * KV_LD;
-  float* s_tiles = reinterpret_cast<float*>(Qs + AT_BQ * KV_LD);
-  __nv_bfloat16* p_tiles =
-      reinterpret_cast<__nv_bfloat16*>(s_tiles + AT_THREADS / 32 * 256);
-
-  const int q0 = blockIdx.x * AT_BQ;
-  const int head = blockIdx.y;
-  const long long img = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const __nv_bfloat16* q = io.q + img * io.q_bs + head * HD;
-  const __nv_bfloat16* k = io.k + img * io.k_bs + head * HD;
-  const __nv_bfloat16* v = io.v + img * io.v_bs + head * HD;
-
-  // K and Q in one cp.async group (pass 1 needs them), V in a second
-  load_head_rows(Ks, k, io.k_rs, N, np, tid, AT_THREADS);
-  load_head_rows(Qs, q + static_cast<size_t>(q0) * io.q_rs, io.q_rs, N - q0,
-                 AT_BQ, tid, AT_THREADS);
-  cp_async_commit();
-  load_head_rows(Vs, v, io.v_rs, N, np, tid, AT_THREADS);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  QFrag qf[HD / 16];
-  load_q(qf, Qs + warp * 16 * KV_LD);
-  float* st = s_tiles + warp * 256;
-  __nv_bfloat16* pt = p_tiles + warp * 256;
-  float m, z;
-  slab_max_sum(qf, Ks, np, kv_valid, scale, st, m, z);
-
-  cp_async_wait<0>();
-  __syncthreads();
-
-  AccFrag o[HD / 16];
-  slab_exact(qf, Ks, Vs, np, kv_valid, scale, m, z, st, pt, o);
-  const int row = q0 + warp * 16;
-  slab_store(o, 1.0f, st,
-             io.y + img * io.y_bs + static_cast<size_t>(row) * io.y_rs +
-                 head * HD,
-             io.y_rs, N - row);
-}
 
 // ---------------------------------------------------------------- K8a
 
@@ -161,12 +110,13 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[4][4],
   }
 }
 
-template <bool SINGLE>
+// K8a (SPLIT: p at f32 grade) and K8b (p rounded to bf16)
+template <bool SPLIT, bool SINGLE>
 __global__ void __launch_bounds__(128, 2)
-    attention_f32p(const AttnIO io, const AttnGeom gm, int N, int kv_valid,
-                   float c) {
-  extern __shared__ __align__(128) unsigned char attn_f32p_smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(attn_f32p_smem);
+    attention_mma(const AttnIO io, const AttnGeom gm, int N, int kv_valid,
+                  float c) {
+  extern __shared__ __align__(128) unsigned char attn_mma_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(attn_mma_smem);
   __nv_bfloat16* Vs = Ks + gm.rows * AM_D;
 
   const int head = blockIdx.x;
@@ -198,7 +148,8 @@ __global__ void __launch_bounds__(128, 2)
     load_q_frags(qa, q + static_cast<size_t>(row) * io.q_rs, io.q_rs,
                  N - row);
     float o[8][4];
-    attention_slab<true, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, sl == warp, o);
+    attention_slab<SPLIT, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, sl == warp,
+                                  o);
     store_slab(o, y + static_cast<size_t>(row) * io.y_rs, io.y_rs, N - row);
   }
 }
@@ -228,82 +179,6 @@ __device__ __forceinline__ int swx(int r, int c) {
 // chunk (n / 8 ^ k) % 8)
 __device__ __forceinline__ int sww(int k, int n) {
   return (n >> 6) * QM_ATOM_ELEMS + sw64(k, n & 63);
-}
-
-// a wgmma shared-memory descriptor: address, leading and stride byte
-// offsets, swizzle (1: 128 bytes, 2: 64 bytes)
-__device__ __forceinline__ uint64_t wg_desc(const void* p, int lbo, int sbo,
-                                            int swizzle) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(swizzle) << 62);
-}
-
-// d (+)= A . B on a 64 x 128 x 16 tile by the warpgroup: A K-major and B
-// MN-major (transposed) in shared memory through their descriptors; acc
-// false: d = A . B
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
-                                         uint64_t db, bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(static_cast<int>(acc)));
-}
-
-// d (+)= A . B on a 64 x 64 x 16 tile by the warpgroup: A K-major and B
-// MN-major (transposed) in shared memory through their descriptors; acc
-// false: d = A . B
-__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
-                                         uint64_t db, bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(static_cast<int>(acc)));
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // acc (+)= x[64 rows] . W[:, cols] over one ring slice (two k16 steps),
@@ -542,6 +417,34 @@ __global__ void __launch_bounds__(QM_THREADS, 2)
   }
 }
 
+// the launch of K8a (split) or K8b with the geometry of
+// ops/attention.py::attention_geometry: key chunks of kc keys, nchunks of
+// them over np; rows of K and V in shared memory; threads a block (32 to
+// 128); smem dynamic shared-memory bytes
+template <bool SPLIT>
+int launch_attention(const void* q, const void* k, const void* v, void* y,
+                     long long q_bs, long long k_bs, long long v_bs,
+                     long long y_bs, int q_rs, int k_rs, int v_rs, int y_rs,
+                     int images, int heads, int N, int kv_valid, float scale,
+                     int np, int kc, int nchunks, int rows, int threads,
+                     int smem, void* stream) {
+  const AttnIO io{static_cast<const __nv_bfloat16*>(q),
+                  static_cast<const __nv_bfloat16*>(k),
+                  static_cast<const __nv_bfloat16*>(v),
+                  static_cast<__nv_bfloat16*>(y),
+                  q_bs, k_bs, v_bs, y_bs, q_rs, k_rs, v_rs, y_rs};
+  // one kernel for rows of one chunk, one for the two-pass rows
+  const auto kernel = nchunks == 1 ? attention_mma<SPLIT, true>
+                                   : attention_mma<SPLIT, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(heads, images), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      io, AttnGeom{np, kc, nchunks, rows}, N, kv_valid, scale * AM_LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shapes, strides and alignment are checked by the Python wrappers
@@ -550,54 +453,31 @@ __global__ void __launch_bounds__(QM_THREADS, 2)
 // stride 16-byte aligned, the last axis contiguous. Strides are in
 // elements. Each returns the first CUDA error, or 0.
 
-// K8b
-extern "C" int mmb_attention_bf16(const void* q, const void* k, const void* v,
-                                  void* y, long long q_bs, long long k_bs,
-                                  long long v_bs, long long y_bs, int q_rs,
-                                  int k_rs, int v_rs, int y_rs, int images,
-                                  int heads, int N, int kv_valid, float scale,
-                                  void* stream) {
-  const AttnIO io{static_cast<const __nv_bfloat16*>(q),
-                  static_cast<const __nv_bfloat16*>(k),
-                  static_cast<const __nv_bfloat16*>(v),
-                  static_cast<__nv_bfloat16*>(y),
-                  q_bs, k_bs, v_bs, y_bs, q_rs, k_rs, v_rs, y_rs};
-  const size_t smem = attention_smem((N + 15) & ~15);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_exact, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + AT_BQ - 1) / AT_BQ, heads, images);
-  attention_exact<<<grid, AT_THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(io, N, kv_valid,
-                                                         scale);
-  return static_cast<int>(cudaGetLastError());
+// K8b: q, k, v, y token-major (image stride *_bs, row stride *_rs), heads
+// of 64 side by side; the geometry as K8a's
+extern "C" int mmb_attention_bf16(
+    const void* q, const void* k, const void* v, void* y, long long q_bs,
+    long long k_bs, long long v_bs, long long y_bs, int q_rs, int k_rs,
+    int v_rs, int y_rs, int images, int heads, int N, int kv_valid,
+    float scale, int np, int kc, int nchunks, int rows, int threads,
+    int smem, void* stream) {
+  return launch_attention<false>(q, k, v, y, q_bs, k_bs, v_bs, y_bs, q_rs,
+                                 k_rs, v_rs, y_rs, images, heads, N, kv_valid,
+                                 scale, np, kc, nchunks, rows, threads, smem,
+                                 stream);
 }
 
-// K8a, with the launch geometry of ops/attention.py::attention_geometry:
-// key chunks of kc keys, nchunks of them over np; rows of K and V in shared
-// memory; threads a block (32 to 128); smem dynamic shared-memory bytes
+// K8a: q, k, v, y heads-first ([B*H, N, 64]: images = B*H, heads = 1)
 extern "C" int mmb_attention_f32p_bf16(
     const void* q, const void* k, const void* v, void* y, long long q_bs,
     long long k_bs, long long v_bs, long long y_bs, int q_rs, int k_rs,
     int v_rs, int y_rs, int images, int heads, int N, int kv_valid,
     float scale, int np, int kc, int nchunks, int rows, int threads,
     int smem, void* stream) {
-  const AttnIO io{static_cast<const __nv_bfloat16*>(q),
-                  static_cast<const __nv_bfloat16*>(k),
-                  static_cast<const __nv_bfloat16*>(v),
-                  static_cast<__nv_bfloat16*>(y),
-                  q_bs, k_bs, v_bs, y_bs, q_rs, k_rs, v_rs, y_rs};
-  // one kernel for rows of one chunk, one for the two-pass rows
-  const auto kernel =
-      nchunks == 1 ? attention_f32p<true> : attention_f32p<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(heads, images), threads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      io, AttnGeom{np, kc, nchunks, rows}, N, kv_valid, scale * AM_LOG2E);
-  return static_cast<int>(cudaGetLastError());
+  return launch_attention<true>(q, k, v, y, q_bs, k_bs, v_bs, y_bs, q_rs,
+                                k_rs, v_rs, y_rs, images, heads, N, kv_valid,
+                                scale, np, kc, nchunks, rows, threads, smem,
+                                stream);
 }
 
 // K8c: x [B, N, C], w [C, 3C] (columns (q | k | v) x (head, feature)), b

@@ -1,5 +1,5 @@
 // Device code shared by the port's ViT kernels (sm_90a): K5 and K6
-// (vit.cu), K8b (attention.cu) and K7 (vit_block.cu). Every routine is
+// (vit.cu) and K7 (vit_block.cu). Every routine is
 // the one place its arithmetic is written, so that K7, which runs K5's and
 // K6's phases in one launch, computes the same bits as the two of them.
 //
@@ -13,11 +13,8 @@
 //   pass on the tensor cores (wmma 16x16x16, bf16 in, f32 sums):
 //     slab_max + slab_defer: K5's deferred softmax, p = exp(s - max) in
 //       f32, z summed from the unrounded p, p rounded to bf16 before the
-//       value contraction, the output scaled by 1 / z;
-//     slab_max_sum + slab_exact: K8b's exact softmax, the max and the sum
-//       in one online pass, then p = exp(s - max) / z before the
-//       contraction, rounded to bf16 (K8a and K8c run the register-resident
-//       core of attn_mma.cuh instead).
+//       value contraction, the output scaled by 1 / z (K8a-c run the
+//       register-resident core of attn_mma.cuh instead).
 //   Key columns >= kv_valid get p = 0 (the TPU kernels add -1e9, whose exp
 //   is exactly 0).
 // Every load of data another block may have written in the same launch
@@ -153,7 +150,7 @@ __host__ __device__ inline GemmArgs dense(const void* a, const void* w, int M,
 constexpr int HD = 64;         // head dim
 constexpr int KV_LD = HD + 8;  // bf16 pitch of K, V and Q rows in shared
                                // memory (the skew keeps wmma off one bank)
-constexpr int AT_BQ = 64;      // query rows per block of K5 and K8b
+constexpr int AT_BQ = 64;      // query rows per block of K5
 constexpr int AT_THREADS = 128;
 
 using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
@@ -161,7 +158,7 @@ using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
 using AccFrag =
     nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
 
-// K5, K8b: K and V of N keys (rows padded to np, a multiple of 16),
+// K5: K and V of N keys (rows padded to np, a multiple of 16),
 // the tile's 64 query rows, and per warp a 16 x 16 f32 s tile and bf16 p
 // tile; the 227 KB a block may use caps N at 752
 inline size_t attention_smem(int np) {
@@ -283,68 +280,6 @@ __device__ __forceinline__ float slab_defer(const QFrag (&qf)[HD / 16],
     __syncwarp();  // the next tile overwrites st and pt
   }
   return z + __shfl_xor_sync(0xffffffffu, z, 1);
-}
-
-// K8b pass 1: the row max m of s * scale over the valid keys and z =
-// sum(exp(s * scale - m)), carried online (z rescaled when m grows)
-__device__ __forceinline__ void slab_max_sum(const QFrag (&qf)[HD / 16],
-                                             const __nv_bfloat16* Ks, int np,
-                                             int kv_valid, float scale,
-                                             float* st, float& m_out,
-                                             float& z_out) {
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1;
-  const int c8 = (lane & 1) * 8;
-  float m = -INFINITY, z = 0.0f;
-  for (int j = 0; j < np / 16; ++j) {
-    slab_scores(qf, Ks, j, st);
-    float s[8];
-    float t = -INFINITY;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s[e] = st[r * 16 + c8 + e] * scale;
-      if (j * 16 + c8 + e < kv_valid) t = fmaxf(t, s[e]);
-    }
-    // key 0 is valid, so m is finite from the first tile on
-    const float mn = fmaxf(m, fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 1)));
-    float add = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (j * 16 + c8 + e < kv_valid) add += expf(s[e] - mn);
-    z = z * expf(m - mn) + add;
-    m = mn;
-    __syncwarp();
-  }
-  m_out = m;
-  z_out = z + __shfl_xor_sync(0xffffffffu, z, 1);
-}
-
-// K8b pass 2: o = P . V with P = bf16(exp(s * scale - m) / z)
-__device__ __forceinline__ void slab_exact(const QFrag (&qf)[HD / 16],
-                                           const __nv_bfloat16* Ks,
-                                           const __nv_bfloat16* Vs, int np,
-                                           int kv_valid, float scale, float m,
-                                           float z, float* st,
-                                           __nv_bfloat16* pt,
-                                           AccFrag (&o)[HD / 16]) {
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1;
-  const int c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int jj = 0; jj < HD / 16; ++jj) nvcuda::wmma::fill_fragment(o[jj], 0.0f);
-  for (int j = 0; j < np / 16; ++j) {
-    slab_scores(qf, Ks, j, st);
-    float p[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      p[e] = j * 16 + c8 + e < kv_valid
-                 ? expf(st[r * 16 + c8 + e] * scale - m) / z
-                 : 0.0f;
-    *reinterpret_cast<uint4*>(pt + r * 16 + c8) = pack8(p);
-    __syncwarp();
-    slab_pv(pt, Vs, j, o);
-    __syncwarp();  // the next tile overwrites st and pt
-  }
 }
 
 // rows [0, valid) of the warp's 16: out[row * rs + c] = bf16(o * mul), each

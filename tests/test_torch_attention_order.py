@@ -1,4 +1,4 @@
-"""The arithmetic order of the K8a and K8c kernels (``csrc/attn_mma.cuh``)
+"""The arithmetic order of the K8a, K8b and K8c kernels (``csrc/attn_mma.cuh``)
 emulated in plain PyTorch, held against the JAX package's Pallas kernels
 (interpret mode, as tests/test_ops.py runs them) and against the port's
 plain versions; and the kernels' launch geometry
@@ -11,7 +11,9 @@ row. Rows longer than one chunk of registers (np > 272) take two passes:
 the max and the sum carried online from chunk to chunk (z = z exp2(m -
 m_new) + sum exp2(s c - m_new)), then p recomputed chunk by chunk. K8a
 keeps p at f32 grade as bf16(p) + bf16(p - bf16(p)) against the bf16 V;
-K8c rounds p to bf16 and projects q, k, v = bf16(bf16(x W) + b). The
+K8b rounds p to bf16 into one value product, reading q, k and v in place
+(column slices of the qkv tensor); K8c rounds p the same way and projects
+q, k, v = bf16(bf16(x W) + b). K8b launches with K8a's geometry. The
 emulation is a test helper; no model path calls it.
 
 Gate: phase 2d's (chip_smoke.py), max error relative to the largest output
@@ -74,6 +76,19 @@ def kernel_order_attention(q, k, v, scale, kv_valid, split):
     return o.to(q.dtype)
 
 
+def kernel_order_pairs_attention(q, k, v, heads, scale, kv_valid):
+    """K8b: the attention with p in bf16 on q, k, v [B, N, C] as given
+    (strided views included), heads side by side."""
+    B, N, C = q.shape
+
+    def heads_first(t):
+        return t.reshape(B, N, heads, D).transpose(1, 2).reshape(-1, N, D)
+
+    y = kernel_order_attention(*map(heads_first, (q, k, v)), scale,
+                               kv_valid, split=False)
+    return y.reshape(B, heads, N, D).transpose(1, 2).reshape(B, N, C)
+
+
 def kernel_order_qkv_attention(x, w, b, heads, scale, kv_valid):
     """K8c: q, k, v = bf16(bf16(x w) + b), then the attention with p in
     bf16, on x [B, N, C]."""
@@ -125,6 +140,24 @@ def test_k8a_order_matches_pallas_and_plain(N, kv_off):
 
 @pytest.mark.parametrize("kv_off", [None, 5])
 @pytest.mark.parametrize("N", LENGTHS)
+def test_k8b_order_matches_pallas_and_plain(N, kv_off):
+    """On q, k, v taken as column slices of one [B, N, 3C] tensor (row
+    stride 3C), as the ViT's attn=pairs path passes them."""
+    kv = None if kv_off is None else N - kv_off
+    C, heads = 128, 2
+    qkv, = bf16_operands(np.random.RandomState(N + 2), (2, N, 3 * C))
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    assert q.stride(1) == 3 * C and not q.is_contiguous()
+    got = kernel_order_pairs_attention(q, k, v, heads, SCALE, kv)
+    want_jax = torch.from_numpy(np.array(jatt.fused_attention_pairs(
+        to_jax(q), to_jax(k), to_jax(v), heads, SCALE, kv).astype(
+            jnp.float32)))
+    gate(got, want_jax)
+    gate(got, tatt.attention_pairs_reference(q, k, v, heads, SCALE, kv))
+
+
+@pytest.mark.parametrize("kv_off", [None, 5])
+@pytest.mark.parametrize("N", LENGTHS)
 def test_k8c_order_matches_pallas_and_plain(N, kv_off):
     kv = None if kv_off is None else N - kv_off
     C, heads = 128, 2
@@ -144,7 +177,8 @@ def test_k8c_order_matches_pallas_and_plain(N, kv_off):
 
 @pytest.mark.parametrize("qkv", [False, True])
 def test_geometry_serves_every_length(qkv):
-    """For every N the kernel accepts: the chunks are multiples of 16 of at
+    """For every N the kernels accept (K8a and K8b: qkv False, N <= 752;
+    K8c: N <= 416): the chunks are multiples of 16 of at
     most 272 keys and cover np exactly; K and V hold the last chunk's start
     + 272 rows (every chunk is read as 272 keys); shared memory fits a
     block; K8a gives no warp an all-padding slab; one chunk exactly when np

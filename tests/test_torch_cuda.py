@@ -6,7 +6,8 @@ at small, odd and ViT-B shapes, with kv_valid, K6 and K7 in every GELU
 form, K9 at small, odd and CVCL shapes, K4 forward and backward at
 B = 16, 72 and 128, K10a's block, stage and banded stage at
 tests/test_quant_trunk.py's transport shapes, K10b at
-tests/test_hwbc_kernels.py:74's and against K1 bit for bit, K11 forward
+tests/test_hwbc_kernels.py:74's and every ResNeXt-50 block shape and
+against K1 bit for bit, K11 forward
 and backward at odd M), K7 against K5 then K6 bit for bit, and on the
 arguments they refuse.
 
@@ -325,7 +326,7 @@ def attention_inputs(B, N, C, device, qkv_view):
     return tuple(t.contiguous() for t in qkv.split(C, -1))
 
 
-# the edges of K8a's and K8c's register-resident design: N = 257 and 272
+# the edges of K8a-c's register-resident design: N = 257 and 272
 # (a row's scores in one chunk of registers), 273 (the first N over it: two
 # chunks, two passes), 416 (K8c's cap) and 752 (K8a's cap, three chunks)
 EDGE_N = [257, 272, 273, 416, 752]
@@ -383,10 +384,10 @@ def test_qkv_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid,
 
 
 def test_attention_pairs_kernel_on_fixed_inputs(cuda):
-    """K8b keeps its own kernel (attention_exact, slab_max_sum, slab_exact)
-    beside the K8a and K8c redesign: on fixed seeded inputs at ViT-B/14's
-    shape it stays within the gate of its plain version, and a second call
-    gives the same bits."""
+    """K8b on the register-resident core (one block per head and image, p
+    rounded to bf16): on fixed seeded inputs at ViT-B/14's shape it stays
+    within the gate of its plain version, and a second call gives the same
+    bits."""
     g = torch.Generator().manual_seed(8)
     B, N, C, heads = 2, 257, 768, 12
     qkv = (torch.randn(B, N, 3 * C, generator=g) * 0.35).to(cuda,
@@ -611,6 +612,16 @@ def assert_close_codes(got, want):
     (2, True, 32, 16, 128, 256, 512, 16, 2),   # test_hwbc_kernels.py:74
     (1, False, 16, 8, 256, 128, 256, 8, 4),
     (1, True, 8, 7, 64, 128, 256, 4, 7),       # odd size, one band
+    (2, True, 4, 9, 64, 128, 256, 2, 5),       # 9 -> 5, window past the image
+    # the 8 ResNeXt-50 block shapes at 224 px
+    (1, True, 2, 56, 64, 128, 256, 1, 28), (1, False, 2, 56, 256, 128, 256,
+                                            1, 28),
+    (2, True, 2, 56, 256, 256, 512, 1, 14), (1, False, 2, 28, 512, 256, 512,
+                                             1, 14),
+    (2, True, 2, 28, 512, 512, 1024, 1, 7), (1, False, 2, 14, 1024, 512, 1024,
+                                             1, 7),
+    (2, True, 2, 14, 1024, 1024, 2048, 1, 7), (1, False, 2, 7, 2048, 1024,
+                                               2048, 1, 7),
 ])
 def test_tiles_kernel_matches_plain_version_and_k1(cuda, stride, has_ds, B,
                                                    H, cin, width, cout, Bc,
@@ -620,8 +631,7 @@ def test_tiles_kernel_matches_plain_version_and_k1(cuda, stride, has_ds, B,
     before = fused_bottleneck_tiles.launches
     got = fused_bottleneck_tiles(x, fw, stride=stride, Bc=Bc, hh=hh)
     torch.cuda.synchronize()
-    ho = (H - 1) // stride + 1
-    assert fused_bottleneck_tiles.launches == before + (B // Bc) * (ho // hh)
+    assert fused_bottleneck_tiles.launches == before + 1  # one launch a call
     assert_close_bf16(got, tiles_reference(x, fw, stride, Bc, hh))
     # each output's sums run in K1's order: the tiles are K1's values
     assert torch.equal(got, fused_bottleneck(x, fw, stride=stride))
@@ -653,9 +663,11 @@ def test_conv_epilogue_kernel_matches_plain_version(cuda, M, cin, cout):
 
 
 @pytest.mark.parametrize("bad", ["transport_keys", "tiles_int8",
-                                 "epilogue_f32", "epilogue_cout"])
+                                 "tiles_wide_row", "epilogue_f32",
+                                 "epilogue_cout"])
 def test_new_kernels_refuse_what_they_cannot_take(cuda, bad):
     g = torch.Generator().manual_seed(1)
+    before = fused_bottleneck_tiles.launches
     with pytest.raises(ValueError):
         if bad == "transport_keys":  # a transport fold without its ai
             fw = t_block(g, 256, 128, 256, False, cuda)
@@ -667,6 +679,11 @@ def test_new_kernels_refuse_what_they_cannot_take(cuda, bad):
             fused_bottleneck_tiles(torch.zeros(32, 4, 4, 256,
                                                dtype=torch.int8,
                                                device=cuda), fw, 1, 16, 2)
+        elif bad == "tiles_wide_row":  # no band of <= 128 output pixels
+            _, fw = make_block(64, 128, 256, True, 4, 1, cuda)
+            fused_bottleneck_tiles(torch.zeros(1, 4, 300, 64,
+                                               dtype=torch.bfloat16,
+                                               device=cuda), fw, 1, 1, 4)
         else:
             cout = 256 if bad == "epilogue_f32" else 200
             dt = torch.float32 if bad == "epilogue_f32" else torch.bfloat16
@@ -675,3 +692,4 @@ def test_new_kernels_refuse_what_they_cannot_take(cuda, bad):
                 torch.zeros(64, cout, dtype=dt, device=cuda),
                 torch.ones(cout, device=cuda), torch.zeros(cout, device=cuda),
                 torch.zeros(8, cout, dtype=dt, device=cuda))
+    assert fused_bottleneck_tiles.launches == before

@@ -9,9 +9,11 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 1. The card's name and power limit; the build of the kernels
    (``multimodal_baby_tpu_torch/ops/csrc/*.cu``) with nvcc, and ptxas's
-   registers, spills and stack of each kernel (K8a's and K8b's
-   ``attention_mma`` and K8c's ``qkv_attention_mma`` named, each in its
-   one-pass and two-pass form, with their shared memory at N = 257; K10b's
+   registers, spills and stack of each kernel (K5's, K8a's and K8b's
+   ``attention_mma``, K7's ``vit_block_kernel`` and K8c's
+   ``qkv_attention_mma`` named, each in its one-pass and two-pass form,
+   with their shared memory at N = 257; the ``vit_gemm`` Dense tile with
+   K5's two epilogues and the probe's GELU forms; K10b's
    ``bottleneck_fused`` in its four group widths, and its band geometry at
    layer 2's head).
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
@@ -28,7 +30,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    then the ViT-B/14 shapes at B = 128 (N = 257, C = 768, 12 heads,
    F = 3072), timed beside their plain versions, the library calls
    (LayerNorm, Linear, scaled_dot_product_attention or GELU, Linear and
-   the residual, in bf16) and the bound.
+   the residual, in bf16) and the bound; then K5 at C = 768 and B = 2 (a
+   ragged row count, M = 514) at N = 257, 400 and 752, each with and
+   without kv_valid = N - 5 (one pass, then two passes of the attention
+   core).
 2c. K2 (``fused_bottleneck`` on int8), K3a (``fused_stage``) and K3b
    (``fused_stage_banded``) against their plain versions: small and odd
    cases at B = 32 (8x8 and 7x7 px, as tests/test_quant_trunk.py), then
@@ -68,7 +73,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    against their plain versions on phase 2b's cases, with 2b's gates; K6
    and K7 also in the tanh and sigmoid GELU forms; K7 against K5 then K6
    bit for bit in every form (the count of differing bf16 words is
-   printed); then K8a and K8b (on the column slices of a [B, N, 3C]
+   printed), also at 2b's ragged and two-pass cases; then K8a and K8b (on
+   the column slices of a [B, N, 3C]
    tensor) at N = 257, 272, 273, 416 and 752 and K8c at the first four (B
    = 2, C = 768), each with and without kv_valid = N - 20:
    the edges of their register-resident design (one chunk of 272 keys,
@@ -99,9 +105,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    swapped for their plain versions on the card and against the plain
    bf16 blocks: per-row cosine >= 0.999 (the cosine against f32 is
    printed). Then the ViT forward and step time of each, and the step
-   times of the default, attn=1, attn=pairs and attn=qkv in turns
-   (default, 1, pairs, qkv, qkv, pairs, 1, default), each from phase 4's
-   weights.
+   times of the default, attn=1, attn=pairs, attn=qkv and whole_block in
+   turns (default, 1, pairs, qkv, whole_block, whole_block, qkv, pairs,
+   1, default), each from phase 4's weights.
 2e. K9 (``lstm_fused``) against the plain scan at (B, L, H) = (128, 25,
    512) and (128, 64, 512) with random lengths (max absolute error <= 1e-4
    on out, h_last and c_last), and K4's forward and backward
@@ -261,6 +267,11 @@ BLOCKS_EDGE = [
 # (B, N, C, heads, F, kv_valid); the last is ViT-B/14 at the slice's batch
 VIT_CASES = [(2, 10, 256, 4, 1024, 7), (2, 17, 256, 4, 1024, None),
              (BATCH, 257, 768, 12, 3072, None)]
+# K5 (phase 2b) and K7 (phase 2d) also at ViT-B width with a ragged row
+# count (B = 2: M = 514) and at two-pass lengths of the attention core, up
+# to both kernels' cap of 752 tokens
+VIT_LONG_CASES = [(2, n, 768, 12, 3072, kv) for n in (257, 400, 752)
+                  for kv in (None, n - 5)]
 VIT_DEPTH = 12
 # the ViT kernel wrappers, by the TPU kernel each replaces
 VIT_KERNELS = {"K5": fused_block_attention, "K6": fused_mlp,
@@ -279,7 +290,8 @@ VIT_CONFIGS = {
 # phase 6: the configurations whose step times are taken in turns
 VIT_TURNS = {"default": ViTKernels(), "attn=1": ViTKernels(attn="1"),
              "attn=pairs": ViTKernels(attn="pairs"),
-             "attn=qkv": ViTKernels(attn="qkv")}
+             "attn=qkv": ViTKernels(attn="qkv"),
+             "whole_block": ViTKernels(whole_block=True)}
 # phase 2d: K8a-c at the edges of their register-resident design
 # (N = 257 and 272: a row's scores in one chunk of registers; 273: the
 # first N over it, two passes; K8c's cap 416, K8a's 752), with and without
@@ -544,6 +556,14 @@ def phase_vit_kernels():
             res.update(ms=VIT_DEPTH * k, plain_ms=VIT_DEPTH * p,
                        library_ms=VIT_DEPTH * li, bound_ms=b_fwd,
                        bound_by=b_by)
+    with torch.no_grad():
+        for B, N, C, heads, F_, kv in VIT_LONG_CASES:
+            scale = (C // heads) ** -0.5
+            xa, pa = vit_half_inputs(gen, "attention", B, N, C, F_)
+            err = check(f"K5 B={B} N={N} C={C} kv_valid={kv}",
+                        fused_block_attention(xa, *pa, heads, scale, kv),
+                        block_attention_reference(xa, *pa, heads, scale, kv))
+            out["K5"]["max_abs_err"] = max(out["K5"]["max_abs_err"], err)
     for name, res in out.items():
         log(f"  {name} over the {VIT_DEPTH} blocks of one forward at "
             f"B={BATCH}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
@@ -663,6 +683,27 @@ def phase_vit_more_kernels():
             f"{out['K7']['ms'] / VIT_DEPTH:.3f} against {two_ms:.3f} ms per "
             f"block")
     with torch.no_grad():
+        for B, N, C, heads, F_, kv in VIT_LONG_CASES:
+            scale = (C // heads) ** -0.5
+            x, pa = vit_half_inputs(gen, "attention", B, N, C, F_)
+            _, pm = vit_half_inputs(gen, "mlp", 1, 1, C, F_)
+            tag = f"B={B} N={N} C={C}" + (f" kv_valid={kv}" if kv else "")
+            for gelu in GELU_MODES:
+                k7 = fused_vit_block(x, *pa, *pm, heads, scale, kv, 1e-6,
+                                     gelu)
+                out["K7"]["max_abs_err"] = max(
+                    out["K7"]["max_abs_err"],
+                    check(f"K7 {gelu} {tag}", k7, vit_block_reference(
+                        x, *pa, *pm, heads, scale, kv, 1e-6, gelu)))
+                two = fused_mlp(fused_block_attention(x, *pa, heads, scale,
+                                                      kv), *pm, 1e-6, gelu)
+                n_diff = int((k7.view(torch.int16)
+                              != two.view(torch.int16)).sum())
+                log(f"  K7 {gelu} {tag}: {n_diff} of {k7.numel()} bf16 words "
+                    f"differ from K5 then K6")
+                if n_diff:
+                    raise AssertionError(f"K7 {gelu} {tag}: {n_diff} words "
+                                         f"differ from K5 then K6")
         for B, N, C, heads, kv in K8_EDGE_CASES:
             scale = (C // heads) ** -0.5
             tag = f"B={B} N={N} C={C}" + (f" kv_valid={kv}" if kv else "")
@@ -1429,12 +1470,12 @@ def phase_vit_configs(cfg, model, batch, start):
 
 
 def vit_steps_in_turns(cfg, model, batch, start):
-    """The ViT train step of the default configuration (K5 + K6), attn=1
-    (K8a + K6), attn=pairs (K8b + K6) and attn=qkv (K8c + K6), each from
-    phase 4's weights with an optimizer state of its own, timed in turns
-    (default, 1, pairs, qkv, qkv, pairs, 1, default; TIMED_STEPS steps a
-    turn) on one model whose ``vit_kernels`` is switched before each
-    turn."""
+    """The ViT train step of each configuration of VIT_TURNS (default: K5
+    + K6; attn=1: K8a + K6; attn=pairs: K8b + K6; attn=qkv: K8c + K6;
+    whole_block: K7), each from phase 4's weights with an optimizer state
+    of its own, timed in turns (the list, then the list reversed;
+    TIMED_STEPS steps a turn) on one model whose ``vit_kernels`` is
+    switched before each turn."""
     trunk = model.vision_encoder.model
     model.load_state_dict(start)
     runs = {}
@@ -2148,13 +2189,18 @@ def main() -> int:
             log(f"  ptxas: ...{line.split('for ')[-1][-44:]}: "
                 f"{lines[i + 2].split(': ', 1)[-1]}; {lines[i + 1].strip()}")
     # (name, mangled kernel name, its forms: template arguments -> what)
+    passes = {"Lb1EEEv": "one pass", "Lb0EEEv": "two passes"}
     for name, kernel, forms in (
-            ("K8a", "13attention_mmaILb1E", {"Lb1EEEv": "one pass",
-                                           "Lb0EEEv": "two passes"}),
-            ("K8b", "13attention_mmaILb0E", {"Lb1EEEv": "one pass",
-                                           "Lb0EEEv": "two passes"}),
-            ("K8c", "17qkv_attention_mmaI", {"Lb1EEEv": "one pass",
-                                           "Lb0EEEv": "two passes"}),
+            ("K5 attention", "13attention_mmaILi2E", passes),
+            ("Dense tile", "8vit_gemmI", {
+                "13RoundThenBias": "RoundThenBias (K5 qkv)",
+                "12ResidualBias": "ResidualBias (K5 proj)",
+                **{f"BiasGeluFormILi{m}E": f"BiasGelu {g} (probe)"
+                   for m, g in enumerate(GELU_MODES)}}),
+            ("K7", "16vit_block_kernelI", passes),
+            ("K8a", "13attention_mmaILi0E", passes),
+            ("K8b", "13attention_mmaILi1E", passes),
+            ("K8c", "17qkv_attention_mmaI", passes),
             ("K10b", "16bottleneck_fusedI", {f"Li{cg}EEEv": f"cg {cg}"
                                            for cg in (4, 8, 16, 32)})):
         found = [i for i, line in enumerate(lines)
@@ -2166,7 +2212,7 @@ def main() -> int:
             form = next(v for k, v in forms.items() if k in lines[i])
             log(f"  ptxas {name} ({kernel.strip('0123456789I')}, {form}): "
                 f"{lines[i + 2].split(': ', 1)[-1]}; {lines[i + 1].strip()}")
-        if name != "K10b":
+        if name[:2] == "K8" or name == "K5 attention":
             log(f"  {name} dynamic shared memory at N = 257: "
                 f"{attention_geometry(257, qkv=name == 'K8c').smem} bytes")
     geo = tiles_geometry(56, 56, 256, 256, 512, 2, True)
@@ -2210,7 +2256,7 @@ def main() -> int:
              q["K2"]),
             ("fused_stage", "stage.cu", f"{hwbc}:758", q["K3a"]),
             ("fused_stage_banded", "stage.cu", f"{hwbc}:1078", q["K3b"]),
-            ("fused_block_attention", "vit.cu",
+            ("fused_block_attention", "vit_attention.cu",
              "multimodal_baby_tpu/ops/attention.py:601", vit_kernels["K5"]),
             ("fused_mlp", "vit.cu", "multimodal_baby_tpu/ops/vit_mlp.py:186",
              vit_kernels["K6"]),

@@ -20,11 +20,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "attention.cu",
-           "vit_block.cu", "lstm.cu", "infonce.cu", "conv_epilogue.cu",
-           "bottleneck_fused.cu")
+SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "vit_attention.cu",
+           "attention.cu", "vit_block.cu", "lstm.cu", "infonce.cu",
+           "conv_epilogue.cu", "bottleneck_fused.cu")
 HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
-           "attn_mma.cuh", "wgmma.cuh")
+           "attn_mma.cuh", "wgmma.cuh", "vit_gemm.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -93,7 +93,10 @@ def library() -> ctypes.CDLL:
             lib.mmb_bottleneck_bf16.argtypes = (
                 [ptr] * 12 + [i32] * 7 + [ptr])
             lib.mmb_vit_attention_bf16.argtypes = (
-                [ptr] * 11 + [i32] * 4 + [f32] * 2 + [ptr])
+                [ptr] * 11 + [i32] * 4 + [f32] * 2 + [i32] * 6 + [ptr])
+            lib.mmb_vit_dense_bf16.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+            lib.mmb_vit_attention_core_bf16.argtypes = (
+                [ptr] * 2 + [i32] * 4 + [f32] + [i32] * 6 + [ptr])
             lib.mmb_vit_mlp_bf16.argtypes = (
                 [ptr] * 10 + [i32] * 4 + [f32, ptr])
             lib.mmb_attention_bf16.argtypes = (
@@ -105,7 +108,7 @@ def library() -> ctypes.CDLL:
             lib.mmb_qkv_attention_bf16.argtypes = (
                 [ptr] * 4 + [i32] * 4 + [f32] + [i32] * 6 + [ptr])
             lib.mmb_vit_block_bf16.argtypes = (
-                [ptr] * 20 + [i32] * 6 + [f32] * 2 + [ptr])
+                [ptr] * 20 + [i32] * 6 + [f32] * 2 + [i32] * 4 + [ptr])
             lib.mmb_bottleneck_s8.argtypes = [ptr] * 17 + [i32] * 7 + [ptr]
             lib.mmb_bottleneck_t.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
             lib.mmb_bottleneck_fused_bf16.argtypes = (
@@ -121,6 +124,8 @@ def library() -> ctypes.CDLL:
                        lib.mmb_bottleneck_t, lib.mmb_bottleneck_fused_bf16,
                        lib.mmb_conv1x1_bn_residual_relu_bf16,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
+                       lib.mmb_vit_dense_bf16,
+                       lib.mmb_vit_attention_core_bf16,
                        lib.mmb_vit_mlp_bf16, lib.mmb_attention_bf16,
                        lib.mmb_attention_f32p_bf16,
                        lib.mmb_qkv_attention_bf16, lib.mmb_vit_block_bf16,

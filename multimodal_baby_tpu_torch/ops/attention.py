@@ -6,7 +6,8 @@ version. Counterparts of ``multimodal_baby_tpu/ops/attention.py``:
   C]`` with ``wqkv [C, 3C]`` (columns ordered (q | k | v) x (head,
   feature)) and ``wproj [C, C]``, the JAX package's ``[in, out]`` layout;
   the deferred softmax (divide after the value contraction), kernel in
-  ``csrc/vit.cu``;
+  ``csrc/vit_attention.cu`` (the Denses on ``csrc/vit_gemm.cuh``'s wgmma
+  tile, the attention on K8b's core and launch geometry);
 - K8a ``fused_attention`` (``attention_reference``): softmax(q k^T scale)
   v on the heads-first layout ``[B*H, N, d]``, p kept in f32;
 - K8b ``fused_attention_pairs`` (``attention_pairs_reference``): the same
@@ -18,7 +19,8 @@ version. Counterparts of ``multimodal_baby_tpu/ops/attention.py``:
 
 K8a-c divide by the row sum before the value contraction, as the TPU
 kernels do; their kernels are in ``csrc/attention.cu``, with their launch
-geometry from ``attention_geometry`` (K8a and K8b share one). Each wrapper
+geometry from ``attention_geometry`` (K5, K7, K8a and K8b share one). Each
+wrapper
 runs its kernel on a CUDA tensor and its plain version on a CPU tensor; the
 gradient is the plain version's VJP. ``should_fuse_*`` are the JAX
 package's shape gates, which the ViT's dispatch follows.
@@ -58,7 +60,7 @@ QKV_RING_BYTES = 3 * (64 * 32 + 2 * 32 * 64) * 2 + 1024
 
 
 class AttentionGeometry(NamedTuple):
-    """The launch of K8a, K8b or K8c for N tokens (``csrc/attention.cu``): np
+    """The attention launch for N tokens (``csrc/attn_mma.cuh``): np
     = N rounded up to 16; keys in chunks of ``kc`` (a multiple of 16, at
     most ``KEY_CHUNK``), ``nchunks`` of them over np, the last np - (nchunks
     - 1) kc; ``rows`` of K and V in shared memory, (nchunks - 1) kc +
@@ -74,8 +76,9 @@ class AttentionGeometry(NamedTuple):
 
 
 def attention_geometry(N: int, qkv: bool = False) -> AttentionGeometry:
-    """K8a's and K8b's (``qkv`` False) or K8c's launch geometry for N
-    tokens. K8a, K8b: one
+    """The attention launch geometry of K5, K7, K8a and K8b (``qkv``
+    False) or of K8c for N tokens (K7 takes only np, kc, nchunks and rows).
+    K5, K8a, K8b: one
     warp per 16-row query slab up to 4 a block (a warp never gets an
     all-padding slab), K and V of the head in shared memory (256 bytes a
     row); K8c: 4 warps, K and V plus the projection ring. Raises ValueError
@@ -260,6 +263,7 @@ def _run(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale,
             f"fused_block_attention: needs C % 128 == 0 and heads of "
             f"{HEAD_DIM}; got C={C}, heads={num_heads}")
     n_keys = n_keys_checked("fused_block_attention", N, kv_valid, MAX_TOKENS)
+    geo = attention_geometry(N)
     lib = _build.library()
     xn = torch.empty_like(x)
     qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=x.device)
@@ -270,7 +274,7 @@ def _run(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale,
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
             bproj.data_ptr(), xn.data_ptr(), qkv.data_ptr(), y.data_ptr(),
-            out.data_ptr(), B, N, C, n_keys, scale, eps,
+            out.data_ptr(), B, N, C, n_keys, scale, eps, *geo,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "fused_block_attention")
     fused_block_attention.launches += 1
@@ -285,8 +289,10 @@ def fused_block_attention(x: torch.Tensor, ln_scale: torch.Tensor,
                           eps: float = 1e-6) -> torch.Tensor:
     """``x + proj(attention(qkv(LayerNorm(x))))`` with the parameters cast
     to ``x.dtype``; key columns >= ``kv_valid`` are masked. On a CUDA
-    tensor this launches the Hopper kernel (bf16, heads of 64, C a multiple
-    of 128, N <= 752, every tensor contiguous) and raises on anything it
+    tensor this launches the Hopper kernels (bf16, heads of 64, C a
+    multiple of 128, N <= 752, every tensor contiguous: a LayerNorm, the
+    qkv and proj Denses on the wgmma tile and the attention between them,
+    counted as one launch) and raises on anything it
     cannot take; it never falls back. On a CPU tensor it runs
     ``block_attention_reference``. The gradient is the VJP of
     ``block_attention_reference``. ``fused_block_attention.launches``

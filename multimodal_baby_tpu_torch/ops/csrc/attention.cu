@@ -26,7 +26,8 @@
 // the value product's operands). The launch geometry (key chunks, threads,
 // dynamic shared memory) comes from ops/attention.py::attention_geometry.
 //
-// K8a and K8b: one kernel (attention_mma), one block per (head, image),
+// K8a and K8b: attn_mma.cuh's attention_mma (which K5 launches too, in
+// its deferred mode), one block per (head, image),
 // q, k and v read in place through their strides (K8b's are the column
 // slices of the qkv tensor, row stride 3C: no heads-first copy). K and V
 // of the head's N keys are
@@ -39,7 +40,7 @@
 // from device memory into registers. No warp is given an all-padding slab
 // (N = 257: 17 slabs, not the 20 of 64-row tiles). K8b rounds p to bf16
 // in the A fragments of one P . V product, as the TPU kernel's
-// p.astype(bf16). K8a (SPLIT) keeps p at f32 grade: it goes
+// p.astype(bf16). K8a (P_F32) keeps p at f32 grade: it goes
 // through the bf16 tensor cores as bf16(p) + bf16(p - bf16(p)) against the
 // exact bf16 V, two products per fragment: p to ~2^-16 of itself, as the
 // TPU kernel's f32 dot. __launch_bounds__(128, 2): up to 255 registers a
@@ -75,84 +76,6 @@
 #include "wgmma.cuh"
 
 namespace {
-
-// q, k, v and y of every (image, head): image i, head h, token t at
-// base + i * bs + t * rs + 64 h (elements)
-struct AttnIO {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* y;
-  long long q_bs, k_bs, v_bs, y_bs;
-  int q_rs, k_rs, v_rs, y_rs;
-};
-
-// ---------------------------------------------------------------- K8a
-
-// the slab's 16 query rows (row pitch rs) as the A fragments of Q . K^T
-// (k step kd: rows g and g + 8, columns 16 kd + 2 (lane % 4) and + 8),
-// read from device memory; rows >= valid are zeros
-__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[4][4],
-                                             const __nv_bfloat16* q,
-                                             size_t rs, int valid) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int c = 2 * (lane & 3);
-  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(q + g * rs + c);
-  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(q + (g + 8) * rs + c);
-  const bool ok0 = g < valid, ok1 = g + 8 < valid;
-#pragma unroll
-  for (int kd = 0; kd < 4; ++kd) {
-    qa[kd][0] = ok0 ? __ldg(r0 + 8 * kd) : 0u;
-    qa[kd][1] = ok1 ? __ldg(r1 + 8 * kd) : 0u;
-    qa[kd][2] = ok0 ? __ldg(r0 + 8 * kd + 4) : 0u;
-    qa[kd][3] = ok1 ? __ldg(r1 + 8 * kd + 4) : 0u;
-  }
-}
-
-// K8a (SPLIT: p at f32 grade) and K8b (p rounded to bf16)
-template <bool SPLIT, bool SINGLE>
-__global__ void __launch_bounds__(128, 2)
-    attention_mma(const AttnIO io, const AttnGeom gm, int N, int kv_valid,
-                  float c) {
-  extern __shared__ __align__(128) unsigned char attn_mma_smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(attn_mma_smem);
-  __nv_bfloat16* Vs = Ks + gm.rows * AM_D;
-
-  const int head = blockIdx.x;
-  const long long img = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const __nv_bfloat16* q = io.q + img * io.q_bs + head * AM_D;
-  const __nv_bfloat16* k = io.k + img * io.k_bs + head * AM_D;
-  const __nv_bfloat16* v = io.v + img * io.v_bs + head * AM_D;
-  __nv_bfloat16* y = io.y + img * io.y_bs + head * AM_D;
-
-  // one group per key chunk (the last also zero-fills the rows past np),
-  // then V
-  for (int ch = 0; ch < gm.nchunks; ++ch) {
-    const int k0 = ch * gm.kc;
-    load_rows_sw(Ks, k, io.k_rs, N, k0,
-                 ch + 1 < gm.nchunks ? k0 + gm.kc : gm.rows, tid, blockDim.x);
-    cp_async_commit();
-  }
-  load_rows_sw(Vs, v, io.v_rs, N, 0, gm.rows, tid, blockDim.x);
-  cp_async_commit();
-
-  // the wrapper gives the block at most np / 16 warps: each has a slab in
-  // the first round, which waits for the chunks with block barriers
-  for (int sl = warp; sl < gm.np / 16; sl += nwarps) {
-    const int row = sl * 16;
-    uint32_t qa[4][4];
-    load_q_frags(qa, q + static_cast<size_t>(row) * io.q_rs, io.q_rs,
-                 N - row);
-    float o[8][4];
-    attention_slab<SPLIT, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, sl == warp,
-                                  o);
-    store_slab(o, y + static_cast<size_t>(row) * io.y_rs, io.y_rs, N - row);
-  }
-}
 
 // ---------------------------------------------------------------- K8c
 
@@ -408,7 +331,8 @@ __global__ void __launch_bounds__(QM_THREADS, 2)
                       round_bf16(acc[4 * t + 3]) + b1);
       }
       float o[8][4];
-      attention_slab<false, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, false, o);
+      attention_slab<P_BF16, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, false,
+                                     o);
       store_slab(o,
                  y + (static_cast<size_t>(img) * N + row) * C + head * AM_D,
                  C, N - row);
@@ -417,11 +341,9 @@ __global__ void __launch_bounds__(QM_THREADS, 2)
   }
 }
 
-// the launch of K8a (split) or K8b with the geometry of
-// ops/attention.py::attention_geometry: key chunks of kc keys, nchunks of
-// them over np; rows of K and V in shared memory; threads a block (32 to
-// 128); smem dynamic shared-memory bytes
-template <bool SPLIT>
+// K8a (P_F32) or K8b (P_BF16) with the geometry of
+// ops/attention.py::attention_geometry
+template <int MODE>
 int launch_attention(const void* q, const void* k, const void* v, void* y,
                      long long q_bs, long long k_bs, long long v_bs,
                      long long y_bs, int q_rs, int k_rs, int v_rs, int y_rs,
@@ -433,16 +355,9 @@ int launch_attention(const void* q, const void* k, const void* v, void* y,
                   static_cast<const __nv_bfloat16*>(v),
                   static_cast<__nv_bfloat16*>(y),
                   q_bs, k_bs, v_bs, y_bs, q_rs, k_rs, v_rs, y_rs};
-  // one kernel for rows of one chunk, one for the two-pass rows
-  const auto kernel = nchunks == 1 ? attention_mma<SPLIT, true>
-                                   : attention_mma<SPLIT, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(heads, images), threads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      io, AttnGeom{np, kc, nchunks, rows}, N, kv_valid, scale * AM_LOG2E);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_attention_mma<MODE>(
+      io, images, heads, N, kv_valid, scale, AttnGeom{np, kc, nchunks, rows},
+      threads, smem, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -461,7 +376,7 @@ extern "C" int mmb_attention_bf16(
     int v_rs, int y_rs, int images, int heads, int N, int kv_valid,
     float scale, int np, int kc, int nchunks, int rows, int threads,
     int smem, void* stream) {
-  return launch_attention<false>(q, k, v, y, q_bs, k_bs, v_bs, y_bs, q_rs,
+  return launch_attention<P_BF16>(q, k, v, y, q_bs, k_bs, v_bs, y_bs, q_rs,
                                  k_rs, v_rs, y_rs, images, heads, N, kv_valid,
                                  scale, np, kc, nchunks, rows, threads, smem,
                                  stream);
@@ -474,7 +389,7 @@ extern "C" int mmb_attention_f32p_bf16(
     int v_rs, int y_rs, int images, int heads, int N, int kv_valid,
     float scale, int np, int kc, int nchunks, int rows, int threads,
     int smem, void* stream) {
-  return launch_attention<true>(q, k, v, y, q_bs, k_bs, v_bs, y_bs, q_rs,
+  return launch_attention<P_F32>(q, k, v, y, q_bs, k_bs, v_bs, y_bs, q_rs,
                                 k_rs, v_rs, y_rs, images, heads, N, kv_valid,
                                 scale, np, kc, nchunks, rows, threads, smem,
                                 stream);

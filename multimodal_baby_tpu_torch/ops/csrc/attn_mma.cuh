@@ -1,6 +1,7 @@
-// The exact-softmax attention core of K8a and K8c (attention.cu) on
-// Hopper's warp-level tensor-core product, mma.sync m16n8k16 (bf16 in, f32
-// sums), in inline PTX, with fragments loaded by ldmatrix.
+// The attention core of K5 (vit_attention.cu, vit_block.cu) and K8a-c
+// (attention.cu) on Hopper's warp-level tensor-core product, mma.sync
+// m16n8k16 (bf16 in, f32 sums), in inline PTX, with fragments loaded by
+// ldmatrix.
 //
 // One warp owns 16 query rows of one head (a "slab") and holds their
 // scores against a chunk of up to AM_CHUNK = 272 keys in registers, in the
@@ -10,13 +11,18 @@
 // tiles of p are one k16 A fragment of the value product: p goes from the
 // accumulators into the P . V operands without touching shared memory.
 //
-// The softmax is the TPU kernels' exact one, p = exp(s scale - max) / sum,
-// divided before the value contraction, with two rewrites that move p by a
-// few ulp (tests/test_torch_attention_order.py emulates them on the CPU and
-// holds them to the JAX kernels): exp(s scale - m) is computed as
-// 2^(s c - m') with c = scale * log2(e) folded into the score (m' the max
-// of s c) on the special-function unit (ex2.approx), and p = e * (1 / z)
-// with one reciprocal per row. Keys >=
+// Three softmax modes (attention_slab's MODE):
+//   P_F32, P_BF16: the TPU kernels' exact one, p = exp(s scale - max) /
+//     sum, divided before the value contraction; p at f32 grade (K8a) or
+//     rounded to bf16 (K8b, K8c);
+//   P_DEFER: K5's deferred one, e = exp(s scale - max), z summed from the
+//     unrounded e, bf16(e) into the value product, the output multiplied
+//     by 1 / z and rounded once: y = bf16((bf16(e) . v) (1 / z)).
+// Each with rewrites that move p by a few ulp
+// (tests/test_torch_attention_order.py emulates them on the CPU and holds
+// them to the JAX kernels): exp(s scale - m) is computed as 2^(s c - m')
+// with c = scale * log2(e) folded into the score (m' the max of s c) on the
+// special-function unit (ex2.approx), and one reciprocal per row. Keys >=
 // kv_valid get s = -inf, whose 2^s is exactly 0 (the TPU kernels add
 // -1e9).
 //
@@ -32,6 +38,10 @@
 // the 16-byte chunk c of row r stored at chunk c ^ (r & 7): the eight rows
 // an ldmatrix reads (keys, in K . and V) fall in eight different bank
 // groups, with no padding.
+//
+// attention_mma is the launch of K5's, K8a's and K8b's attention: one
+// block per (head, image), q, k, v and y read and written in place through
+// their strides (AttnIO).
 
 #pragma once
 
@@ -43,6 +53,11 @@ constexpr int AM_D = 64;          // head width
 constexpr int AM_CHUNK = 272;     // keys whose scores a warp holds at once
 constexpr int AM_NT = AM_CHUNK / 8;  // n8 score tiles: 136 f32 registers
 constexpr float AM_LOG2E = 1.44269504088896341f;
+
+// attention_slab's softmax modes (see the top of the file)
+constexpr int P_F32 = 0;    // K8a
+constexpr int P_BF16 = 1;   // K8b, K8c
+constexpr int P_DEFER = 2;  // K5, K7
 
 // element (r, c) of a swizzled [rows][64] bf16 tile (8 chunks a row)
 __device__ __forceinline__ int sw64(int r, int c) {
@@ -235,14 +250,15 @@ __device__ __forceinline__ void chunk_pv(const float (&p)[AM_NT][4],
 }
 
 // One warp, one slab: o = softmax(Q K^T scale) V over the np keys of the
-// geometry, keys >= kv_valid masked (kv_valid >= 1), c = scale log2(e).
+// geometry, keys >= kv_valid masked (kv_valid >= 1), c = scale log2(e),
+// in the softmax mode MODE (P_DEFER: o is already multiplied by 1 / z).
 // SINGLE: the geometry has one chunk (np <= 272), compiled apart from the
 // two-pass code so that neither pays the other's registers.
 // first: the block's first round, whose K chunks and V are still landing
 // (one cp.async group per K chunk, then one for V): each chunk is waited
 // for, with a block barrier, just before its scores, and V before the
 // first value product. Every warp of the block must take part in it.
-template <bool SPLIT, bool SINGLE>
+template <int MODE, bool SINGLE>
 __device__ __forceinline__ void attention_slab(const uint32_t (&qa)[4][4],
                                                const __nv_bfloat16* Ks,
                                                const __nv_bfloat16* Vs,
@@ -295,11 +311,14 @@ __device__ __forceinline__ void attention_slab(const uint32_t (&qa)[4][4],
     cp_async_wait<0>();  // V
     __syncthreads();
   }
+  constexpr bool SPLIT = MODE == P_F32;
   if constexpr (SINGLE) {
+    if constexpr (MODE != P_DEFER) {
 #pragma unroll
-    for (int t = 0; t < AM_NT; ++t) {
+      for (int t = 0; t < AM_NT; ++t) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] *= rz[e >> 1];
+        for (int e = 0; e < 4; ++e) s[t][e] *= rz[e >> 1];
+      }
     }
     chunk_pv<SPLIT>(s, Vs, 0, o);
   } else {
@@ -312,11 +331,19 @@ __device__ __forceinline__ void attention_slab(const uint32_t (&qa)[4][4],
 #pragma unroll
       for (int t = 0; t < AM_NT; ++t) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[t][e] = ex2(s[t][e] - m[e >> 1]) * rz[e >> 1];
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] = ex2(s[t][e] - m[e >> 1]);
+          if constexpr (MODE != P_DEFER) s[t][e] *= rz[e >> 1];
+        }
       }
       chunk_pv<SPLIT>(s, Vs, k0, o);
     }
+  }
+  if constexpr (MODE == P_DEFER) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= rz[e >> 1];
   }
 }
 
@@ -336,6 +363,113 @@ __device__ __forceinline__ void store_slab(const float (&o)[8][4],
       *reinterpret_cast<uint32_t*>(out + (g + 8) * rs + 8 * j + d) =
           pack_bf16(o[j][2], o[j][3]);
   }
+}
+
+// q, k, v and y of every (image, head): image i, head h, token t at
+// base + i * bs + t * rs + 64 h (elements)
+struct AttnIO {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* y;
+  long long q_bs, k_bs, v_bs, y_bs;
+  int q_rs, k_rs, v_rs, y_rs;
+};
+
+// the slab's 16 query rows (row pitch rs) as the A fragments of Q . K^T
+// (k step kd: rows g and g + 8, columns 16 kd + 2 (lane % 4) and + 8),
+// read from device memory; rows >= valid are zeros. L2: through L2 (q
+// written earlier in the same launch, K7), else the read-only path
+template <bool L2 = false>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[4][4],
+                                             const __nv_bfloat16* q,
+                                             size_t rs, int valid) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = 2 * (lane & 3);
+  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(q + g * rs + c);
+  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(q + (g + 8) * rs + c);
+  const bool ok0 = g < valid, ok1 = g + 8 < valid;
+  const auto ld = [](const uint32_t* p) { return L2 ? __ldcg(p) : __ldg(p); };
+#pragma unroll
+  for (int kd = 0; kd < 4; ++kd) {
+    qa[kd][0] = ok0 ? ld(r0 + 8 * kd) : 0u;
+    qa[kd][1] = ok1 ? ld(r1 + 8 * kd) : 0u;
+    qa[kd][2] = ok0 ? ld(r0 + 8 * kd + 4) : 0u;
+    qa[kd][3] = ok1 ? ld(r1 + 8 * kd + 4) : 0u;
+  }
+}
+
+// One block per (head, image), MODE as attention_slab's. K and V of the
+// head's N keys are loaded once into swizzled shared memory (256 bytes a
+// row for rows up to the last chunk's start + 272), one cp.async group per
+// key chunk and one for V, so the first slabs' scores start as soon as
+// their chunk lands and V lands during the softmax. The block's warps
+// (min(4, np / 16): the launch gives no warp an all-padding slab) walk the
+// np / 16 slabs of 16 query rows; a warp reads its Q fragments straight
+// from device memory into registers. __launch_bounds__(128, 2): up to 255
+// registers a thread (136 of them the scores), two blocks per SM up to N =
+// 352 (by shared memory), one above.
+template <int MODE, bool SINGLE>
+__global__ void __launch_bounds__(128, 2)
+    attention_mma(const AttnIO io, const AttnGeom gm, int N, int kv_valid,
+                  float c) {
+  extern __shared__ __align__(128) unsigned char attn_mma_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(attn_mma_smem);
+  __nv_bfloat16* Vs = Ks + gm.rows * AM_D;
+
+  const int head = blockIdx.x;
+  const long long img = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const __nv_bfloat16* q = io.q + img * io.q_bs + head * AM_D;
+  const __nv_bfloat16* k = io.k + img * io.k_bs + head * AM_D;
+  const __nv_bfloat16* v = io.v + img * io.v_bs + head * AM_D;
+  __nv_bfloat16* y = io.y + img * io.y_bs + head * AM_D;
+
+  // one group per key chunk (the last also zero-fills the rows past np),
+  // then V
+  for (int ch = 0; ch < gm.nchunks; ++ch) {
+    const int k0 = ch * gm.kc;
+    load_rows_sw(Ks, k, io.k_rs, N, k0,
+                 ch + 1 < gm.nchunks ? k0 + gm.kc : gm.rows, tid, blockDim.x);
+    cp_async_commit();
+  }
+  load_rows_sw(Vs, v, io.v_rs, N, 0, gm.rows, tid, blockDim.x);
+  cp_async_commit();
+
+  // the wrapper gives the block at most np / 16 warps: each has a slab in
+  // the first round, which waits for the chunks with block barriers
+  for (int sl = warp; sl < gm.np / 16; sl += nwarps) {
+    const int row = sl * 16;
+    uint32_t qa[4][4];
+    load_q_frags(qa, q + static_cast<size_t>(row) * io.q_rs, io.q_rs,
+                 N - row);
+    float o[8][4];
+    attention_slab<MODE, SINGLE>(qa, Ks, Vs, gm, kv_valid, c, sl == warp, o);
+    store_slab(o, y + static_cast<size_t>(row) * io.y_rs, io.y_rs, N - row);
+  }
+}
+
+// the launch of attention_mma with the geometry of
+// ops/attention.py::attention_geometry: key chunks of kc keys, nchunks of
+// them over np; rows of K and V in shared memory; threads a block (32 to
+// 128); smem dynamic shared-memory bytes; c = scale log2(e)
+template <int MODE>
+cudaError_t launch_attention_mma(const AttnIO& io, int images, int heads,
+                                 int N, int kv_valid, float scale,
+                                 const AttnGeom& gm, int threads, int smem,
+                                 cudaStream_t stream) {
+  // one kernel for rows of one chunk, one for the two-pass rows
+  const auto kernel = gm.nchunks == 1 ? attention_mma<MODE, true>
+                                      : attention_mma<MODE, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(heads, images), threads, smem, stream>>>(io, gm, N, kv_valid,
+                                                        scale * AM_LOG2E);
+  return cudaGetLastError();
 }
 
 }  // namespace

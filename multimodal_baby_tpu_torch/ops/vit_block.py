@@ -16,18 +16,14 @@ import torch
 
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.attention import (
-    HEAD_DIM, block_attention_reference, n_keys_checked,
-    should_fuse_block_attention)
+    HEAD_DIM, MAX_TOKENS, attention_geometry, block_attention_reference,
+    n_keys_checked, should_fuse_block_attention)
 from multimodal_baby_tpu_torch.ops.vit_common import (
     PlainVJP, check_args, gelu_code)
 from multimodal_baby_tpu_torch.ops.vit_mlp import (
     mlp_reference, should_fuse_mlp)
 
 __all__ = ["fused_vit_block", "should_fuse_vit_block", "vit_block_reference"]
-
-# K and V of one head, and one 16-row query slab per warp, in the shared
-# memory of one block per SM
-MAX_TOKENS = 688
 
 
 def should_fuse_vit_block(n_tokens: int, num_heads: int, head_dim: int,
@@ -75,6 +71,7 @@ def _run(x, g1, gb1, wq, bq, wp, bp, g2, gb2, w1, b1, w2, b2, num_heads,
             f"fused_vit_block: needs C % 128 == 0, F % 128 == 0 and heads of "
             f"{HEAD_DIM}; got C={C}, F={F}, heads={num_heads}")
     n_keys = n_keys_checked("fused_vit_block", N, kv_valid, MAX_TOKENS)
+    geo = attention_geometry(N)
     gelu = gelu_code(gelu_mode)
     lib = _build.library()
 
@@ -91,8 +88,8 @@ def _run(x, g1, gb1, wq, bq, wp, bp, g2, gb2, w1, b1, w2, b2, num_heads,
             *(t.data_ptr() for t in (x, g1, gb1, wq, bq, wp, bp, g2, gb2, w1,
                                      b1, w2, b2, xn, qkv, att, y, h, out,
                                      bar)),
-            B, N, C, F, n_keys, gelu, scale, eps,
-            torch.cuda.current_stream().cuda_stream)
+            B, N, C, F, n_keys, gelu, scale, eps, geo.np, geo.kc,
+            geo.nchunks, geo.rows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "fused_vit_block")
     fused_vit_block.launches += 1
     return out
@@ -110,7 +107,7 @@ def fused_vit_block(x: torch.Tensor, g1: torch.Tensor, gb1: torch.Tensor,
     fc2; matrices ``[in, out]``) cast to ``x.dtype``; key columns >=
     ``kv_valid`` masked; the GELU of ``gelu_mode``. On a CUDA tensor this
     launches the Hopper kernel once (bf16, heads of 64, C and F multiples
-    of 128, N <= 688, every tensor contiguous) and raises on anything it
+    of 128, N <= 752, every tensor contiguous) and raises on anything it
     cannot take; on a CPU tensor it runs ``vit_block_reference``. The
     gradient is the VJP of ``vit_block_reference``.
     ``fused_vit_block.launches`` counts kernel launches."""

@@ -1,7 +1,7 @@
-"""The arithmetic order of the K8a, K8b and K8c kernels (``csrc/attn_mma.cuh``)
-emulated in plain PyTorch, held against the JAX package's Pallas kernels
-(interpret mode, as tests/test_ops.py runs them) and against the port's
-plain versions; and the kernels' launch geometry
+"""The arithmetic order of the K5, K8a, K8b and K8c kernels
+(``csrc/attn_mma.cuh``) emulated in plain PyTorch, held against the JAX
+package's Pallas kernels (interpret mode, as tests/test_ops.py runs them)
+and against the port's plain versions; and the kernels' launch geometry
 (``ops/attention.py::attention_geometry``) for every N they accept.
 
 The kernels rewrite the TPU kernels' softmax in two ways that move p by a
@@ -13,8 +13,13 @@ m_new) + sum exp2(s c - m_new)), then p recomputed chunk by chunk. K8a
 keeps p at f32 grade as bf16(p) + bf16(p - bf16(p)) against the bf16 V;
 K8b rounds p to bf16 into one value product, reading q, k and v in place
 (column slices of the qkv tensor); K8c rounds p the same way and projects
-q, k, v = bf16(bf16(x W) + b). K8b launches with K8a's geometry. The
-emulation is a test helper; no model path calls it.
+q, k, v = bf16(bf16(x W) + b). K8b launches with K8a's geometry. K5 (the
+attention half, ``fused_block_attention``) runs the same core in its
+deferred mode with K8b's geometry, between its LayerNorm and qkv Dense and
+its proj Dense: e = exp2(s c - m') with the launch geometry's one- or
+two-pass statistics, z summed from the unrounded e, bf16(e) into one value
+product, y = bf16((bf16(e) v) (1 / z)). The emulations are test helpers;
+no model path calls them.
 
 Gate: phase 2d's (chip_smoke.py), max error relative to the largest output
 <= 1e-2 and cosine >= 0.9999. Observed: rel at most 6.5e-3 (K8a at N =
@@ -22,7 +27,12 @@ Gate: phase 2d's (chip_smoke.py), max error relative to the largest output
 most 2.8e-3), cosine 1.0000000 to seven digits in every case: a margin of
 1.5x on the relative error. K8a's emulation is also held to the
 f32 result within K8a's card test bound (tests/test_torch_cuda.py): one
-bf16 rounding plus 2e-5 of max |v|.
+bf16 rounding plus 2e-5 of max |v|. K5's emulation is held to the same
+gate (rel <= 1e-2, cos >= 0.9999) against the JAX package's Pallas
+``fused_block_attention`` (its default deferred softmax) and against the
+port's ``block_attention_reference``: observed rel at most 3.9e-3 (N =
+257, kv_valid = 252), cosine 1.0000000 to seven digits, 0 to 33 of the
+bf16 outputs moved by a rounding.
 """
 
 import math
@@ -35,6 +45,7 @@ import jax.numpy as jnp
 
 from multimodal_baby_tpu.ops import attention as jatt
 from multimodal_baby_tpu_torch.ops import attention as tatt
+from multimodal_baby_tpu_torch.ops.vit_common import layer_norm
 
 D = 64
 SCALE = D ** -0.5
@@ -44,11 +55,12 @@ COS_TOL = 0.9999
 LENGTHS = [17, 257, 400]
 
 
-def kernel_order_attention(q, k, v, scale, kv_valid, split):
+def kernel_order_attention(q, k, v, scale, kv_valid, split, defer=False):
     """softmax(q k^T scale) v on [BH, N, 64] in the kernels' order: f32
     scores, exp2 of the folded score, the online chunk statistics of the
     launch geometry, p = e * (1 / z); split: p as bf16 hi + lo against V
-    (K8a), else p rounded to bf16 (K8c). Returns q's dtype."""
+    (K8a), else p rounded to bf16 (K8c); defer (K5): bf16(e) against V,
+    the product times 1 / z. Returns q's dtype."""
     f32 = torch.float32
     N = q.shape[1]
     geo = tatt.attention_geometry(N)
@@ -68,7 +80,11 @@ def kernel_order_attention(q, k, v, scale, kv_valid, split):
         add = torch.exp2(s[..., a:b] - mn).sum(-1, keepdim=True)
         z = z * torch.exp2(m - mn) + add
         m = mn
-    p = torch.exp2(s - m) * (1.0 / z)
+    e = torch.exp2(s - m)
+    if defer:
+        o = e.to(torch.bfloat16).to(f32) @ v.to(f32)
+        return (o * (1.0 / z)).to(q.dtype)
+    p = e * (1.0 / z)
     hi = p.to(torch.bfloat16).to(f32)
     o = hi @ v.to(f32)
     if split:
@@ -102,6 +118,28 @@ def kernel_order_qkv_attention(x, w, b, heads, scale, kv_valid):
     q, k, v = map(heads_first, qkv.split(C, -1))
     y = kernel_order_attention(q, k, v, scale, kv_valid, split=False)
     return y.reshape(B, heads, N, D).transpose(1, 2).reshape(B, N, C)
+
+
+def kernel_order_block_attention(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj,
+                                 heads, scale, kv_valid, eps=1e-6):
+    """K5 on x [B, N, C]: the LayerNorm (``layer_norm``'s order), q, k, v
+    = bf16(bf16(xn wqkv) + bqkv), the deferred attention in the kernel's
+    order, then bf16(x + y wproj + bproj) summed in f32."""
+    dt = x.dtype
+    f32 = torch.float32
+    B, N, C = x.shape
+    xn = layer_norm(x, ln_g.to(dt), ln_b.to(dt), eps)
+    qkv = (xn.to(f32) @ wqkv.to(dt).to(f32)).to(dt) + bqkv.to(dt)
+
+    def heads_first(t):
+        return t.reshape(B, N, heads, D).transpose(1, 2).reshape(-1, N, D)
+
+    q, k, v = map(heads_first, qkv.split(C, -1))
+    y = kernel_order_attention(q, k, v, scale, kv_valid, split=False,
+                               defer=True)
+    y = y.reshape(B, heads, N, D).transpose(1, 2).reshape(B, N, C)
+    out = y.to(f32) @ wproj.to(dt).to(f32)
+    return (x.to(f32) + out + bproj.to(dt).to(f32)).to(dt)
 
 
 def gate(got, want):
@@ -173,6 +211,28 @@ def test_k8c_order_matches_pallas_and_plain(N, kv_off):
             jnp.float32)))
     gate(got, want_jax)
     gate(got, tatt.qkv_attention_pairs_reference(x, w, b, heads, SCALE, kv))
+
+
+@pytest.mark.parametrize("kv_off", [None, 5])
+@pytest.mark.parametrize("N", LENGTHS)
+def test_k5_order_matches_pallas_and_plain(N, kv_off):
+    """The whole attention half at C = 128 with 2 heads (one 128-lane head
+    pair in the Pallas kernel)."""
+    kv = None if kv_off is None else N - kv_off
+    C, heads = 128, 2
+    rng = np.random.RandomState(N + 3)
+    x, = bf16_operands(rng, (1, N, C))
+    params = [torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+              for a in (1.0 + 0.1 * rng.randn(C), 0.1 * rng.randn(C),
+                        rng.randn(C, 3 * C) / np.sqrt(C),
+                        0.1 * rng.randn(3 * C), rng.randn(C, C) / np.sqrt(C),
+                        0.1 * rng.randn(C))]
+    got = kernel_order_block_attention(x, *params, heads, SCALE, kv)
+    want_jax = torch.from_numpy(np.array(jatt.fused_block_attention(
+        to_jax(x), *map(to_jax, params), heads, SCALE, kv).astype(
+            jnp.float32)))
+    gate(got, want_jax)
+    gate(got, tatt.block_attention_reference(x, *params, heads, SCALE, kv))
 
 
 @pytest.mark.parametrize("qkv", [False, True])

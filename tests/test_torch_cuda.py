@@ -2,7 +2,8 @@
 kernels on a CUDA card: against their plain versions (K1 at the shapes of
 tests/test_hwbc_kernels.py, K2 and the stage kernel at those of
 tests/test_quant_trunk.py and tests/test_hwbc_kernels.py, the ViT kernels
-at small, odd and ViT-B shapes, with kv_valid, K6 and K7 in every GELU
+at small, odd and ViT-B shapes, with kv_valid, K5 and K7 also at a ragged
+row count and at two-pass lengths up to 752, K6 and K7 in every GELU
 form, K9 at small, odd and CVCL shapes, K4 forward and backward at
 B = 16, 72 and 128, K10a's block, stage and banded stage at
 tests/test_quant_trunk.py's transport shapes, K10b at
@@ -261,9 +262,14 @@ def assert_close_bf16(got, want):
     assert float(err) <= REL_TOL and float(cos) >= COS_TOL
 
 
+# K5 at small and odd shapes, at ViT-B/14 (N = 257, one pass of the
+# attention core) with a ragged row count (B = 2: M = 514 of the GEMM
+# tile's 256-row tiles), and at two-pass lengths (N = 400, 752)
 @pytest.mark.parametrize("B,N,C,kv_valid", [
     (2, 10, 256, 7), (2, 17, 256, None), (3, 65, 128, 64),
-    (4, 257, 768, None), (2, 272, 768, 257), (1, 752, 256, 700)])
+    (4, 257, 768, None), (2, 272, 768, 257), (1, 752, 256, 700),
+    (2, 257, 768, None), (2, 257, 768, 250), (2, 400, 768, None),
+    (2, 400, 768, 395), (2, 752, 768, None), (2, 752, 768, 700)])
 def test_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid):
     x, p = vit_inputs("attention", B, N, C, 0, cuda)
     heads, scale = C // 64, 64 ** -0.5
@@ -298,7 +304,8 @@ def block_inputs(B, N, C, F, device):
 @pytest.mark.parametrize("gelu", ["erf", "tanh", "sigmoid"])
 @pytest.mark.parametrize("B,N,C,F,kv_valid", [
     (2, 10, 256, 1024, 7), (2, 17, 256, 512, None),
-    (4, 257, 768, 3072, None)])
+    (4, 257, 768, 3072, None), (2, 257, 768, 3072, 250),
+    (2, 400, 256, 1024, 395), (1, 752, 256, 512, 700)])
 def test_vit_block_kernel_matches_plain_and_composition(cuda, B, N, C, F,
                                                         kv_valid, gelu):
     x, p = block_inputs(B, N, C, F, cuda)

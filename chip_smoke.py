@@ -13,9 +13,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``attention_mma``, K7's ``vit_block_kernel`` and K8c's
    ``qkv_attention_mma`` named, each in its one-pass and two-pass form,
    with their shared memory at N = 257; the ``vit_gemm`` Dense tile with
-   K5's two epilogues and the probe's GELU forms; K10b's
-   ``bottleneck_fused`` in its four group widths, and its band geometry at
-   layer 2's head).
+   K5's two epilogues and the probe's GELU forms; K6's ``vit_pingpong``
+   tile in its three GELU forms (fc1) and with the residual (fc2), with
+   its launch geometry at the ViT slice's shape and any ptxas warning
+   about its wgmma; K10b's ``bottleneck_fused`` in its four group widths,
+   and its band geometry at layer 2's head).
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
    same bf16 inputs with the same rounding points, for four small and
    odd-sized cases at B = 8 and the 8 distinct ResNeXt-50 block shapes at
@@ -33,7 +35,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    the residual, in bf16) and the bound; then K5 at C = 768 and B = 2 (a
    ragged row count, M = 514) at N = 257, 400 and 752, each with and
    without kv_valid = N - 5 (one pass, then two passes of the attention
-   core).
+   core); K6 in every GELU form at ragged row counts of its 128-row tiles,
+   (B, N) = (2, 257), (3, 400) and (1, 752) at C = 768, F = 3072, and under
+   one tile (M = 5, C = 256, F = 512); and K6's two Denses alone at the
+   ViT-B shape (``mmb_vit_mlp_dense_bf16``, fc1 with the erf GELU, fc2
+   with the residual), their time and TFLOP/s.
 2c. K2 (``fused_bottleneck`` on int8), K3a (``fused_stage``) and K3b
    (``fused_stage_banded``) against their plain versions: small and odd
    cases at B = 32 (8x8 and 7x7 px, as tests/test_quant_trunk.py), then
@@ -228,7 +234,8 @@ from multimodal_baby_tpu_torch.ops.stage import (
 from multimodal_baby_tpu_torch.ops.vit_block import (
     fused_vit_block, vit_block_reference)
 from multimodal_baby_tpu_torch.ops.vit_common import GELU_MODES
-from multimodal_baby_tpu_torch.ops.vit_mlp import fused_mlp, mlp_reference
+from multimodal_baby_tpu_torch.ops.vit_mlp import (
+    fused_mlp, mlp_geometry, mlp_reference)
 from multimodal_baby_tpu_torch.train.step import (
     calibrate_trunk, init_train_state, make_eval_step, make_train_step)
 
@@ -272,6 +279,10 @@ VIT_CASES = [(2, 10, 256, 4, 1024, 7), (2, 17, 256, 4, 1024, None),
 # to both kernels' cap of 752 tokens
 VIT_LONG_CASES = [(2, n, 768, 12, 3072, kv) for n in (257, 400, 752)
                   for kv in (None, n - 5)]
+# K6 (phase 2b) at ragged row counts of its 128-row tiles and under one
+# tile: (B, N, C, F)
+MLP_RAGGED_CASES = [(2, 257, 768, 3072), (3, 400, 768, 3072),
+                    (1, 752, 768, 3072), (1, 5, 256, 512)]
 VIT_DEPTH = 12
 # the ViT kernel wrappers, by the TPU kernel each replaces
 VIT_KERNELS = {"K5": fused_block_attention, "K6": fused_mlp,
@@ -564,12 +575,57 @@ def phase_vit_kernels():
                         fused_block_attention(xa, *pa, heads, scale, kv),
                         block_attention_reference(xa, *pa, heads, scale, kv))
             out["K5"]["max_abs_err"] = max(out["K5"]["max_abs_err"], err)
+        for B, N, C, F_ in MLP_RAGGED_CASES:
+            xm, pm = vit_half_inputs(gen, "mlp", B, N, C, F_)
+            for gelu in GELU_MODES:
+                err = check(f"K6 {gelu} B={B} N={N} C={C} F={F_}",
+                            fused_mlp(xm, *pm, 1e-6, gelu),
+                            mlp_reference(xm, *pm, 1e-6, gelu))
+                out["K6"]["max_abs_err"] = max(out["K6"]["max_abs_err"], err)
+        mlp_denses(gen)
     for name, res in out.items():
         log(f"  {name} over the {VIT_DEPTH} blocks of one forward at "
             f"B={BATCH}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
             f" ms, library bf16 {res['library_ms']:.3f} ms, bound "
             f"{res['bound_ms']:.3f} ms ({res['bound_by']})")
     return out
+
+
+def mlp_denses(gen):
+    """K6's fc1 (bias and the erf GELU) and fc2 (the residual sum) alone on
+    its ping-pong tile at the ViT-B shape of the slice, through the
+    library's ``mmb_vit_mlp_dense_bf16`` (not counted as wrapper
+    launches): each checked against its f32 product, then timed."""
+    lib = _build.library()
+    M, C, F_ = BATCH * 257, 768, 3072
+    geo = mlp_geometry(
+        M, C, F_, torch.cuda.get_device_properties(0).multi_processor_count)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, K, N, epi, d in (("fc1", C, F_, 2, geo.fc1),
+                               ("fc2", F_, C, 1, geo.fc2)):
+        a = torch.randn(M, K, generator=gen).to("cuda", torch.bfloat16)
+        w = (torch.randn(K, N, generator=gen) * K ** -0.5).to(
+            "cuda", torch.bfloat16)
+        bias = (torch.randn(N, generator=gen) * 0.1).to("cuda",
+                                                        torch.bfloat16)
+        res = torch.randn(M, N, generator=gen).to("cuda", torch.bfloat16)
+        out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+
+        def run():
+            _build.check(lib, lib.mmb_vit_mlp_dense_bf16(
+                a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                res.data_ptr() if epi == 1 else 0, out.data_ptr(), M, K, N,
+                epi, 0, d.grid, stream), name)
+
+        run()
+        exact = a.float() @ w.float()
+        want = (F.gelu(exact + bias.float()) if epi == 2
+                else res.float() + exact + bias.float())
+        check(f"K6 {name} alone [{M}x{K}].[{K}x{N}]", out, want)
+        ms = time_ms(run, 20)
+        log(f"  K6 {name} alone: {ms:.4f} ms, "
+            f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s ({d.grid} blocks, "
+            f"{d.tiles} tiles)")
 
 
 # ---------------------------------------------------------------- phase 2d
@@ -2197,6 +2253,10 @@ def main() -> int:
                 "12ResidualBias": "ResidualBias (K5 proj)",
                 **{f"BiasGeluFormILi{m}E": f"BiasGelu {g} (probe)"
                    for m, g in enumerate(GELU_MODES)}}),
+            ("K6 ping-pong tile", "12vit_pingpongI", {
+                **{f"12PingPongGeluILi{m}E": f"fc1, GELU {g}"
+                   for m, g in enumerate(GELU_MODES)},
+                "16PingPongResidual": "fc2, residual"}),
             ("K7", "16vit_block_kernelI", passes),
             ("K8a", "13attention_mmaILi0E", passes),
             ("K8b", "13attention_mmaILi1E", passes),
@@ -2215,6 +2275,12 @@ def main() -> int:
         if name[:2] == "K8" or name == "K5 attention":
             log(f"  {name} dynamic shared memory at N = 257: "
                 f"{attention_geometry(257, qkv=name == 'K8c').smem} bytes")
+    for line in lines:  # a serialized or rescheduled wgmma in K6's tile
+        if "vit_pingpong" in line and ("C75" in line or "wgmma" in line):
+            log(f"  ptxas K6 ping-pong tile: {line.strip()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = mlp_geometry(BATCH * 257, 768, 3072, sms)
+    log(f"  K6 at the ViT slice (M = {BATCH * 257}): {geo}")
     geo = tiles_geometry(56, 56, 256, 256, 512, 2, True)
     log(f"  K10b at layer 2's head: {geo}")
 

@@ -24,7 +24,8 @@ SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "vit_attention.cu",
            "attention.cu", "vit_block.cu", "lstm.cu", "infonce.cu",
            "conv_epilogue.cu", "bottleneck_fused.cu")
 HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
-           "attn_mma.cuh", "wgmma.cuh", "vit_gemm.cuh")
+           "attn_mma.cuh", "wgmma.cuh", "vit_gemm.cuh",
+           "vit_pingpong.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,7 +33,9 @@ LINK_FLAGS = ("-shared",)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_log = ""        # nvcc's output (ptxas: registers, shared memory, spills)
+# nvcc's output (ptxas: registers, shared memory, spills), kept beside the
+# library and read back when the library is reused
+build_log = ""
 build_seconds = 0.0   # 0 when the library was already on disk
 
 
@@ -54,7 +57,9 @@ def build() -> Path:
     for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     lib = BUILD_DIR / f"libmmb_kernels_{digest.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".log")
     if lib.is_file():
+        build_log = log.read_text() if log.is_file() else ""
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}")
@@ -78,6 +83,8 @@ def build() -> Path:
     build_seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+    Path(f"{tmp}.log").write_text(build_log)
+    os.replace(f"{tmp}.log", log)
     os.replace(f"{tmp}.tmp", lib)
     return lib
 
@@ -98,7 +105,9 @@ def library() -> ctypes.CDLL:
             lib.mmb_vit_attention_core_bf16.argtypes = (
                 [ptr] * 2 + [i32] * 4 + [f32] + [i32] * 6 + [ptr])
             lib.mmb_vit_mlp_bf16.argtypes = (
-                [ptr] * 10 + [i32] * 4 + [f32, ptr])
+                [ptr] * 10 + [i32] * 4 + [f32] + [i32] * 2 + [ptr])
+            lib.mmb_vit_mlp_dense_bf16.argtypes = (
+                [ptr] * 5 + [i32] * 6 + [ptr])
             lib.mmb_attention_bf16.argtypes = (
                 [ptr] * 4 + [i64] * 4 + [i32] * 8 + [f32] + [i32] * 6
                 + [ptr])
@@ -126,7 +135,8 @@ def library() -> ctypes.CDLL:
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
                        lib.mmb_vit_dense_bf16,
                        lib.mmb_vit_attention_core_bf16,
-                       lib.mmb_vit_mlp_bf16, lib.mmb_attention_bf16,
+                       lib.mmb_vit_mlp_bf16, lib.mmb_vit_mlp_dense_bf16,
+                       lib.mmb_attention_bf16,
                        lib.mmb_attention_f32p_bf16,
                        lib.mmb_qkv_attention_bf16, lib.mmb_vit_block_bf16,
                        lib.mmb_lstm_f32, lib.mmb_infonce_fwd_f32,

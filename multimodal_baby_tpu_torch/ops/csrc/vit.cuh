@@ -6,10 +6,10 @@
 // - a LayerNorm row (one warp): statistics in f32 with var = E[x^2] -
 //   mean^2, the result rounded to bf16, as the TPU kernels; and its
 //   launch, one warp a row (K5, K6);
-// - GEMM epilogues for gemm.cuh's tile (K6) and vit_gemm.cuh's (K5, K7):
-//   qkv (product rounded, then the bf16 bias added and the sum rounded
-//   again), the residual sum (rounded once), and bias + GELU (erf, tanh or
-//   sigmoid, the sum kept in f32).
+// - GEMM epilogues for vit_gemm.cuh's tile (K5, K7) and vit_pingpong.cuh's
+//   (K6): qkv (product rounded, then the bf16 bias added and the sum
+//   rounded again), the residual sum (rounded once), and bias + GELU (erf,
+//   tanh or sigmoid, the sum kept in f32).
 // The attention is attn_mma.cuh's register-resident core in its deferred
 // mode. Every load of data another block may have written in the same
 // launch goes through L2 (__ldcg, cp.async.cg), as K7's grid barrier needs.
@@ -18,7 +18,7 @@
 
 #include <math.h>
 
-#include "gemm.cuh"
+#include "gemm.cuh"  // pack8, unpack8
 
 namespace {
 
@@ -127,17 +127,6 @@ struct BiasGelu {
         pack8(v);
   }
 };
-
-__host__ __device__ inline GemmArgs dense(const void* a, const void* w, int M,
-                                          int K, int N) {
-  GemmArgs g{};
-  g.a1 = static_cast<const __nv_bfloat16*>(a);
-  g.b1 = static_cast<const __nv_bfloat16*>(w);
-  g.k1 = K;
-  g.M = M;
-  g.N = N;
-  return g;
-}
 
 // ---------------------------------------------------------------- LayerNorm
 

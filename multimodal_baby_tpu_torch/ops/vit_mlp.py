@@ -7,9 +7,13 @@ runs the hand-written Hopper kernel in ``csrc/vit.cu`` on a CUDA tensor
 and ``mlp_reference`` on a CPU tensor. ``gelu_mode`` is the JAX package's
 ``MMB_VIT_GELU`` form: ``erf`` (CUDA ``erff``; the TPU kernel's rational
 erfc only worked around Mosaic's missing erf), ``tanh`` or ``sigmoid``.
+The kernel's two Denses run on the ping-pong tile of
+``csrc/vit_pingpong.cuh`` with the launch geometry of ``mlp_geometry``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -17,7 +21,55 @@ from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.vit_common import (
     PlainVJP, check_args, gelu, gelu_code, layer_norm)
 
-__all__ = ["mlp_reference", "fused_mlp", "should_fuse_mlp"]
+__all__ = ["mlp_reference", "fused_mlp", "should_fuse_mlp", "mlp_geometry",
+           "MlpGeometry", "DenseGeometry"]
+
+# the rows and columns of a warpgroup's output tile (csrc/vit_pingpong.cuh's
+# PP_BM and PP_BN); the kernel owns the rest of its launch (threads, ring,
+# shared memory)
+TILE_M, TILE_N = 128, 128
+MAX_ROWS = 2**31 - TILE_M  # TMA coordinates are int32
+
+
+class DenseGeometry(NamedTuple):
+    """One Dense [M, K] . [K, N] on the ping-pong tile: ``bands`` row bands
+    of TILE_M rows and ``columns`` column tiles of TILE_N (``tiles`` of
+    them, each a warpgroup's), walked by ``grid`` persistent blocks."""
+    bands: int
+    columns: int
+    tiles: int
+    grid: int
+
+
+class MlpGeometry(NamedTuple):
+    """K6's launches: fc1 ([M, C] . [C, F]) and fc2 ([M, F] . [F, C])."""
+    fc1: DenseGeometry
+    fc2: DenseGeometry
+
+
+def _dense_geometry(M: int, N: int, blocks: int) -> DenseGeometry:
+    bands = -(-M // TILE_M)
+    columns = N // TILE_N
+    return DenseGeometry(bands, columns, bands * columns,
+                         min(bands * columns, blocks))
+
+
+def mlp_geometry(M: int, C: int, F: int, blocks: int = 132) -> MlpGeometry:
+    """The launch geometry of K6's two Denses for M token rows, width C and
+    hidden width F on a card of ``blocks`` SMs (the kernel holds one block
+    an SM; 132 on an H100 SXM). Raises ValueError on a shape the kernel
+    cannot serve; never clamps."""
+    if not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"mlp_geometry: needs 1 <= M <= {MAX_ROWS}; got "
+                         f"M={M}")
+    if C < TILE_N or F < TILE_N or C % TILE_N or F % TILE_N:
+        raise ValueError(f"mlp_geometry: needs C and F positive multiples "
+                         f"of {TILE_N}; got C={C}, F={F}")
+    if blocks < 1:
+        raise ValueError(f"mlp_geometry: needs at least one SM; got "
+                         f"blocks={blocks}")
+    return MlpGeometry(_dense_geometry(M, F, blocks),
+                       _dense_geometry(M, C, blocks))
 
 
 def should_fuse_mlp(n_tokens: int, dim: int, hidden: int,
@@ -62,10 +114,9 @@ def _run(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode):
         "ln_scale": (ln_scale, (C,)), "ln_bias": (ln_bias, (C,)),
         "w1": (w1, (C, hidden)), "b1": (b1, (hidden,)),
         "w2": (w2, (hidden, C)), "b2": (b2, (C,))})
-    if C % 128 or hidden % 128:
-        raise ValueError(f"fused_mlp: needs C % 128 == 0 and F % 128 == 0; "
-                         f"got C={C}, F={hidden}")
     lib = _build.library()
+    geo = mlp_geometry(B * N, C, hidden, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     xn = torch.empty_like(x)
     h = torch.empty((B, N, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -74,7 +125,7 @@ def _run(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode):
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             xn.data_ptr(), h.data_ptr(), out.data_ptr(), B * N, C, hidden,
-            gelu_code(gelu_mode), eps,
+            gelu_code(gelu_mode), eps, geo.fc1.grid, geo.fc2.grid,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "fused_mlp")
     fused_mlp.launches += 1
@@ -86,9 +137,10 @@ def fused_mlp(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
               b2: torch.Tensor, eps: float = 1e-6,
               gelu_mode: str = "erf") -> torch.Tensor:
     """``x + fc2(gelu(fc1(LayerNorm(x))))`` with the parameters cast to
-    ``x.dtype`` and the GELU of ``gelu_mode``. On a CUDA tensor this launches the Hopper kernel (bf16,
-    C and F multiples of 128, every tensor contiguous) and raises on
-    anything it cannot take; it never falls back. On a CPU tensor it runs
+    ``x.dtype`` and the GELU of ``gelu_mode``. On a CUDA tensor this
+    launches the Hopper kernel (bf16, C and F multiples of 128, every
+    tensor contiguous; ``mlp_geometry``) and raises on anything it cannot
+    take; it never falls back. On a CPU tensor it runs
     ``mlp_reference``. The gradient is the VJP of ``mlp_reference``.
     ``fused_mlp.launches`` counts kernel launches."""
     dt = x.dtype

@@ -281,9 +281,14 @@ def test_attention_kernel_matches_plain_version(cuda, B, N, C, kv_valid):
     assert_close_bf16(got, want)
 
 
+# K6 at small and odd shapes, at ViT-B/14, at ragged row counts of the
+# ping-pong tile's 128-row bands (M = 514, 1200, 752) and under one band
+# (M = 5)
 @pytest.mark.parametrize("gelu", ["erf", "tanh", "sigmoid"])
 @pytest.mark.parametrize("B,N,C,F", [
-    (2, 10, 256, 1024), (2, 17, 256, 512), (4, 257, 768, 3072)])
+    (2, 10, 256, 1024), (2, 17, 256, 512), (4, 257, 768, 3072),
+    (2, 257, 768, 3072), (3, 400, 768, 3072), (1, 752, 768, 3072),
+    (1, 5, 256, 512)])
 def test_mlp_kernel_matches_plain_version(cuda, B, N, C, F, gelu):
     x, p = vit_inputs("mlp", B, N, C, F, cuda)
     before = fused_mlp.launches

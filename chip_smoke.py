@@ -17,15 +17,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    tile in its three GELU forms (fc1) and with the residual (fc2), with
    its launch geometry at the ViT slice's shape and any ptxas warning
    about its wgmma; K10b's ``bottleneck_fused`` in its four group widths,
-   and its band geometry at layer 2's head).
+   and its band geometry at layer 2's head; the 1x1 convolutions' tile of
+   K1 and the bf16 stage kernel, ``conv_gemm`` in its three epilogues and
+   ``stage_bf16_kernel`` in its four group widths, and K1's grouped 3x3
+   on its halo tile, ``gconv_halo``, in its four: the phase fails if
+   ptxas reports spills or a serialized wgmma there).
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
    same bf16 inputs with the same rounding points, for four small and
    odd-sized cases at B = 8 and the 8 distinct ResNeXt-50 block shapes at
    224 px and B = 128: max error relative to the largest output <= 1e-2,
-   cosine >= 0.9999. Then the time of each version at B = 128 (CUDA
-   events; the plain version computes in f32 with TF32 off), of the cuDNN
-   bf16 channels-last conv chain on the same folded weights (the library
-   call), and the bound.
+   cosine >= 0.9999 (the bf16 words that differ are counted). Then the
+   time of each version at B = 128 (CUDA events; the plain version
+   computes in f32 with TF32 off), of the cuDNN bf16 channels-last conv
+   chain on the same folded weights (the library call), and the bound of
+   each launch; a forward's bound is the sum of its launches' (here and
+   for K2, K3a, K3b, K10a and K11).
 2b. K5 (``fused_block_attention``) and K6 (``fused_mlp``) against their
    plain versions, with the same gates: small and odd cases at B = 2
    (N = 10 with kv_valid = 7, and N = 17; C = 256, 4 heads, F = 1024),
@@ -51,7 +57,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    shape is timed beside its plain version, a library chain
    (torch._int_mm 1x1 GEMMs, the cuDNN grouped 3x3 on the bf16 codes and
    elementwise requantization for int8; cuDNN bf16 convolutions for
-   bf16) and its bound (int8 at 1979 TOP/s).
+   bf16) and its bound (int8 at 1979 TOP/s). Each bf16 stage (K3a's and
+   K3b's bf16 body, on K1's 1x1 tile) also equals its blocks' K1 launches
+   bit for bit (the count of differing words is printed; 0 is
+   required), so every band count gives the same values.
 3. The ResNeXt slice in the per-block plan: the flagship CVCL (ResNeXt-50
    at full width with seeded random weights and BN statistics, flat 512-d
    head, embedding text encoder, fixed T = 0.07, running BN) with
@@ -217,8 +226,9 @@ from multimodal_baby_tpu_torch.ops.attention import (
     fused_attention_pairs, fused_block_attention, fused_qkv_attention_pairs,
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
-    block_reference, bottleneck_reference, default_band, fused_bottleneck,
-    fused_bottleneck_tiles, tiles_geometry, tiles_reference)
+    block_geometry, block_reference, bottleneck_reference, default_band,
+    fused_bottleneck, fused_bottleneck_tiles, tiles_geometry,
+    tiles_reference)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
     conv1x1_bn_residual_relu, epilogue_reference)
 from multimodal_baby_tpu_torch.ops.infonce import (
@@ -271,6 +281,11 @@ BLOCKS_EDGE = [
     ("odd 7->4 stride 2", 7, 512, 256, 512, 2, True, 0),
     ("odd 5x5 stride 1", 5, 256, 128, 256, 1, False, 0),
 ]
+# K1's 1x1 tile (csrc/conv_gemm.cuh) in its three epilogues (the mangled
+# ConvEpilogue<b2, residual>)
+CONV_TILE_FORMS = {"ConvEpilogueILb0ELb0E": "conv1",
+                   "ConvEpilogueILb1ELb0E": "conv3 with the downsample",
+                   "ConvEpilogueILb0ELb1E": "conv3 with the residual"}
 # (B, N, C, heads, F, kv_valid); the last is ViT-B/14 at the slice's batch
 VIT_CASES = [(2, 10, 256, 4, 1024, 7), (2, 17, 256, 4, 1024, None),
              (BATCH, 257, 768, 12, 3072, None)]
@@ -329,6 +344,19 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
                                        else "bytes")
 
 
+def launch_bound(total, flops, nbytes, count=1, peak=PEAK_FLOPS):
+    """One launch's bound, added ``count`` times to a per-forward total: a
+    forward runs its launches one after another, so its bound is the sum of
+    theirs (``total["bound_ms"]``; ``total["bound_by"]`` names what bounds
+    the launches that carry most of it). Returns the launch's (ms, by)."""
+    ms, by = bound(flops, nbytes, peak)
+    total["bound_ms"] = total.get("bound_ms", 0.0) + count * ms
+    share = total.setdefault("bound_share", {"operations": 0.0, "bytes": 0.0})
+    share[by] += count * ms
+    total["bound_by"] = max(share, key=share.get)
+    return ms, by
+
+
 def cosine(a, b):
     # in f64: an f32 dot over the tens of millions of outputs of one block
     # at B = 128 is itself off in the fourth digit
@@ -374,8 +402,10 @@ def check(what, got, want) -> float:
     err = float((got.float() - want.float()).abs().max())
     rel = err / max(float(want.float().abs().max()), 1e-12)
     cos = cosine(got, want)
+    words = int((got != want).sum()) if got.dtype == want.dtype else -1
     log(f"  {what:34s} out {tuple(got.shape)}: max_abs_err {err:.4g} "
-        f"rel {rel:.3e} cos {cos:.7f}")
+        f"rel {rel:.3e} cos {cos:.7f}, {words} of {got.numel()} words "
+        f"differ")
     if not (math.isfinite(rel) and rel <= REL_TOL and cos >= COS_TOL):
         raise AssertionError(
             f"{what}: rel {rel:.3e} (<= {REL_TOL}) cos {cos:.7f} "
@@ -442,7 +472,7 @@ def phase_k1():
             bottleneck_reference(x, fw, stride=s)))
 
     # the trunk's block shapes at the slice's batch: checked, then timed
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     for name, H, cin, width, cout, s, ds, count in BLOCKS_224:
         x, fw = random_block(gen, H, cin, width, cout, s, ds, BATCH)
         max_abs = max(max_abs, check(
@@ -460,21 +490,21 @@ def phase_k1():
                          + (cin * cout if ds else 0)))
         nbytes = (2 * BATCH * (H * H * cin + Ho * Ho * cout)
                   + sum(t.numel() * t.element_size() for t in fw.values()))
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = launch_bound(total, flops, nbytes, count)
         log(f"  K1 {name} B={BATCH}: kernel {k:.3f} ms, plain f32 {p:.3f} "
             f"ms, cuDNN bf16 {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
             f"kernel {flops / k / 1e9:.1f} TFLOP/s")
-        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
-                       ("flops", flops), ("nbytes", nbytes)):
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li)):
             total[key] += count * v
         del x, fw, lib
-    b_ms, b_by = bound(total["flops"], total["nbytes"])
     log(f"  K1 over the 16 blocks of one forward at B={BATCH}: kernel "
         f"{total['ms']:.3f} ms, plain f32 {total['plain_ms']:.3f} ms, cuDNN "
-        f"bf16 {total['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        f"bf16 {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} "
+        f"ms summed per launch ({total['bound_by']}: "
+        f"{total['bound_share']})")
     return dict(max_abs_err=max_abs, ms=total["ms"],
-                plain_ms=total["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=total["library_ms"])
+                plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+                bound_by=total["bound_by"], library_ms=total["library_ms"])
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -1134,8 +1164,8 @@ def stage_cost(H, cin, width, cout, strides, fws, batch):
 
 def phase_int8_and_stages():
     gen = torch.Generator().manual_seed(3)
-    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   ops=0.0, nbytes=0.0) for k in ("K2", "K3a", "K3b")}
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+           for k in ("K2", "K3a", "K3b")}
     for name, H, cin, width, cout, s, ds in Q_BLOCKS_EDGE:
         fw = random_q_block(gen, cin, width, cout, ds)
         x = random_codes(gen, Q_CHECK_BATCH, H, cin)
@@ -1158,9 +1188,9 @@ def phase_int8_and_stages():
             f"library int8 chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
             f"kernel {ops / k / 1e9:.1f} TOP/s")
         if name == "layer3.0":  # the one K2 launch of the published plan
-            res["K2"].update(ms=k, plain_ms=p, library_ms=li, ops=ops,
-                             nbytes=act + weight_bytes([fw]),
-                             peak=PEAK_OPS_INT8)
+            res["K2"].update(ms=k, plain_ms=p, library_ms=li)
+            launch_bound(res["K2"], ops, act + weight_bytes([fw]), 1,
+                         PEAK_OPS_INT8)
         del x, fw
 
     def run_stage(what, H, cin, width, cout, strides, int8, band, batch):
@@ -1176,8 +1206,18 @@ def phase_int8_and_stages():
 
         desc = (f"{row} {'int8' if int8 else 'bf16'} {what}"
                 + (f" N={band}" if band else ""))
-        err = (check_codes if int8 else check)(desc, kernel(), plain())
+        got = kernel()
+        err = (check_codes if int8 else check)(desc, got, plain())
         res[row]["max_abs_err"] = max(res[row]["max_abs_err"], err)
+        if not int8:  # the bf16 body runs K1's tile and grouped 3x3
+            chain = x
+            for fw, s in zip(fws, strides):
+                chain = fused_bottleneck(chain, fw, stride=s)
+            words = int((got != chain).sum())
+            log(f"  {desc}: {words} of {got.numel()} words differ from its "
+                f"blocks' K1 launches (0 expected)")
+            if words:
+                raise AssertionError(f"{desc}: {words} words from K1's chain")
         return x, fws, kernel, plain, desc
 
     for case in STAGES_EDGE:
@@ -1204,18 +1244,15 @@ def phase_int8_and_stages():
         row = "K3a" if band is None else "K3b"
         if int8 or band is not None:  # the published plan's launches
             r = res[row]
-            for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
-                           ("ops", ops), ("nbytes", nbytes)):
+            for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li)):
                 r[key] += v
-            r["peak"] = peak
+            launch_bound(r, ops, nbytes, 1, peak)
         del x, fws, chains
     for name, r in res.items():
-        r["bound_ms"], r["bound_by"] = bound(r["ops"], r["nbytes"],
-                                             r["peak"])
         log(f"  {name} per B={BATCH} forward of the published plan: kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']})")
+            f"summed per launch ({r['bound_by']})")
     return res
 
 
@@ -1943,8 +1980,7 @@ def phase_transport_kernels():
     versions, then timed beside the plain versions, the library calls and
     the bounds. Returns the kernel rows (launches filled in by phase 8)."""
     gen = torch.Generator().manual_seed(6)
-    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                    ops=0.0, nbytes=0.0)
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
             for k in ("K10a block", "K10a stage", "K10a banded")}
     for name, H, cin, width, cout, s, ds, count in T_BLOCKS_224:
         fw = random_t_block(gen, cin, width, cout, ds)
@@ -1958,12 +1994,11 @@ def phase_transport_kernels():
             lambda: bottleneck_reference_t(x, fw, stride=s),
             lambda: transport_chain(fw, s)(x), 20)
         ops, act = block_cost(H, cin, width, cout, s, ds, BATCH)
-        b_ms, b_by = bound(ops, act + weight_bytes([fw]))
+        b_ms, b_by = launch_bound(r, ops, act + weight_bytes([fw]), count)
         log(f"  K10a {name} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
             f"library chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
             f"kernel {ops / k / 1e9:.1f} TFLOP/s")
-        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
-                       ("ops", ops), ("nbytes", act + weight_bytes([fw]))):
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li)):
             r[key] += count * v
         del x, fw
 
@@ -1998,21 +2033,19 @@ def phase_transport_kernels():
         k, p, li = time_in_turns(kernel, plain, library, 10)
         ops, nbytes = stage_cost(H, cin, width, cout, strides, fws, BATCH)
         nbytes -= BATCH * (H * H * cin + (H // strides[0]) ** 2 * cout)
-        b_ms, b_by = bound(ops, nbytes)  # int8 activations: 1 byte each
+        r = rows[row]  # int8 activations: 1 byte each
+        b_ms, b_by = launch_bound(r, ops, nbytes)
         log(f"  {desc} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
             f"library chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
             f"kernel {ops / k / 1e9:.1f} TFLOP/s")
-        r = rows[row]
-        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
-                       ("ops", ops), ("nbytes", nbytes)):
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li)):
             r[key] += v
         del x, fws, chains
     for name, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound(r["ops"], r["nbytes"])
         log(f"  {name} per B={BATCH} forward of the \"t\" plan: kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
-            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']})")
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms summed "
+            f"per launch ({r['bound_by']})")
 
     # K10b: K1's function in one launch, h1 and h2 in shared memory
     for name, B, H, cin, width, cout, s, ds, Bc, hh in TILES_CASES:
@@ -2057,8 +2090,7 @@ def phase_transport_kernels():
         del x, fw, lib
 
     # K11: every conv3 shape of a B = 128 forward
-    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0,
-             nbytes=0.0)
+    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
     for name, H, _, width, cout, s, _, count in BLOCKS_224:
         Ho = (H - 1) // s + 1
         M = BATCH * Ho * Ho
@@ -2097,19 +2129,17 @@ def phase_transport_kernels():
                                  library, 20)
         ops = 2 * M * width * cout
         nbytes = 2 * (M * width + 2 * M * cout + width * cout) + 8 * cout
-        b_ms, b_by = bound(ops, nbytes)
+        b_ms, b_by = launch_bound(r, ops, nbytes, count)
         log(f"  K11 {name} conv3 M={M} Cin={width} Cout={cout}: kernel "
             f"{k:.3f} ms, plain {p:.3f} ms, matmul chain {li:.3f} ms, bound "
             f"{b_ms:.3f} ms ({b_by})")
-        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li),
-                       ("ops", ops), ("nbytes", nbytes)):
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li)):
             r[key] += count * v
         del x, w, res, args
-    r["bound_ms"], r["bound_by"] = bound(r["ops"], r["nbytes"])
     log(f"  K11 over the 16 conv3 of one B={BATCH} forward: kernel "
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, matmul chain "
-        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-        f"({r['bound_by']})")
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms summed per "
+        f"launch ({r['bound_by']})")
     rows["K11"] = r
     return rows
 
@@ -2262,7 +2292,12 @@ def main() -> int:
             ("K8b", "13attention_mmaILi1E", passes),
             ("K8c", "17qkv_attention_mmaI", passes),
             ("K10b", "16bottleneck_fusedI", {f"Li{cg}EEEv": f"cg {cg}"
-                                           for cg in (4, 8, 16, 32)})):
+                                           for cg in (4, 8, 16, 32)}),
+            ("K1 1x1 tile", "9conv_gemmI", CONV_TILE_FORMS),
+            ("K1 grouped 3x3", "10gconv_haloI", {
+                f"ILi{cg}EEEv": f"cg {cg}" for cg in (4, 8, 16, 32)}),
+            ("K3a/K3b bf16", "17stage_bf16_kernelI", {
+                f"ILi{cg}EEEv": f"cg {cg}" for cg in (4, 8, 16, 32)})):
         found = [i for i, line in enumerate(lines)
                  if "Function properties for" in line and kernel in line]
         if len(found) != len(forms):
@@ -2278,11 +2313,27 @@ def main() -> int:
     for line in lines:  # a serialized or rescheduled wgmma in K6's tile
         if "vit_pingpong" in line and ("C75" in line or "wgmma" in line):
             log(f"  ptxas K6 ping-pong tile: {line.strip()}")
+    # the kernels of K1 and the bf16 stage: no spills, no wgmma serialized
+    # or waited on by the compiler
+    for i, line in enumerate(lines):
+        new = ("9conv_gemmI" in line or "17stage_bf16_kernelI" in line
+               or "10gconv_haloI" in line)
+        if new and ("C75" in line or "wgmma" in line):
+            raise AssertionError(f"ptxas on K1 or K3b: {line.strip()}")
+        if (new and "Function properties for" in line
+                and "0 bytes spill stores, 0 bytes spill loads"
+                not in lines[i + 1]):
+            raise AssertionError(f"ptxas on K1 or K3b: {line.strip()}: "
+                                 f"{lines[i + 1].strip()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     geo = mlp_geometry(BATCH * 257, 768, 3072, sms)
     log(f"  K6 at the ViT slice (M = {BATCH * 257}): {geo}")
     geo = tiles_geometry(56, 56, 256, 256, 512, 2, True)
     log(f"  K10b at layer 2's head: {geo}")
+    for name, H, cin, width, cout, stride, ds, _ in (BLOCKS_224[0],
+                                                      BLOCKS_224[-2]):
+        geo = block_geometry(BATCH, H, H, cin, width, cout, stride, ds, sms)
+        log(f"  K1's 1x1 tile at {name} (B = {BATCH}): conv1, conv3 {geo}")
 
     log("phase 2: K1 against its plain version")
     k1 = phase_k1()
@@ -2317,11 +2368,12 @@ def main() -> int:
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"
-    rows = [("fused_bottleneck", "bottleneck.cu", f"{hwbc}:408", k1),
+    rows = [("fused_bottleneck", "conv_gemm.cuh", f"{hwbc}:408", k1),
             ("fused_bottleneck_int8", "bottleneck.cu", f"{hwbc}:408",
              q["K2"]),
             ("fused_stage", "stage.cu", f"{hwbc}:758", q["K3a"]),
-            ("fused_stage_banded", "stage.cu", f"{hwbc}:1078", q["K3b"]),
+            ("fused_stage_banded", "conv_gemm.cuh", f"{hwbc}:1078",
+             q["K3b"]),
             ("fused_block_attention", "vit_attention.cu",
              "multimodal_baby_tpu/ops/attention.py:601", vit_kernels["K5"]),
             ("fused_mlp", "vit.cu", "multimodal_baby_tpu/ops/vit_mlp.py:186",

@@ -25,7 +25,7 @@ SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "vit_attention.cu",
            "conv_epilogue.cu", "bottleneck_fused.cu")
 HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
            "attn_mma.cuh", "wgmma.cuh", "vit_gemm.cuh",
-           "vit_pingpong.cuh")
+           "vit_pingpong.cuh", "conv_gemm.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -99,6 +99,8 @@ def library() -> ctypes.CDLL:
             i64 = ctypes.c_longlong
             lib.mmb_bottleneck_bf16.argtypes = (
                 [ptr] * 12 + [i32] * 7 + [ptr])
+            lib.mmb_bottleneck_bf16_part.argtypes = (
+                [i32] + [ptr] * 12 + [i32] * 7 + [ptr])
             lib.mmb_vit_attention_bf16.argtypes = (
                 [ptr] * 11 + [i32] * 4 + [f32] * 2 + [i32] * 6 + [ptr])
             lib.mmb_vit_dense_bf16.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
@@ -125,11 +127,14 @@ def library() -> ctypes.CDLL:
             lib.mmb_conv1x1_bn_residual_relu_bf16.argtypes = (
                 [ptr] * 6 + [i32] * 3 + [ptr])
             lib.mmb_stage.argtypes = (
-                [i32, i32, ptr, ptr] + [ptr] * 7 + [i32] * 7 + [ptr])
+                [i32, i32, ptr, ptr] + [ptr] * 8 + [i32] * 7 + [ptr])
+            lib.mmb_stage_plan_bytes.argtypes = [i32, i32]
+            lib.mmb_stage_plan_bytes.restype = i64
             lib.mmb_lstm_f32.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
             lib.mmb_infonce_fwd_f32.argtypes = [ptr] * 9 + [i32] * 2 + [ptr]
             lib.mmb_infonce_bwd_f32.argtypes = [ptr] * 12 + [i32] * 2 + [ptr]
-            for fn in (lib.mmb_bottleneck_bf16, lib.mmb_bottleneck_s8,
+            for fn in (lib.mmb_bottleneck_bf16, lib.mmb_bottleneck_bf16_part,
+                       lib.mmb_bottleneck_s8,
                        lib.mmb_bottleneck_t, lib.mmb_bottleneck_fused_bf16,
                        lib.mmb_conv1x1_bn_residual_relu_bf16,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,

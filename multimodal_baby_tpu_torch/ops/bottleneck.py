@@ -5,7 +5,9 @@ PyTorch port.
 Counterpart of ``multimodal_baby_tpu/ops/bottleneck_hwbc.py``: the
 BatchNorm fold, the plain reference of one block, ``fused_bottleneck``,
 which runs the hand-written Hopper kernels in ``csrc/bottleneck.cu`` on a
-CUDA tensor and the plain reference on a CPU tensor, and
+CUDA tensor and the plain reference on a CPU tensor (K1's 1x1
+convolutions on the TMA-fed wgmma tile of ``csrc/conv_gemm.cuh``, whose
+launch geometry ``conv_geometry`` states), and
 ``fused_bottleneck_tiles`` (the TPU package's tile mode; its kernel is
 ``csrc/bottleneck_fused.cu``). The int8 folds
 and plain versions are in ``ops/quant.py``.
@@ -30,7 +32,8 @@ from multimodal_baby_tpu_torch.ops import _build
 __all__ = ["fold_block_params", "unpack_grouped_kernel", "bottleneck_reference",
            "block_reference", "tiles_reference", "fused_bottleneck",
            "fused_bottleneck_tiles", "block_mode", "default_band",
-           "tiles_geometry", "TilesGeometry", "BN_EPS", "GROUPS"]
+           "tiles_geometry", "TilesGeometry", "conv_geometry",
+           "block_geometry", "ConvGeometry", "BN_EPS", "GROUPS"]
 
 BN_EPS = 1e-5
 GROUPS = 32
@@ -252,6 +255,66 @@ def _check_args(x: torch.Tensor, fw: Folded, stride: int,
          "x is too large for 32-bit indexing")
 
 
+# the 1x1 convolutions' tile (csrc/conv_gemm.cuh, CV_* and PP_*): a
+# warpgroup's 128 x 128 output tile, 64-deep K slices; the kernel owns the
+# rest of its launch (threads, ring, shared memory)
+CONV_TILE_M, CONV_TILE_N, CONV_BK = 128, 128, 64
+CONV_MAX_ROWS = 2**31 - CONV_TILE_M  # TMA coordinates are int32
+
+
+class ConvGeometry(NamedTuple):
+    """One GEMM [M, K1 (+ K2)] . [K1 (+ K2), N] on the 1x1 convolutions'
+    tile as K1 launches it (its output rows contiguous): ``bands`` row
+    bands of CONV_TILE_M rows and ``columns`` column tiles of CONV_TILE_N
+    (``tiles`` of them, each a warpgroup's, walked in ``slices`` 64-deep K
+    slices each: the segments' K tails read as zeros) by ``grid``
+    persistent blocks, one an SM (the kernel computes the same grid from
+    the card's SM count). A banded stage cuts its row bands within each
+    image's band instead (csrc/conv_gemm.cuh)."""
+    bands: int
+    columns: int
+    tiles: int
+    slices: int
+    grid: int
+
+
+def conv_geometry(M: int, K1: int, N: int, K2: int = 0,
+                  blocks: int = 132) -> ConvGeometry:
+    """The launch geometry of one 1x1 convolution on the tile for M output
+    pixels, K1 input channels (and K2 of a second segment, the downsample)
+    and N output channels on a card of ``blocks`` SMs (132 on an H100
+    SXM). Raises ValueError on a shape the tile cannot serve; never
+    clamps."""
+    if not 1 <= M <= CONV_MAX_ROWS:
+        raise ValueError(f"conv_geometry: needs 1 <= M <= {CONV_MAX_ROWS}; "
+                         f"got M={M}")
+    if N < CONV_TILE_N or N % CONV_TILE_N:
+        raise ValueError(f"conv_geometry: needs N a positive multiple of "
+                         f"{CONV_TILE_N}; got N={N}")
+    # TMA rows are whole 16-byte units: K a multiple of 8 bf16
+    if K1 < 8 or K1 % 8 or K2 < 0 or K2 % 8:
+        raise ValueError(f"conv_geometry: needs K1 and K2 multiples of 8, "
+                         f"K1 positive; got K1={K1}, K2={K2}")
+    if blocks < 1:
+        raise ValueError(f"conv_geometry: needs at least one SM; got "
+                         f"blocks={blocks}")
+    bands = -(-M // CONV_TILE_M)
+    columns = N // CONV_TILE_N
+    slices = -(-K1 // CONV_BK) + -(-K2 // CONV_BK)
+    return ConvGeometry(bands, columns, bands * columns, slices,
+                        min(bands * columns, blocks))
+
+
+def block_geometry(B: int, H: int, W: int, cin: int, width: int, cout: int,
+                   stride: int, has_ds: bool, blocks: int = 132):
+    """(conv1, conv3): K1's two launches on the tile for a bf16 block on
+    [B, H, W, cin] (conv3 with the downsample as its second segment)."""
+    Ho, Wo = _out_size(H, stride), _out_size(W, stride)
+    return (conv_geometry(B * H * W, cin, width, 0, blocks),
+            conv_geometry(B * Ho * Wo, width, cout, cin if has_ds else 0,
+                          blocks))
+
+
 def block_reference(x: torch.Tensor, fw: Folded, *,
                     stride: int = 1) -> torch.Tensor:
     """The plain version of the block ``fused_bottleneck`` runs, on x's
@@ -292,6 +355,8 @@ def fused_bottleneck(x: torch.Tensor, fw: Folded, stride: int = 1
     lib = _build.library()
     B, H, W, cin = x.shape
     width, cout = block_dims(fw)
+    if mode == "bf16":  # K1's tile refuses what it cannot serve
+        block_geometry(B, H, W, cin, width, cout, stride, "wd" in fw)
     Ho, Wo = _out_size(H, stride), _out_size(W, stride)
     mid = fw["w1"].dtype  # h1, h2: int8 in K2, bf16 in K1 and K10a
     h1 = torch.empty((B, H, W, width), dtype=mid, device=x.device)

@@ -33,28 +33,39 @@
 // block's operations, so at the trunk's batch sizes the block is bound by
 // tensor-core throughput (about 10-40 operations per byte of activation
 // moved, depending on the stage; int8 halves the bytes and doubles the
-// peak rate). This first version is three launches (gemm.cuh and the tile
-// routines of bottleneck.cuh):
-//   - conv1 and conv3 as tiled GEMMs with fused epilogues (bf16 on wmma,
-//     int8 on mma.sync m16n8k32 with output-major [N, K] weights: the
-//     int8 rate needs k32 steps, and their B fragments read each output
-//     channel's K bytes contiguously). In bf16 conv3 takes the downsample
-//     as extra K: [h2 | x[:, ::s, ::s]] . [w3; wd], so the f32 sum
-//     y + identity is one accumulator; in int8 the downsample has its own
-//     int32 accumulator (its scale differs). In transport the int8 input
-//     is read into registers and converted to bf16 on its way into shared
-//     memory (conv1, the downsample), and the downsample's f32 sums are
-//     kept apart (held in shared memory while conv3's accumulate), so the
-//     epilogue applies ad and a3 as the plain version does.
-//   - the grouped 3x3 as an implicit GEMM on the tensor cores (wmma) over
-//     the 9 taps, with the 32 groups as 16-wide block-diagonal tiles (the
-//     TPU kernel packs them 128 wide for its matrix unit).
+// peak rate); layer 1's blocks are bound by device memory. Three launches:
+//   - conv1 and conv3 as GEMMs with fused epilogues. In bf16 (K1) both run
+//     on conv_gemm.cuh's TMA-fed wgmma ping-pong tile, conv3 taking the
+//     downsample as a second K segment, [h2 | x[:, ::s, ::s]] . [w3; wd],
+//     so the f32 sum y + identity is one accumulator (the strided rows
+//     come by the TMA's im2col mode inside the kernel). int8 (K2) runs
+//     gemm.cuh's mma.sync m16n8k32 tile with output-major [N, K] weights
+//     (the int8 rate needs k32 steps, and their B fragments read each
+//     output channel's K bytes contiguously), the downsample in its own
+//     int32 accumulator (its scale differs). Transport (K10a) runs
+//     gemm.cuh's bf16 wmma tile: the int8 input is read into registers and
+//     converted to bf16 on its way into shared memory (conv1, the
+//     downsample), and the downsample's f32 sums are kept apart (held in
+//     shared memory while conv3's accumulate), so the epilogue applies ad
+//     and a3 as the plain version does.
+//   - the grouped 3x3 as an implicit GEMM on the tensor cores over the 9
+//     taps, with the 32 groups as 16-wide block-diagonal tiles (the TPU
+//     kernel packs them 128 wide for its matrix unit): K1 on halo tiles
+//     (bottleneck.cuh::gconv_halo_walk: a tile's input rows copied to
+//     shared memory once, mma.sync from there, the weights' fragments
+//     built once a worker), K2 and K10a on the wmma tiles that read each
+//     tap's pixels afresh. Both sum in the same order.
 // h1 and h2 round-trip through device memory here; K10b
-// (bottleneck_fused.cu) keeps them in shared memory in one launch.
+// (bottleneck_fused.cu) keeps them in shared memory in one launch, and
+// lost to the weights' L2 stream that costs (PERF.md).
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "bottleneck.cuh"
+#include "conv_gemm.cuh"
 
 namespace {
 
@@ -66,6 +77,67 @@ __global__ void __launch_bounds__(GC_BM)
   extern __shared__ __align__(128) unsigned char smem[];
   gconv_bf16_tile<CG, GC_BM>(c, blockIdx.y * GC_BM, blockIdx.x * GC_BN,
                              smem);
+}
+
+// K1's grouped 3x3: a worker a block, as many on each SM as fit
+// (gconv_halo_walk); at 128 threads ptxas would stop at 128 registers and
+// spill at cg 32 without the explicit one-block bound
+template <int CG>
+__global__ void __launch_bounds__(GH_THREADS, 1)
+    gconv_halo(const ConvArgs c, const HaloTiles ht) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gconv_halo_walk<CG>(c, ht, blockIdx.x, gridDim.x, smem, threadIdx.x, 0);
+}
+
+// the blocks of `kernel` (its dynamic shared memory allowed up to
+// GH_SMEM) with `smem` bytes that fit on the card at once, asked once per
+// kernel and size (the occupancy query costs more than the launch)
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks) {
+  static std::mutex lock;
+  static std::map<std::tuple<int, const void*, int>, int> known;
+  const std::lock_guard<std::mutex> hold(lock);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GH_SMEM);
+  if (err != cudaSuccess) return err;
+  const auto key =
+      std::make_tuple(device, reinterpret_cast<const void*>(kernel), smem);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *blocks = it->second;
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      GH_THREADS, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  *blocks = known[key] = per_sm * sms;
+  return cudaSuccess;
+}
+
+cudaError_t launch_gconv_halo(const ConvArgs& c, cudaStream_t stream) {
+  if (c.C % 128 || c.C > 1024) return cudaErrorInvalidValue;
+  const HaloTiles ht = halo_tiles(c.M / (c.rows.H * c.rows.W), c.W, c.C,
+                                  c.stride, c.rows.H);
+  const auto kernel = c.C == 128   ? gconv_halo<4>
+                      : c.C == 256 ? gconv_halo<8>
+                      : c.C == 512 ? gconv_halo<16>
+                                   : gconv_halo<32>;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(kernel, ht.smem, &resident);
+  if (err != cudaSuccess) return err;
+  // whole rounds of the channel tiles, at most one row tile a worker
+  const int rounds = resident / ht.ncb < ht.per_cb ? resident / ht.ncb
+                                                   : ht.per_cb;
+  if (rounds < 1) return cudaErrorLaunchOutOfResources;
+  kernel<<<rounds * ht.ncb, GH_THREADS, ht.smem, stream>>>(c, ht);
+  return cudaGetLastError();
 }
 
 template <int CG>
@@ -109,62 +181,52 @@ cudaError_t launch_grouped_conv(const ConvArgsT<T>& c, int cg,
   }
 }
 
+// K1: the block's three launches, or one of them (part 1: conv1, 2: the
+// grouped 3x3, 3: conv3; 0: all three)
 cudaError_t bottleneck_bf16(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, const void* w3,
                             const void* b3, const void* wd, const void* bd,
                             void* h1, void* h2, void* out, int B, int H,
                             int W, int cin, int width, int cout, int stride,
-                            cudaStream_t s) {
+                            int part, cudaStream_t s) {
   const int Ho = (H - 1) / stride + 1;
   const int Wo = (W - 1) / stride + 1;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-
-  GemmArgs g1{};
-  g1.a1 = xb;
-  g1.b1 = static_cast<const __nv_bfloat16*>(w1);
-  g1.k1 = cin;
-  g1.M = B * H * W;
-  g1.N = width;
-  const BiasResidualRelu e1{static_cast<const float*>(b1), nullptr, nullptr,
-                            static_cast<__nv_bfloat16*>(h1), width};
-  cudaError_t err = launch_gemm(g1, e1, s);
-  if (err != cudaSuccess) return err;
-
-  ConvArgs c{};
-  c.h = static_cast<const __nv_bfloat16*>(h1);
-  c.w = static_cast<const __nv_bfloat16*>(w2);
-  c.bias = static_cast<const float*>(b2);
-  c.out = static_cast<__nv_bfloat16*>(h2);
-  c.H = H;
-  c.W = W;
-  c.C = width;
-  c.stride = stride;
-  c.rows = RowMap{Ho, Wo, 0, 0};
-  c.M = B * Ho * Wo;
-  err = launch_grouped_conv(c, width / 32, s);
-  if (err != cudaSuccess) return err;
-
-  GemmArgs g3{};
-  g3.a1 = static_cast<const __nv_bfloat16*>(h2);
-  g3.b1 = static_cast<const __nv_bfloat16*>(w3);
-  g3.k1 = width;
-  g3.rows = RowMap{Ho, Wo, 0, 0};
-  g3.M = B * Ho * Wo;
-  g3.N = cout;
-  BiasResidualRelu e3{static_cast<const float*>(b3), nullptr, nullptr,
-                      static_cast<__nv_bfloat16*>(out), cout};
-  if (wd != nullptr) {
-    g3.a2 = xb;
-    g3.b2 = static_cast<const __nv_bfloat16*>(wd);
-    g3.k2 = cin;
-    g3.H = H;
-    g3.W = W;
-    g3.stride = stride;
-    e3.bias2 = static_cast<const float*>(bd);
-  } else {
-    e3.residual = xb;
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  cudaError_t err = cudaSuccess;
+  if (part == 0 || part == 1) {
+    ConvGemm g1;
+    err = conv1_gemm(&g1, x, w1, f(b1), h1, B, H, W, cin, width, 0, H);
+    if (err == cudaSuccess)
+      err = launch_conv_gemm<ConvEpilogue<false, false>>(g1, s);
+    if (err != cudaSuccess) return err;
   }
-  return launch_gemm(g3, e3, s);
+
+  if (part == 0 || part == 2) {
+    ConvArgs c{};
+    c.h = static_cast<const __nv_bfloat16*>(h1);
+    c.w = static_cast<const __nv_bfloat16*>(w2);
+    c.bias = f(b2);
+    c.out = static_cast<__nv_bfloat16*>(h2);
+    c.H = H;
+    c.W = W;
+    c.C = width;
+    c.stride = stride;
+    c.rows = RowMap{Ho, Wo, 0, 0};
+    c.M = B * Ho * Wo;
+    err = launch_gconv_halo(c, s);
+    if (err != cudaSuccess) return err;
+  }
+
+  if (part == 0 || part == 3) {
+    ConvGemm g3;
+    err = conv3_gemm(&g3, h2, w3, f(b3), x, wd, f(bd), out, B, H, W, cin,
+                     width, cout, stride, 0, Ho);
+    if (err != cudaSuccess) return err;
+    if (wd != nullptr)
+      return launch_conv_gemm<ConvEpilogue<true, false>>(g3, s);
+    return launch_conv_gemm<ConvEpilogue<false, true>>(g3, s);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -186,7 +248,22 @@ extern "C" int mmb_bottleneck_bf16(const void* x, const void* w1,
                                    void* stream) {
   return static_cast<int>(bottleneck_bf16(
       x, w1, b1, w2, b2, w3, b3, wd, bd, h1, h2, out, B, H, W, cin, width,
-      cout, stride, static_cast<cudaStream_t>(stream)));
+      cout, stride, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// One of K1's three launches alone (part 1 conv1, 2 the grouped 3x3, 3
+// conv3), with mmb_bottleneck_bf16's arguments, for scripts/
+// probe_conv_tile.py: conv1 reads x and writes h1, the grouped 3x3 h1 and
+// h2, conv3 h2 (and x) and out.
+extern "C" int mmb_bottleneck_bf16_part(
+    int part, const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* w3, const void* b3, const void* wd,
+    const void* bd, void* h1, void* h2, void* out, int B, int H, int W,
+    int cin, int width, int cout, int stride, void* stream) {
+  if (part < 1 || part > 3) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bottleneck_bf16(
+      x, w1, b1, w2, b2, w3, b3, wd, bd, h1, h2, out, B, H, W, cin, width,
+      cout, stride, part, static_cast<cudaStream_t>(stream)));
 }
 
 // K10a: the int8-transport block. x and out int8 codes; w1 [cin, width],

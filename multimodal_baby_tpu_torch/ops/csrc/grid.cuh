@@ -21,10 +21,9 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
-// bar: two zeroed words, arrivals and generation
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
-  __threadfence();
-  __syncthreads();
+// thread 0's part of the barrier: arrive, and wait for every block's
+// arrival. bar: two zeroed words, arrivals and generation
+__device__ __forceinline__ void grid_arrive_wait(unsigned* bar) {
   if (threadIdx.x == 0) {
     const unsigned gen = load_acquire(bar + 1);
     __threadfence();
@@ -37,6 +36,13 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
     }
     __threadfence();
   }
+}
+
+// bar: two zeroed words, arrivals and generation
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __threadfence();
+  __syncthreads();
+  grid_arrive_wait(bar);
   __syncthreads();
 }
 

@@ -23,11 +23,11 @@
 // a halo row is computed by the same arithmetic as in a neighbouring band,
 // every band count gives the same values bit for bit.
 //
-// Inside a band, each block runs three phases: conv1 (GEMM, gemm.cuh),
-// the grouped 3x3 (bottleneck.cuh) and conv3 with the identity. All blocks
-// of the grid share each phase's output tiles, a block taking tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ...; a grid-wide barrier separates
-// the phases. Intermediates (h1, h2 and two ping-pong block outputs) live in
+// Inside a band, each block runs three phases: conv1 (a GEMM), the grouped
+// 3x3 (bottleneck.cuh) and conv3 with the identity. All blocks of the grid
+// share each phase's output tiles, a block taking tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...; a grid-wide barrier separates the phases.
+// Intermediates (h1, h2 and two ping-pong block outputs) live in
 // workspaces in device memory that the L2 cache (50 MB) may hold: at
 // B = 128, layer 3's tail passes 25.7 MB per int8 block output and
 // layer 4's 12.8 MB; layer 1 in bf16 passes 205.5 MB per block output
@@ -36,15 +36,27 @@
 // The grid is as many blocks as fit on the card at once (the cooperative
 // launch guarantees they are resident together, which the barrier needs).
 //
+// The bf16 body (stage_bf16_kernel: K3a's and K3b's bf16 stages) runs its
+// GEMM phases on conv_gemm.cuh's TMA-fed wgmma tile, K1's, with one
+// consumer warpgroup (not two in turns) and a producer warpgroup, one
+// mbarrier ring across the phases (its slice counter runs on), and the
+// grouped 3x3 on both warpgroups, K1's halo tiles: 256 threads, one block
+// an SM. The TMA maps of every band, block and GEMM (the rows each operand
+// reads, in im2col mode, and the output band's store map), with the
+// grouped 3x3's arguments, are built on the host once per launch and
+// copied to device memory beside the launch (mmb_stage's `plan`). Its
+// values are K1's chain's bit for bit. The int8 and transport bodies
+// (stage_kernel) run gemm.cuh's tiles, K2's and K10a's, at 256 threads.
+//
 // What bounds it on an H100: as K1/K2, tensor-core throughput on the 1x1
-// GEMMs; the launch saves the per-block launch gaps and keeps the smaller
-// stages' intermediates in L2, but the tiles are the per-block kernels'
-// own, and keeping a band's data in shared memory across blocks (TMA,
-// wgmma, clusters with distributed shared memory) is later work.
+// GEMMs (layer 1's bf16 band by device memory); the launch saves the
+// per-block launch gaps and keeps the smaller stages' intermediates in L2.
 
 #include <type_traits>
+#include <vector>
 
 #include "bottleneck.cuh"
+#include "conv_gemm.cuh"
 #include "grid.cuh"
 
 namespace {
@@ -82,25 +94,44 @@ struct StageArgs {
   unsigned* bar;  // two zeroed words: arrivals, generation
 };
 
-// The kernel's three bodies: bf16 (K1's chain), int8 (K2's) and int8
-// transport (K10a's: int8 codes between the blocks, K1's bf16 chain inside
-// each).
+// the rows of block j's input and output that a band of the stage's
+// output needs (the band widened by one row per stride-1 3x3 below it,
+// doubled at a stride-2 block, clipped to the image)
+struct BandRows {
+  int in_lo, in_hi, out_lo, out_hi;
+};
+
+__host__ __device__ inline BandRows band_rows(const StageArgs& p, int band,
+                                              int j) {
+  BandRows r{0, 0, band * p.band, (band + 1) * p.band};
+  for (int i = p.n_blocks - 1;; --i) {
+    const int s = p.blk[i].stride;
+    r.in_lo = r.out_lo * s - 1 > 0 ? r.out_lo * s - 1 : 0;
+    r.in_hi = (r.out_hi - 1) * s + 2 < p.blk[i].H ? (r.out_hi - 1) * s + 2
+                                                  : p.blk[i].H;
+    if (i == j) return r;
+    r.out_lo = r.in_lo;
+    r.out_hi = r.in_hi;
+  }
+}
+
+// The three bodies: bf16 (K1's chain: stage_bf16_kernel), int8 (K2's) and
+// int8 transport (K10a's: int8 codes between the blocks, K1's bf16 chain
+// inside each; both stage_kernel).
 constexpr int BF16 = 0;
 constexpr int S8 = 1;
 constexpr int TRANSPORT = 2;
 
-// bf16: two blocks per SM (128 registers a thread), measured 11-13% faster
-// on layer 1 and layer 3's tail than one; int8 keeps one: its downsample
-// GEMM holds two sets of int32 accumulators, which spill at 128 registers
-// (measured 43% slower on layer 4). A/B on an H100 with
-// scripts/ab_stage_kernel.sh. Transport runs the bf16 body at two blocks
-// per SM: its downsample keeps its sums in shared memory, not registers.
+// The int8 and transport bodies. Transport runs the bf16 body of gemm.cuh
+// at two blocks per SM (its downsample keeps its sums in shared memory,
+// not registers); int8 keeps one: its downsample GEMM holds two sets of
+// int32 accumulators, which spill at 128 registers (measured 43% slower on
+// layer 4). A/B on an H100 with scripts/ab_stage_kernel.sh.
 template <int MODE, int CG>
 __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
     stage_kernel(const StageArgs p) {
   constexpr bool Q = MODE == S8;
   using T = std::conditional_t<Q, int8_t, __nv_bfloat16>;  // h1, h2
-  using TIO = std::conditional_t<MODE == BF16, __nv_bfloat16, int8_t>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = p.n_blocks;
   const StageBlock& last = p.blk[n - 1];
@@ -109,32 +140,19 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
   T* h2 = static_cast<T*>(p.h2);
 
   for (int band = 0; band < n_bands; ++band) {
-    // rows of each block's output and input that this band needs
-    int out_lo[MAX_STAGE_BLOCKS], out_hi[MAX_STAGE_BLOCKS];
-    int in_lo[MAX_STAGE_BLOCKS], in_hi[MAX_STAGE_BLOCKS];
-    int lo = band * p.band;
-    int hi = lo + p.band;
-    for (int j = n - 1; j >= 0; --j) {
-      out_lo[j] = lo;
-      out_hi[j] = hi;
-      const int s = p.blk[j].stride;
-      lo = max(0, lo * s - 1);
-      hi = min(p.blk[j].H, (hi - 1) * s + 2);
-      in_lo[j] = lo;
-      in_hi[j] = hi;
-    }
-
     for (int j = 0; j < n; ++j) {
       const StageBlock& b = p.blk[j];
-      const TIO* in = static_cast<const TIO*>(
+      const BandRows r = band_rows(p, band, j);
+      const int8_t* in = static_cast<const int8_t*>(
           j == 0 ? p.x : ((j - 1) & 1 ? p.t1 : p.t0));
-      TIO* out = static_cast<TIO*>(j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0));
+      int8_t* out =
+          static_cast<int8_t*>(j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0));
       // the GEMMs' A operand: transport's int8 codes ride in a bf16 pointer
       const T* in_a = reinterpret_cast<const T*>(in);
       const int Ho = (b.H - 1) / b.stride + 1;
       const int Wo = (b.W - 1) / b.stride + 1;
-      const RowMap rin{b.H, b.W, in_lo[j], in_hi[j] - in_lo[j]};
-      const RowMap rout{Ho, Wo, out_lo[j], out_hi[j] - out_lo[j]};
+      const RowMap rin{b.H, b.W, r.in_lo, r.in_hi - r.in_lo};
+      const RowMap rout{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
 
       {  // conv1 on the input rows
         GemmArgsT<T> g{};
@@ -154,7 +172,7 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
                                 smem);
           } else {
             const BiasResidualRelu e{b.b1, nullptr, nullptr, h1, p.width};
-            gemm_bf16_tile<MODE == TRANSPORT>(g, e, m0, n0, smem);
+            gemm_bf16_tile<true>(g, e, m0, n0, smem);
           }
         }
       }
@@ -220,7 +238,7 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
                   RequantResidual{b.a3, b.b3, nullptr, nullptr, b.ai, in,
                                   out, p.cout},
                   m0, n0, smem);
-          } else if constexpr (MODE == TRANSPORT) {
+          } else {
             if (b.wd != nullptr)
               gemm_bf16_tile<false, true, true>(
                   g,
@@ -232,13 +250,6 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
                              TransportOut{b.a3, b.b3, nullptr, nullptr, b.ai,
                                           in, out, p.cout},
                              m0, n0, smem);
-          } else {
-            gemm_bf16_tile(
-                g,
-                BiasResidualRelu{b.b3, b.wd != nullptr ? b.bd : nullptr,
-                                 b.wd != nullptr ? nullptr : in, out,
-                                 p.cout},
-                m0, n0, smem);
           }
         }
       }
@@ -247,29 +258,185 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
   }
 }
 
+// the grid barrier between the bf16 body's phases, from each role's own
+// code path (the unaligned block barrier): TMA copies and stores (the async
+// proxy) and plain loads and stores on either side of it are ordered both
+// ways
+__device__ __forceinline__ void stage_sync(unsigned* bar) {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  __threadfence();
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+  grid_arrive_wait(bar);
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// the grouped 3x3's barriers, one a warpgroup (1-4: the 1x1 tile's)
+constexpr int STAGE_GC_BAR = 5;
+constexpr int STAGE_BF16_THREADS = 2 * PP_WG;
+
+// One block of one band of the bf16 body, built on the host and read by
+// the kernel from device memory (no argument is indexed at run time in
+// parameter space): conv1's and conv3's TMA maps, walks and biases, the
+// grouped 3x3's arguments.
+struct StageStep {
+  ConvGemm conv1, conv3;  // with their biases
+  ConvArgs gconv;         // on the output rows
+  HaloTiles halo;         // its tiles
+};
+
+struct StageBf16Args {
+  const StageStep* steps;  // band-major, then block
+  int n_steps;
+  unsigned* bar;  // two zeroed words: arrivals, generation
+};
+
+// One warpgroup's walk of the bf16 body (CONSUMER: warpgroup 0, else the
+// producer, warpgroup 1, whose first thread issues the copies): per step,
+// conv1 and conv3 on conv_gemm.cuh's tile with the one consumer, between
+// them the grouped 3x3 with both warpgroups as workers of K1's halo tiles
+// (bottleneck.cuh::gconv_halo_walk), each in its half of the ring's
+// shared memory. The maps of each GEMM are acquired through the tensormap
+// proxy first by the threads that copy through them (the host wrote them
+// to device memory that earlier launches' maps may have occupied).
+template <int CG, bool CONSUMER>
+__device__ __forceinline__ void stage_bf16_walk(const StageBf16Args& p,
+                                                unsigned char* smem,
+                                                PingPongRing& ring, int wg) {
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  const bool issuer = threadIdx.x % PP_WG == 0;
+  int q = 0;  // the ring's slices so far
+  const auto gemm = [&](const ConvGemm& g, auto epilogue) {
+    if constexpr (CONSUMER) {
+      tensormap_acquire_if(issuer, &g.out);
+      tensormap_acquire_if(issuer && epilogue.kResidual, &g.res);
+      conv_consume<decltype(epilogue), 1>(g, stages, ring, wg, q);
+    } else {
+      tensormap_acquire_if(issuer, &g.a1);
+      tensormap_acquire_if(issuer, &g.w1);
+      tensormap_acquire_if(issuer && g.nk2 > 0, &g.a2);
+      tensormap_acquire_if(issuer && g.nk2 > 0, &g.w2);
+      conv_produce(g, stages, ring, q, issuer);
+    }
+    q += ConvWalk(g).slices();
+  };
+  for (int i = 0; i < p.n_steps; ++i) {
+    const StageStep& st = p.steps[i];
+    gemm(st.conv1, ConvEpilogue<false, false>{});
+    stage_sync(p.bar);
+
+    gconv_halo_walk<CG>(st.gconv, st.halo, 2 * blockIdx.x + wg,
+                        2 * gridDim.x, smem + wg * GH_SMEM,
+                        threadIdx.x % GH_THREADS, STAGE_GC_BAR + wg);
+    stage_sync(p.bar);
+
+    if (st.conv3.b2 != nullptr)
+      gemm(st.conv3, ConvEpilogue<true, false>{});
+    else
+      gemm(st.conv3, ConvEpilogue<false, true>{});
+    stage_sync(p.bar);
+  }
+}
+
+// The bf16 body: 256 threads (a consumer and a producer warpgroup), one
+// block an SM, 255 registers a thread: one consumer, not K1's two with
+// setmaxnreg 232 / 40, which spill here because the plan's values come
+// from device memory and hold registers that K1's kernel parameters do
+// not (PERF.md).
+template <int CG>
+__global__ void __launch_bounds__(STAGE_BF16_THREADS, 1)
+    stage_bf16_kernel(const StageBf16Args p) {
+  extern __shared__ __align__(128) unsigned char stage_bf16_smem[];
+  __shared__ PingPongRing ring;
+  unsigned char* smem = align_atoms(stage_bf16_smem);
+  if (threadIdx.x == 0) conv_ring_init(ring);
+  __syncthreads();
+  const int wg = warpgroup();
+  if (wg == 0)
+    stage_bf16_walk<CG, true>(p, smem, ring, wg);
+  else
+    stage_bf16_walk<CG, false>(p, smem, ring, wg);
+}
+
+// the bf16 body's plan (one StageStep per band and block, built here and
+// copied to `plan` on the stream) and launch
+template <int CG>
+cudaError_t launch_stage_bf16(const StageArgs& p, void* plan,
+                              cudaStream_t stream) {
+  const int n = p.n_blocks;
+  const StageBlock& last = p.blk[n - 1];
+  const int n_bands = ((last.H - 1) / last.stride + 1) / p.band;
+  std::vector<StageStep> steps(n_bands * n);
+  for (int band = 0; band < n_bands; ++band) {
+    for (int j = 0; j < n; ++j) {
+      const StageBlock& b = p.blk[j];
+      const BandRows r = band_rows(p, band, j);
+      const void* in = j == 0 ? p.x : ((j - 1) & 1 ? p.t1 : p.t0);
+      void* out = j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0);
+      StageStep& st = steps[band * n + j];
+      cudaError_t err =
+          conv1_gemm(&st.conv1, in, b.w1, b.b1, p.h1, p.B, b.H, b.W, b.cin,
+                     p.width, r.in_lo, r.in_hi);
+      if (err == cudaSuccess)
+        err = conv3_gemm(&st.conv3, p.h2, b.w3, b.b3, in, b.wd, b.bd, out,
+                         p.B, b.H, b.W, b.cin, p.width, p.cout, b.stride,
+                         r.out_lo, r.out_hi);
+      if (err != cudaSuccess) return err;
+      const int Ho = (b.H - 1) / b.stride + 1;
+      const int Wo = (b.W - 1) / b.stride + 1;
+      ConvArgs& c = st.gconv;
+      c = ConvArgs{};
+      c.h = static_cast<const __nv_bfloat16*>(p.h1);
+      c.w = static_cast<const __nv_bfloat16*>(b.w2);
+      c.bias = b.b2;
+      c.out = static_cast<__nv_bfloat16*>(p.h2);
+      c.H = b.H;
+      c.W = b.W;
+      c.C = p.width;
+      c.stride = b.stride;
+      c.rows = RowMap{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
+      c.M = p.B * c.rows.ext * Wo;
+      st.halo = halo_tiles(p.B, b.W, p.width, b.stride, c.rows.ext);
+    }
+  }
+  // pageable to device: the call returns once the host bytes are staged
+  const cudaError_t err =
+      cudaMemcpyAsync(plan, steps.data(), steps.size() * sizeof(StageStep),
+                      cudaMemcpyHostToDevice, stream);
+  if (err != cudaSuccess) return err;
+  const StageBf16Args a{static_cast<const StageStep*>(plan),
+                        static_cast<int>(steps.size()), p.bar};
+  return launch_persistent(stage_bf16_kernel<CG>, a, STAGE_BF16_THREADS,
+                           PP_SMEM, stream);
+}
+
 template <int MODE, int CG>
-cudaError_t launch_stage(const StageArgs& p, cudaStream_t stream) {
-  constexpr int gemm_smem = MODE == S8          ? GEMM8_SMEM
-                            : MODE == TRANSPORT ? GEMM_HELD_SMEM
-                                                : GEMM_SMEM;
-  constexpr int conv_smem = MODE == S8 ? gconv_s8_smem<STAGE_CBM>()
-                                       : gconv_bf16_smem<STAGE_CBM>();
-  constexpr int smem = gemm_smem > conv_smem ? gemm_smem : conv_smem;
-  return launch_persistent(stage_kernel<MODE, CG>, p, STAGE_THREADS, smem,
-                           stream);
+cudaError_t launch_stage(const StageArgs& p, void* plan,
+                         cudaStream_t stream) {
+  if constexpr (MODE == BF16) {
+    return launch_stage_bf16<CG>(p, plan, stream);
+  } else {
+    constexpr int gemm_smem = MODE == S8 ? GEMM8_SMEM : GEMM_HELD_SMEM;
+    constexpr int conv_smem = MODE == S8 ? gconv_s8_smem<STAGE_CBM>()
+                                         : gconv_bf16_smem<STAGE_CBM>();
+    constexpr int smem = gemm_smem > conv_smem ? gemm_smem : conv_smem;
+    return launch_persistent(stage_kernel<MODE, CG>, p, STAGE_THREADS, smem,
+                             stream);
+  }
 }
 
 template <int MODE>
-cudaError_t launch_stage_cg(const StageArgs& p, int cg, cudaStream_t s) {
+cudaError_t launch_stage_cg(const StageArgs& p, void* plan, int cg,
+                            cudaStream_t s) {
   switch (cg) {
     case 4:
-      return launch_stage<MODE, 4>(p, s);
+      return launch_stage<MODE, 4>(p, plan, s);
     case 8:
-      return launch_stage<MODE, 8>(p, s);
+      return launch_stage<MODE, 8>(p, plan, s);
     case 16:
-      return launch_stage<MODE, 16>(p, s);
+      return launch_stage<MODE, 16>(p, plan, s);
     case 32:
-      return launch_stage<MODE, 32>(p, s);
+      return launch_stage<MODE, 32>(p, plan, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -284,12 +451,15 @@ cudaError_t launch_stage_cg(const StageArgs& p, int cg, cudaStream_t s) {
 // block's input cin0 and the rest's cout, the constraints of
 // mmb_bottleneck_*, and band dividing the stage's output rows. `ptrs` holds
 // 13 pointers per block, in the order of StageBlock (null where absent);
-// `strides` one stride per block. Returns the first CUDA error, or 0.
+// `strides` one stride per block. bf16: `plan` is device memory for
+// mmb_stage_plan_bytes(n_blocks, bands) bytes (64-byte aligned; null in
+// the other modes), which takes the launch's plan: the TMA maps and
+// arguments of every band and block. Returns the first CUDA error, or 0.
 extern "C" int mmb_stage(int mode, int n_blocks, const void* const* ptrs,
                          const int* strides, const void* x, void* h1,
                          void* h2, void* t0, void* t1, void* out, void* bar,
-                         int B, int H, int W, int cin0, int width, int cout,
-                         int band, void* stream) {
+                         void* plan, int B, int H, int W, int cin0,
+                         int width, int cout, int band, void* stream) {
   if (n_blocks < 1 || n_blocks > MAX_STAGE_BLOCKS)
     return static_cast<int>(cudaErrorInvalidValue);
   StageArgs p{};
@@ -318,12 +488,20 @@ extern "C" int mmb_stage(int mode, int n_blocks, const void* const* ptrs,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case BF16:
-      return static_cast<int>(launch_stage_cg<BF16>(p, width / 32, s));
+      return static_cast<int>(launch_stage_cg<BF16>(p, plan, width / 32, s));
     case S8:
-      return static_cast<int>(launch_stage_cg<S8>(p, width / 32, s));
+      return static_cast<int>(launch_stage_cg<S8>(p, plan, width / 32, s));
     case TRANSPORT:
-      return static_cast<int>(launch_stage_cg<TRANSPORT>(p, width / 32, s));
+      return static_cast<int>(
+          launch_stage_cg<TRANSPORT>(p, plan, width / 32, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bytes of the bf16 stage's plan for n_blocks blocks and `bands`
+// bands: one StageStep (TMA maps and arguments) per band and block.
+extern "C" long long mmb_stage_plan_bytes(int n_blocks, int bands) {
+  return static_cast<long long>(n_blocks) * bands *
+         static_cast<long long>(sizeof(StageStep));
 }

@@ -10,7 +10,10 @@ runs it with one band, ``fused_stage_banded`` with bands of N rows. It takes
 bf16 blocks (``ops.bottleneck.fold_block_params``), int8 blocks
 (``ops.quant.fold_block_params_q``) or int8-transport blocks
 (``ops.quant.fold_block_params_t``: the TPU kernels' transport mode, K10a),
-NHWC at the public functions.
+NHWC at the public functions. Its bf16 body runs K1's 1x1 tile
+(``csrc/conv_gemm.cuh``) with the TMA maps of every band, block and GEMM
+built by the kernel's host code into a device buffer the wrapper
+allocates (``mmb_stage_plan_bytes``).
 
 On a CUDA tensor the wrappers launch the kernel and raise on anything it
 cannot take; on a CPU tensor they run ``stage_reference``.
@@ -66,6 +69,10 @@ def _check_stage(x: torch.Tensor, fws: Sequence[Folded],
     ho = _out_size(H, strides[0])
     need(band >= 1 and ho % band == 0,
          f"band {band} must divide the output rows {ho}")
+    # the bf16 body reads a band's rows through TMA im2col maps, whose box
+    # corners (relative to the first and last rows) lie in [-128, 127]
+    need(block_mode(x, fws[0]) != "bf16" or band == ho or H <= 128,
+         f"a banded bf16 stage needs H <= 128; got H={H}")
     # each block as the per-block kernels take it, at its input's shape
     shape = tuple(x.shape)
     for fw, s in zip(fws, strides):
@@ -91,6 +98,11 @@ def _launch(x: torch.Tensor, fws: Sequence[Folded], strides: Sequence[int],
     h1, h2 = empty(mid, B, H, W, width), empty(mid, B, Ho, Wo, width)
     t0, t1, out = (empty(x.dtype, B, Ho, Wo, cout) for _ in range(3))
     bar = torch.zeros(2, dtype=torch.int32, device=x.device)
+    mode = block_mode(x, fws[0])
+    plan = None  # bf16: the TMA maps and arguments of every band and block
+    if mode == "bf16":
+        plan = empty(torch.uint8, lib.mmb_stage_plan_bytes(
+            len(fws), Ho // band))
     ptrs: List[int | None] = []
     for fw in fws:
         ptrs += _ptrs(fw, _Q_ORDER)
@@ -99,10 +111,11 @@ def _launch(x: torch.Tensor, fws: Sequence[Folded], strides: Sequence[int],
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mmb_stage(
-            _MODES[block_mode(x, fws[0])], len(fws), c_ptrs, c_strides,
-            x.data_ptr(), h1.data_ptr(), h2.data_ptr(), t0.data_ptr(),
-            t1.data_ptr(), out.data_ptr(), bar.data_ptr(), B, H, W, cin,
-            width, cout, band, stream)
+            _MODES[mode], len(fws), c_ptrs, c_strides, x.data_ptr(),
+            h1.data_ptr(), h2.data_ptr(), t0.data_ptr(), t1.data_ptr(),
+            out.data_ptr(), bar.data_ptr(),
+            None if plan is None else plan.data_ptr(), B, H, W, cin, width,
+            cout, band, stream)
     _build.check(lib, code, "fused_stage")
     return out
 

@@ -9,8 +9,10 @@ B = 16, 72 and 128, K10a's block, stage and banded stage at
 tests/test_quant_trunk.py's transport shapes, K10b at
 tests/test_hwbc_kernels.py:74's and every ResNeXt-50 block shape and
 against K1 bit for bit, K11 forward
-and backward at odd M), K7 against K5 then K6 bit for bit, and on the
-arguments they refuse.
+and backward at odd M), K7 against K5 then K6 bit for bit, K1 on its 1x1
+tile at every ResNeXt-50 block shape (B = 2) and at ragged row counts,
+the bf16 stage kernel equal bit for bit across band counts and to its
+blocks' K1 launches, and on the arguments they refuse.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -705,3 +707,80 @@ def test_new_kernels_refuse_what_they_cannot_take(cuda, bad):
                 torch.ones(cout, device=cuda), torch.zeros(cout, device=cuda),
                 torch.zeros(8, cout, dtype=dt, device=cuda))
     assert fused_bottleneck_tiles.launches == before
+
+
+# K1 on the 1x1 convolutions' tile (csrc/conv_gemm.cuh): every ResNeXt-50
+# block shape at 224 px (chip_smoke.BLOCKS_224) at B = 2, and ragged row
+# counts of the tile's 128-row tiles (B = 3: M = 147 at 7 x 7, 12 x 12 at
+# B = 1 and 2, 9 -> 5 at stride 2)
+@pytest.mark.parametrize("B,stride,has_ds,H,cin,width,cout", [
+    (2, 1, True, 56, 64, 128, 256), (2, 1, False, 56, 256, 128, 256),
+    (2, 2, True, 56, 256, 256, 512), (2, 1, False, 28, 512, 256, 512),
+    (2, 2, True, 28, 512, 512, 1024), (2, 1, False, 14, 1024, 512, 1024),
+    (2, 2, True, 14, 1024, 1024, 2048), (2, 1, False, 7, 2048, 1024, 2048),
+    (3, 1, False, 7, 256, 128, 256), (1, 1, True, 12, 64, 128, 256),
+    (2, 1, True, 12, 64, 128, 256), (3, 2, True, 9, 256, 256, 512),
+])
+def test_kernel_matches_plain_version_at_every_block_shape(
+        cuda, B, stride, has_ds, H, cin, width, cout):
+    x, fw = make_block(cin, width, cout, has_ds, H, B, cuda)
+    x = x.clamp_min(0)
+    before = fused_bottleneck.launches
+    got = fused_bottleneck(x, fw, stride=stride)
+    want = bottleneck_reference(x, fw, stride=stride)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches == before + 1
+    assert got.shape == want.shape
+    assert_close_bf16(got, want)
+
+
+# K3b on the tile: layer 1's stage at 56 px (B = 2) in bands of 28 (the
+# published plan's) and of every other divisor of 56, and the stride-2
+# head at 16 px in 1, 2, 4 and 8 bands: each against its plain version and
+# every band count equal bit for bit
+@pytest.mark.parametrize("H,cin,width,cout,strides,bands", [
+    (56, 64, 128, 256, [1, 1, 1], [28, 1, 2, 4, 7, 8, 14, 56]),
+    (16, 128, 128, 256, [2, 1, 1], [4, 1, 2, 8]),
+])
+def test_banded_stage_equal_across_band_counts(cuda, H, cin, width, cout,
+                                               strides, bands):
+    g = torch.Generator().manual_seed(H + cin)
+    fws = stage_weights(g, cin, width, cout, strides, False, cuda)
+    x = torch.randn(2, H, H, cin, generator=g).clamp_min(0).to(
+        cuda, torch.bfloat16)
+    want = stage_reference(x, fws, strides)
+    outs = [fused_stage_banded(x, fws, strides, band) for band in bands]
+    torch.cuda.synchronize()
+    assert_close_bf16(outs[0], want)
+    for band, got in zip(bands[1:], outs[1:]):
+        words = int((got != outs[0]).sum())
+        print(f"band {band}: {words} of {got.numel()} words differ from "
+              f"band {bands[0]}")
+        assert words == 0
+
+
+# K3a in bf16 on the tile against the chain of its blocks' K1 launches: both
+# run the same tile and grouped 3x3 on every pixel, so 0 words differ
+@pytest.mark.parametrize("H,cin,width,cout,strides", [
+    (14, 1024, 512, 1024, [1] * 5),      # layer 3's tail
+    (14, 1024, 1024, 2048, [2, 1, 1]),   # layer 4
+    (12, 256, 128, 256, [2, 1, 1]),      # test_hwbc_kernels.py:91
+    (7, 512, 256, 512, [2, 1]),          # odd 7 -> 4
+])
+def test_bf16_stage_equals_its_k1_chain(cuda, H, cin, width, cout, strides):
+    g = torch.Generator().manual_seed(H + cin + width)
+    fws = stage_weights(g, cin, width, cout, strides, False, cuda)
+    x = torch.randn(4, H, H, cin, generator=g).clamp_min(0).to(
+        cuda, torch.bfloat16)
+    before = fused_stage.launches
+    got = fused_stage(x, fws, strides)
+    chain = x
+    for fw, s in zip(fws, strides):
+        chain = fused_bottleneck(chain, fw, stride=s)
+    torch.cuda.synchronize()
+    assert fused_stage.launches == before + 1
+    assert_close_bf16(got, stage_reference(x, fws, strides))
+    words = int((got != chain).sum())
+    print(f"K3a bf16: {words} of {got.numel()} words differ from the K1 "
+          f"chain")
+    assert words == 0

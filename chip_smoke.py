@@ -19,9 +19,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    about its wgmma; K10b's ``bottleneck_fused`` in its four group widths,
    and its band geometry at layer 2's head; the 1x1 convolutions' tile of
    K1 and the bf16 stage kernel, ``conv_gemm`` in its three epilogues and
-   ``stage_bf16_kernel`` in its four group widths, and K1's grouped 3x3
-   on its halo tile, ``gconv_halo``, in its four: the phase fails if
-   ptxas reports spills or a serialized wgmma there).
+   ``stage_tile_kernel`` in bf16 and int8 (K3a's int8 stages and the
+   banded int8 stage) in its four group widths each, K2's and K3a's int8
+   1x1 tile, ``conv_gemm_s8`` in its three epilogues, and K1's and K2's
+   grouped 3x3 on their halo tiles, ``gconv_halo`` and ``gconv_halo_s8``,
+   in their four: the phase fails if ptxas reports spills or a serialized
+   wgmma there).
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
    same bf16 inputs with the same rounding points, for four small and
    odd-sized cases at B = 8 and the 8 distinct ResNeXt-50 block shapes at
@@ -48,19 +51,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    with the residual), their time and TFLOP/s.
 2c. K2 (``fused_bottleneck`` on int8), K3a (``fused_stage``) and K3b
    (``fused_stage_banded``) against their plain versions: small and odd
-   cases at B = 32 (8x8 and 7x7 px, as tests/test_quant_trunk.py), then
-   every shape the published plan gives them at 224 px and B = 128: K2 on
-   the four int8 block shapes of layers 3-4, K3a on the layer-3 tail and
-   on layer 4 in int8 and in bf16, K3b on layer 1 with N = 28 rows. int8
-   gate: codes at most 1 apart and fewer than 1e-3 of them differing (the
-   count is printed; 0 is expected); bf16 gate as K1. Each main-path
+   cases at B = 32 (8x8 and 7x7 px, as tests/test_quant_trunk.py; K2 also
+   at Cin = 64) and at ragged row counts (B = 2, 9 -> 5 and 7 x 7 px: K2
+   and an int8 stage with a stride-2 head), then every shape the
+   published plan gives them at 224 px and B = 128: K2 on the four int8
+   block shapes of layers 3-4, K3a on the layer-3 tail and on layer 4 in
+   int8 and in bf16, K3b on layer 1 with N = 28 rows. int8 gate: codes at
+   most 1 apart and fewer than 1e-3 of them differing (the count is
+   printed; 0 is expected: the tiles sum exactly and round as the plain
+   version); bf16 gate as K1. Each main-path
    shape is timed beside its plain version, a library chain
    (torch._int_mm 1x1 GEMMs, the cuDNN grouped 3x3 on the bf16 codes and
    elementwise requantization for int8; cuDNN bf16 convolutions for
-   bf16) and its bound (int8 at 1979 TOP/s). Each bf16 stage (K3a's and
-   K3b's bf16 body, on K1's 1x1 tile) also equals its blocks' K1 launches
-   bit for bit (the count of differing words is printed; 0 is
-   required), so every band count gives the same values.
+   bf16) and its bound (int8 at 1979 TOP/s). Each stage (K3a's and
+   K3b's bf16 body on K1's 1x1 tile, K3a's int8 body on K2's) also equals
+   its blocks' K1 or K2 launches bit for bit (the count of differing
+   words or codes is printed; 0 is required), so every band count gives
+   the same values.
 3. The ResNeXt slice in the per-block plan: the flagship CVCL (ResNeXt-50
    at full width with seeded random weights and BN statistics, flat 512-d
    head, embedding text encoder, fixed T = 0.07, running BN) with
@@ -226,7 +233,8 @@ from multimodal_baby_tpu_torch.ops.attention import (
     fused_attention_pairs, fused_block_attention, fused_qkv_attention_pairs,
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
-    block_geometry, block_reference, bottleneck_reference, default_band,
+    block_geometry, block_geometry_s8, block_reference,
+    bottleneck_reference, default_band,
     fused_bottleneck, fused_bottleneck_tiles, tiles_geometry,
     tiles_reference)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
@@ -1010,10 +1018,15 @@ Q_BLOCKS_224 = [
     ("layer4.0", 14, 1024, 1024, 2048, 2, True),
     ("layer4.1", 7, 2048, 1024, 2048, 1, False),
 ]
+# (name, H, Cin, width, Cout, stride, downsample, batch): B = 2 gives row
+# counts the int8 tile's 128- and 64-row tiles do not divide
 Q_BLOCKS_EDGE = [
-    ("8x8 stride 1", 8, 256, 128, 256, 1, False),
-    ("8x8 stride 2", 8, 256, 128, 256, 2, True),
-    ("odd 7->4 stride 2", 7, 512, 512, 1024, 2, True),
+    ("8x8 stride 1", 8, 256, 128, 256, 1, False, Q_CHECK_BATCH),
+    ("8x8 stride 2", 8, 256, 128, 256, 2, True, Q_CHECK_BATCH),
+    ("odd 7->4 stride 2", 7, 512, 512, 1024, 2, True, Q_CHECK_BATCH),
+    ("8x8 Cin 64", 8, 64, 128, 256, 1, True, Q_CHECK_BATCH),
+    ("ragged 9->5 stride 2", 9, 512, 512, 1024, 2, True, 2),
+    ("ragged 7x7", 7, 1024, 512, 1024, 1, False, 2),
 ]
 # stages: (name, H, Cin, width, Cout, strides, int8, band); band None = K3a
 STAGES_224 = [
@@ -1023,8 +1036,10 @@ STAGES_224 = [
     ("layer3 tail", 14, 1024, 512, 1024, [1] * 5, False, None),
     ("layer4", 14, 1024, 1024, 2048, [2, 1, 1], False, None),
 ]
+# (name, H, Cin, width, Cout, strides, int8, band[, batch: Q_CHECK_BATCH])
 STAGES_EDGE = [
     ("8x8 stride-2 head", 8, 256, 128, 256, [2, 1, 1], True, None),
+    ("ragged 9->5 stride-2 head", 9, 512, 512, 1024, [2, 1], True, None, 2),
     ("odd 7->4 stride-2 head", 7, 512, 512, 1024, [2, 1], True, None),
     ("16x16, 4 bands", 16, 64, 128, 256, [1, 1, 1], False, 4),
     ("16x16 stride-2 head, 4 bands", 16, 128, 128, 256, [2, 1, 1], False, 4),
@@ -1166,9 +1181,9 @@ def phase_int8_and_stages():
     gen = torch.Generator().manual_seed(3)
     res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
            for k in ("K2", "K3a", "K3b")}
-    for name, H, cin, width, cout, s, ds in Q_BLOCKS_EDGE:
+    for name, H, cin, width, cout, s, ds, batch in Q_BLOCKS_EDGE:
         fw = random_q_block(gen, cin, width, cout, ds)
-        x = random_codes(gen, Q_CHECK_BATCH, H, cin)
+        x = random_codes(gen, batch, H, cin)
         res["K2"]["max_abs_err"] = max(res["K2"]["max_abs_err"], check_codes(
             f"K2 {name}", fused_bottleneck(x, fw, stride=s),
             bottleneck_reference_q(x, fw, stride=s)))
@@ -1209,19 +1224,20 @@ def phase_int8_and_stages():
         got = kernel()
         err = (check_codes if int8 else check)(desc, got, plain())
         res[row]["max_abs_err"] = max(res[row]["max_abs_err"], err)
-        if not int8:  # the bf16 body runs K1's tile and grouped 3x3
-            chain = x
-            for fw, s in zip(fws, strides):
-                chain = fused_bottleneck(chain, fw, stride=s)
-            words = int((got != chain).sum())
-            log(f"  {desc}: {words} of {got.numel()} words differ from its "
-                f"blocks' K1 launches (0 expected)")
-            if words:
-                raise AssertionError(f"{desc}: {words} words from K1's chain")
+        # each body runs its blocks' tiles and grouped 3x3: K1's or K2's
+        chain = x
+        for fw, s in zip(fws, strides):
+            chain = fused_bottleneck(chain, fw, stride=s)
+        words = int((got != chain).sum())
+        unit, k = ("codes", "K2") if int8 else ("words", "K1")
+        log(f"  {desc}: {words} of {got.numel()} {unit} differ from its "
+            f"blocks' {k} launches (0 expected)")
+        if words:
+            raise AssertionError(f"{desc}: {words} {unit} from {k}'s chain")
         return x, fws, kernel, plain, desc
 
-    for case in STAGES_EDGE:
-        run_stage(*case, Q_CHECK_BATCH)
+    for name, *case in STAGES_EDGE:
+        run_stage(name, *case[:7], *case[7:] or [Q_CHECK_BATCH])
     for name, H, cin, width, cout, strides, int8, band in STAGES_224:
         x, fws, kernel, plain, desc = run_stage(
             name, H, cin, width, cout, strides, int8, band, BATCH)
@@ -2294,10 +2310,18 @@ def main() -> int:
             ("K10b", "16bottleneck_fusedI", {f"Li{cg}EEEv": f"cg {cg}"
                                            for cg in (4, 8, 16, 32)}),
             ("K1 1x1 tile", "9conv_gemmI", CONV_TILE_FORMS),
+            ("K2/K3a int8 1x1 tile", "12conv_gemm_s8I", {
+                "ILi0E": "conv1", "ILi1E": "conv3, residual",
+                "ILi2E": "conv3, downsample"}),
             ("K1 grouped 3x3", "10gconv_haloI", {
                 f"ILi{cg}EEEv": f"cg {cg}" for cg in (4, 8, 16, 32)}),
-            ("K3a/K3b bf16", "17stage_bf16_kernelI", {
-                f"ILi{cg}EEEv": f"cg {cg}" for cg in (4, 8, 16, 32)})):
+            ("K2 grouped 3x3", "13gconv_halo_s8I", {
+                f"ILi{cg}EEEv": f"cg {cg}" for cg in (4, 8, 16, 32)}),
+            ("K3a/K3b stage", "17stage_tile_kernelI", {
+                **{f"9StageStepELi{cg}E": f"bf16, cg {cg}"
+                   for cg in (4, 8, 16, 32)},
+                **{f"11StageStepS8ELi{cg}E": f"int8, cg {cg}"
+                   for cg in (4, 8, 16, 32)}})):
         found = [i for i, line in enumerate(lines)
                  if "Function properties for" in line and kernel in line]
         if len(found) != len(forms):
@@ -2313,18 +2337,19 @@ def main() -> int:
     for line in lines:  # a serialized or rescheduled wgmma in K6's tile
         if "vit_pingpong" in line and ("C75" in line or "wgmma" in line):
             log(f"  ptxas K6 ping-pong tile: {line.strip()}")
-    # the kernels of K1 and the bf16 stage: no spills, no wgmma serialized
-    # or waited on by the compiler
+    # the kernels of K1, K2 and the stage bodies on the wgmma tiles: no
+    # spills, no wgmma serialized or waited on by the compiler
     for i, line in enumerate(lines):
-        new = ("9conv_gemmI" in line or "17stage_bf16_kernelI" in line
-               or "10gconv_haloI" in line)
+        new = any(k in line for k in ("9conv_gemmI", "12conv_gemm_s8I",
+                                      "17stage_tile_kernelI",
+                                      "10gconv_haloI", "13gconv_halo_s8I"))
         if new and ("C75" in line or "wgmma" in line):
-            raise AssertionError(f"ptxas on K1 or K3b: {line.strip()}")
+            raise AssertionError(f"ptxas on K1, K2 or K3a/b: {line.strip()}")
         if (new and "Function properties for" in line
                 and "0 bytes spill stores, 0 bytes spill loads"
                 not in lines[i + 1]):
-            raise AssertionError(f"ptxas on K1 or K3b: {line.strip()}: "
-                                 f"{lines[i + 1].strip()}")
+            raise AssertionError(f"ptxas on K1, K2 or K3a/b: "
+                                 f"{line.strip()}: {lines[i + 1].strip()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     geo = mlp_geometry(BATCH * 257, 768, 3072, sms)
     log(f"  K6 at the ViT slice (M = {BATCH * 257}): {geo}")
@@ -2334,6 +2359,10 @@ def main() -> int:
                                                       BLOCKS_224[-2]):
         geo = block_geometry(BATCH, H, H, cin, width, cout, stride, ds, sms)
         log(f"  K1's 1x1 tile at {name} (B = {BATCH}): conv1, conv3 {geo}")
+    for name, H, cin, width, cout, stride, ds in Q_BLOCKS_224[::2]:
+        geo = block_geometry_s8(BATCH, H, H, cin, width, cout, stride, ds,
+                                sms)
+        log(f"  K2's int8 tile at {name} (B = {BATCH}): conv1, conv3 {geo}")
 
     log("phase 2: K1 against its plain version")
     k1 = phase_k1()
@@ -2369,9 +2398,9 @@ def main() -> int:
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"
     rows = [("fused_bottleneck", "conv_gemm.cuh", f"{hwbc}:408", k1),
-            ("fused_bottleneck_int8", "bottleneck.cu", f"{hwbc}:408",
+            ("fused_bottleneck_int8", "conv_gemm_s8.cuh", f"{hwbc}:408",
              q["K2"]),
-            ("fused_stage", "stage.cu", f"{hwbc}:758", q["K3a"]),
+            ("fused_stage", "conv_gemm_s8.cuh", f"{hwbc}:758", q["K3a"]),
             ("fused_stage_banded", "conv_gemm.cuh", f"{hwbc}:1078",
              q["K3b"]),
             ("fused_block_attention", "vit_attention.cu",

@@ -7,7 +7,8 @@ BatchNorm fold, the plain reference of one block, ``fused_bottleneck``,
 which runs the hand-written Hopper kernels in ``csrc/bottleneck.cu`` on a
 CUDA tensor and the plain reference on a CPU tensor (K1's 1x1
 convolutions on the TMA-fed wgmma tile of ``csrc/conv_gemm.cuh``, whose
-launch geometry ``conv_geometry`` states), and
+launch geometry ``conv_geometry`` states, K2's on its int8 sibling
+``csrc/conv_gemm_s8.cuh``, ``conv_geometry_s8``), and
 ``fused_bottleneck_tiles`` (the TPU package's tile mode; its kernel is
 ``csrc/bottleneck_fused.cu``). The int8 folds
 and plain versions are in ``ops/quant.py``.
@@ -33,7 +34,9 @@ __all__ = ["fold_block_params", "unpack_grouped_kernel", "bottleneck_reference",
            "block_reference", "tiles_reference", "fused_bottleneck",
            "fused_bottleneck_tiles", "block_mode", "default_band",
            "tiles_geometry", "TilesGeometry", "conv_geometry",
-           "block_geometry", "ConvGeometry", "BN_EPS", "GROUPS"]
+           "block_geometry", "ConvGeometry", "conv_geometry_s8",
+           "block_geometry_s8", "stage_geometry_s8", "ConvGeometryS8",
+           "band_rows", "BN_EPS", "GROUPS"]
 
 BN_EPS = 1e-5
 GROUPS = 32
@@ -315,6 +318,127 @@ def block_geometry(B: int, H: int, W: int, cin: int, width: int, cout: int,
                           blocks))
 
 
+# the int8 1x1 tile (csrc/conv_gemm_s8.cuh, C8_*): a warpgroup's 128 x 128
+# output tile in K2, or 64 x 128 for a GEMM with a second K segment (the
+# downsample, in its own sums) and in every GEMM of the stage kernel
+# (S8_STAGE_ROWS), in K slices of 128 channels (a K tail reads as zeros)
+CONV8_TILE_M, CONV8_TILE_M_TWO, CONV8_BK = 128, 64, 128
+CONV8_STAGE_M = 64
+CONV8_K_UNIT = 64  # the int8 block's Cin % 64 (_check_args)
+
+
+class ConvGeometryS8(NamedTuple):
+    """One int8 GEMM on the int8 tile: its output rows in ``parts`` store
+    parts of ``part`` rows each (one part of M rows for K2 and K3a, one an
+    image for a banded stage), cut into ``bands`` row bands of ``rows``
+    rows within each part, and ``columns`` column tiles of 128: ``tiles``
+    tiles (band-major within a part, then parts), each walked in ``slices``
+    128-deep K slices, by ``grid`` persistent blocks, one an SM (the kernel
+    computes the same grid from the card's SM count)."""
+    rows: int
+    part: int
+    parts: int
+    bands: int
+    columns: int
+    tiles: int
+    slices: int
+    grid: int
+
+
+def conv_geometry_s8(part: int, K1: int, N: int, K2: int = 0,
+                     blocks: int = 132, parts: int = 1,
+                     rows: int | None = None) -> ConvGeometryS8:
+    """The launch geometry of one int8 1x1 convolution on the int8 tile:
+    ``parts`` store parts of ``part`` output pixels, K1 input channels (and
+    K2 of the downsample's segment) and N output channels on a card of
+    ``blocks`` SMs, on tiles of ``rows`` rows (None: K2's, 64 with a second
+    segment, else 128). Raises ValueError on a shape the tile cannot serve;
+    never clamps."""
+    if rows is None:
+        rows = CONV8_TILE_M_TWO if K2 else CONV8_TILE_M
+    if rows not in (CONV8_TILE_M_TWO, CONV8_TILE_M) or (
+            K2 and rows != CONV8_TILE_M_TWO):
+        raise ValueError(f"conv_geometry_s8: needs tiles of 64 rows, or of "
+                         f"128 without a second segment; got rows={rows}, "
+                         f"K2={K2}")
+    if parts < 1 or not 1 <= part <= (2**31 - rows) // parts:
+        raise ValueError(f"conv_geometry_s8: needs parts >= 1 and 1 <= part "
+                         f"x parts <= 2**31 - {rows} (TMA rows are int32); "
+                         f"got part={part}, parts={parts}")
+    if N < CONV_TILE_N or N % CONV_TILE_N:
+        raise ValueError(f"conv_geometry_s8: needs N a positive multiple of "
+                         f"{CONV_TILE_N}; got N={N}")
+    if K1 < CONV8_K_UNIT or K1 % CONV8_K_UNIT or K2 < 0 or K2 % CONV8_K_UNIT:
+        raise ValueError(f"conv_geometry_s8: needs K1 and K2 multiples of "
+                         f"{CONV8_K_UNIT}, K1 positive; got K1={K1}, K2={K2}")
+    if blocks < 1:
+        raise ValueError(f"conv_geometry_s8: needs at least one SM; got "
+                         f"blocks={blocks}")
+    bands = -(-part // rows)
+    columns = N // CONV_TILE_N
+    tiles = bands * parts * columns
+    slices = -(-K1 // CONV8_BK) + -(-K2 // CONV8_BK)
+    return ConvGeometryS8(rows, part, parts, bands, columns, tiles, slices,
+                          min(tiles, blocks))
+
+
+def block_geometry_s8(B: int, H: int, W: int, cin: int, width: int,
+                      cout: int, stride: int, has_ds: bool,
+                      blocks: int = 132):
+    """(conv1, conv3): K2's two launches on the int8 tile for an int8 block
+    on [B, H, W, cin] (conv3 with the downsample as its second segment)."""
+    Ho, Wo = _out_size(H, stride), _out_size(W, stride)
+    return (conv_geometry_s8(B * H * W, cin, width, 0, blocks),
+            conv_geometry_s8(B * Ho * Wo, width, cout,
+                             cin if has_ds else 0, blocks))
+
+
+def band_rows(H: int, strides, band: int, i: int, j: int):
+    """The rows (in_lo, in_hi, out_lo, out_hi) of block j's input and output
+    that band i of a stage's output (``band`` rows of every image) needs:
+    the band widened by one row per stride-1 3x3 below it, doubled at a
+    stride-2 block, clipped to the image (csrc/stage.cu::band_rows)."""
+    heights = [H]  # each block's input height
+    for s in strides:
+        heights.append(_out_size(heights[-1], s))
+    out_lo, out_hi = i * band, (i + 1) * band
+    for k in range(len(strides) - 1, j - 1, -1):
+        s = strides[k]
+        in_lo = max(out_lo * s - 1, 0)
+        in_hi = min((out_hi - 1) * s + 2, heights[k])
+        if k == j:
+            return in_lo, in_hi, out_lo, out_hi
+        out_lo, out_hi = in_lo, in_hi
+    raise ValueError(f"band_rows: no block {j} of {len(strides)}")
+
+
+def stage_geometry_s8(B: int, H: int, W: int, cin: int, width: int,
+                      cout: int, strides, band: int, blocks: int = 132):
+    """[(conv1, conv3)] of every band and block of an int8 stage on the
+    int8 tile's 64-row tiles (band = the output height: K3a, one band):
+    each GEMM's rows one store part when its band is the whole image, else
+    one part an image (csrc/conv_gemm.cuh::band_store_map)."""
+    Ho = H
+    for s in strides:
+        Ho = _out_size(Ho, s)
+    out = []
+    for i in range(Ho // band):
+        h, w, c = H, W, cin
+        for j, s in enumerate(strides):
+            in_lo, in_hi, out_lo, out_hi = band_rows(H, strides, band, i, j)
+            ho, wo = _out_size(h, s), _out_size(w, s)
+            ext1, ext3 = in_hi - in_lo, out_hi - out_lo
+            p1 = (B * h * w, 1) if ext1 == h else (ext1 * w, B)
+            p3 = (B * ho * wo, 1) if ext3 == ho else (ext3 * wo, B)
+            ds = j == 0 and (c != cout or s != 1)
+            out.append((conv_geometry_s8(p1[0], c, width, 0, blocks, p1[1],
+                                         CONV8_STAGE_M),
+                        conv_geometry_s8(p3[0], width, cout, c if ds else 0,
+                                         blocks, p3[1], CONV8_STAGE_M)))
+            h, w, c = ho, wo, cout
+    return out
+
+
 def block_reference(x: torch.Tensor, fw: Folded, *,
                     stride: int = 1) -> torch.Tensor:
     """The plain version of the block ``fused_bottleneck`` runs, on x's
@@ -355,8 +479,11 @@ def fused_bottleneck(x: torch.Tensor, fw: Folded, stride: int = 1
     lib = _build.library()
     B, H, W, cin = x.shape
     width, cout = block_dims(fw)
-    if mode == "bf16":  # K1's tile refuses what it cannot serve
+    # K1's and K2's tiles refuse what they cannot serve
+    if mode == "bf16":
         block_geometry(B, H, W, cin, width, cout, stride, "wd" in fw)
+    elif mode == "q":
+        block_geometry_s8(B, H, W, cin, width, cout, stride, "wd" in fw)
     Ho, Wo = _out_size(H, stride), _out_size(W, stride)
     mid = fw["w1"].dtype  # h1, h2: int8 in K2, bf16 in K1 and K10a
     h1 = torch.empty((B, H, W, width), dtype=mid, device=x.device)

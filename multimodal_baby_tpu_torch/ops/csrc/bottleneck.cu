@@ -39,10 +39,10 @@
 //     downsample as a second K segment, [h2 | x[:, ::s, ::s]] . [w3; wd],
 //     so the f32 sum y + identity is one accumulator (the strided rows
 //     come by the TMA's im2col mode inside the kernel). int8 (K2) runs
-//     gemm.cuh's mma.sync m16n8k32 tile with output-major [N, K] weights
-//     (the int8 rate needs k32 steps, and their B fragments read each
-//     output channel's K bytes contiguously), the downsample in its own
-//     int32 accumulator (its scale differs). Transport (K10a) runs
+//     the same schedule's int8 sibling, conv_gemm_s8.cuh (wgmma m64n128k32
+//     .s8 with both operands K-major: the NHWC codes and the output-major
+//     [N, K] weights), the downsample in its own int32 accumulators (its
+//     scale differs) on 64-row tiles. Transport (K10a) runs
 //     gemm.cuh's bf16 wmma tile: the int8 input is read into registers and
 //     converted to bf16 on its way into shared memory (conv1, the
 //     downsample), and the downsample's f32 sums are kept apart (held in
@@ -50,11 +50,11 @@
 //     and a3 as the plain version does.
 //   - the grouped 3x3 as an implicit GEMM on the tensor cores over the 9
 //     taps, with the 32 groups as 16-wide block-diagonal tiles (the TPU
-//     kernel packs them 128 wide for its matrix unit): K1 on halo tiles
-//     (bottleneck.cuh::gconv_halo_walk: a tile's input rows copied to
-//     shared memory once, mma.sync from there, the weights' fragments
-//     built once a worker), K2 and K10a on the wmma tiles that read each
-//     tap's pixels afresh. Both sum in the same order.
+//     kernel packs them 128 wide for its matrix unit): K1 and K2 on halo
+//     tiles (bottleneck.cuh::gconv_halo_walk, gconv_halo_walk_s8: a tile's
+//     input rows copied to shared memory once, mma.sync from there, the
+//     weights' fragments built once a worker), K10a on the wmma tile that
+//     reads each tap's pixels afresh (the same order of sums as K1's).
 // h1 and h2 round-trip through device memory here; K10b
 // (bottleneck_fused.cu) keeps them in shared memory in one launch, and
 // lost to the weights' L2 stream that costs (PERF.md).
@@ -65,7 +65,7 @@
 #include <tuple>
 
 #include "bottleneck.cuh"
-#include "conv_gemm.cuh"
+#include "conv_gemm_s8.cuh"
 
 namespace {
 
@@ -79,14 +79,22 @@ __global__ void __launch_bounds__(GC_BM)
                              smem);
 }
 
-// K1's grouped 3x3: a worker a block, as many on each SM as fit
-// (gconv_halo_walk); at 128 threads ptxas would stop at 128 registers and
-// spill at cg 32 without the explicit one-block bound
+// K1's and K2's grouped 3x3: a worker a block, as many on each SM as fit
+// (gconv_halo_walk, gconv_halo_walk_s8); at 128 threads ptxas would stop
+// at 128 registers and spill at cg 32 without the explicit one-block bound
 template <int CG>
 __global__ void __launch_bounds__(GH_THREADS, 1)
     gconv_halo(const ConvArgs c, const HaloTiles ht) {
   extern __shared__ __align__(128) unsigned char smem[];
   gconv_halo_walk<CG>(c, ht, blockIdx.x, gridDim.x, smem, threadIdx.x, 0);
+}
+
+template <int CG>
+__global__ void __launch_bounds__(GH_THREADS, 1)
+    gconv_halo_s8(const ConvArgsS8 c, const HaloTiles ht) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gconv_halo_walk_s8<CG>(c, ht, blockIdx.x, gridDim.x, smem, threadIdx.x,
+                         0);
 }
 
 // the blocks of `kernel` (its dynamic shared memory allowed up to
@@ -121,14 +129,23 @@ cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks) {
   return cudaSuccess;
 }
 
-cudaError_t launch_gconv_halo(const ConvArgs& c, cudaStream_t stream) {
+// the halo walk's kernel for group width cg (bf16 or int8)
+template <class T>
+auto halo_kernel(int cg) {
+  if constexpr (sizeof(T) == 1)
+    return cg == 4 ? gconv_halo_s8<4> : cg == 8 ? gconv_halo_s8<8>
+         : cg == 16 ? gconv_halo_s8<16> : gconv_halo_s8<32>;
+  else
+    return cg == 4 ? gconv_halo<4> : cg == 8 ? gconv_halo<8>
+         : cg == 16 ? gconv_halo<16> : gconv_halo<32>;
+}
+
+template <class T>
+cudaError_t launch_gconv_halo(const ConvArgsT<T>& c, cudaStream_t stream) {
   if (c.C % 128 || c.C > 1024) return cudaErrorInvalidValue;
   const HaloTiles ht = halo_tiles(c.M / (c.rows.H * c.rows.W), c.W, c.C,
-                                  c.stride, c.rows.H);
-  const auto kernel = c.C == 128   ? gconv_halo<4>
-                      : c.C == 256 ? gconv_halo<8>
-                      : c.C == 512 ? gconv_halo<16>
-                                   : gconv_halo<32>;
+                                  c.stride, c.rows.H, sizeof(T));
+  const auto kernel = halo_kernel<T>(c.C / 32);
   int resident = 0;
   const cudaError_t err = resident_blocks(kernel, ht.smem, &resident);
   if (err != cudaSuccess) return err;
@@ -138,13 +155,6 @@ cudaError_t launch_gconv_halo(const ConvArgs& c, cudaStream_t stream) {
   if (rounds < 1) return cudaErrorLaunchOutOfResources;
   kernel<<<rounds * ht.ncb, GH_THREADS, ht.smem, stream>>>(c, ht);
   return cudaGetLastError();
-}
-
-template <int CG>
-__global__ void __launch_bounds__(GC_BM)
-    gconv_s8(const ConvArgsS8 c) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  gconv_s8_tile<CG, GC_BM>(c, blockIdx.y * GC_BM, blockIdx.x * GC_BN, smem);
 }
 
 template <class Kernel, class Args>
@@ -158,24 +168,19 @@ cudaError_t launch_conv(Kernel kernel, int smem, const Args& c,
   return cudaGetLastError();
 }
 
-template <class T>
-cudaError_t launch_grouped_conv(const ConvArgsT<T>& c, int cg,
+// K10a's grouped 3x3 (bf16) on the wmma tile
+cudaError_t launch_grouped_conv(const ConvArgs& c, int cg,
                                 cudaStream_t stream) {
-  constexpr bool S8 = sizeof(T) == 1;
-  constexpr int smem =
-      S8 ? gconv_s8_smem<GC_BM>() : gconv_bf16_smem<GC_BM>();
+  constexpr int smem = gconv_bf16_smem<GC_BM>();
   switch (cg) {
-#define MMB_CG_CASE(CG)                                                     \
-  case CG:                                                                  \
-    if constexpr (S8)                                                       \
-      return launch_conv(gconv_s8<CG>, smem, c, stream);                    \
-    else                                                                    \
-      return launch_conv(gconv_bf16<CG>, smem, c, stream);
-    MMB_CG_CASE(4)
-    MMB_CG_CASE(8)
-    MMB_CG_CASE(16)
-    MMB_CG_CASE(32)
-#undef MMB_CG_CASE
+    case 4:
+      return launch_conv(gconv_bf16<4>, smem, c, stream);
+    case 8:
+      return launch_conv(gconv_bf16<8>, smem, c, stream);
+    case 16:
+      return launch_conv(gconv_bf16<16>, smem, c, stream);
+    case 32:
+      return launch_conv(gconv_bf16<32>, smem, c, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -225,6 +230,56 @@ cudaError_t bottleneck_bf16(const void* x, const void* w1, const void* b1,
     if (wd != nullptr)
       return launch_conv_gemm<ConvEpilogue<true, false>>(g3, s);
     return launch_conv_gemm<ConvEpilogue<false, true>>(g3, s);
+  }
+  return cudaSuccess;
+}
+
+// K2: the block's three launches, or one of them (part 1: conv1, 2: the
+// grouped 3x3, 3: conv3; 0: all three)
+cudaError_t bottleneck_s8(const void* x, const void* w1, const void* a1,
+                          const void* b1, const void* w2, const void* a2,
+                          const void* b2, const void* w3, const void* a3,
+                          const void* b3, const void* wd, const void* ad,
+                          const void* bd, const void* ai, void* h1, void* h2,
+                          void* out, int B, int H, int W, int cin, int width,
+                          int cout, int stride, int part, cudaStream_t s) {
+  const int Ho = (H - 1) / stride + 1;
+  const int Wo = (W - 1) / stride + 1;
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  cudaError_t err = cudaSuccess;
+  if (part == 0 || part == 1) {
+    ConvGemmS8 g1;
+    err = conv1_gemm_s8(&g1, x, w1, f(a1), f(b1), h1, B, H, W, cin, width,
+                        0, H);
+    if (err == cudaSuccess) err = launch_conv_gemm_s8<S8_CONV1>(g1, s);
+    if (err != cudaSuccess) return err;
+  }
+
+  if (part == 0 || part == 2) {
+    ConvArgsS8 c{};
+    c.h = static_cast<const int8_t*>(h1);
+    c.w = static_cast<const int8_t*>(w2);
+    c.a = f(a2);
+    c.bias = f(b2);
+    c.out = static_cast<int8_t*>(h2);
+    c.H = H;
+    c.W = W;
+    c.C = width;
+    c.stride = stride;
+    c.rows = RowMap{Ho, Wo, 0, 0};
+    c.M = B * Ho * Wo;
+    err = launch_gconv_halo(c, s);
+    if (err != cudaSuccess) return err;
+  }
+
+  if (part == 0 || part == 3) {
+    ConvGemmS8 g3;
+    err = conv3_gemm_s8(&g3, h2, w3, f(a3), f(b3), x, wd, f(ad), f(bd),
+                        f(ai), out, B, H, W, cin, width, cout, stride, 0,
+                        Ho);
+    if (err != cudaSuccess) return err;
+    if (wd != nullptr) return launch_conv_gemm_s8<S8_DOWNSAMPLE>(g3, s);
+    return launch_conv_gemm_s8<S8_RESIDUAL>(g3, s);
   }
   return cudaSuccess;
 }
@@ -341,55 +396,26 @@ extern "C" int mmb_bottleneck_s8(
     const void* a3, const void* b3, const void* wd, const void* ad,
     const void* bd, const void* ai, void* h1, void* h2, void* out, int B,
     int H, int W, int cin, int width, int cout, int stride, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Ho = (H - 1) / stride + 1;
-  const int Wo = (W - 1) / stride + 1;
-  const auto* xq = static_cast<const int8_t*>(x);
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return static_cast<int>(bottleneck_s8(
+      x, w1, a1, b1, w2, a2, b2, w3, a3, b3, wd, ad, bd, ai, h1, h2, out, B,
+      H, W, cin, width, cout, stride, 0, static_cast<cudaStream_t>(stream)));
+}
 
-  GemmArgsS8 g1{};
-  g1.a1 = xq;
-  g1.b1 = static_cast<const int8_t*>(w1);
-  g1.k1 = cin;
-  g1.M = B * H * W;
-  g1.N = width;
-  cudaError_t err = launch_gemm_s8(
-      g1, Requant{f(a1), f(b1), static_cast<int8_t*>(h1), width}, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  ConvArgsS8 c{};
-  c.h = static_cast<const int8_t*>(h1);
-  c.w = static_cast<const int8_t*>(w2);
-  c.a = f(a2);
-  c.bias = f(b2);
-  c.out = static_cast<int8_t*>(h2);
-  c.H = H;
-  c.W = W;
-  c.C = width;
-  c.stride = stride;
-  c.rows = RowMap{Ho, Wo, 0, 0};
-  c.M = B * Ho * Wo;
-  err = launch_grouped_conv(c, width / 32, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  GemmArgsS8 g3{};
-  g3.a1 = static_cast<const int8_t*>(h2);
-  g3.b1 = static_cast<const int8_t*>(w3);
-  g3.k1 = width;
-  g3.rows = RowMap{Ho, Wo, 0, 0};
-  g3.M = B * Ho * Wo;
-  g3.N = cout;
-  RequantResidual e3{f(a3), f(b3), f(ad), f(bd), f(ai), xq,
-                     static_cast<int8_t*>(out), cout};
-  if (wd != nullptr) {
-    g3.a2 = xq;
-    g3.b2 = static_cast<const int8_t*>(wd);
-    g3.k2 = cin;
-    g3.H = H;
-    g3.W = W;
-    g3.stride = stride;
-  }
-  return static_cast<int>(launch_gemm_s8(g3, e3, s));
+// One of K2's three launches alone (part 1 conv1, 2 the grouped 3x3, 3
+// conv3), with mmb_bottleneck_s8's arguments, for scripts/
+// probe_conv_tile.py --int8: conv1 reads x and writes h1, the grouped 3x3
+// h1 and h2, conv3 h2 (and x) and out.
+extern "C" int mmb_bottleneck_s8_part(
+    int part, const void* x, const void* w1, const void* a1, const void* b1,
+    const void* w2, const void* a2, const void* b2, const void* w3,
+    const void* a3, const void* b3, const void* wd, const void* ad,
+    const void* bd, const void* ai, void* h1, void* h2, void* out, int B,
+    int H, int W, int cin, int width, int cout, int stride, void* stream) {
+  if (part < 1 || part > 3) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bottleneck_s8(
+      x, w1, a1, b1, w2, a2, b2, w3, a3, b3, wd, ad, bd, ai, h1, h2, out, B,
+      H, W, cin, width, cout, stride, part,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* mmb_cuda_error_string(int code) {

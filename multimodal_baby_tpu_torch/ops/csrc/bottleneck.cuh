@@ -3,10 +3,11 @@
 // int8 transport) and the whole-stage kernel (stage.cu: K3a, K3b, and their
 // transport mode):
 //
-//   - the epilogue functors of gemm.cuh's 1x1 GEMMs (K2, K10a);
+//   - the epilogue functors of gemm.cuh's 1x1 GEMMs (K10a);
 //   - the grouped 3x3 (32 groups, pad 1, stride 1 or 2) as an implicit GEMM
-//     on the tensor cores: tile routines for bf16 (K10a) and int8 (K2),
-//     and the halo walk of K1 and the bf16 stage (gconv_halo_walk, below).
+//     on the tensor cores: tile routines for bf16 (K10a) and int8 (K2 and
+//     the int8 stage), and the halo walk of K1 and the bf16 stage
+//     (gconv_halo_walk, below).
 //
 // The grouped 3x3: for one tap, the tile's CBM output pixels read a
 // [CBM, 64] tile of h (the tap-shifted input pixels, zero outside the
@@ -54,58 +55,6 @@ struct BiasResidualRelu {
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.0f);
     *reinterpret_cast<uint4*>(out + off) = pack8(v);
-  }
-};
-
-// int8 conv1: out = clip(rint(acc * a + b), 0, 127)
-struct Requant {
-  const float* a;  // [N]
-  const float* b;  // [N]
-  int8_t* out;     // [pixels, N]
-  int N;
-
-  __device__ void operator()(int p, int n, const int (&v)[8],
-                             const int (&)[8]) const {
-    int8_t c[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      c[e] = clip_code(madd_rn(__int2float_rn(v[e]), a[n + e], b[n + e]));
-    *reinterpret_cast<uint2*>(out + static_cast<size_t>(p) * N + n) =
-        pack8_s8(c);
-  }
-};
-
-// int8 conv3: out = clip(rint((acc * a3 + b3) + identity), 0, 127) with
-// identity = accd * ad + bd (downsample) or x * ai
-struct RequantResidual {
-  const float* a3;
-  const float* b3;
-  const float* ad;  // null without a downsample
-  const float* bd;
-  const float* ai;  // with no downsample
-  const int8_t* x;  // block input [pixels, N], with no downsample
-  int8_t* out;
-  int N;
-
-  __device__ void operator()(int p, int n, const int (&v)[8],
-                             const int (&vd)[8]) const {
-    const size_t off = static_cast<size_t>(p) * N + n;
-    float id[8];
-    if (ad != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        id[e] = madd_rn(__int2float_rn(vd[e]), ad[n + e], bd[n + e]);
-    } else {
-      unpack8_s8(__ldcg(reinterpret_cast<const uint2*>(x + off)), id);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) id[e] = __fmul_rn(id[e], ai[n + e]);
-    }
-    int8_t c[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      c[e] = clip_code(__fadd_rn(
-          madd_rn(__int2float_rn(v[e]), a3[n + e], b3[n + e]), id[e]));
-    *reinterpret_cast<uint2*>(out + off) = pack8_s8(c);
   }
 };
 
@@ -172,11 +121,6 @@ constexpr int GC_LD = GC_BN + 8;  // bf16 pitch
 template <int CBM>
 constexpr int gconv_bf16_smem() {
   return (2 * CBM * GC_LD + 2 * GC_BN * GC_LD) * 2 + (CBM / 32) * 256 * 4;
-}
-
-template <int CBM>
-constexpr int gconv_s8_smem() {
-  return 2 * CBM * GC_BN + 2 * GC_BN * GC_BN + (CBM / 32) * 256 * 4;
 }
 
 // output row m of the tile -> (image, top-left input row and column of its
@@ -383,23 +327,29 @@ struct HaloTiles {
   int smem;             // a worker's bytes: B fragments, then the halo
 };
 
+// the B fragments of the int8 walk: 9 taps x up to 2 k16 steps x 2 n8
+// tiles x 1 register x 32 lanes x 4 warps
+constexpr int GH8_B_BYTES = 9 * 2 * 2 * 32 * 4 * 4;
+
 // the largest R (rows of cols = min(Wo, 128) columns, at most 128 pixels)
-// whose halo fits GH_MAX_HALO
-inline HaloTiles halo_tiles(int B, int W, int C, int stride, int ext) {
+// whose halo of 64 channels of esize bytes fits GH_MAX_HALO
+inline HaloTiles halo_tiles(int B, int W, int C, int stride, int ext,
+                            int esize = 2) {
   HaloTiles t{};
   const int Wo = (W - 1) / stride + 1;
   t.cols = Wo < GH_MAX_PIXELS ? Wo : GH_MAX_PIXELS;
   t.cols_in = (t.cols - 1) * stride + 3;
   t.R = 1;
   for (int R = 2; R <= ext && R * t.cols <= GH_MAX_PIXELS; ++R)
-    if (((R - 1) * stride + 3) * t.cols_in * GH_BN * 2 <= GH_MAX_HALO)
+    if (((R - 1) * stride + 3) * t.cols_in * GH_BN * esize <= GH_MAX_HALO)
       t.R = R;
   t.rows_in = (t.R - 1) * stride + 3;
   t.nrt = (ext + t.R - 1) / t.R;
   t.nct = (Wo + t.cols - 1) / t.cols;
   t.per_cb = B * t.nrt * t.nct;
   t.ncb = C / GH_BN;
-  t.smem = GH_B_BYTES + t.rows_in * t.cols_in * GH_BN * 2;
+  t.smem = (esize == 1 ? GH8_B_BYTES : GH_B_BYTES) +
+           t.rows_in * t.cols_in * GH_BN * esize;
   return t;
 }
 
@@ -553,129 +503,183 @@ __device__ __forceinline__ void gconv_halo_walk(const ConvArgs& c,
   }
 }
 
-// int8: the same tiles as 16-byte channel chunks ([chunk][row][16]), int32
-// sums, epilogue clip(rint(acc * a + bias), 0, 127)
-template <int CG, int CBM>
-__device__ __forceinline__ void gconv_s8_tile(const ConvArgsS8& c, int m0,
-                                              int c0, unsigned char* smem) {
-  using namespace nvcuda;
-  constexpr int SPAN = CG > 16 ? CG : 16;
-  constexpr int TPR = CBM / GC_BN;
-  int8_t* As = reinterpret_cast<int8_t*>(smem);  // [2][4][CBM][16]
-  int8_t* Bs = As + 2 * CBM * GC_BN;             // [2][4][64][16]
-  int* scratch = reinterpret_cast<int*>(Bs + 2 * GC_BN * GC_BN);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+// two 8x8 b16 matrices from shared memory (16 rows of 16 int8 channels);
+// lanes 0-15 give the addresses of rows 0-15
+__device__ __forceinline__ void ldsm_x2_gh(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p)))
+      : "memory");
+}
+
+// d += a . b on a 16x8x16 tile (int8 in, int32 sums; the fragments of
+// PTX's mma.m16n8k16 .s8: a rows g and g + 8, channels 4 (lane % 4) ..
+// + 3; b channels 4 (lane % 4) .. + 3 of column g)
+__device__ __forceinline__ void mma_s8_16816_gh(int (&d)[4],
+                                                const uint32_t (&a)[2],
+                                                uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// K2's and the int8 stage's grouped 3x3: gconv_halo_walk's tiles, workers
+// and order on int8 codes. A pixel of the halo is 64 bytes, its four
+// 16-byte chunks at chunk ^ (pixel / 2 % 4) (no bank conflicts at stride
+// 1); each warp's B fragments (one register a k16 step and n8 tile) are
+// built once into shared memory. int32 sums over the taps, each tap's
+// k16 step(s) over the group's input channels (mma.sync m16n8k16 .s8:
+// at CG = 16 a step is one group, with no zero products); the epilogue
+// clip(rint(acc * a + bias), 0, 127), product and sum each rounded once.
+// The sums are exact, so the codes are those of any order.
+template <int CG>
+__device__ __forceinline__ void gconv_halo_walk_s8(const ConvArgsS8& c,
+                                                   const HaloTiles& ht,
+                                                   int w, int n,
+                                                   unsigned char* smem,
+                                                   int tid, int bar) {
+  constexpr int KK = CG > 16 ? 2 : 1;  // k16 steps a tap
   const int lane = tid & 31;
-
-  // the 4 A vectors (16 channels each) this thread loads at every tap
-  int a_b[4], a_h[4], a_w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    conv_window(c, m0 + ((tid + i * CBM) >> 2), a_b[i], a_h[i], a_w[i]);
-
-  auto load_tap = [&](int t, int stage) {
-    const int ky = t / 3;
-    const int kx = t - 3 * ky;
-    int8_t* as = As + stage * CBM * GC_BN;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = tid + i * CBM;
-      const int row = v >> 2;
-      const int chunk = v & 3;
-      const int hi = a_h[i] + ky;
-      const int wi = a_w[i] + kx;
-      const bool ok =
-          a_b[i] >= 0 && hi >= 0 && hi < c.H && wi >= 0 && wi < c.W;
-      const int8_t* src =
-          ok ? c.h + ((static_cast<size_t>(a_b[i]) * c.H + hi) * c.W + wi) *
-                         c.C +
-                   c0 + chunk * 16
-             : c.h;
-      cp_async16(as + (chunk * CBM + row) * 16, src, ok);
-    }
-    int8_t* bs = Bs + stage * GC_BN * GC_BN;
-    const int k = tid / TPR;
-    const int g = k / CG;
-    const int col0 = (k / SPAN) * SPAN + (tid % TPR) * (SPAN / TPR);
-    const int8_t* wrow =
-        c.w + static_cast<size_t>(t * CG + (k - g * CG)) * c.C + c0;
-#pragma unroll
-    for (int e = 0; e < SPAN / TPR; ++e) {
-      const int n = col0 + e;
-      bs[((n >> 4) * GC_BN + k) * 16 + (n & 15)] =
-          n / CG == g ? wrow[n] : static_cast<int8_t>(0);
-    }
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int c0 = (w % ht.ncb) * GH_BN;
+  const int stride_w = n / ht.ncb;
+  if (w >= stride_w * ht.ncb) return;  // the workers past a whole round
+  uint32_t* bsm = reinterpret_cast<uint32_t*>(smem);
+  unsigned char* halo = smem + GH8_B_BYTES;
+  const auto sync = [&] {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(GH_THREADS)
+                 : "memory");
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][4];
+  // this warp's 16 output channels and its group's input channels; the
+  // block-diagonal B fragments of all 9 taps: channels 4 t4 .. + 3 of the
+  // k16 step (rows), output channel g of each n8 tile, at
+  // bsm[((warp * 9 + tap) * KK + kk) * 2 + nt][lane]
+  const int co0 = c0 + 16 * warp;
+  const int kin = CG > 16 ? (warp >> 1) * 32 : 16 * warp;  // in the tile
+  const unsigned char* w2 = reinterpret_cast<const unsigned char*>(c.w);
+  for (int f = 0; f < 9 * KK * 2; ++f) {
+    const int nt = f & 1;
+    const int kk = (f >> 1) % KK;
+    const int tap = (f >> 1) / KK;
+    const int co = co0 + nt * 8 + g;
+    uint32_t quad = 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0);
+    for (int e = 0; e < 4; ++e) {
+      const int ci = c0 + kin + kk * 16 + 4 * t4 + e;
+      const uint32_t wv = ci / CG == co / CG
+                              ? __ldg(w2 + (tap * CG + ci % CG) * c.C + co)
+                              : 0u;
+      quad |= wv << (8 * e);
+    }
+    bsm[(warp * 9 * KK * 2 + f) * 32 + lane] = quad;
+  }
 
-  load_tap(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < 9; ++t) {
-    if (t + 1 < 9) load_tap(t + 1, (t + 1) & 1);
+  const int Wo = c.rows.W;
+  const int s = c.stride;
+  const int ext = c.rows.ext ? c.rows.ext : c.rows.H;
+  for (int u = w / ht.ncb; u < ht.per_cb; u += stride_w) {
+    const int ct = u % ht.nct;
+    const int rt = (u / ht.nct) % ht.nrt;
+    const int b = u / (ht.nct * ht.nrt);
+    const int orow0 = c.rows.lo + rt * ht.R;  // the tile's first output row
+    const int ocol0 = ct * ht.cols;
+    const int R = min(ht.R, c.rows.lo + ext - orow0);
+    const int cols = min(ht.cols, Wo - ocol0);
+    const int P = R * cols;
+
+    // the halo: input rows orow0 s - 1 .., columns ocol0 s - 1 .., 4
+    // chunks of 16 channels a pixel
+    const int ir0 = orow0 * s - 1;
+    const int ic0 = ocol0 * s - 1;
+    for (int v = tid; v < ht.rows_in * ht.cols_in * 4; v += GH_THREADS) {
+      const int px = v >> 2;
+      const int ch = v & 3;
+      const int ir = ir0 + px / ht.cols_in;
+      const int ic = ic0 + px % ht.cols_in;
+      const bool ok = ir >= 0 && ir < c.H && ic >= 0 && ic < c.W;
+      const int8_t* src =
+          ok ? c.h + ((static_cast<size_t>(b) * c.H + ir) * c.W + ic) * c.C +
+                   c0 + 16 * ch
+             : c.h;
+      cp_async16(halo + px * 64 + ((ch ^ ((px >> 1) & 3)) << 4), src, ok);
+    }
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int8_t* as = As + (t & 1) * CBM * GC_BN;
-    const int8_t* bs = Bs + (t & 1) * GC_BN * GC_BN;
+
+    // this lane's window pixel at tap (0, 0) for each slab (its row of the
+    // slab: lane % 16); pixels past P repeat pixel 0 (their sums are not
+    // stored)
+    int p0[GH_MAX_PIXELS / 16];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int mt = 0; mt < GH_MAX_PIXELS / 16; ++mt) {
+      const int m = mt * 16 + (lane & 15);
+      const int r = m / cols;
+      p0[mt] = m < P ? r * s * ht.cols_in + (m - r * cols) * s : 0;
+    }
+    int acc[GH_MAX_PIXELS / 16][2][4];
 #pragma unroll
-      for (int kk = 0; kk < SPAN / 16; ++kk) {
-        const int ks = (j * 16 / SPAN) * (SPAN / 16) + kk;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                       wmma::row_major>
-            bf;
-        wmma::load_matrix_sync(
-            bf,
-            reinterpret_cast<const signed char*>(
-                bs + (j * GC_BN + ks * 16) * 16),
-            16);
+    for (int mt = 0; mt < GH_MAX_PIXELS / 16; ++mt)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                         wmma::row_major>
-              af;
-          wmma::load_matrix_sync(
-              af,
-              reinterpret_cast<const signed char*>(
-                  as + (ks * CBM + warp * 32 + i * 16) * 16),
-              16);
-          wmma::mma_sync(acc[i][j], af, bf, acc[i][j]);
+      for (int nt = 0; nt < 2; ++nt)
+        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] =
+            0;
+    const int MT = (P + 15) / 16;
+    cp_async_wait<0>();
+    sync();  // the halo (and, the first time, the B fragments) in place
+
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * ht.cols_in + tap % 3;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const int ch = (kin + kk * 16) / 16;
+        const uint32_t* bf =
+            bsm + (warp * 9 * KK * 2 + (tap * KK + kk) * 2) * 32 + lane;
+        const uint32_t b0 = bf[0], b1 = bf[32];
+#pragma unroll
+        for (int mt = 0; mt < GH_MAX_PIXELS / 16; ++mt) {
+          if (mt >= MT) continue;
+          const int px = p0[mt] + shift;
+          uint32_t a[2];
+          ldsm_x2_gh(a, halo + px * 64 + ((ch ^ ((px >> 1) & 3)) << 4));
+          mma_s8_16816_gh(acc[mt][0], a, b0);
+          mma_s8_16816_gh(acc[mt][1], a, b1);
         }
       }
     }
-    __syncthreads();
-  }
 
-  int* sc = scratch + warp * 256;
-  const int r = lane >> 1;
-  const int c8 = (lane & 1) * 8;
+    // h2 = clip(rint(acc * a + b2), 0, 127) at the tile's output pixels
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int mt = 0; mt < GH_MAX_PIXELS / 16; ++mt) {
+      if (mt >= MT) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + warp * 32 + i * 16 + r;
-      const int n = c0 + j * 16 + c8;
-      if (m < c.M) {
-        int8_t q[8];
+      for (int nt = 0; nt < 2; ++nt) {
+        const int co = co0 + nt * 8 + 2 * t4;
+        const float a0 = __ldg(c.a + co), a1 = __ldg(c.a + co + 1);
+        const float bb0 = __ldg(c.bias + co), bb1 = __ldg(c.bias + co + 1);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          q[e] = clip_code(madd_rn(__int2float_rn(sc[r * 16 + c8 + e]),
-                                   c.a[n + e], c.bias[n + e]));
-        *reinterpret_cast<uint2*>(
-            c.out + static_cast<size_t>(map_row(c.rows, m)) * c.C + n) =
-            pack8_s8(q);
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * 16 + g + 8 * h;
+          if (m >= P) continue;
+          const int r = m / cols;
+          const size_t px =
+              (static_cast<size_t>(b) * c.rows.H + orow0 + r) * Wo + ocol0 +
+              (m - r * cols);
+          const uint32_t q0 = static_cast<uint8_t>(clip_code(
+              madd_rn(__int2float_rn(acc[mt][nt][2 * h]), a0, bb0)));
+          const uint32_t q1 = static_cast<uint8_t>(clip_code(
+              madd_rn(__int2float_rn(acc[mt][nt][2 * h + 1]), a1, bb1)));
+          *reinterpret_cast<uint16_t*>(c.out + px * c.C + co) =
+              static_cast<uint16_t>(q0 | q1 << 8);
+        }
       }
-      __syncwarp();
     }
+    sync();  // the next tile's halo overwrites this one's
   }
 }
 

@@ -98,14 +98,15 @@ inline cudaError_t entry_point(const char* name, Fn* fn) {
   return cudaSuccess;
 }
 
-// an im2col map of the NHWC bf16 tensor [B, H, W, C]: boxes of `pixels`
-// pixels x 64 channels (the 128-byte swizzle), traversing the rows lo,
-// lo + s, ... < hi and the columns 0, s, ... < W of every image in turn.
-// The box corners are relative to the tensor's first and last rows (a 4D
-// map holds them in [-128, 127]).
+// an im2col map of the NHWC tensor [B, H, W, C] of bf16 (esize 2) or int8
+// codes (esize 1): boxes of `pixels` pixels x 128 bytes of channels (the
+// 128-byte swizzle), traversing the rows lo, lo + s, ... < hi and the
+// columns 0, s, ... < W of every image in turn. The box corners are
+// relative to the tensor's first and last rows (a 4D map holds them in
+// [-128, 127]).
 inline cudaError_t im2col_map(CUtensorMap* map, const void* base, int B,
                               int H, int W, int C, int lo, int hi, int s,
-                              int pixels) {
+                              int pixels, int esize = 2) {
   static decltype(&cuTensorMapEncodeIm2col) encode = nullptr;
   if (encode == nullptr) {
     const cudaError_t err = entry_point("cuTensorMapEncodeIm2col", &encode);
@@ -117,26 +118,30 @@ inline cudaError_t im2col_map(CUtensorMap* map, const void* base, int B,
                               static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * esize;
   const cuuint64_t strides[3] = {row, row * W, row * W * H};
   const int lower[2] = {0, lo};      // (W, H) from the first pixel
   const int upper[2] = {0, hi - H};  // (W, H) from the last
   const cuuint32_t steps[4] = {1, static_cast<cuuint32_t>(s),
                                static_cast<cuuint32_t>(s), 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, lower, upper, 64, static_cast<cuuint32_t>(pixels),
+      map, esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, lower, upper,
+      static_cast<cuuint32_t>(128 / esize), static_cast<cuuint32_t>(pixels),
       steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // the store map of the rows [lo, lo + ext) of every image of the NHWC
-// bf16 tensor [B, H, W, C] (boxes of 64 x 64 x 1, the 128-byte swizzle),
-// and its parts: one of all B H W rows when the band is the whole image,
-// else one of ext W rows an image
+// tensor [B, H, W, C] of bf16 (esize 2) or int8 codes (esize 1): boxes of
+// 128 bytes of channels x 64 rows x 1 (the 128-byte swizzle), and its
+// parts: one of all B H W rows when the band is the whole image, else one
+// of ext W rows an image
 inline cudaError_t band_store_map(ConvGemm* g, void* base, int B, int H,
-                                  int W, int C, int lo, int ext) {
+                                  int W, int C, int lo, int ext,
+                                  int esize = 2) {
   static decltype(&cuTensorMapEncodeTiled) encode = nullptr;
   if (encode == nullptr) {
     const cudaError_t err = entry_point("cuTensorMapEncodeTiled", &encode);
@@ -145,17 +150,20 @@ inline cudaError_t band_store_map(ConvGemm* g, void* base, int B, int H,
   const bool whole = ext == H;
   g->part = whole ? B * H * W : ext * W;
   g->parts = whole ? 1 : B;
-  const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * esize;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C),
                               static_cast<cuuint64_t>(g->part),
                               static_cast<cuuint64_t>(g->parts)};
   const cuuint64_t strides[2] = {row, row * W * H};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / esize), 64, 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   void* first = static_cast<char*>(base) + row * W * lo;
   const CUresult r = encode(
-      &g->out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, first, dims, strides,
-      box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      &g->out,
+      esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, first, dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -223,9 +231,9 @@ inline cudaError_t conv3_gemm(ConvGemm* g, const void* h2, const void* w3,
 
 // ---------------------------------------------------------- device side
 
-// a TMA map that the host wrote to device memory, made visible to this
-// thread's copies through it (the tensormap proxy), by the threads with p
-// set
+// a TMA map (a kernel parameter, or one the host wrote to device memory)
+// made visible to this thread's copies through it (the tensormap proxy),
+// by the threads with p set
 __device__ __forceinline__ void tensormap_acquire_if(bool p,
                                                      const CUtensorMap* map) {
   asm volatile(
@@ -311,16 +319,17 @@ struct ConvEpilogue {
   }
 };
 
-// a block's tiles of g: the row bands of 128 are cut within each store
-// part (bands() of them a part), tile u is row band u / nt and column tile
+// a block's tiles of g: the row bands of BM are cut within each store
+// part (bands of them a part), tile u is row band u / nt and column tile
 // u % nt; block b takes tiles b, b + grid, ...
-struct ConvWalk {
+template <int BM>
+struct TileWalk {
   int nt, nk, bands, tiles;
 
-  __device__ __forceinline__ explicit ConvWalk(const ConvGemm& g) {
+  __device__ __forceinline__ explicit TileWalk(const ConvGemm& g) {
     nt = g.N / PP_BN;
     nk = g.nk1 + g.nk2;
-    bands = (g.part + PP_BM - 1) / PP_BM;
+    bands = (g.part + BM - 1) / BM;
     const int total = bands * g.parts * nt;
     tiles = static_cast<int>(blockIdx.x) < total
                 ? (total - blockIdx.x + gridDim.x - 1) / gridDim.x
@@ -333,7 +342,7 @@ struct ConvWalk {
   }
 
   __device__ __forceinline__ int row_in_part(int j) const {
-    return (blockIdx.x + j * gridDim.x) / nt % bands * PP_BM;
+    return (blockIdx.x + j * gridDim.x) / nt % bands * BM;
   }
 
   __device__ __forceinline__ int row(const ConvGemm& g, int j) const {
@@ -347,6 +356,8 @@ struct ConvWalk {
   // the ring slices the block takes
   __device__ __forceinline__ int slices() const { return tiles * nk; }
 };
+
+using ConvWalk = TileWalk<PP_BM>;
 
 // by one thread, before the first walk of the launch (a block barrier
 // publishes it)
@@ -497,7 +508,8 @@ __device__ __forceinline__ void conv_consume(const ConvGemm& g,
   bulk_wait<false>();  // the stores are done before the walk ends
 }
 
-// one GEMM in its own launch (K1's conv1 and conv3)
+// one GEMM in its own launch (K1's conv1 and conv3), its kernel-parameter
+// maps acquired as K2's are (conv_gemm_s8.cuh)
 template <class Epilogue>
 __global__ void __launch_bounds__(PP_THREADS, 1)
     conv_gemm(const __grid_constant__ ConvGemm g) {
@@ -512,22 +524,30 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
   const int wg = warpgroup();
   if (wg < 2) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const bool issuer = threadIdx.x % PP_WG == 0;
+    tensormap_acquire_if(issuer, &g.out);
+    tensormap_acquire_if(issuer && Epilogue::kResidual, &g.res);
     conv_consume<Epilogue>(g, stages, ring, wg, 0);
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    conv_produce(g, stages, ring, 0, threadIdx.x == 2 * PP_WG);
+    const bool issuer = threadIdx.x == 2 * PP_WG;
+    tensormap_acquire_if(issuer, &g.a1);
+    tensormap_acquire_if(issuer, &g.w1);
+    tensormap_acquire_if(issuer && g.nk2 > 0, &g.a2);
+    tensormap_acquire_if(issuer && g.nk2 > 0, &g.w2);
+    conv_produce(g, stages, ring, 0, issuer);
   }
 }
 
-// the persistent grid of a GEMM: one block an SM, at most one a tile
-// (ops/bottleneck.py::conv_geometry)
-inline cudaError_t conv_grid(const ConvGemm& g, int* grid) {
+// the persistent grid of a GEMM on tiles of bm rows: one block an SM, at
+// most one a tile (ops/bottleneck.py::conv_geometry)
+inline cudaError_t conv_grid(const ConvGemm& g, int* grid, int bm = PP_BM) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int tiles = (g.part + PP_BM - 1) / PP_BM * g.parts * (g.N / PP_BN);
+  const int tiles = (g.part + bm - 1) / bm * g.parts * (g.N / PP_BN);
   *grid = tiles < sms ? tiles : sms;
   return cudaSuccess;
 }

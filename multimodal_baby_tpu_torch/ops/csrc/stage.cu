@@ -36,17 +36,19 @@
 // The grid is as many blocks as fit on the card at once (the cooperative
 // launch guarantees they are resident together, which the barrier needs).
 //
-// The bf16 body (stage_bf16_kernel: K3a's and K3b's bf16 stages) runs its
-// GEMM phases on conv_gemm.cuh's TMA-fed wgmma tile, K1's, with one
-// consumer warpgroup (not two in turns) and a producer warpgroup, one
-// mbarrier ring across the phases (its slice counter runs on), and the
-// grouped 3x3 on both warpgroups, K1's halo tiles: 256 threads, one block
-// an SM. The TMA maps of every band, block and GEMM (the rows each operand
-// reads, in im2col mode, and the output band's store map), with the
-// grouped 3x3's arguments, are built on the host once per launch and
-// copied to device memory beside the launch (mmb_stage's `plan`). Its
-// values are K1's chain's bit for bit. The int8 and transport bodies
-// (stage_kernel) run gemm.cuh's tiles, K2's and K10a's, at 256 threads.
+// The bf16 and int8 bodies (stage_tile_kernel, one template on the
+// element type: K3a's and K3b's bf16 stages, K3a's int8 stages and the
+// banded int8 stage) run their GEMM phases on the TMA-fed wgmma tiles of
+// K1 and K2 (conv_gemm.cuh, conv_gemm_s8.cuh) with one consumer warpgroup
+// (not two in turns) and a producer warpgroup, one mbarrier ring across
+// the phases (its slice counter runs on), and the grouped 3x3 on both
+// warpgroups, each a worker of K1's or K2's halo tiles. 256 threads, one block an SM. The TMA maps of every
+// band, block and GEMM (the rows each operand reads, in im2col mode, and
+// the output band's store map), with the grouped 3x3's arguments, are
+// built on the host once per launch and copied to device memory beside
+// the launch (mmb_stage's `plan`). Its values are K1's and K2's chains'
+// bit for bit. The transport body (stage_kernel) runs gemm.cuh's bf16
+// tiles, K10a's, at 256 threads.
 //
 // What bounds it on an H100: as K1/K2, tensor-core throughput on the 1x1
 // GEMMs (layer 1's bf16 band by device memory); the launch saves the
@@ -56,7 +58,7 @@
 #include <vector>
 
 #include "bottleneck.cuh"
-#include "conv_gemm.cuh"
+#include "conv_gemm_s8.cuh"
 #include "grid.cuh"
 
 namespace {
@@ -115,29 +117,24 @@ __host__ __device__ inline BandRows band_rows(const StageArgs& p, int band,
   }
 }
 
-// The three bodies: bf16 (K1's chain: stage_bf16_kernel), int8 (K2's) and
-// int8 transport (K10a's: int8 codes between the blocks, K1's bf16 chain
-// inside each; both stage_kernel).
+// The three modes: bf16 (K1's chain) and int8 (K2's), both
+// stage_tile_kernel, and int8 transport (K10a's: int8 codes between the
+// blocks, K1's bf16 chain inside each; stage_kernel).
 constexpr int BF16 = 0;
 constexpr int S8 = 1;
 constexpr int TRANSPORT = 2;
 
-// The int8 and transport bodies. Transport runs the bf16 body of gemm.cuh
-// at two blocks per SM (its downsample keeps its sums in shared memory,
-// not registers); int8 keeps one: its downsample GEMM holds two sets of
-// int32 accumulators, which spill at 128 registers (measured 43% slower on
-// layer 4). A/B on an H100 with scripts/ab_stage_kernel.sh.
-template <int MODE, int CG>
-__global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
+// The transport body: gemm.cuh's bf16 tiles at two blocks per SM (the
+// downsample keeps its sums in shared memory, not registers).
+template <int CG>
+__global__ void __launch_bounds__(STAGE_THREADS, 2)
     stage_kernel(const StageArgs p) {
-  constexpr bool Q = MODE == S8;
-  using T = std::conditional_t<Q, int8_t, __nv_bfloat16>;  // h1, h2
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = p.n_blocks;
   const StageBlock& last = p.blk[n - 1];
   const int n_bands = ((last.H - 1) / last.stride + 1) / p.band;
-  T* h1 = static_cast<T*>(p.h1);
-  T* h2 = static_cast<T*>(p.h2);
+  __nv_bfloat16* h1 = static_cast<__nv_bfloat16*>(p.h1);
+  __nv_bfloat16* h2 = static_cast<__nv_bfloat16*>(p.h2);
 
   for (int band = 0; band < n_bands; ++band) {
     for (int j = 0; j < n; ++j) {
@@ -147,17 +144,17 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
           j == 0 ? p.x : ((j - 1) & 1 ? p.t1 : p.t0));
       int8_t* out =
           static_cast<int8_t*>(j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0));
-      // the GEMMs' A operand: transport's int8 codes ride in a bf16 pointer
-      const T* in_a = reinterpret_cast<const T*>(in);
+      // the GEMMs' A operand: the int8 codes ride in a bf16 pointer
+      const __nv_bfloat16* in_a = reinterpret_cast<const __nv_bfloat16*>(in);
       const int Ho = (b.H - 1) / b.stride + 1;
       const int Wo = (b.W - 1) / b.stride + 1;
       const RowMap rin{b.H, b.W, r.in_lo, r.in_hi - r.in_lo};
       const RowMap rout{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
 
       {  // conv1 on the input rows
-        GemmArgsT<T> g{};
+        GemmArgs g{};
         g.a1 = in_a;
-        g.b1 = static_cast<const T*>(b.w1);
+        g.b1 = static_cast<const __nv_bfloat16*>(b.w1);
         g.k1 = b.cin;
         g.rows = rin;
         g.M = p.B * rin.ext * b.W;
@@ -165,24 +162,16 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
         const int nt = p.width / BN;
         const int tiles = nt * ((g.M + BM - 1) / BM);
         for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          const int m0 = (t / nt) * BM;
-          const int n0 = (t % nt) * BN;
-          if constexpr (Q) {
-            gemm_s8_tile<false>(g, Requant{b.a1, b.b1, h1, p.width}, m0, n0,
-                                smem);
-          } else {
-            const BiasResidualRelu e{b.b1, nullptr, nullptr, h1, p.width};
-            gemm_bf16_tile<true>(g, e, m0, n0, smem);
-          }
+          const BiasResidualRelu e{b.b1, nullptr, nullptr, h1, p.width};
+          gemm_bf16_tile<true>(g, e, (t / nt) * BM, (t % nt) * BN, smem);
         }
       }
       grid_sync(p.bar);
 
       {  // the grouped 3x3 on the output rows
-        ConvArgsT<T> c{};
+        ConvArgs c{};
         c.h = h1;
-        c.w = static_cast<const T*>(b.w2);
-        c.a = b.a2;
+        c.w = static_cast<const __nv_bfloat16*>(b.w2);
         c.bias = b.b2;
         c.out = h2;
         c.H = b.H;
@@ -193,28 +182,23 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
         c.M = p.B * rout.ext * Wo;
         const int nt = p.width / GC_BN;
         const int tiles = nt * ((c.M + STAGE_CBM - 1) / STAGE_CBM);
-        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          if constexpr (Q)
-            gconv_s8_tile<CG, STAGE_CBM>(c, (t / nt) * STAGE_CBM,
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+          gconv_bf16_tile<CG, STAGE_CBM>(c, (t / nt) * STAGE_CBM,
                                          (t % nt) * GC_BN, smem);
-          else
-            gconv_bf16_tile<CG, STAGE_CBM>(c, (t / nt) * STAGE_CBM,
-                                           (t % nt) * GC_BN, smem);
-        }
       }
       grid_sync(p.bar);
 
       {  // conv3 + identity on the output rows
-        GemmArgsT<T> g{};
+        GemmArgs g{};
         g.a1 = h2;
-        g.b1 = static_cast<const T*>(b.w3);
+        g.b1 = static_cast<const __nv_bfloat16*>(b.w3);
         g.k1 = p.width;
         g.rows = rout;
         g.M = p.B * rout.ext * Wo;
         g.N = p.cout;
         if (b.wd != nullptr) {
           g.a2 = in_a;
-          g.b2 = static_cast<const T*>(b.wd);
+          g.b2 = static_cast<const __nv_bfloat16*>(b.wd);
           g.k2 = b.cin;
           g.H = b.H;
           g.W = b.W;
@@ -225,32 +209,17 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
         for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
           const int m0 = (t / nt) * BM;
           const int n0 = (t % nt) * BN;
-          if constexpr (Q) {
-            if (b.wd != nullptr)
-              gemm_s8_tile<true>(
-                  g,
-                  RequantResidual{b.a3, b.b3, b.ad, b.bd, nullptr, nullptr,
-                                  out, p.cout},
-                  m0, n0, smem);
-            else
-              gemm_s8_tile<false>(
-                  g,
-                  RequantResidual{b.a3, b.b3, nullptr, nullptr, b.ai, in,
-                                  out, p.cout},
-                  m0, n0, smem);
-          } else {
-            if (b.wd != nullptr)
-              gemm_bf16_tile<false, true, true>(
-                  g,
-                  TransportOut{b.a3, b.b3, b.ad, b.bd, nullptr, nullptr, out,
-                               p.cout},
-                  m0, n0, smem);
-            else
-              gemm_bf16_tile(g,
-                             TransportOut{b.a3, b.b3, nullptr, nullptr, b.ai,
-                                          in, out, p.cout},
-                             m0, n0, smem);
-          }
+          if (b.wd != nullptr)
+            gemm_bf16_tile<false, true, true>(
+                g,
+                TransportOut{b.a3, b.b3, b.ad, b.bd, nullptr, nullptr, out,
+                             p.cout},
+                m0, n0, smem);
+          else
+            gemm_bf16_tile(g,
+                           TransportOut{b.a3, b.b3, nullptr, nullptr, b.ai,
+                                        in, out, p.cout},
+                           m0, n0, smem);
         }
       }
       grid_sync(p.bar);
@@ -258,7 +227,7 @@ __global__ void __launch_bounds__(STAGE_THREADS, MODE == S8 ? 1 : 2)
   }
 }
 
-// the grid barrier between the bf16 body's phases, from each role's own
+// the grid barrier between the tile bodies' phases, from each role's own
 // code path (the unaligned block barrier): TMA copies and stores (the async
 // proxy) and plain loads and stores on either side of it are ordered both
 // ways
@@ -273,154 +242,279 @@ __device__ __forceinline__ void stage_sync(unsigned* bar) {
 
 // the grouped 3x3's barriers, one a warpgroup (1-4: the 1x1 tile's)
 constexpr int STAGE_GC_BAR = 5;
-constexpr int STAGE_BF16_THREADS = 2 * PP_WG;
+constexpr int STAGE_TILE_THREADS = 2 * PP_WG;
+static_assert(2 * GH_SMEM <= PP_SMEM,
+              "both warpgroups' grouped-3x3 workers fit the ring's memory");
 
-// One block of one band of the bf16 body, built on the host and read by
-// the kernel from device memory (no argument is indexed at run time in
-// parameter space): conv1's and conv3's TMA maps, walks and biases, the
-// grouped 3x3's arguments.
-struct StageStep {
-  ConvGemm conv1, conv3;  // with their biases
-  ConvArgs gconv;         // on the output rows
-  HaloTiles halo;         // its tiles
+// One block of one band of the bf16 or int8 body, built on the host and
+// read by the kernel from device memory (no argument is indexed at run
+// time in parameter space): conv1's and conv3's TMA maps, walks, biases
+// and scales, the grouped 3x3's arguments (and, bf16, its halo tiles).
+struct StageStep {  // bf16
+  ConvGemm conv1, conv3;
+  ConvArgs gconv;  // on the output rows
+  HaloTiles halo;  // its tiles
 };
 
-struct StageBf16Args {
-  const StageStep* steps;  // band-major, then block
+struct StageStepS8 {
+  ConvGemmS8 conv1, conv3;
+  ConvArgsS8 gconv;
+  HaloTiles halo;
+};
+
+template <class Step>
+struct StageTileArgs {
+  const Step* steps;  // band-major, then block
   int n_steps;
   unsigned* bar;  // two zeroed words: arrivals, generation
 };
 
-// One warpgroup's walk of the bf16 body (CONSUMER: warpgroup 0, else the
-// producer, warpgroup 1, whose first thread issues the copies): per step,
-// conv1 and conv3 on conv_gemm.cuh's tile with the one consumer, between
-// them the grouped 3x3 with both warpgroups as workers of K1's halo tiles
-// (bottleneck.cuh::gconv_halo_walk), each in its half of the ring's
-// shared memory. The maps of each GEMM are acquired through the tensormap
-// proxy first by the threads that copy through them (the host wrote them
-// to device memory that earlier launches' maps may have occupied).
-template <int CG, bool CONSUMER>
-__device__ __forceinline__ void stage_bf16_walk(const StageBf16Args& p,
+// A warpgroup's place in the walk of the bf16 or int8 body.
+struct StageWalk {
+  unsigned char* smem;  // the ring's stages (aligned)
+  PingPongRing* ring;
+  int wg;
+  bool issuer;  // the warpgroup's first thread: its copies and stores
+  int q;        // the ring's slices so far
+  int parity;   // the int8 residual barrier's phase
+};
+
+// One GEMM of the bf16 body by the consumer (CONSUMER) or the producer.
+// The maps of each GEMM are acquired through the tensormap proxy first by
+// the threads that copy through them (the host wrote them to device memory
+// that earlier launches' maps may have occupied).
+template <bool CONSUMER, class Epilogue>
+__device__ __forceinline__ void stage_gemm(const ConvGemm& g, StageWalk& s) {
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(s.smem);
+  if constexpr (CONSUMER) {
+    tensormap_acquire_if(s.issuer, &g.out);
+    tensormap_acquire_if(s.issuer && Epilogue::kResidual, &g.res);
+    conv_consume<Epilogue, 1>(g, stages, *s.ring, s.wg, s.q);
+  } else {
+    tensormap_acquire_if(s.issuer, &g.a1);
+    tensormap_acquire_if(s.issuer, &g.w1);
+    tensormap_acquire_if(s.issuer && g.nk2 > 0, &g.a2);
+    tensormap_acquire_if(s.issuer && g.nk2 > 0, &g.w2);
+    conv_produce(g, stages, *s.ring, s.q, s.issuer);
+  }
+  s.q += ConvWalk(g).slices();
+}
+
+// one GEMM of the int8 body (conv_gemm_s8.cuh's MODE) on 64-row tiles,
+// the downsample's identity through shared memory: K2's 128-row tiles, and
+// the downsample's two sets of sums in registers, spill in this kernel,
+// whose plan's values hold registers (PERF.md)
+template <bool CONSUMER, int MODE>
+__device__ __forceinline__ void stage_gemm(const ConvGemmS8& g,
+                                           StageWalk& s) {
+  constexpr int BM = S8_STAGE_ROWS;
+  constexpr bool ID_SMEM = MODE == S8_DOWNSAMPLE;
+  if constexpr (CONSUMER) {
+    tensormap_acquire_if(s.issuer, &g.out);
+    tensormap_acquire_if(s.issuer && MODE == S8_RESIDUAL, &g.res);
+    conv_consume_s8<MODE, 1, BM, ID_SMEM>(g, s.smem, *s.ring, s.wg, s.q,
+                                          s.parity);
+  } else {
+    tensormap_acquire_if(s.issuer, &g.a1);
+    tensormap_acquire_if(s.issuer, &g.w1);
+    tensormap_acquire_if(s.issuer && MODE == S8_DOWNSAMPLE, &g.a2);
+    tensormap_acquire_if(s.issuer && MODE == S8_DOWNSAMPLE, &g.w2);
+    conv_produce_s8<MODE, BM, ID_SMEM>(g, s.smem, *s.ring, s.q, s.issuer);
+  }
+  s.q += TileWalk<BM>(g).slices();
+}
+
+// conv1, the grouped 3x3 and conv3 of a bf16 step
+template <bool CONSUMER>
+__device__ __forceinline__ void stage_conv1(const StageStep& st,
+                                            StageWalk& s) {
+  stage_gemm<CONSUMER, ConvEpilogue<false, false>>(st.conv1, s);
+}
+
+template <int CG>
+__device__ __forceinline__ void stage_gconv(const StageStep& st,
+                                            StageWalk& s) {
+  gconv_halo_walk<CG>(st.gconv, st.halo, 2 * blockIdx.x + s.wg,
+                      2 * gridDim.x, s.smem + s.wg * GH_SMEM,
+                      threadIdx.x % GH_THREADS, STAGE_GC_BAR + s.wg);
+}
+
+template <bool CONSUMER>
+__device__ __forceinline__ void stage_conv3(const StageStep& st,
+                                            StageWalk& s) {
+  if (st.conv3.b2 != nullptr)
+    stage_gemm<CONSUMER, ConvEpilogue<true, false>>(st.conv3, s);
+  else
+    stage_gemm<CONSUMER, ConvEpilogue<false, true>>(st.conv3, s);
+}
+
+// conv1, the grouped 3x3 (each warpgroup a worker of K2's halo tiles) and
+// conv3 of an int8 step
+template <bool CONSUMER>
+__device__ __forceinline__ void stage_conv1(const StageStepS8& st,
+                                            StageWalk& s) {
+  stage_gemm<CONSUMER, S8_CONV1>(st.conv1, s);
+}
+
+template <int CG>
+__device__ __forceinline__ void stage_gconv(const StageStepS8& st,
+                                            StageWalk& s) {
+  gconv_halo_walk_s8<CG>(st.gconv, st.halo, 2 * blockIdx.x + s.wg,
+                         2 * gridDim.x, s.smem + s.wg * GH_SMEM,
+                         threadIdx.x % GH_THREADS, STAGE_GC_BAR + s.wg);
+}
+
+template <bool CONSUMER>
+__device__ __forceinline__ void stage_conv3(const StageStepS8& st,
+                                            StageWalk& s) {
+  if (st.conv3.nk2 > 0)
+    stage_gemm<CONSUMER, S8_DOWNSAMPLE>(st.conv3, s);
+  else
+    stage_gemm<CONSUMER, S8_RESIDUAL>(st.conv3, s);
+}
+
+// One warpgroup's walk of the bf16 or int8 body (CONSUMER: warpgroup 0,
+// else the producer, warpgroup 1, whose first thread issues the copies):
+// per step, conv1 and conv3 on the 1x1 tile with the one consumer, between
+// them the grouped 3x3 with both warpgroups as its workers, each in its
+// half of the ring's shared memory.
+template <class Step, int CG, bool CONSUMER>
+__device__ __forceinline__ void stage_tile_walk(const StageTileArgs<Step>& p,
                                                 unsigned char* smem,
                                                 PingPongRing& ring, int wg) {
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
-  const bool issuer = threadIdx.x % PP_WG == 0;
-  int q = 0;  // the ring's slices so far
-  const auto gemm = [&](const ConvGemm& g, auto epilogue) {
-    if constexpr (CONSUMER) {
-      tensormap_acquire_if(issuer, &g.out);
-      tensormap_acquire_if(issuer && epilogue.kResidual, &g.res);
-      conv_consume<decltype(epilogue), 1>(g, stages, ring, wg, q);
-    } else {
-      tensormap_acquire_if(issuer, &g.a1);
-      tensormap_acquire_if(issuer, &g.w1);
-      tensormap_acquire_if(issuer && g.nk2 > 0, &g.a2);
-      tensormap_acquire_if(issuer && g.nk2 > 0, &g.w2);
-      conv_produce(g, stages, ring, q, issuer);
-    }
-    q += ConvWalk(g).slices();
-  };
+  StageWalk s{smem, &ring, wg, threadIdx.x % PP_WG == 0, 0, 0};
   for (int i = 0; i < p.n_steps; ++i) {
-    const StageStep& st = p.steps[i];
-    gemm(st.conv1, ConvEpilogue<false, false>{});
+    const Step& st = p.steps[i];
+    stage_conv1<CONSUMER>(st, s);
     stage_sync(p.bar);
-
-    gconv_halo_walk<CG>(st.gconv, st.halo, 2 * blockIdx.x + wg,
-                        2 * gridDim.x, smem + wg * GH_SMEM,
-                        threadIdx.x % GH_THREADS, STAGE_GC_BAR + wg);
+    stage_gconv<CG>(st, s);
     stage_sync(p.bar);
-
-    if (st.conv3.b2 != nullptr)
-      gemm(st.conv3, ConvEpilogue<true, false>{});
-    else
-      gemm(st.conv3, ConvEpilogue<false, true>{});
+    stage_conv3<CONSUMER>(st, s);
     stage_sync(p.bar);
   }
 }
 
-// The bf16 body: 256 threads (a consumer and a producer warpgroup), one
-// block an SM, 255 registers a thread: one consumer, not K1's two with
-// setmaxnreg 232 / 40, which spill here because the plan's values come
-// from device memory and hold registers that K1's kernel parameters do
-// not (PERF.md).
-template <int CG>
-__global__ void __launch_bounds__(STAGE_BF16_THREADS, 1)
-    stage_bf16_kernel(const StageBf16Args p) {
-  extern __shared__ __align__(128) unsigned char stage_bf16_smem[];
+// The bf16 and int8 body: 256 threads (a consumer and a producer
+// warpgroup), one block an SM, 255 registers a thread: one consumer, not
+// K1's two with setmaxnreg 232 / 40, which spill here because the plan's
+// values come from device memory and hold registers that K1's kernel
+// parameters do not (PERF.md).
+template <class Step, int CG>
+__global__ void __launch_bounds__(STAGE_TILE_THREADS, 1)
+    stage_tile_kernel(const StageTileArgs<Step> p) {
+  extern __shared__ __align__(128) unsigned char stage_tile_smem[];
   __shared__ PingPongRing ring;
-  unsigned char* smem = align_atoms(stage_bf16_smem);
+  unsigned char* smem = align_atoms(stage_tile_smem);
   if (threadIdx.x == 0) conv_ring_init(ring);
   __syncthreads();
   const int wg = warpgroup();
   if (wg == 0)
-    stage_bf16_walk<CG, true>(p, smem, ring, wg);
+    stage_tile_walk<Step, CG, true>(p, smem, ring, wg);
   else
-    stage_bf16_walk<CG, false>(p, smem, ring, wg);
+    stage_tile_walk<Step, CG, false>(p, smem, ring, wg);
 }
 
-// the bf16 body's plan (one StageStep per band and block, built here and
-// copied to `plan` on the stream) and launch
-template <int CG>
-cudaError_t launch_stage_bf16(const StageArgs& p, void* plan,
+// one band's block of the bf16 body
+inline cudaError_t stage_step(StageStep* st, const StageArgs& p,
+                              const StageBlock& b, const BandRows& r,
+                              const void* in, void* out) {
+  cudaError_t err = conv1_gemm(&st->conv1, in, b.w1, b.b1, p.h1, p.B, b.H,
+                               b.W, b.cin, p.width, r.in_lo, r.in_hi);
+  if (err == cudaSuccess)
+    err = conv3_gemm(&st->conv3, p.h2, b.w3, b.b3, in, b.wd, b.bd, out, p.B,
+                     b.H, b.W, b.cin, p.width, p.cout, b.stride, r.out_lo,
+                     r.out_hi);
+  if (err != cudaSuccess) return err;
+  const int Ho = (b.H - 1) / b.stride + 1;
+  const int Wo = (b.W - 1) / b.stride + 1;
+  ConvArgs& c = st->gconv;
+  c = ConvArgs{};
+  c.h = static_cast<const __nv_bfloat16*>(p.h1);
+  c.w = static_cast<const __nv_bfloat16*>(b.w2);
+  c.bias = b.b2;
+  c.out = static_cast<__nv_bfloat16*>(p.h2);
+  c.H = b.H;
+  c.W = b.W;
+  c.C = p.width;
+  c.stride = b.stride;
+  c.rows = RowMap{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
+  c.M = p.B * c.rows.ext * Wo;
+  st->halo = halo_tiles(p.B, b.W, p.width, b.stride, c.rows.ext);
+  return cudaSuccess;
+}
+
+// one band's block of the int8 body
+inline cudaError_t stage_step(StageStepS8* st, const StageArgs& p,
+                              const StageBlock& b, const BandRows& r,
+                              const void* in, void* out) {
+  cudaError_t err =
+      conv1_gemm_s8(&st->conv1, in, b.w1, b.a1, b.b1, p.h1, p.B, b.H, b.W,
+                    b.cin, p.width, r.in_lo, r.in_hi, S8_STAGE_ROWS);
+  if (err == cudaSuccess)
+    err = conv3_gemm_s8(&st->conv3, p.h2, b.w3, b.a3, b.b3, in, b.wd, b.ad,
+                        b.bd, b.ai, out, p.B, b.H, b.W, b.cin, p.width,
+                        p.cout, b.stride, r.out_lo, r.out_hi, S8_STAGE_ROWS);
+  if (err != cudaSuccess) return err;
+  const int Ho = (b.H - 1) / b.stride + 1;
+  const int Wo = (b.W - 1) / b.stride + 1;
+  ConvArgsS8& c = st->gconv;
+  c = ConvArgsS8{};
+  c.h = static_cast<const int8_t*>(p.h1);
+  c.w = static_cast<const int8_t*>(b.w2);
+  c.a = b.a2;
+  c.bias = b.b2;
+  c.out = static_cast<int8_t*>(p.h2);
+  c.H = b.H;
+  c.W = b.W;
+  c.C = p.width;
+  c.stride = b.stride;
+  c.rows = RowMap{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
+  c.M = p.B * c.rows.ext * Wo;
+  st->halo = halo_tiles(p.B, b.W, p.width, b.stride, c.rows.ext, 1);
+  return cudaSuccess;
+}
+
+// the plan of the bf16 or int8 body (one Step per band and block, built
+// here and copied to `plan` on the stream) and its launch
+template <class Step, int CG>
+cudaError_t launch_stage_tile(const StageArgs& p, void* plan,
                               cudaStream_t stream) {
   const int n = p.n_blocks;
   const StageBlock& last = p.blk[n - 1];
   const int n_bands = ((last.H - 1) / last.stride + 1) / p.band;
-  std::vector<StageStep> steps(n_bands * n);
+  std::vector<Step> steps(n_bands * n);
   for (int band = 0; band < n_bands; ++band) {
     for (int j = 0; j < n; ++j) {
-      const StageBlock& b = p.blk[j];
-      const BandRows r = band_rows(p, band, j);
       const void* in = j == 0 ? p.x : ((j - 1) & 1 ? p.t1 : p.t0);
       void* out = j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0);
-      StageStep& st = steps[band * n + j];
-      cudaError_t err =
-          conv1_gemm(&st.conv1, in, b.w1, b.b1, p.h1, p.B, b.H, b.W, b.cin,
-                     p.width, r.in_lo, r.in_hi);
-      if (err == cudaSuccess)
-        err = conv3_gemm(&st.conv3, p.h2, b.w3, b.b3, in, b.wd, b.bd, out,
-                         p.B, b.H, b.W, b.cin, p.width, p.cout, b.stride,
-                         r.out_lo, r.out_hi);
+      const cudaError_t err = stage_step(&steps[band * n + j], p, p.blk[j],
+                                         band_rows(p, band, j), in, out);
       if (err != cudaSuccess) return err;
-      const int Ho = (b.H - 1) / b.stride + 1;
-      const int Wo = (b.W - 1) / b.stride + 1;
-      ConvArgs& c = st.gconv;
-      c = ConvArgs{};
-      c.h = static_cast<const __nv_bfloat16*>(p.h1);
-      c.w = static_cast<const __nv_bfloat16*>(b.w2);
-      c.bias = b.b2;
-      c.out = static_cast<__nv_bfloat16*>(p.h2);
-      c.H = b.H;
-      c.W = b.W;
-      c.C = p.width;
-      c.stride = b.stride;
-      c.rows = RowMap{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
-      c.M = p.B * c.rows.ext * Wo;
-      st.halo = halo_tiles(p.B, b.W, p.width, b.stride, c.rows.ext);
     }
   }
   // pageable to device: the call returns once the host bytes are staged
   const cudaError_t err =
-      cudaMemcpyAsync(plan, steps.data(), steps.size() * sizeof(StageStep),
+      cudaMemcpyAsync(plan, steps.data(), steps.size() * sizeof(Step),
                       cudaMemcpyHostToDevice, stream);
   if (err != cudaSuccess) return err;
-  const StageBf16Args a{static_cast<const StageStep*>(plan),
-                        static_cast<int>(steps.size()), p.bar};
-  return launch_persistent(stage_bf16_kernel<CG>, a, STAGE_BF16_THREADS,
-                           PP_SMEM, stream);
+  const StageTileArgs<Step> a{static_cast<const Step*>(plan),
+                              static_cast<int>(steps.size()), p.bar};
+  return launch_persistent(stage_tile_kernel<Step, CG>, a,
+                           STAGE_TILE_THREADS, PP_SMEM, stream);
 }
 
 template <int MODE, int CG>
 cudaError_t launch_stage(const StageArgs& p, void* plan,
                          cudaStream_t stream) {
   if constexpr (MODE == BF16) {
-    return launch_stage_bf16<CG>(p, plan, stream);
+    return launch_stage_tile<StageStep, CG>(p, plan, stream);
+  } else if constexpr (MODE == S8) {
+    return launch_stage_tile<StageStepS8, CG>(p, plan, stream);
   } else {
-    constexpr int gemm_smem = MODE == S8 ? GEMM8_SMEM : GEMM_HELD_SMEM;
-    constexpr int conv_smem = MODE == S8 ? gconv_s8_smem<STAGE_CBM>()
-                                         : gconv_bf16_smem<STAGE_CBM>();
-    constexpr int smem = gemm_smem > conv_smem ? gemm_smem : conv_smem;
-    return launch_persistent(stage_kernel<MODE, CG>, p, STAGE_THREADS, smem,
+    constexpr int smem = GEMM_HELD_SMEM > gconv_bf16_smem<STAGE_CBM>()
+                             ? GEMM_HELD_SMEM
+                             : gconv_bf16_smem<STAGE_CBM>();
+    return launch_persistent(stage_kernel<CG>, p, STAGE_THREADS, smem,
                              stream);
   }
 }
@@ -451,9 +545,9 @@ cudaError_t launch_stage_cg(const StageArgs& p, void* plan, int cg,
 // block's input cin0 and the rest's cout, the constraints of
 // mmb_bottleneck_*, and band dividing the stage's output rows. `ptrs` holds
 // 13 pointers per block, in the order of StageBlock (null where absent);
-// `strides` one stride per block. bf16: `plan` is device memory for
-// mmb_stage_plan_bytes(n_blocks, bands) bytes (64-byte aligned; null in
-// the other modes), which takes the launch's plan: the TMA maps and
+// `strides` one stride per block. bf16 and int8: `plan` is device memory
+// for mmb_stage_plan_bytes(n_blocks, bands) bytes (64-byte aligned; null in
+// the transport mode), which takes the launch's plan: the TMA maps and
 // arguments of every band and block. Returns the first CUDA error, or 0.
 extern "C" int mmb_stage(int mode, int n_blocks, const void* const* ptrs,
                          const int* strides, const void* x, void* h1,
@@ -499,9 +593,13 @@ extern "C" int mmb_stage(int mode, int n_blocks, const void* const* ptrs,
   }
 }
 
-// The bytes of the bf16 stage's plan for n_blocks blocks and `bands`
-// bands: one StageStep (TMA maps and arguments) per band and block.
+// The bytes of a bf16 or int8 stage's plan for n_blocks blocks and `bands`
+// bands: one StageStep or StageStepS8 (TMA maps and arguments) per band and
+// block.
 extern "C" long long mmb_stage_plan_bytes(int n_blocks, int bands) {
+  constexpr size_t step = sizeof(StageStep) > sizeof(StageStepS8)
+                              ? sizeof(StageStep)
+                              : sizeof(StageStepS8);
   return static_cast<long long>(n_blocks) * bands *
-         static_cast<long long>(sizeof(StageStep));
+         static_cast<long long>(step);
 }

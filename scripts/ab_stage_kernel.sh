@@ -24,7 +24,8 @@ torch.backends.cudnn.allow_tf32 = False
 _build.library()
 lines = _build.build_log.splitlines()
 for i, line in enumerate(lines):
-    if "Function properties for" in line and "stage_kernel" in line:
+    if "Function properties for" in line and ("stage_kernel" in line
+                                              or "stage_tile_kernel" in line):
         print(" ", line.split("for ")[-1][-40:], "|",
               lines[i + 1].strip(), "|", lines[i + 2].split(": ", 1)[-1])
 chip_smoke.Q_BLOCKS_EDGE = []
@@ -32,5 +33,5 @@ chip_smoke.STAGES_EDGE = []
 chip_smoke.Q_BLOCKS_224 = chip_smoke.Q_BLOCKS_224[:1]
 chip_smoke.phase_int8_and_stages()
 EOF
-  ) | grep -E "stage_kernel|B=128"
+  ) | grep -E "stage_kernel|stage_tile_kernel|B=128"
 done

@@ -11,18 +11,33 @@ downsample as one [M, width + cin] operand, its strided rows gathered ahead
 of the timing), in TFLOP/s, and the whole block. Times are CUDA events over
 20 calls after warm-up, in turns (tile, matmul, matmul, tile).
 
+``--int8`` does the same for K2 (``mmb_bottleneck_s8_part``) at the four
+int8 block shapes of layers 3-4 (``chip_smoke.Q_BLOCKS_224``): conv1, the
+grouped 3x3 and conv3 (with the downsample's own sums where the block has
+one) beside ``torch._int_mm`` on the same GEMMs (two calls for a conv3
+with a downsample, whose segments keep apart) and the cuDNN bf16 grouped
+3x3 on the codes, in int8 TOP/s; then the int8 stage kernel (K3a) on
+layer 3's tail and layer 4 beside builds of ``stage.cu`` whose int8 body
+skips some phases' work (``STAGE_PROBES``: only the grid barriers and the
+plan remain, or everything but the grouped 3x3), so that the stage's time
+splits into its 1x1 GEMMs, its grouped 3x3 and its barriers.
+
 ``--check`` first holds each launch alone against its plain version at
 small shapes (B = 2 and 3, 7 -> 4 and 8 -> 4 px, stride 1 and 2, with and
-without the downsample) and prints, where they differ, which GEMM rows do:
-the pattern of the rows names a fault of the TMA's im2col traversal or the
-store's clipping. Needs an NVIDIA GPU and the CUDA toolkit:
+without the downsample; int8 also at Cin = 64) and prints, where they
+differ, which GEMM rows do: the pattern of the rows names a fault of the
+TMA's im2col traversal or the store's clipping. Needs an NVIDIA GPU and
+the CUDA toolkit:
 
-    python3 scripts/probe_conv_tile.py [--check]
+    python3 scripts/probe_conv_tile.py [--check] [--int8]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -34,6 +49,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from multimodal_baby_tpu_torch.ops import _build  # noqa: E402
 from multimodal_baby_tpu_torch.ops import bottleneck as TB  # noqa: E402
+from multimodal_baby_tpu_torch.ops import quant as TQ  # noqa: E402
+from multimodal_baby_tpu_torch.ops import stage as TS  # noqa: E402
 
 PARTS = {1: "conv1", 2: "grouped 3x3", 3: "conv3"}
 CHECKS = [  # (B, H, cin, width, cout, stride, downsample)
@@ -154,10 +171,231 @@ def time_shapes():
         f"{k} {v:.3f} ms" for k, v in total.items()), flush=True)
 
 
+# ------------------------------------------------------------------ int8
+
+Q_CHECKS = [  # (B, H, cin, width, cout, stride, downsample)
+    (2, 8, 64, 128, 256, 1, True),
+    (3, 7, 256, 128, 256, 1, False),
+    (2, 8, 256, 256, 512, 2, True),
+    (3, 7, 512, 512, 1024, 2, True),
+    (2, 4, 1024, 1024, 2048, 2, True),
+    (3, 5, 1024, 512, 1024, 1, False),
+]
+OUT = ROOT / "build" / "probe_conv_tile"
+# the stage body's phases, each a walk that a probe build of stage.cu
+# skips: phase -> [(text in stage.cu, its replacement)]
+STAGE_PHASES = {
+    "1x1 GEMMs": [(f"    stage_conv{k}<CONSUMER>(st, s);\n",
+                   f"    if (false) stage_conv{k}<CONSUMER>(st, s);\n")
+                  for k in (1, 3)],
+    "grouped": [("    stage_gconv<CG>(st, s);\n",
+                 "    if (false) stage_gconv<CG>(st, s);\n")],
+}
+# probe build -> the phases it skips
+STAGE_PROBES = {"barriers only": ("1x1 GEMMs", "grouped"),
+                "no 1x1 GEMMs": ("1x1 GEMMs",),
+                "no grouped 3x3": ("grouped",)}
+
+
+def run_part_s8(part, x, fw, stride, h1, h2, out):
+    lib = _build.library()
+    B, H, W, cin = x.shape
+    width, cout = TB.block_dims(fw)
+    code = lib.mmb_bottleneck_s8_part(
+        part, x.data_ptr(), *TB._ptrs(fw, TB._Q_ORDER), h1.data_ptr(),
+        h2.data_ptr(), out.data_ptr(), B, H, W, cin, width, cout, stride,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, f"K2 {PARTS[part]}")
+
+
+def buffers_s8(x, fw, stride):
+    B, H, W, _ = x.shape
+    width, cout = TB.block_dims(fw)
+    Ho, Wo = TB._out_size(H, stride), TB._out_size(W, stride)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int8, device=x.device)
+
+    return empty(B, H, W, width), empty(B, Ho, Wo, width), empty(
+        B, Ho, Wo, cout)
+
+
+def plain_parts_s8(x, fw, s):
+    """K2's plain version taken apart: h1, h2 and out."""
+    B, H, W, cin = x.shape
+    width, _ = TB.block_dims(fw)
+    h1 = TQ._requant(TQ._exact_dot(x.reshape(-1, cin), fw["w1"]), fw["a1"],
+                     fw["b1"]).reshape(B, H, W, width)
+    acc2 = TQ._exact_grouped_conv(h1, fw["w2"], s)
+    h2 = TQ._requant(acc2.reshape(-1, width), fw["a2"],
+                     fw["b2"]).reshape(acc2.shape)
+    return h1, h2, TQ.bottleneck_reference_q(x, fw, stride=s)
+
+
+def report_codes(what, got, want):
+    """The GEMM rows (pixels) whose codes differ."""
+    got, want = got.flatten(0, -2).int(), want.flatten(0, -2).int()
+    bad = (got != want).any(1).nonzero().flatten()
+    print(f"  {what}: {int((got != want).sum())} codes differ; "
+          f"{bad.numel()} of {got.shape[0]} rows off"
+          + (f", first {bad[:12].tolist()}" if bad.numel() else ""),
+          flush=True)
+    return bad.numel() == 0
+
+
+def check_s8():
+    gen = torch.Generator().manual_seed(13)
+    ok = True
+    for B, H, cin, width, cout, s, ds in Q_CHECKS:
+        fw = chip_smoke.random_q_block(gen, cin, width, cout, ds)
+        x = chip_smoke.random_codes(gen, B, H, cin)
+        h1, h2, out = buffers_s8(x, fw, s)
+        print(f"int8 B={B} H={H} cin={cin} width={width} cout={cout} "
+              f"stride={s} downsample={ds}", flush=True)
+        want1, want2, want3 = plain_parts_s8(x, fw, s)
+        for part, buf, want in ((1, h1, want1), (2, h2, want2),
+                                (3, out, want3)):
+            if part == 2:
+                h1.copy_(want1)
+            elif part == 3:
+                h2.copy_(want2)
+            run_part_s8(part, x, fw, s, h1, h2, out)
+            torch.cuda.synchronize()
+            ok &= report_codes(f"{PARTS[part]} ({'h1 h2 out'.split()[part - 1]})",
+                               buf, want)
+    return ok
+
+
+def build_stage_probes():
+    """Each STAGE_PROBES build of stage.cu alone, compiled in parallel
+    into build/probe_conv_tile/<name>/lib.so; returns name -> library."""
+    procs = {}
+    for name, phases in STAGE_PROBES.items():
+        src = OUT / name.replace(" ", "_")
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(_build.CSRC, src)
+        text = (src / "stage.cu").read_text()
+        for phase in phases:
+            for old, new in STAGE_PHASES[phase]:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"probe {name}: stage.cu holds "
+                                       f"{old!r} {text.count(old)} times")
+                text = text.replace(old, new)
+        (src / "stage.cu").write_text(text)
+        procs[name] = (src, subprocess.Popen(
+            [_build._nvcc(), *_build.COMPILE_FLAGS, *_build.LINK_FLAGS,
+             "-o", str(src / "lib.so"), str(src / "stage.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (src, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            print(log[-4000:], file=sys.stderr)
+            raise RuntimeError(f"probe {name}: nvcc failed")
+        lib = ctypes.CDLL(str(src / "lib.so"))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mmb_stage.argtypes = [i32, i32, ptr, ptr] + [ptr] * 8 + [
+            i32] * 7 + [ptr]
+        lib.mmb_stage_plan_bytes.argtypes = [i32, i32]
+        lib.mmb_stage_plan_bytes.restype = ctypes.c_longlong
+        lib.mmb_cuda_error_string = _build.library().mmb_cuda_error_string
+        libs[name] = lib
+    return libs
+
+
+def int_mm_ms(a, w):
+    """torch._int_mm on a [M, K] and the fold's output-major w [N, K]."""
+    wt = w.t().contiguous()
+    return [chip_smoke.time_ms(lambda: torch._int_mm(a, wt), 20)
+            for _ in range(2)]
+
+
+def time_shapes_s8():
+    gen = torch.Generator().manual_seed(14)
+    B = chip_smoke.BATCH
+    per_block = {}
+    for name, H, cin, width, cout, s, ds in chip_smoke.Q_BLOCKS_224:
+        fw = chip_smoke.random_q_block(gen, cin, width, cout, ds)
+        x = chip_smoke.random_codes(gen, B, H, cin)
+        h1, h2, out = buffers_s8(x, fw, s)
+        run_part_s8(1, x, fw, s, h1, h2, out)
+        run_part_s8(2, x, fw, s, h1, h2, out)
+        Ho = TB._out_size(H, s)
+        M1, M3 = B * H * H, B * Ho * Ho
+        ops = {"conv1": 2 * M1 * cin * width,
+               "grouped 3x3": 2 * M3 * 9 * width // 32 * width,
+               "conv3": 2 * M3 * (width + (cin if ds else 0)) * cout}
+        res = {}
+        for part, what in PARTS.items():
+            t = [chip_smoke.time_ms(
+                lambda: run_part_s8(part, x, fw, s, h1, h2, out), 20)]
+            if part == 1:
+                res["_int_mm conv1"] = sum(int_mm_ms(
+                    x.reshape(M1, cin), fw["w1"])) / 2
+            elif part == 3:
+                mm = int_mm_ms(h2.reshape(M3, width), fw["w3"])
+                if ds:
+                    xs = x[:, ::s, ::s].reshape(M3, cin)
+                    mm = [a + b for a, b in zip(mm, int_mm_ms(xs, fw["wd"]))]
+                res["_int_mm conv3"] = sum(mm) / 2
+            else:
+                w2 = fw["w2"].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                hb = h1.permute(0, 3, 1, 2).to(torch.bfloat16)
+                res["cuDNN grouped 3x3"] = chip_smoke.time_ms(
+                    lambda: torch.nn.functional.conv2d(
+                        hb, w2, stride=s, padding=1, groups=32), 20)
+            t.append(chip_smoke.time_ms(
+                lambda: run_part_s8(part, x, fw, s, h1, h2, out), 20))
+            res[what] = sum(t) / 2
+        res["block"] = chip_smoke.time_ms(
+            lambda: TB.fused_bottleneck(x, fw, stride=s), 20)
+        parts = []
+        for k, v in res.items():
+            gemm = next((o for o in ops if k.endswith(o)), None)
+            rate = (f" ({ops[gemm] / v / 1e9:.0f} TOP/s)" if gemm in ops
+                    else "")
+            parts.append(f"{k} {v:.4f} ms{rate}")
+        print(f"K2 {name}: " + ", ".join(parts), flush=True)
+        per_block[name] = res
+        del x, fw, h1, h2, out
+    keys = ("conv1", "grouped 3x3", "conv3", "_int_mm conv1",
+            "_int_mm conv3", "cuDNN grouped 3x3")
+    k3a = {k: 5 * per_block["layer3.1"][k] + per_block["layer4.0"][k]
+           + 2 * per_block["layer4.1"][k] for k in keys}
+    print("K2 per B=128 forward (layer3.0): " + ", ".join(
+        f"{k} {per_block['layer3.0'][k]:.3f} ms" for k in keys), flush=True)
+    print("K3a's blocks as K2 launches per B=128 forward (5 x layer3.1, "
+          "layer4.0, 2 x layer4.1): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in k3a.items()), flush=True)
+
+    libs = build_stage_probes()
+    for name, H, cin, width, cout, strides in (
+            ("layer3 tail", 14, 1024, 512, 1024, [1] * 5),
+            ("layer4", 14, 1024, 1024, 2048, [2, 1, 1])):
+        x, fws = chip_smoke.stage_inputs(gen, H, cin, width, cout, strides,
+                                         True, B)
+        band = TB._out_size(H, strides[0])
+        fns = {"K3a": lambda: TS.fused_stage(x, fws, strides)}
+        for probe, lib in libs.items():
+            fns[probe] = (lambda lb=lib: TS._launch(x, fws, strides, band,
+                                                    lb))
+        times = {k: [] for k in fns}
+        for _ in range(2):
+            for k, fn in fns.items():
+                times[k].append(chip_smoke.time_ms(fn, 10))
+        print(f"K3a int8 {name}: " + ", ".join(
+            f"{k} {' / '.join(f'{v:.4f}' for v in ts)} ms"
+            for k, ts in times.items()), flush=True)
+        del x, fws
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true",
                     help="hold each launch against its plain version first")
+    ap.add_argument("--int8", action="store_true",
+                    help="K2 and the int8 stage instead of K1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_conv_tile: no CUDA device", file=sys.stderr)
@@ -165,6 +403,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(chip_smoke.card_line(), flush=True)
+    if args.int8:
+        if args.check and not check_s8():
+            print("probe_conv_tile: an int8 launch disagrees with its plain "
+                  "version", file=sys.stderr)
+            return 1
+        time_shapes_s8()
+        return 0
     if args.check and not check():
         print("probe_conv_tile: a launch disagrees with its plain version",
               file=sys.stderr)

@@ -12,7 +12,10 @@ against K1 bit for bit, K11 forward
 and backward at odd M), K7 against K5 then K6 bit for bit, K1 on its 1x1
 tile at every ResNeXt-50 block shape (B = 2) and at ragged row counts,
 the bf16 stage kernel equal bit for bit across band counts and to its
-blocks' K1 launches, and on the arguments they refuse.
+blocks' K1 launches, K2 on the int8 tile at every int8 block shape of the
+published plan (B = 32) and at ragged row counts (B = 2), the int8 stage
+equal code for code to its blocks' K2 launches and across band counts,
+and on the arguments they refuse.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -784,3 +787,77 @@ def test_bf16_stage_equals_its_k1_chain(cuda, H, cin, width, cout, strides):
     print(f"K3a bf16: {words} of {got.numel()} words differ from the K1 "
           f"chain")
     assert words == 0
+
+
+# K2 on the int8 1x1 tile (csrc/conv_gemm_s8.cuh): every int8 block shape
+# of the published plan (layers 3-4 at 224 px) at B = 32, and ragged row
+# counts of its 128- and 64-row tiles (B = 2 at odd sizes)
+@pytest.mark.parametrize("B,stride,has_ds,H,cin,width,cout", [
+    (32, 2, True, 28, 512, 512, 1024), (32, 1, False, 14, 1024, 512, 1024),
+    (32, 2, True, 14, 1024, 1024, 2048), (32, 1, False, 7, 2048, 1024, 2048),
+    (2, 2, True, 9, 512, 512, 1024), (2, 1, False, 7, 1024, 512, 1024),
+    (2, 1, True, 5, 64, 128, 256),
+])
+def test_int8_kernel_matches_plain_version_at_every_block_shape(
+        cuda, B, stride, has_ds, H, cin, width, cout):
+    g = torch.Generator().manual_seed(B + H + cin)
+    fw = q_block(g, cin, width, cout, has_ds, cuda)
+    x = torch.randint(0, 100, (B, H, H, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    before = fused_bottleneck.launches_q
+    got = fused_bottleneck(x, fw, stride=stride)
+    want = bottleneck_reference_q(x, fw, stride=stride)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches_q == before + 1
+    codes_close(got, want)
+    assert int((got != want).sum()) == 0  # both sum exactly, round alike
+
+
+# K3a's int8 body on the int8 tile against the chain of its blocks' K2
+# launches: both run the same tile arithmetic and grouped 3x3 on every
+# pixel, so 0 codes differ
+@pytest.mark.parametrize("H,cin,width,cout,strides", [
+    (14, 1024, 512, 1024, [1] * 5),      # layer 3's tail
+    (14, 1024, 1024, 2048, [2, 1, 1]),   # layer 4
+    (9, 512, 512, 1024, [2, 1]),         # stride-2 head, 9 -> 5
+])
+def test_int8_stage_equals_its_k2_chain(cuda, H, cin, width, cout, strides):
+    g = torch.Generator().manual_seed(H + cin + width)
+    fws = stage_weights(g, cin, width, cout, strides, True, cuda)
+    x = torch.randint(0, 100, (4, H, H, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    before = fused_stage.launches
+    got = fused_stage(x, fws, strides)
+    chain = x
+    for fw, s in zip(fws, strides):
+        chain = fused_bottleneck(chain, fw, stride=s)
+    torch.cuda.synchronize()
+    assert fused_stage.launches == before + 1
+    codes_close(got, stage_reference(x, fws, strides))
+    codes = int((got != chain).sum())
+    print(f"K3a int8: {codes} of {got.numel()} codes differ from the K2 "
+          f"chain")
+    assert codes == 0
+
+
+# the banded int8 stage (K3b's banding on int8 codes) in 1, 2, 4, 8 and 16
+# bands: every band count equal code for code
+@pytest.mark.parametrize("H,cin,width,cout,strides,bands", [
+    (16, 64, 128, 256, [1, 1, 1], [8, 1, 2, 4, 16]),
+    (16, 256, 128, 256, [2, 1, 1], [4, 1, 2, 8]),
+])
+def test_banded_int8_stage_equal_across_band_counts(cuda, H, cin, width,
+                                                    cout, strides, bands):
+    g = torch.Generator().manual_seed(H + cin + 1)
+    fws = stage_weights(g, cin, width, cout, strides, True, cuda)
+    x = torch.randint(0, 100, (2, H, H, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    want = stage_reference(x, fws, strides)
+    outs = [fused_stage_banded(x, fws, strides, band) for band in bands]
+    torch.cuda.synchronize()
+    codes_close(outs[0], want)
+    for band, got in zip(bands[1:], outs[1:]):
+        codes = int((got != outs[0]).sum())
+        print(f"band {band}: {codes} of {got.numel()} codes differ from "
+              f"band {bands[0]}")
+        assert codes == 0

@@ -98,12 +98,18 @@ def q_stage(rng, cin=256, n=3, planes=64):
     return tfws, jfws
 
 
-def test_reference_matches_int8_stage_kernel():
-    """tests/test_quant_trunk.py:100: a 3-block int8 stage, stride-2 head."""
+@pytest.mark.parametrize("cin,strides", [
+    (256, [2, 1, 1]),  # tests/test_quant_trunk.py:100: stride-2 head
+    (64, [1, 1, 1]),   # Cin = 64: half of the int8 tile's 128-deep slice
+])
+def test_reference_matches_int8_stage_kernel(cin, strides):
+    """A 3-block int8 stage: the port's plain version against the Pallas
+    kernel in interpret mode and the JAX plain chain, in the quantized
+    envelope (at most 1 code apart, fewer than 1e-3 differing; both sum
+    exactly and round half to even, so 0 codes are expected)."""
     rng = np.random.RandomState(2)
-    tfws, jfws = q_stage(rng)
-    strides = [2, 1, 1]
-    x = rng.randint(0, 100, (32, 8, 8, 256)).astype(np.int8)
+    tfws, jfws = q_stage(rng, cin=cin)
+    x = rng.randint(0, 100, (32, 8, 8, cin)).astype(np.int8)
     got = TS.fused_stage(torch.from_numpy(x), tfws, strides)
     assert got.dtype == torch.int8
     codes_close(got, J.from_hwbc(J.fused_stage_hwbc(

@@ -195,6 +195,39 @@ Phases (each raises on failure, and the script then exits non-zero):
    16 blocks: 16 launches per forward, pooled against the conv path
    without it at per-row cosine >= 0.999).
 
+9. Forced-choice evaluation, the five-call API and the linear probe on
+   the published trunk's kernels. 9a: phase 5's weights (no amax buffers,
+   the tied LM weight added) written as a reference Lightning ``.ckpt``
+   with its hparams, the packaged ``vocab.json`` beside it, loaded with
+   ``load_model`` on the card (bf16, the default plan: K3b, K1, K3a);
+   the five calls on ``tokenize(["ball", "a cat"])`` and 8 preprocessed
+   frames: logits equal to logit_scale * image @ text.T (<= 1e-3), the
+   default plan's launches for 2 forwards, and image features equal bit
+   for bit to phase 5's model's at B = 8 (its int8 plan runs in bf16
+   there). Before 9a, the ResNeXt's and the ViT's vision heads are
+   fitted by least squares so that each category's mean f32 trunk
+   feature maps to its label's text features (a random trunk's features
+   of different frames lie within cosine ~0.9997, so a random head makes
+   every trial a near-tie). 9b: 64 PNG frames at 224 px (16 coarse random
+   textures, 4 noisy frames each, one per Labeled-S category) and 257
+   trials in image and in text mode with <sos>/<eos> at ``batch_size=64``
+   (the trunk sees B = 256, 256, 256, 256, 4 and B = 64, 64, 64, 64, 1),
+   through the loaded model and phase 5's calibrated int8 model wrapped
+   in ``CVCLModel``; each run against the same run under
+   ``plain_kernels()`` and through the f32 conv path: the trunk's image
+   features (pooled or CLS) per-row cosine >= 0.999 against the plain
+   versions (the embeddings' cosine printed), equal decisions on
+   every trial whose plain top-two logit gap exceeds 0.05 and on >= 99%
+   of all trials, the agreement with f32 printed; K1, K2, K3a and K3b
+   launches counted per chunk against the plan (int8 where B % 32 == 0,
+   else bf16); trials/s per mode with and without PNG decoding. 9c:
+   phase 4's ViT + transformer model through 65 image-mode trials (B =
+   256, then 4: K5 and K6 at M = 4 * 257) with the same gates and 12 K5
+   and 12 K6 launches per chunk. 9d: backbone features of 512 frames
+   (16 classes) through the kernels (two chunks of 256 on the int8 plan)
+   and their plain versions, per-row cosine >= 0.999; a probe trained on
+   half of them for 5 epochs, its train and held-out accuracy printed.
+
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -213,11 +246,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimodal_baby_tpu_torch.api.model import (
+    PACKAGED_VOCAB, CVCLModel, load_model)
 from multimodal_baby_tpu_torch.core.config import (
     DataConfig, ExperimentConfig, ModelConfig, TextConfig, TrainConfig,
     VisionConfig)
 from multimodal_baby_tpu_torch.core.constants import MAX_LEN_UTTERANCE
-from multimodal_baby_tpu_torch.data.augment import augment_batch
+from multimodal_baby_tpu_torch.data.augment import (
+    augment_batch, normalize_image)
+from multimodal_baby_tpu_torch.data.datasets import (
+    EvalTrialDataset, TextEvalTrialDataset, load_metadata)
+from multimodal_baby_tpu_torch.data.vocab import Vocab
+from multimodal_baby_tpu_torch.evaluation.forced_choice import (
+    run_forced_choice)
+from multimodal_baby_tpu_torch.evaluation.linear_probe import (
+    extract_backbone_features, half_split, probe_accuracy,
+    train_linear_probe)
 from multimodal_baby_tpu_torch.models import vision_resnext, vision_vit
 from multimodal_baby_tpu_torch.models.beam_search import NEG_INF
 from multimodal_baby_tpu_torch.models.losses import (
@@ -2267,6 +2311,360 @@ def phase_transport_slice(published):
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+# Labeled-S categories of the packaged vocabulary, one per base image
+EVAL_CATS = ("ball", "basket", "car", "cat", "chair", "computer", "crib",
+             "floor", "foot", "ground", "kitchen", "paper", "puzzle", "road",
+             "sand", "window")
+EVAL_TRIALS = 257    # at EVAL_BATCH: four full chunks and a tail of one
+EVAL_BATCH = 64
+VIT_EVAL_TRIALS = 65
+PROBE_FRAMES = 512
+EVAL_GAP = 0.05      # decisions equal where the plain top-two gap exceeds it
+EVAL_AGREE = 0.99    # and on this share of all trials
+# (K1, K2, K3a, K3b) launches per trunk forward: the default plan in bf16,
+# and the published int8 plan (B % 32 == 0)
+PLAN_BF16 = [5, 0, 2, 1]
+PLAN_INT8 = [4, 1, 2, 1]
+RESNEXT_COUNTERS = [(fused_bottleneck, "launches"),
+                    (fused_bottleneck, "launches_q"),
+                    (fused_stage, "launches"),
+                    (fused_stage_banded, "launches")]
+VIT_COUNTERS = [(fused_block_attention, "launches"), (fused_mlp, "launches")]
+
+
+def eval_frames(rng, per_base, size=224):
+    """uint8 frames [16 * per_base, size, size, 3]: 16 coarse random
+    textures (8 px cells), each frame with its own noise; and each frame's
+    base index."""
+    bases = rng.randint(0, 256, (16, size // 8, size // 8, 3)).astype(
+        np.int16).repeat(8, 1).repeat(8, 2)
+    labels = np.repeat(np.arange(16), per_base)
+    noise = rng.randint(-24, 25, (labels.size, size, size, 3)).astype(
+        np.int16)
+    return (np.clip(bases[labels] + noise, 0, 255).astype(np.uint8), labels)
+
+
+def fit_head(model, frames, labels, vocab):
+    """Set the vision head (``fc`` or ``head``) by least squares so that
+    each category's mean f32 trunk feature, less the mean over all
+    ``frames``, maps to its label's text features (the eval's labels,
+    <sos> word <eos>), as a trained head would place them: a random
+    trunk's features of different images lie close together (the
+    category means' least pairwise cosine is printed), so with a random
+    head every trial is a near-tie."""
+    trunk = model.vision_encoder.model
+    vit = model.cfg.vision.vit_dino
+    ids = torch.zeros((16, MAX_LEN_UTTERANCE), dtype=torch.long)
+    ids[:, 0], ids[:, 2] = 2, 3
+    ids[:, 1] = torch.tensor([vocab[c] for c in EVAL_CATS])
+    with torch.no_grad(), trunk_path(model, "f32"):
+        x = normalize_image(torch.from_numpy(frames).cuda())
+        feats = (trunk(x) if vit else trunk(x)["pooled"]).double()
+        text = model.encode_text(ids.cuda(), torch.full(
+            (16,), 3, device="cuda"))[0].double()
+        mean = feats.mean(0)
+        delta = torch.stack([feats[torch.from_numpy(labels == c).cuda()]
+                             .mean(0) for c in range(16)]) - mean
+        w = text.T @ torch.linalg.pinv(delta.T)
+        means = F.normalize(delta + mean, dim=1)
+        log(f"  {'ViT' if vit else 'ResNeXt'} head fitted to 16 categories: "
+            f"their mean f32 trunk features at pairwise cosine >= "
+            f"{float((means @ means.T).min()):.7f}")
+        head = trunk.head if vit else trunk.fc
+        head.weight.copy_(w.float())
+        head.bias.copy_(-(w @ mean).float())
+
+
+def write_eval_set(root, rng, frames, labels):
+    """The 64 frames (4 per category) as PNG and EVAL_TRIALS trials over
+    them (eval_filtered_dev.json): target t % 16, three foil categories
+    drawn without replacement, a random frame of each."""
+    from PIL import Image
+    paths = {c: [] for c in EVAL_CATS}
+    for i, (frame, label) in enumerate(zip(frames, labels)):
+        path = root / f"{EVAL_CATS[label]}_{i % 4}.png"
+        Image.fromarray(frame).save(path)
+        paths[EVAL_CATS[label]].append(str(path))
+    trials = []
+    for t in range(EVAL_TRIALS):
+        target = EVAL_CATS[t % 16]
+        foils = [str(c) for c in rng.choice(
+            [c for c in EVAL_CATS if c != target], 3, replace=False)]
+        trials.append({"trial_num": t, "target_category": target,
+                       "target_img_filename": paths[target][rng.randint(4)],
+                       "foil_categories": foils,
+                       "foil_img_filenames": [paths[c][rng.randint(4)]
+                                              for c in foils]})
+    path = root / "eval_filtered_dev.json"
+    path.write_text(json.dumps({"data": trials}))
+    return path
+
+
+class Decoded:
+    """A trial dataset's items, decoded once, with its ``data``."""
+
+    def __init__(self, dataset, n=None):
+        self.data = dataset.data[:n]
+        self.items = [dataset[i] for i in range(len(self.data))]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+@contextlib.contextmanager
+def trunk_path(model, path):
+    """The trunk's forward for the eval: "kernels" (as built), "plain" (the
+    kernels' plain versions on the card) or "f32" (the f32 conv path, or
+    the ViT's plain blocks in f32)."""
+    trunk = model.vision_encoder.model
+    if path == "f32":
+        if model.cfg.vision.vit_dino:
+            trunk.forward = lambda x: trunk.forward_plain(x.float())
+        else:
+            trunk.forward = lambda x, train=False: trunk.forward_conv(
+                x.float())
+    try:
+        if path == "plain":
+            with plain_kernels():
+                yield
+        else:
+            yield
+    finally:
+        trunk.__dict__.pop("forward", None)
+
+
+@contextlib.contextmanager
+def per_chunk(model, counters):
+    """For each ``encode_image`` call (one per eval chunk): the batch, the
+    launches of each counter in it (set to 0 before the run), the trunk's
+    features (pooled or CLS) and the image embeddings."""
+    calls, trunk_out = [], []
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+
+    def keep(module, inputs, output):
+        trunk_out.append(output["pooled"] if isinstance(output, dict)
+                         else output)
+
+    def encode_image(image, train=False):
+        before = [getattr(fn, attr) for fn, attr in counters]
+        out = type(model).encode_image(model, image, train)
+        calls.append((image.shape[0],
+                      [getattr(fn, attr) - b
+                       for (fn, attr), b in zip(counters, before)],
+                      trunk_out[-1].float(), out[0].float()))
+        return out
+
+    hook = model.vision_encoder.model.register_forward_hook(keep)
+    model.encode_image = encode_image
+    try:
+        yield calls
+    finally:
+        del model.encode_image
+        hook.remove()
+
+
+def run_eval(model, dataset, mode, counters, path="kernels"):
+    """run_forced_choice through ``path``: (records, per-chunk calls,
+    seconds)."""
+    with trunk_path(model, path), per_chunk(model, counters) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, records = run_forced_choice(model, dataset, mode,
+                                       batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+    return records, calls, time.perf_counter() - t0
+
+
+def gate_eval(what, kernel, plain, f32):
+    """Kernel path against its plain versions: per-row cosine of the
+    trunk's features >= SLICE_COS_TOL, equal decisions wherever the plain
+    top-two gap exceeds EVAL_GAP and on >= EVAL_AGREE of all trials; the
+    agreement with f32 and the embeddings' cosine printed (``fit_head``'s
+    head scales the features' small spread up to clear decisions, and with
+    it their differences)."""
+    (k_rec, k_calls), (p_rec, p_calls), (f_rec, _) = kernel, plain, f32
+    cos = min(float(row_cosines(k[2], p[2]).min())
+              for k, p in zip(k_calls, p_calls))
+    emb_cos = min(float(row_cosines(k[3], p[3]).min())
+                  for k, p in zip(k_calls, p_calls))
+    preds = [np.asarray([r["pred"] for r in rec])
+             for rec in (k_rec, p_rec, f_rec)]
+    lp = np.log([r["logits"] for r in p_rec])
+    top2 = np.sort(lp, axis=1)[:, -2:]
+    gaps = top2[:, 1] - top2[:, 0]
+    clear = gaps > EVAL_GAP
+    same = preds[0] == preds[1]
+    acc = [float(np.mean([r["correct"] for r in rec]))
+           for rec in (k_rec, p_rec, f_rec)]
+    log(f"  {what}: trunk features vs plain per-row cos min {cos:.7f} "
+        f"(embeddings {emb_cos:.7f}); "
+        f"decisions equal to plain on {int(same.sum())}/{same.size} trials "
+        f"({int(same[clear].sum())}/{int(clear.sum())} with a top-two gap > "
+        f"{EVAL_GAP}; median gap {float(np.median(gaps)):.4f}), to f32 on "
+        f"{int((preds[0] == preds[2]).sum())}/"
+        f"{same.size}; accuracy kernels {acc[0]:.4f}, plain {acc[1]:.4f}, "
+        f"f32 {acc[2]:.4f}")
+    if not (cos >= SLICE_COS_TOL and same[clear].all()
+            and same.mean() >= EVAL_AGREE):
+        raise AssertionError(f"{what}: eval gates failed (cos {cos:.7f}, "
+                             f"{int(same.sum())}/{same.size} equal)")
+
+
+def check_chunks(what, calls, want_of_batch):
+    """The launches of each chunk against the plan for its batch."""
+    got = [(b, n) for b, n, _, _ in calls]
+    log(f"  {what} launches per chunk (B, counts): {got}")
+    bad = [(b, n) for b, n in got if n != want_of_batch(b)]
+    if bad:
+        raise AssertionError(f"{what}: chunks {bad} against the plan")
+
+
+def eval_resnext(what, model, datasets, card):
+    """Image and text mode through the kernels, their plain versions and
+    f32 on the same decoded trials: gates, launches per chunk, trials/s."""
+    int8 = any(model.vision_encoder.model.int8_plan)
+    for mode, (dataset, decoded) in datasets.items():
+        runs = {}
+        for path in ("kernels", "plain", "f32"):
+            records, calls, _ = run_eval(model, decoded, mode,
+                                         RESNEXT_COUNTERS, path)
+            runs[path] = (records, calls)
+        check_chunks(f"{what}, {mode} mode", runs["kernels"][1],
+                     lambda b: PLAN_INT8 if int8 and b % 32 == 0
+                     else PLAN_BF16)
+        gate_eval(f"{what}, {mode} mode", runs["kernels"], runs["plain"],
+                  runs["f32"])
+        _, _, secs = run_eval(model, dataset, mode, RESNEXT_COUNTERS)
+        _, _, secs_dec = run_eval(model, decoded, mode, RESNEXT_COUNTERS)
+        log(f"  {what}, {mode} mode: {len(decoded)} trials in {secs:.3f} s "
+            f"with PNG decoding ({len(decoded) / secs:.1f} trials/s), "
+            f"{secs_dec:.3f} s on decoded trials "
+            f"({len(decoded) / secs_dec:.1f} trials/s); {card}")
+
+
+def phase_eval_and_api(published, vit_model, card):
+    """9a: phase 5's weights through a reference-format checkpoint and
+    load_model; 9b: forced choice with it and with phase 5's int8 model;
+    9c: the ViT eval; 9d: the linear probe's features and a probe. The
+    ResNeXt's and the ViT's heads are first fitted to the eval's
+    categories (``fit_head``)."""
+    import tempfile
+    from pathlib import Path
+
+    rng = np.random.RandomState(9)
+    int8_model = published[0].model
+    frames, cats = eval_frames(rng, 4)
+    vocab = Vocab.load(PACKAGED_VOCAB)
+    fit_head(int8_model, frames, cats, vocab)
+    fit_head(vit_model, frames, cats, vocab)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        log("  -- 9a the checkpoint round trip")
+        sd = {k: v.detach().cpu() for k, v in int8_model.state_dict().items()
+              if not k.endswith("_amax")}
+        sd["language_model.output_layer.weight"] = \
+            sd["text_encoder.embedding.weight"]  # tied, as the reference
+        mc = int8_model.cfg
+        hparams = {"text_encoder": "embedding",
+                   "embedding_dim": mc.embedding_dim,
+                   "embedding_type": "flat", "normalize_features": True,
+                   "fix_temperature": True, "temperature": mc.temperature,
+                   "cnn_dino": True, "vit_dino": False, "tie": True,
+                   "bias": True}
+        ckpt = root / "cvcl.ckpt"
+        torch.save({"state_dict": sd, "hyper_parameters": hparams}, ckpt)
+        (root / "vocab.json").write_bytes(PACKAGED_VOCAB.read_bytes())
+        api, prep = load_model(str(ckpt))
+        loaded = api.model
+        trunk = loaded.vision_encoder.model
+        beside = json.loads((root / "vocab.json").read_text())
+        log(f"  loaded {ckpt.name} ({ckpt.stat().st_size / 2**20:.1f} MiB) "
+            f"on {api.device}: trunk {trunk.dtype}, int8 "
+            f"{trunk.int8_plan}, plan {trunk.fused_plan}; vocab "
+            f"{len(api.vocab)} words, equal to the one beside it: "
+            f"{api.vocab.word2idx == beside}")
+        from PIL import Image
+        images = np.stack([prep(Image.fromarray(f))
+                           for f in eval_frames(rng, 1)[0][:8]])
+        tokens, lens = api.tokenize(["ball", "a cat"])
+        for fn, attr in RESNEXT_COUNTERS:
+            setattr(fn, attr, 0)
+        img = api.encode_image(images)
+        txt = api.encode_text(tokens, lens)
+        lpi, lpt = api(images, tokens, lens)
+        torch.cuda.synchronize()
+        counts = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+        want = (img @ txt.T) * loaded.logit_scale()
+        err = float((lpi - want).abs().max())
+        int8_api = CVCLModel(int8_model, api.vocab)
+        same = int8_api.encode_image(images)  # B = 8: its bf16 plan
+        log(f"  five calls: tokens {tuple(tokens.shape)}, image features "
+            f"{tuple(img.shape)}, text features {tuple(txt.shape)}, logits "
+            f"{tuple(lpi.shape)}; |logits - scale * img @ txt.T| max "
+            f"{err:.2e}; launches K1, K2, K3a, K3b {counts} (2 forwards); "
+            f"image features equal to phase 5's model's: "
+            f"{bool(torch.equal(img, same))}")
+        if not (err <= 1e-3 and torch.equal(lpt, lpi.T)
+                and counts == [2 * n for n in PLAN_BF16]
+                and torch.equal(img, same)
+                and torch.isfinite(lpi).all()):
+            raise AssertionError("9a: the five calls failed their checks")
+
+        log("  -- 9b forced choice at full width, 257 + 257 trials")
+        meta = load_metadata(write_eval_set(root, rng, frames, cats))
+        datasets = {}
+        for mode, cls in (("image", EvalTrialDataset),
+                          ("text", TextEvalTrialDataset)):
+            dataset = cls(meta, api.vocab, eval_include_sos_eos=True)
+            datasets[mode] = (dataset, Decoded(dataset))
+        eval_resnext("loaded checkpoint (bf16 plan)", loaded, datasets, card)
+        eval_resnext("phase 5's int8 model", int8_api.model, datasets,
+                     card)
+
+        log(f"  -- 9c the ViT eval, {VIT_EVAL_TRIALS} image-mode trials")
+        vit_data = Decoded(datasets["image"][0], VIT_EVAL_TRIALS)
+        runs = {path: run_eval(vit_model, vit_data, "image", VIT_COUNTERS,
+                               path)[:2]
+                for path in ("kernels", "plain", "f32")}
+        check_chunks("ViT", runs["kernels"][1],
+                     lambda b: [VIT_DEPTH, VIT_DEPTH])
+        gate_eval("ViT, image mode", runs["kernels"], runs["plain"],
+                  runs["f32"])
+
+    log(f"  -- 9d the linear probe, {PROBE_FRAMES} frames")
+    frames, labels = eval_frames(rng, PROBE_FRAMES // 16)
+    for fn, attr in RESNEXT_COUNTERS:
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    feats = extract_backbone_features(int8_model, frames)
+    secs = time.perf_counter() - t0
+    counts = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+    with plain_kernels():
+        plain = extract_backbone_features(int8_model, frames)
+    cos = float(row_cosines(torch.from_numpy(feats),
+                            torch.from_numpy(plain)).min())
+    chunks = -(-PROBE_FRAMES // 256)
+    log(f"  backbone features {feats.shape} in {secs:.3f} s: launches K1, "
+        f"K2, K3a, K3b {counts} ({chunks} chunks of 256); per-row cos vs "
+        f"plain min {cos:.7f}")
+    if counts != [chunks * n for n in PLAN_INT8] or not cos >= SLICE_COS_TOL:
+        raise AssertionError(f"9d: launches {counts}, cos {cos:.7f}")
+    train, test = half_split(labels, "first")
+    params, metrics = train_linear_probe(feats[train], labels[train], 16,
+                                         epochs=5)
+    log(f"  probe on 16 classes, 5 epochs: train accuracy "
+        f"{metrics['train_acc']:.4f}, held-out half "
+        f"{probe_accuracy(params, feats[test], labels[test]):.4f}")
+    if not math.isfinite(metrics["train_ce"]):
+        raise AssertionError(f"9d: probe loss {metrics['train_ce']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2394,6 +2792,8 @@ def main() -> int:
     log("phase 8: the int8-transport trunk plans, K10b and K11 entry points")
     for name, n in phase_transport_slice(published).items():
         t[name]["launches"] = n
+    log("phase 9: forced-choice evaluation, the five-call API and the probe")
+    phase_eval_and_api(published, vit[1], card)
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"

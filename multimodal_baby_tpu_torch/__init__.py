@@ -9,12 +9,14 @@ counterpart of ``multimodal_baby_tpu/<path>`` is ``multimodal_baby_tpu_torch/
 - ``core``    config dataclasses and constants (the same fields and values
               as the JAX package's)
 - ``ops``     hand-written Hopper kernels, each with its plain PyTorch version
-- ``models``  the ResNeXt-50 trunk, the embedding text encoder, CVCL, losses
-- ``data``    the on-device augment
+- ``models``  the ResNeXt-50, ViT-B/14 and toy trunks, the text encoders,
+              CVCL (flat and spatial similarity), losses, beam search
+- ``data``    the on-device augment, the vocabulary, tokenizer and
+              forced-choice trial datasets
 - ``train``   AdamW over the trainable heads, the train and eval steps
-- ``api``     the weight bridge from the JAX package's parameter trees
-
-The first slice covers the CVCL ResNeXt-50 + embedding train step.
+- ``evaluation``  forced-choice evaluation and the linear probe
+- ``api``     the five-call API (``load_model``) and the weight bridges
+- ``cli``     the eval, parity and linear-decoding entry points
 """
 
 __version__ = "0.1.0"

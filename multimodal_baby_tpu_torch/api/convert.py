@@ -1,11 +1,12 @@
-"""Weight bridge from the JAX package (counterpart of
-``multimodal_baby_tpu/api/convert.py``, run the other way).
+"""Weight bridges (counterpart of ``multimodal_baby_tpu/api/convert.py``).
 
 ``convert_resnext50``, ``convert_vit``, ``convert_text_encoder`` and
 ``convert_cvcl_checkpoint`` there turn a reference-named state dict into
 flax ``(params, batch_stats)``; the functions here invert them, turning the
 JAX package's trees (numpy arrays) into this package's ``state_dict``, so
-both packages can run on the same weights.
+both packages can run on the same weights. ``reference_state_dict`` maps
+a reference Lightning checkpoint's state dict onto the port's names, which
+are the reference's apart from the spatial variant's trunk.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from multimodal_baby_tpu_torch.core.config import ModelConfig
 from multimodal_baby_tpu_torch.models.vision_resnext import RESNEXT50_STAGES
 
 Tree = Mapping[str, object]
@@ -144,7 +146,8 @@ def cvcl_state_dict(params: Tree, batch_stats: Tree, vit: bool = False,
                     quant_scales: Tree | None = None
                     ) -> Dict[str, np.ndarray]:
     """Inverse of ``convert_cvcl_checkpoint`` for the port's CVCL: a
-    ResNeXt-50 (``vit=False``) or ViT-B/14 trunk, its head, the text
+    ResNeXt-50 (``vit=False``), toy (read from the tree) or ViT-B/14
+    trunk, its head (flat or spatial: both a Linear ``fc``), the text
     encoder (read from the tree) and the LM head.
     ``quant_scales`` is the JAX model's "quant_scales" collection (an int8
     trunk plan's activation ranges)."""
@@ -153,6 +156,13 @@ def cvcl_state_dict(params: Tree, batch_stats: Tree, vit: bool = False,
     if vit:
         sd = vit_state_dict(vis["backbone"], vp)
         _linear(sd, f"{vp}head", vis["head"])
+    elif "conv2" in vis["backbone"]:  # the toy trunk, TinyConvNet
+        sd = {}
+        for name in ("conv1", "conv2"):
+            conv = vis["backbone"][name]
+            sd[f"{vp}{name}.weight"] = _conv(conv["kernel"])
+            sd[f"{vp}{name}.bias"] = np.asarray(conv["bias"])
+        _linear(sd, f"{vp}fc", vis["head"])
     else:
         sd = resnext50_state_dict(
             vis["backbone"], batch_stats["vision_encoder"]["backbone"], vp,
@@ -168,6 +178,44 @@ def cvcl_state_dict(params: Tree, batch_stats: Tree, vit: bool = False,
     if "lm_bias" in params:
         sd["language_model.output_layer.bias"] = np.asarray(params["lm_bias"])
     return sd
+
+
+# the spatial variant wraps the ResNeXt in a Sequential
+# (multimodal.py:182-185): its children by index, 8 the 1x1 head conv
+_SEQUENTIAL = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+               "6": "layer3", "7": "layer4", "8": "fc"}
+
+
+def reference_state_dict(sd: Mapping[str, torch.Tensor], cfg: ModelConfig
+                         ) -> Dict[str, torch.Tensor]:
+    """A reference Lightning checkpoint's state dict under the port's CVCL
+    names for ``cfg`` (``multimodal_baby_tpu/api/convert.py:207-230`` and
+    ``api/model.py:209-210``): the spatial variant's Sequential indices
+    renamed and its 1x1 head conv made the Linear ``fc``; BatchNorm's
+    ``num_batches_tracked`` dropped (the port's BN keeps no count); the
+    learned temperature dropped under ``fix_temperature``; the LM head's
+    weight dropped when tied (it is the token embedding) and its bias when
+    ``bias`` is off. Every other key is kept, for a strict load."""
+    vp = "vision_encoder.model."
+    wrapped = (not cfg.vision.vit_dino and f"{vp}conv1.weight" not in sd)
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k.endswith(".num_batches_tracked"):
+            continue
+        if wrapped and k.startswith(vp):
+            index, _, rest = k[len(vp):].partition(".")
+            if index in _SEQUENTIAL:
+                k = f"{vp}{_SEQUENTIAL[index]}.{rest}"
+                if k == f"{vp}fc.weight":
+                    v = v[:, :, 0, 0]
+        out[k] = v
+    if cfg.fix_temperature:
+        out.pop("model.logit_neg_log_temperature", None)
+    if cfg.tie:
+        out.pop("language_model.output_layer.weight", None)
+    if not cfg.bias:
+        out.pop("language_model.output_layer.bias", None)
+    return out
 
 
 def load_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]

@@ -3,10 +3,15 @@
 port keeps its own copy so that it imports nothing of the JAX package."""
 
 # special tokens (ids are part of the data contract; do not change)
+PAD_TOKEN = "<pad>"
+UNK_TOKEN = "<unk>"
+SOS_TOKEN = "<sos>"
+EOS_TOKEN = "<eos>"
 PAD_TOKEN_ID = 0
 UNK_TOKEN_ID = 1
 SOS_TOKEN_ID = 2
 EOS_TOKEN_ID = 3
+SPECIAL_TOKENS = [PAD_TOKEN, UNK_TOKEN, SOS_TOKEN, EOS_TOKEN]
 
 # utterances are padded or truncated to this length
 MAX_LEN_UTTERANCE = 25

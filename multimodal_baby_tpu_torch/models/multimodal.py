@@ -1,8 +1,8 @@
 """CVCL dual encoder and language model (counterpart of
 ``multimodal_baby_tpu/models/multimodal.py``): the contrastive half with
-flat similarity, and the LM half (the head over the text encoder's
-per-step outputs, the joint forward of the train step, and beam-search
-decoding).
+flat and spatial (mean, max) similarity, and the LM half (the head over
+the text encoder's per-step outputs, the joint forward of the train step,
+and beam-search decoding).
 
 Parameter names follow the reference's Lightning checkpoint, so
 ``multimodal_baby_tpu/api/convert.py::convert_cvcl_checkpoint`` maps this
@@ -39,6 +39,25 @@ Tensor = torch.Tensor
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """x / max(||x||, 1e-12), torch F.normalize semantics."""
     return x / x.norm(dim=dim, keepdim=True).clamp_min(1e-12)
+
+
+def spatial_similarity(image_features: Tensor, text_features: Tensor,
+                       text_length: Tensor, sim: str) -> Tensor:
+    """[I, T] similarity of spatial image features [I, h, w, E] and
+    per-token text features [T, L, E] of lengths [T]
+    (``multimodal_baby_tpu/models/multimodal.py:35-51``): "mean" averages
+    every position-token product over h * w * length, "max" takes each
+    token's best position and averages over the length. Padded tokens
+    count in both sums, as in the reference."""
+    h, w = image_features.shape[1:3]
+    length = text_length.to(image_features.dtype)
+    if sim == "mean":
+        s = torch.einsum("ihwe,tle->it", image_features, text_features)
+        return s / (h * w * length[None, :])
+    if sim == "max":
+        m = torch.einsum("ihwe,tle->itlhw", image_features, text_features)
+        return m.amax(dim=(3, 4)).sum(dim=2) / length[None, :]
+    raise ValueError(f"unknown sim {sim!r}")
 
 
 class LMOutputLayer(nn.Module):
@@ -121,12 +140,14 @@ class CVCL(nn.Module):
         return features, outputs
 
     def similarity(self, image_features: torch.Tensor,
-                   text_features: torch.Tensor) -> torch.Tensor:
-        if self.cfg.embedding_type != "flat":
-            raise NotImplementedError(
-                "the port's similarity is flat; the spatial mean and max "
-                "similarities are not ported")
-        return image_features @ text_features.T
+                   text_features: torch.Tensor,
+                   text_length: torch.Tensor | None = None) -> torch.Tensor:
+        """[I, T]: flat features' products, or ``spatial_similarity`` with
+        the config's ``sim`` (spatial embeddings need ``text_length``)."""
+        if self.cfg.embedding_type == "flat":
+            return image_features @ text_features.T
+        return spatial_similarity(image_features, text_features,
+                                  text_length, self.cfg.sim)
 
     def logit_scale(self) -> torch.Tensor:
         return self.logit_neg_log_temperature.exp()
@@ -162,7 +183,8 @@ class CVCL(nn.Module):
                 image, train=train)
             text_features, text_outputs = self.encode_text(
                 text, text_length, gen)
-            match = self.similarity(image_features, text_features)
+            match = self.similarity(image_features, text_features,
+                                    text_length)
             scale = self.logit_scale()
             out.update(logits_per_image=match * scale,
                        logits_per_text=match.T * scale,

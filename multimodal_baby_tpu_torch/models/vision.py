@@ -2,23 +2,27 @@
 ``multimodal_baby_tpu/models/vision.py``).
 
 The trunk is ResNeXt-50 (with the config's ``trunk_int8`` plan and the
-kernel plan ``fused_plan``, by default the JAX package's) or DINO
-ViT-B/14 (with the kernel configuration ``vit_kernels``, by default K5 +
-K6 with the erf GELU). The head replaces the trunk's classifier with the projection, as
-in the reference: ``model.fc`` on the ResNeXt (2048 -> E), ``model.head``
-on the ViT (768 -> E). For spatial embeddings (ResNeXt only) the head maps
-every position of the feature map: a 1x1 convolution, which on the NHWC
-map is the same Linear on the channel axis. A frozen trunk's outputs are
+kernel plan ``fused_plan``, by default the JAX package's), DINO ViT-B/14
+(with the kernel configuration ``vit_kernels``, by default K5 + K6 with
+the erf GELU) or the test trunk ``TinyConvNet`` (``cnn_model="toy"``).
+The head replaces the trunk's classifier with the projection, as in the
+reference: ``model.fc`` on the ResNeXt and the toy trunk (2048 or 32 ->
+E), ``model.head`` on the ViT (768 -> E). For spatial embeddings (CNN
+trunks only) the head maps every position of the feature map: a 1x1
+convolution, which on the NHWC map is the same Linear on the channel
+axis. A frozen trunk's outputs are
 detached; its parameters leave autograd when
 ``train.optimizer.build_optimizer`` applies the frozen mask.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.core.config import ModelConfig
 from multimodal_baby_tpu_torch.models.layers import (
@@ -28,6 +32,46 @@ from multimodal_baby_tpu_torch.models.vision_resnext import (
 from multimodal_baby_tpu_torch.models.vision_vit import ViTKernels, vit_base
 
 
+class TinyConvNet(nn.Module):
+    """The JAX package's minimal CNN trunk for tests and dry runs
+    (``multimodal_baby_tpu/models/vision.py:28-41``): an 8x8 convolution
+    of stride 8, ReLU, a 4x4 convolution of stride 4, ReLU, with flax's
+    "SAME" padding, in f32 whatever the compute dtype (the JAX package
+    gives it none). Same output contract as ``ResNeXt50``, 32 channels
+    (``VisionConfig.last_out_dim``). Parameters ``conv{1,2}.{weight,bias}``
+    (OIHW), init N(0, 1/fan_in), bias 0."""
+
+    def __init__(self, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 32, 8, stride=8, device=device)
+        self.conv2 = nn.Conv2d(32, 32, 4, stride=4, device=device)
+        with torch.no_grad():
+            for conv in (self.conv1, self.conv2):
+                w = conv.weight
+                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+                w.copy_(torch.randn(w.shape, generator=generator)
+                        / math.sqrt(fan_in))
+                conv.bias.zero_()
+
+    @staticmethod
+    def _same(x: torch.Tensor, k: int) -> torch.Tensor:
+        """flax's "SAME" padding for a k x k window of stride k."""
+        pads = []
+        for n in (x.shape[3], x.shape[2]):  # W, then H (F.pad's order)
+            total = max((-(-n // k) - 1) * k + k - n, 0)
+            pads += [total // 2, total - total // 2]
+        return F.pad(x, pads)
+
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        y = x.float().permute(0, 3, 1, 2)
+        y = torch.relu(self.conv1(self._same(y, 8)))
+        y = torch.relu(self.conv2(self._same(y, 4)))
+        fmap = y.permute(0, 2, 3, 1)
+        return {"pooled": fmap.mean(dim=(1, 2)), "feature_map": fmap}
+
+
 class VisionEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
                  device="cuda", generator: torch.Generator | None = None,
@@ -35,10 +79,6 @@ class VisionEncoder(nn.Module):
                  vit_kernels: ViTKernels | None = None):
         super().__init__()
         v = cfg.vision
-        if v.backbone not in ("resnext50", "vit_b14"):
-            raise NotImplementedError(
-                "the port's vision trunks are ResNeXt-50 and ViT-B/14; got "
-                f"{v.backbone!r}")
         if cfg.embedding_type not in ("flat", "spatial"):
             raise ValueError(f"embedding_type must be flat|spatial, got "
                              f"{cfg.embedding_type!r}")
@@ -49,7 +89,9 @@ class VisionEncoder(nn.Module):
                              f"{v.frozen_bn!r}")
         device = resolve_device(device)
         self.cfg = cfg
-        if v.vit_dino:  # trunk_int8 is the ResNeXt's, as in the JAX package
+        if v.backbone == "toy":
+            self.model = TinyConvNet(device=device, generator=generator)
+        elif v.vit_dino:  # trunk_int8 is the ResNeXt's, as in the JAX package
             self.model = vit_base(dtype=dtype, frozen=not v.finetune_cnn,
                                   device=device, generator=generator,
                                   vit_kernels=vit_kernels)
@@ -60,7 +102,7 @@ class VisionEncoder(nn.Module):
                 fused_plan=fused_plan or DEFAULT_PLAN)
         head = TorchLinear(v.last_out_dim, cfg.embedding_dim, device=device,
                            generator=generator)
-        if v.vit_dino:
+        if v.backbone == "vit_b14":
             self.model.head = head
         else:
             self.model.fc = head
@@ -72,7 +114,7 @@ class VisionEncoder(nn.Module):
         [B, h, w, 2048]); the ViT has no feature map (None), as in the
         reference."""
         v = self.cfg.vision
-        if v.vit_dino:
+        if v.backbone == "vit_b14":
             cls = self.model(x)
             if not v.finetune_cnn:
                 cls = cls.detach()

@@ -861,3 +861,149 @@ def test_banded_int8_stage_equal_across_band_counts(cuda, H, cin, width,
         print(f"band {band}: {codes} of {got.numel()} codes differ from "
               f"band {bands[0]}")
         assert codes == 0
+
+
+# The forced-choice eval's batches (evaluation/forced_choice.py): the trunk
+# sees B = 4 x trials in image mode and B = trials in text mode, down to
+# B = 4 and B = 1 on a tail chunk. K1, K3b and K3a's bf16 body at B = 1
+# and 4 at every shape the published plan gives them (layer 1 banded in 28
+# rows, layer 2's blocks and layer 3's head, layer 3's tail and layer 4):
+# each K1 launch against its plain version on the same input, and each
+# stage against its blocks' K1 launches word for word (a chain of plain
+# blocks drifts from the K1 chain by one-ulp roundings carried on; the
+# stage is held to the chain, each launch of the chain to its plain block)
+PLAN_K1_BLOCKS = [(2, True, 56, 256, 256, 512), (1, False, 28, 512, 256, 512),
+                  (2, True, 28, 512, 512, 1024)]
+PLAN_BF16_STAGES = [(56, 64, 128, 256, [1, 1, 1], 28),
+                    (14, 1024, 512, 1024, [1] * 5, None),
+                    (14, 1024, 1024, 2048, [2, 1, 1], None)]
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("stride,has_ds,H,cin,width,cout", PLAN_K1_BLOCKS)
+def test_kernel_matches_plain_version_at_eval_batches(
+        cuda, B, stride, has_ds, H, cin, width, cout):
+    x, fw = make_block(cin, width, cout, has_ds, H, B, cuda)
+    x = x.clamp_min(0)
+    before = fused_bottleneck.launches
+    got = fused_bottleneck(x, fw, stride=stride)
+    want = bottleneck_reference(x, fw, stride=stride)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches == before + 1
+    assert got.shape == want.shape
+    assert_close_bf16(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("H,cin,width,cout,strides,band", PLAN_BF16_STAGES)
+def test_bf16_stages_match_plain_version_at_eval_batches(
+        cuda, B, H, cin, width, cout, strides, band):
+    g = torch.Generator().manual_seed(H + cin + width + B)
+    fws = stage_weights(g, cin, width, cout, strides, False, cuda)
+    x = torch.randn(B, H, H, cin, generator=g).clamp_min(0).to(
+        cuda, torch.bfloat16)
+    counter = fused_stage if band is None else fused_stage_banded
+    before = counter.launches
+    got = (fused_stage(x, fws, strides) if band is None
+           else fused_stage_banded(x, fws, strides, band))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    chain = x
+    for fw, s in zip(fws, strides):
+        block_in, chain = chain, fused_bottleneck(chain, fw, stride=s)
+        assert_close_bf16(chain, bottleneck_reference(block_in, fw,
+                                                      stride=s))
+    words = int((got != chain).sum())
+    print(f"B = {B}: {words} of {got.numel()} words differ from the K1 "
+          f"chain")
+    assert words == 0
+
+
+# K2 and K3a's int8 body at B = 32, the int8 plan's batch in the eval (a
+# chunk of 8 image-mode trials or 32 text-mode trials): layer 3's head
+# (K2), layer 3's tail and layer 4 (K3a), against their plain versions and
+# K3a against its K2 chain code for code
+@pytest.mark.parametrize("H,cin,width,cout,strides", [
+    (28, 512, 512, 1024, [2]),
+    (14, 1024, 512, 1024, [1] * 5),
+    (14, 1024, 1024, 2048, [2, 1, 1]),
+])
+def test_int8_plan_matches_plain_version_at_eval_batch(cuda, H, cin, width,
+                                                       cout, strides):
+    g = torch.Generator().manual_seed(H + cin + width + 32)
+    fws = stage_weights(g, cin, width, cout, strides, True, cuda)
+    x = torch.randint(0, 100, (32, H, H, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    chain = x
+    for fw, s in zip(fws, strides):
+        chain = fused_bottleneck(chain, fw, stride=s)
+    want = stage_reference(x, fws, strides)
+    if len(strides) == 1:
+        codes_close(chain, want)
+        assert int((chain != want).sum()) == 0
+        return
+    before = fused_stage.launches
+    got = fused_stage(x, fws, strides)
+    torch.cuda.synchronize()
+    assert fused_stage.launches == before + 1
+    codes_close(got, want)
+    assert int((got != chain).sum()) == 0
+
+
+# The forced-choice eval on the card (the published trunk's default plan in
+# bf16: K3b, K1, K3a) against its CPU run (f32, the conv path) on the same
+# weights: equal decisions on every trial whose CPU top-two log-probability
+# gap exceeds 0.1 (about twice the largest difference between a bf16 path,
+# the plain version of the card's plan included, and f32 on random weights
+# in tests/test_torch_forced_choice.py; random-weight features of a deep
+# trunk lie close together, so most gaps are smaller)
+def test_forced_choice_on_the_card_matches_its_cpu_run(cuda):
+    import numpy as np
+    from multimodal_baby_tpu_torch.core.config import (
+        ModelConfig, TextConfig, VisionConfig)
+    from multimodal_baby_tpu_torch.evaluation.forced_choice import (
+        run_forced_choice)
+    from multimodal_baby_tpu_torch.models.multimodal import CVCL
+    from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
+
+    cfg = ModelConfig(embedding_dim=64, vocab_size=12, normalize_features=True,
+                      fix_temperature=True,
+                      vision=VisionConfig(frozen_bn="running"),
+                      text=TextConfig(text_encoder="embedding"))
+    g = torch.Generator().manual_seed(0)
+    cpu = CVCL(cfg, device="cpu", generator=g)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, InferenceBN):
+                c = m.weight.numel()
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.75 + 0.5 * torch.rand(c, generator=g))
+    card = CVCL(cfg, dtype=torch.bfloat16, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+
+    rng = np.random.RandomState(1)
+    bases = rng.randint(0, 256, (8, 8, 8, 3), np.uint8).repeat(8, 1).repeat(
+        8, 2)  # 8 categories of coarse 64 px textures
+    trials = []
+    for t in range(96):
+        cats = [(t + k * 3) % 8 for k in range(4)]
+        imgs = np.clip(bases[cats].astype(np.int16)
+                       + rng.randint(-20, 21, (4, 64, 64, 3)), 0, 255)
+        ids = np.zeros(25, np.int32)
+        ids[:3] = [2, 4 + cats[0], 3]
+        trials.append((imgs.astype(np.uint8), ids, 3, str(cats[0])))
+
+    _, want = run_forced_choice(cpu, trials, "image", batch_size=32)
+    before = fused_stage_banded.launches
+    _, got = run_forced_choice(card, trials, "image", batch_size=32)
+    assert fused_stage_banded.launches == before + 3  # B = 128 a chunk
+    lp = np.log([r["logits"] for r in want])
+    top2 = np.sort(lp, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 0.1
+    print(f"{int(clear.sum())} of {len(trials)} trials clear; max log-prob "
+          f"difference {np.abs(np.log([r['logits'] for r in got]) - lp).max():.4f}")
+    assert clear.sum() >= 8
+    assert all(g["pred"] == w["pred"]
+               for g, w, c in zip(got, want, clear) if c)

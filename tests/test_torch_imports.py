@@ -40,6 +40,18 @@ MODULES = [
     "multimodal_baby_tpu_torch.train.optimizer",
     "multimodal_baby_tpu_torch.train.step",
     "multimodal_baby_tpu_torch.api.convert",
+    "multimodal_baby_tpu_torch.api.model",
+    "multimodal_baby_tpu_torch.data.vocab",
+    "multimodal_baby_tpu_torch.data.tokenizer",
+    "multimodal_baby_tpu_torch.data.datasets",
+    "multimodal_baby_tpu_torch.data.object_categories",
+    "multimodal_baby_tpu_torch.evaluation",
+    "multimodal_baby_tpu_torch.evaluation.forced_choice",
+    "multimodal_baby_tpu_torch.evaluation.linear_probe",
+    "multimodal_baby_tpu_torch.cli",
+    "multimodal_baby_tpu_torch.cli.eval",
+    "multimodal_baby_tpu_torch.cli.parity",
+    "multimodal_baby_tpu_torch.cli.linear_decoding",
 ]
 
 PROBE = """

@@ -227,6 +227,31 @@ Phases (each raises on failure, and the script then exits non-zero):
    (16 classes) through the kernels (two chunks of 256 on the int8 plan)
    and their plain versions, per-row cosine >= 0.999; a probe trained on
    half of them for 5 epochs, its train and held-out accuracy printed.
+10. The trainer (``cli/train.py``, ``train/trainer.py``) on the published
+   recipe's flags (configs/_base.py:9-35, ``--frozen_bn running
+   --trunk_int8 0,0,1,1``) at B = 128. 10a: 2 epochs of 512 synthetic
+   pairs (4 steps an epoch). Checks: K1, K2, K3a and K3b launches [4, 1,
+   2, 1] in every train step; finite losses; the per-step train losses
+   within 1e-2 relative of the same run under ``plain_kernels()`` (the
+   largest difference printed); ``last``, ``epoch_N``, ``index.json``,
+   ``config.json``, ``metrics.jsonl`` and ``vocab.json`` written. Prints
+   the step time from ``StepTimer`` (warmup 2) and pairs/s beside phase
+   5's step, the peak device memory, and the time each epoch waited on
+   the loader. 10b: ``--resume_ckpt last --max_epochs 3``: start_epoch 2
+   and step 8; before the first resumed step the weights, the AdamW
+   moments, the LR, the plateau and the generator state equal the saved
+   ones bit for bit and the amax buffers after ``_recalibrate`` are
+   within 1e-6 relative (the largest difference printed); step 12 after
+   the third epoch, whose losses are within 1e-5 relative of an
+   uninterrupted 3-epoch run's. 10c: a SAYCam-format directory (phase
+   9b's 64 PNG frames, 512 train and 128 val utterances of packaged-vocab
+   words with 2-4 frames each, 64 trials, the packaged vocab), one epoch
+   with ``--multiple_frames --eval_include_sos_eos``: launches [4, 1, 2,
+   1] per train step and in the validation's forced-choice chunk (B =
+   256); then ``load_model(<checkpoint dir>)``: image features at B = 8
+   equal to the trainer's model's bit for bit, and its forced-choice
+   accuracy equal to the one the validation logged. Prints pairs/s with
+   PNG decoding and the loader's wait.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1437,6 +1462,7 @@ def time_steps(state, train_step, batch, what):
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     log(f"  {what} train step B={BATCH}: {step_s * 1e3:.3f} ms, "
         f"{BATCH / step_s:.1f} pairs/s")
+    return step_s
 
 
 def build_resnext_slice(trunk_int8, fused_plan, cfg=None):
@@ -1744,8 +1770,8 @@ def phase_published_flagship():
     log(f"  trunk forward B={BATCH}: int8 published plan {t_int8:.3f} ms, "
         f"bf16 per-block K1 path {t_k1:.3f} ms, plain bf16 conv path "
         f"{t_conv:.3f} ms")
-    time_steps(state, train_step, batch, "published flagship")
-    return launches, (state, train_step, batch)
+    step_s = time_steps(state, train_step, batch, "published flagship")
+    return launches, (state, train_step, batch), step_s
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2377,8 +2403,8 @@ def fit_head(model, frames, labels, vocab):
         head.bias.copy_(-(w @ mean).float())
 
 
-def write_eval_set(root, rng, frames, labels):
-    """The 64 frames (4 per category) as PNG and EVAL_TRIALS trials over
+def write_eval_set(root, rng, frames, labels, n_trials=EVAL_TRIALS):
+    """The 64 frames (4 per category) as PNG and ``n_trials`` trials over
     them (eval_filtered_dev.json): target t % 16, three foil categories
     drawn without replacement, a random frame of each."""
     from PIL import Image
@@ -2388,7 +2414,7 @@ def write_eval_set(root, rng, frames, labels):
         Image.fromarray(frame).save(path)
         paths[EVAL_CATS[label]].append(str(path))
     trials = []
-    for t in range(EVAL_TRIALS):
+    for t in range(n_trials):
         target = EVAL_CATS[t % 16]
         foils = [str(c) for c in rng.choice(
             [c for c in EVAL_CATS if c != target], 3, replace=False)]
@@ -2399,7 +2425,7 @@ def write_eval_set(root, rng, frames, labels):
                                               for c in foils]})
     path = root / "eval_filtered_dev.json"
     path.write_text(json.dumps({"data": trials}))
-    return path
+    return path, paths
 
 
 class Decoded:
@@ -2617,7 +2643,7 @@ def phase_eval_and_api(published, vit_model, card):
             raise AssertionError("9a: the five calls failed their checks")
 
         log("  -- 9b forced choice at full width, 257 + 257 trials")
-        meta = load_metadata(write_eval_set(root, rng, frames, cats))
+        meta = load_metadata(write_eval_set(root, rng, frames, cats)[0])
         datasets = {}
         for mode, cls in (("image", EvalTrialDataset),
                           ("text", TextEvalTrialDataset)):
@@ -2663,6 +2689,296 @@ def phase_eval_and_api(published, vit_model, card):
         f"{probe_accuracy(params, feats[test], labels[test]):.4f}")
     if not math.isfinite(metrics["train_ce"]):
         raise AssertionError(f"9d: probe loss {metrics['train_ce']}")
+
+
+# ----------------------------------------------------------------- phase 10
+
+# the published recipe's flags (configs/_base.py:9-35) at the benchmark's
+# batch, on synthetic data (10a, 10b) or a SAYCam-format directory (10c)
+RECIPE_ARGV = [
+    "--cnn_dino", "--frozen_bn", "running", "--trunk_int8", "0,0,1,1",
+    "--text_encoder", "embedding", "--embedding_dim", "512",
+    "--normalize_features", "--fix_temperature", "--temperature", "0.07",
+    "--augment_frames", "--dropout_i", "0.5", "--optimizer", "AdamW",
+    "--lr", "1e-4", "--weight_decay", "0.1", "--lr_scheduler",
+    "--drop_last", "--optimize_unused", "--num_workers", "8",
+    "--log_every_n_steps", "1"]
+TRAIN_BATCH = BATCH
+TRAIN_DEVICE = "cuda"
+SYNTHETIC_SIZE = 512  # 4 steps an epoch
+SAYCAM_TRAIN, SAYCAM_VAL, SAYCAM_TRIALS = 512, 128, 64
+LOSS_PLAIN_RTOL = 1e-2   # 10a: train losses, kernels against plain
+AMAX_RTOL = 1e-6         # 10b: amax after _recalibrate against the saved
+RESUME_RTOL = 1e-5       # 10b: resumed third epoch against uninterrupted
+
+
+def trainer_argv(root, exp, *extra):
+    return [*RECIPE_ARGV, "--batch_size", str(TRAIN_BATCH),
+            "--val_batch_size", str(TRAIN_BATCH), "--device", TRAIN_DEVICE,
+            "--checkpoint_dir", str(root), "--exp_name", exp, *extra]
+
+
+def synthetic_argv(root, exp, *extra):
+    return trainer_argv(root, exp, "--dataset", "synthetic",
+                        "--synthetic_size", str(SYNTHETIC_SIZE),
+                        "--max_epochs", "2", *extra)
+
+
+def logged(ckdir, key):
+    return [r[key] for r in map(json.loads, (ckdir / "metrics.jsonl")
+                                .read_text().splitlines()) if key in r]
+
+
+def count_calls(trainer, calls):
+    """Wrap the trainer's train and eval steps: each call appends (kind,
+    batch, K1/K2/K3a/K3b launches in it). The counts are set to 0 here."""
+    for fn, attr in RESNEXT_COUNTERS:
+        setattr(fn, attr, 0)
+
+    def wrap(kind, step):
+        def counted(*args):
+            before = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+            out = step(*args)
+            calls.append((kind, int(args[-1]["text"].shape[0]),
+                          [getattr(fn, attr) - b for (fn, attr), b
+                           in zip(RESNEXT_COUNTERS, before)]))
+            return out
+        return counted
+
+    trainer.train_step = wrap("train", trainer.train_step)
+    trainer.eval_step = wrap("eval", trainer.eval_step)
+
+
+def time_epochs(trainer, seconds, waits):
+    """Record each train epoch's wall time (to the end of its device work)
+    and its wait on the loader."""
+    epoch_fn = trainer.train_epoch
+
+    def timed(epoch):
+        t0 = time.perf_counter()
+        out = epoch_fn(epoch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        waits.append(trainer.loader_wait_s)
+        return out
+    trainer.train_epoch = timed
+
+
+def check_files(ckdir):
+    index = json.loads((ckdir / "index.json").read_text())
+    names = ["last"] + [b["name"] for b in index["best"]]
+    missing = [n for n in ("index.json", "config.json", "metrics.jsonl",
+                           "vocab.json") if not (ckdir / n).exists()]
+    missing += [n for n in names if not (ckdir / n / "state.pt").exists()]
+    if missing or not any(n.startswith("epoch_") for n in names):
+        raise AssertionError(f"{ckdir}: missing {missing}, index {index}")
+    return names
+
+
+def phase_trainer_synthetic(root, card, phase5_step_s):
+    """10a: the published recipe through cli/train on synthetic data, the
+    kernels against their plain versions; 10b: its resume."""
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+    from multimodal_baby_tpu_torch.train.optimizer import get_learning_rate
+    from multimodal_baby_tpu_torch.train.profiler import (
+        StepTimer, device_memory_stats)
+
+    log("  -- 10a the published recipe, 2 epochs of synthetic pairs")
+    timer = StepTimer(warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = make_trainer(synthetic_argv(root, "kernels"), step_timer=timer)
+    calls, secs, waits = [], [], []
+    count_calls(trainer, calls)
+    time_epochs(trainer, secs, waits)
+    t0 = time.perf_counter()
+    trainer.fit()
+    fit_s = time.perf_counter() - t0
+    counts = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+    peak = device_memory_stats()[0]["peak_bytes_in_use"]
+    per_step = [n for kind, _, n in calls if kind == "train"]
+    per_val = [(b, n) for kind, b, n in calls if kind == "eval"]
+    log(f"  launches K1, K2, K3a, K3b over the fit {counts}: per train "
+        f"step {per_step}; per val batch (B, counts) {per_val}")
+    if (len(per_step) != 2 * SYNTHETIC_SIZE // TRAIN_BATCH
+            or any(n != PLAN_INT8 for n in per_step)
+            or counts != [sum(c) for c in zip(*[n for _, _, n in calls])]):
+        raise AssertionError(f"10a: launches per train step {per_step}, "
+                             f"fit {counts}")
+    ckdir = root / "kernels"
+    losses = logged(ckdir, "train_loss")
+    val = logged(ckdir, "val_loss")
+    names = check_files(ckdir)
+    with plain_kernels():
+        plain = make_trainer(synthetic_argv(root, "plain"))
+        plain.fit()
+    plain_losses = logged(root / "plain", "train_loss")
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    log(f"  train losses {losses}, val {val}; plain versions "
+        f"{plain_losses}: largest relative difference {diff:.3e} (gate "
+        f"{LOSS_PLAIN_RTOL}); checkpoints {names}")
+    if not (all(math.isfinite(v) for v in losses + val + plain_losses)
+            and len(losses) == len(plain_losses) == len(per_step)
+            and diff <= LOSS_PLAIN_RTOL):
+        raise AssertionError(f"10a: losses {losses} against {plain_losses}")
+    rep = timer.report(items_per_step=TRAIN_BATCH)
+    log(f"  step (StepTimer, {rep['steps_timed']} steps after 2 warmup): "
+        f"mean {rep['mean_s'] * 1e3:.3f} ms, p50 {rep['p50_s'] * 1e3:.3f} "
+        f"ms, p90 {rep['p90_s'] * 1e3:.3f} ms, {rep['items_per_sec']:.1f} "
+        f"pairs/s; phase 5's step {phase5_step_s * 1e3:.3f} ms "
+        f"({TRAIN_BATCH / phase5_step_s:.1f} pairs/s); peak device memory "
+        f"{peak / 2**30:.3f} GiB; per epoch {[round(t, 3) for t in secs]} s "
+        f"of which waiting on the loader {[round(w, 4) for w in waits]} s; "
+        f"fit {fit_s:.2f} s (validation and checkpoints included); {card}")
+
+    log("  -- 10b resume from 'last' to a third epoch")
+    saved = torch.load(ckdir / "last" / "state.pt",
+                       map_location=TRAIN_DEVICE, weights_only=True)
+    resumed = make_trainer(synthetic_argv(root, "kernels", "--resume_ckpt",
+                                          "last", "--max_epochs", "3"))
+    state = resumed.state
+    now = resumed.model.state_dict()
+    amax = [k for k in now if k.endswith("_amax")]
+    amax_diff = max(float((now[k] - saved["model"][k]).abs()
+                          / saved["model"][k].abs().clamp_min(1e-30))
+                    for k in amax)
+    weights = all(torch.equal(now[k], v) for k, v in saved["model"].items()
+                  if k not in amax)
+    opt, opt_saved = state.optimizer.state_dict(), saved["optimizer"]
+    moments = (opt["param_groups"] == opt_saved["param_groups"] and all(
+        torch.equal(v, opt_saved["state"][i][n])
+        for i, st in opt["state"].items() for n, v in st.items()))
+    same = {"weights": weights, "AdamW moments": moments,
+            "LR": get_learning_rate(state.optimizer) == saved["lr"],
+            "plateau": resumed.plateau.state_dict() == saved["plateau"],
+            "generator": torch.equal(state.generator.get_state(),
+                                     saved["generator"].cpu())}
+    log(f"  start_epoch {resumed.start_epoch}, step {state.step}; equal to "
+        f"the saved state bit for bit: {same}; {len(amax)} amax buffers "
+        f"after _recalibrate within {amax_diff:.3e} relative of the saved "
+        f"(gate {AMAX_RTOL})")
+    if not (resumed.start_epoch == 2 and state.step == 8 and all(
+            same.values()) and amax_diff <= AMAX_RTOL):
+        raise AssertionError("10b: the resumed state differs")
+    resumed.fit()
+    full = make_trainer(synthetic_argv(root, "full", "--max_epochs", "3"))
+    full.fit()
+    third = logged(ckdir, "train_loss")[len(losses):]
+    want = logged(root / "full", "train_loss")[len(losses):]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(third, want))
+    log(f"  step {state.step} after the third epoch; its losses {third}, "
+        f"uninterrupted {want}: largest relative difference {diff:.3e} "
+        f"(gate {RESUME_RTOL})")
+    if not (state.step == 12 and len(third) == len(want) == 4
+            and diff <= RESUME_RTOL):
+        raise AssertionError(f"10b: {third} against {want}")
+
+
+def write_saycam_dir(root, rng):
+    """A SAYCam-format directory: phase 9b's 64 PNG frames (16
+    categories), SAYCAM_TRAIN utterances of packaged-vocab words with 2-4
+    frames of their category each, SAYCAM_VAL of them in val.json,
+    SAYCAM_TRIALS trials, and the packaged vocab."""
+    root.mkdir()
+    frames, cats = eval_frames(rng, 4)
+    _, paths = write_eval_set(root, rng, frames, cats, SAYCAM_TRIALS)
+    vocab = Vocab.load(PACKAGED_VOCAB)
+    words = [w for w in vocab.word2idx if not w.startswith("<")]
+
+    def entries(n):
+        out = []
+        for i in range(n):
+            cat = EVAL_CATS[i % 16]
+            k = rng.randint(2, 5)
+            pick = rng.choice(4, k, replace=k > 4)
+            out.append({"utterance": " ".join(
+                [cat] + list(rng.choice(words, rng.randint(1, 4)))),
+                "frame_filenames": [paths[cat][j] for j in pick]})
+        return out
+
+    for name, n in (("train", SAYCAM_TRAIN), ("val", SAYCAM_VAL)):
+        (root / f"{name}.json").write_text(json.dumps({"data": entries(n)}))
+    (root / "vocab.json").write_bytes(PACKAGED_VOCAB.read_bytes())
+
+
+def phase_trainer_saycam(root, card):
+    """10c: one epoch on a SAYCam-format directory, forced choice in the
+    validation on the kernels, then load_model on what it wrote."""
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+
+    log(f"  -- 10c a SAYCam-format directory: {SAYCAM_TRAIN} train, "
+        f"{SAYCAM_VAL} val pairs, {SAYCAM_TRIALS} trials, PNG frames")
+    data = root / "saycam_data"
+    write_saycam_dir(data, np.random.RandomState(10))
+    trainer = make_trainer(trainer_argv(
+        root, "saycam", "--dataset", "saycam", "--data_dir", str(data),
+        "--multiple_frames", "--eval_include_sos_eos", "--max_epochs", "1"))
+    calls, secs, waits = [], [], []
+    count_calls(trainer, calls)
+    time_epochs(trainer, secs, waits)
+    # the launches of each trunk call of the validation's forced choice
+    import multimodal_baby_tpu_torch.train.trainer as trainer_module
+    fc, active = [], []
+    forced_choice = trainer_module.run_forced_choice
+    encode = trainer.model.encode_image
+
+    def run_counted(*args, **kwargs):
+        active.append(True)
+        try:
+            return forced_choice(*args, **kwargs)
+        finally:
+            active.clear()
+
+    def encode_image(image, train=False):
+        before = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+        out = encode(image, train)
+        if active:
+            fc.append((image.shape[0], [
+                getattr(fn, attr) - b
+                for (fn, attr), b in zip(RESNEXT_COUNTERS, before)]))
+        return out
+    trainer.model.encode_image = encode_image
+    trainer_module.run_forced_choice = run_counted
+    try:
+        val = trainer.fit()
+    finally:
+        trainer_module.run_forced_choice = forced_choice
+        del trainer.model.encode_image
+    pairs = SAYCAM_TRAIN // TRAIN_BATCH * TRAIN_BATCH
+    per_step = [n for kind, _, n in calls if kind == "train"]
+    log(f"  val loss {val['loss']:.5f}, forced-choice accuracy "
+        f"{val['accuracy']:.4f}; launches per train step {per_step}, "
+        f"per forced-choice chunk {fc}; the epoch {secs[0]:.3f} s: "
+        f"{pairs / secs[0]:.1f} pairs/s with PNG decoding, "
+        f"{waits[0]:.3f} s of it waiting on the loader; {card}")
+    if not (per_step and all(n == PLAN_INT8 for n in per_step)
+            and fc == [(4 * SAYCAM_TRIALS, PLAN_INT8)]
+            and math.isfinite(val["loss"])):
+        raise AssertionError(f"10c: launches {per_step}, chunks {fc}")
+    ckdir = root / "saycam"
+    check_files(ckdir)
+    api, prep = load_model(str(ckdir), device=TRAIN_DEVICE)
+    from PIL import Image
+    rng = np.random.RandomState(11)
+    images = np.stack([prep(Image.fromarray(f))
+                       for f in eval_frames(rng, 1)[0][:8]])
+    got = api.encode_image(images)
+    want = CVCLModel(trainer.model, api.vocab).encode_image(images)
+    accs, _ = run_forced_choice(api.model, trainer.data.eval_datasets["val"],
+                                "image")
+    log(f"  load_model({ckdir.name}/): image features at B = 8 equal to "
+        f"the trainer's model's bit for bit: {torch.equal(got, want)}; "
+        f"forced-choice accuracy {accs['total']:.4f} against the "
+        f"validation's {val['accuracy']:.4f}")
+    if not (torch.equal(got, want) and accs["total"] == val["accuracy"]):
+        raise AssertionError("10c: the loaded checkpoint differs")
+
+
+def phase_trainer(card, phase5_step_s):
+    import tempfile
+    from pathlib import Path
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_trainer_synthetic(Path(tmp), card, phase5_step_s)
+        phase_trainer_saycam(Path(tmp), card)
 
 
 def main() -> int:
@@ -2777,7 +3093,8 @@ def main() -> int:
         phase_vit_slice()
     log("phase 5: the published flagship, int8 layers 3-4, default plan")
     (_, q["K2"]["launches"], q["K3a"]["launches"],
-     q["K3b"]["launches"]), published = phase_published_flagship()
+     q["K3b"]["launches"]), published, phase5_step_s = \
+        phase_published_flagship()
     log("phase 6: the ViT slice in its other kernel configurations")
     for name, n in phase_vit_configs(*vit).items():
         vit_kernels[name]["launches"] = n
@@ -2794,6 +3111,8 @@ def main() -> int:
         t[name]["launches"] = n
     log("phase 9: forced-choice evaluation, the five-call API and the probe")
     phase_eval_and_api(published, vit[1], card)
+    log("phase 10: the trainer, checkpoints, resume and load_model")
+    phase_trainer(card, phase5_step_s)
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"

@@ -10,13 +10,15 @@ multimodal_lit.py:130-190):
 
 Inputs may be numpy arrays or tensors; outputs are tensors on the model's
 device. The model is built on the card unless the caller passes
-``device="cpu"``; on the card the trunk runs in bf16 (a ResNeXt through
-its kernel plan), elsewhere in f32.
+``device="cpu"``. A reference checkpoint's trunk runs in bf16 on the card
+(a ResNeXt through its kernel plan) and in f32 elsewhere; a trainer's
+checkpoint directory's in the compute dtype it trained in.
 
-Checkpoint sources: a reference PyTorch Lightning ``.ckpt``. The JAX
-package also loads its own trainer's checkpoint directories and downloads
+Checkpoint sources: a reference PyTorch Lightning ``.ckpt``, and a
+checkpoint directory of the port's own trainer (``train/trainer.py``).
+The JAX package also loads its trainer's (orbax) directories and downloads
 the published "cvcl" checkpoint from the Hugging Face hub; the port refuses
-both, naming what each waits for.
+both, with a message.
 
 The bundled ``data/vocab.json`` is the published SAYCam vocabulary (2350
 entries), a byte-for-byte copy of the JAX package's.
@@ -34,7 +36,7 @@ from multimodal_baby_tpu_torch.api.convert import reference_state_dict
 from multimodal_baby_tpu_torch.core.config import (
     ExperimentConfig, ModelConfig, TextConfig, VisionConfig)
 from multimodal_baby_tpu_torch.core.constants import (
-    IMAGENET_MEAN, IMAGENET_STD, IMAGE_H, IMAGE_W)
+    IMAGENET_MEAN, IMAGENET_STD, IMAGE_H, IMAGE_W, SPECIAL_TOKENS)
 from multimodal_baby_tpu_torch.data.tokenizer import Tokenizer
 from multimodal_baby_tpu_torch.data.vocab import Vocab
 from multimodal_baby_tpu_torch.models.layers import resolve_device
@@ -103,6 +105,65 @@ class CVCLModel:
     # ---- constructors ----
 
     @staticmethod
+    def from_checkpoint_dir(ckpt_dir, which: str = "best",
+                            allow_placeholder_vocab: bool = False, *,
+                            device="cuda") -> "CVCLModel":
+        """Load a checkpoint directory of the port's trainer: its
+        ``config.json`` makes the model (the trunk in the compute dtype it
+        trained in, with its int8 plan and amax buffers), and the weights
+        of the ``which`` ("best", else "last") checkpoint load strictly.
+
+        The checkpoint's vocab_size is authoritative; the first word table
+        of that size among the checkpoint directory's, ``data_dir``'s and
+        the packaged one is used. Without one, loading fails (tokenize
+        would be meaningless) unless ``allow_placeholder_vocab`` asks for
+        a synthetic ``<w{i}>`` table (embeddings only), as in the JAX
+        package (``multimodal_baby_tpu/api/model.py:97-163``). A directory
+        the JAX package's trainer wrote (orbax) is refused."""
+        from multimodal_baby_tpu_torch.train.checkpoint import (
+            CheckpointManager)
+        device = resolve_device(device)
+        ckpt_dir = Path(ckpt_dir)
+        if not (ckpt_dir / "config.json").exists():
+            raise ValueError(f"{ckpt_dir} is not a checkpoint directory: "
+                             "it has no config.json")
+        cfg = CheckpointManager.load_config(ckpt_dir)
+        candidates = [p for p in (ckpt_dir / "vocab.json",
+                                  Path(cfg.data.data_dir) / "vocab.json",
+                                  PACKAGED_VOCAB) if p.exists()]
+        tables = [Vocab.load(p) for p in candidates]
+        vocab = next((v for v in tables
+                      if len(v) == cfg.model.vocab_size),
+                     tables[-1] if tables else Vocab({}))
+        if len(vocab) != cfg.model.vocab_size:
+            if not allow_placeholder_vocab:
+                raise ValueError(
+                    f"checkpoint was trained with vocab_size="
+                    f"{cfg.model.vocab_size} but the available word table "
+                    f"({candidates[-1] if candidates else PACKAGED_VOCAB}) "
+                    f"has {len(vocab)} entries; tokenization would be "
+                    f"meaningless. Place the training vocab.json under "
+                    f"{cfg.data.data_dir} or pass "
+                    f"allow_placeholder_vocab=True to load with a "
+                    f"synthetic vocab (embeddings only).")
+            words = list(SPECIAL_TOKENS) + [
+                f"<w{i}>" for i in range(cfg.model.vocab_size - 4)]
+            vocab = Vocab({w: i for i, w in enumerate(words)})
+
+        mgr = CheckpointManager(ckpt_dir)
+        path = mgr.best_path() if which == "best" else mgr.last_path()
+        if path is None:
+            path = mgr.last_path()
+        if path is None:
+            raise ValueError(f"{ckpt_dir} holds no checkpoint")
+        state = mgr.restore(path, map_location=device)
+        dtype = (torch.bfloat16 if cfg.parallel.compute_dtype == "bfloat16"
+                 else None)
+        model = CVCL(cfg.model, dtype, device=device)
+        model.load_state_dict(state["model"], strict=True)
+        return CVCLModel(model, vocab, cfg)
+
+    @staticmethod
     def from_torch_checkpoint(ckpt_path, text_encoder: str | None = None,
                               vocab_path=None, *, device="cuda"
                               ) -> "CVCLModel":
@@ -156,15 +217,13 @@ class CVCLModel:
 
 def load_model(model_name: str = "cvcl", device="cuda"):
     """Returns (model, preprocess) like the reference
-    (multimodal_lit.py:133-149), for a path to a local reference ``.ckpt``.
-    Refuses the published name "cvcl" (a download from the Hugging Face
-    hub) and a checkpoint directory (the JAX package's trainer format)."""
+    (multimodal_lit.py:133-149), for a path to a local reference ``.ckpt``
+    or to a checkpoint directory of the port's trainer. Refuses the
+    published name "cvcl" (a download from the Hugging Face hub)."""
     p = Path(model_name)
     if p.is_dir():
-        raise NotImplementedError(
-            f"{model_name} is a checkpoint directory: the port loads "
-            "reference Lightning .ckpt files only; its own trainer and "
-            "checkpoint directories are not ported yet")
+        return (CVCLModel.from_checkpoint_dir(p, device=device),
+                preprocess)
     if p.exists():
         return CVCLModel.from_torch_checkpoint(p, device=device), preprocess
     if model_name == "cvcl":

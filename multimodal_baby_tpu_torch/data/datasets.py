@@ -1,9 +1,12 @@
-"""Forced-choice trial datasets over the reference's JSON-metadata format
-(counterpart of the eval half of ``multimodal_baby_tpu/data/datasets.py``:
-``load_metadata``, the image loader, ``EvalTrialDataset`` and
-``TextEvalTrialDataset``; a test holds the items equal).
+"""Datasets over the reference's JSON-metadata format (counterpart of
+``multimodal_baby_tpu/data/datasets.py``: ``load_metadata``, the image
+loader, ``PairedImageTextDataset``, ``SyntheticPairedDataset``,
+``EvalTrialDataset`` and ``TextEvalTrialDataset``; tests hold the items
+equal).
 
-Eval trials: ``{"data": [{"target_img_filename": str,
+Training metadata: ``{"data": [{"utterance": str, "frame_filenames" or
+"frame_filename": ...}]}`` (reference: multimodal_saycam_data_module.py:
+77-211). Eval trials: ``{"data": [{"target_img_filename": str,
 "foil_img_filenames": [str], "target_category": str, "foil_categories":
 [str]}]}`` (reference: multimodal_data_module.py:112-214).
 
@@ -18,12 +21,14 @@ item 5).
 from __future__ import annotations
 
 import json
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from multimodal_baby_tpu_torch.core.constants import (
     EOS_TOKEN_ID, IMAGE_H, MAX_LEN_UTTERANCE, PAD_TOKEN_ID, SOS_TOKEN_ID)
+from multimodal_baby_tpu_torch.data.loader import collate
+from multimodal_baby_tpu_torch.data.tokenizer import Tokenizer
 from multimodal_baby_tpu_torch.data.vocab import Vocab
 
 
@@ -39,6 +44,83 @@ def load_image_uint8(path: str, size: int = IMAGE_H) -> np.ndarray:
     if img.size != (size, size):
         img = img.resize((size, size), Image.BICUBIC)
     return np.asarray(img, np.uint8)
+
+
+class PairedImageTextDataset:
+    """(image, utterance) pairs for contrastive and LM training, with
+    MultiModalSAYCamDataset's semantics (multimodal_saycam_data_module.py:
+    77-124): a random frame per utterance when ``multiple_frames``,
+    <sos>/<eos> wrapping, UNK fallback, and the ``shuffle_utterances``
+    ablation (the pairing broken by a fixed permutation). The frame choice
+    and the permutation are the JAX package's ``np.random.RandomState``
+    draws, so a seed gives the same pairs in both packages."""
+
+    def __init__(self, data: List[dict], vocab: Vocab,
+                 multiple_frames: bool = False,
+                 shuffle_utterances: bool = False,
+                 max_len: int = MAX_LEN_UTTERANCE, seed: int = 0):
+        self.data = data
+        self.tokenizer = Tokenizer(vocab, max_len)
+        self.multiple_frames = multiple_frames
+        self.max_len = max_len
+        self.rng = np.random.RandomState(seed)
+        self.utterance_order = np.arange(len(data))
+        if shuffle_utterances:
+            self.utterance_order = np.random.RandomState(
+                seed).permutation(len(data))
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def frame_filename(self, entry: dict) -> str:
+        if "frame_filenames" in entry:
+            names = entry["frame_filenames"]
+            if self.multiple_frames:
+                return names[self.rng.randint(len(names))]
+            return names[0]
+        return entry["frame_filename"]
+
+    def __getitem__(self, idx: int
+                    ) -> Tuple[np.ndarray, np.ndarray, int, str]:
+        img_entry = self.data[idx]
+        txt_entry = self.data[self.utterance_order[idx]]
+        img = load_image_uint8(self.frame_filename(img_entry))
+        utterance = txt_entry["utterance"]
+        ids, length = self.tokenizer.encode_utterance(utterance)
+        return img, ids, length, utterance
+
+    def batch_items(self, idxs) -> Dict[str, np.ndarray]:
+        """A collated batch of the items ``idxs``, decoded one by one with
+        PIL. The JAX package decodes a whole batch in one call of its
+        native C++ decoder when that is built; porting it waits for the
+        host input path (ROADMAP Queue 1, item 5)."""
+        return collate([self[int(j)] for j in idxs])
+
+
+class SyntheticPairedDataset:
+    """Deterministic synthetic pairs for benchmarks and smoke tests: no
+    disk, no decode. The arrays are the JAX package's draws for a seed."""
+
+    def __init__(self, size: int, vocab_size: int,
+                 max_len: int = MAX_LEN_UTTERANCE, seed: int = 0,
+                 image_size: int = IMAGE_H):
+        rng = np.random.RandomState(seed)
+        self.images = rng.randint(
+            0, 256, (size, image_size, image_size, 3), np.uint8)
+        lens = rng.randint(1, max_len - 1, size)
+        self.text = np.zeros((size, max_len), np.int32)
+        self.text[:, 0] = SOS_TOKEN_ID
+        for i, n in enumerate(lens):
+            self.text[i, 1:1 + n] = rng.randint(4, vocab_size, n)
+            self.text[i, 1 + n] = EOS_TOKEN_ID
+        self.text_len = (lens + 2).astype(np.int32)
+
+    def __len__(self):
+        return self.images.shape[0]
+
+    def __getitem__(self, idx):
+        return (self.images[idx], self.text[idx],
+                int(self.text_len[idx]), "")
 
 
 def _label_ids(vocab: Vocab, category: str, include_sos_eos: bool

@@ -5,8 +5,9 @@ cross-entropy + lambda_ar attention regulariser."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
+import numpy as np
 import torch
 
 from multimodal_baby_tpu_torch.core.config import ExperimentConfig
@@ -26,6 +27,7 @@ class TrainState:
     model: CVCL
     optimizer: torch.optim.Optimizer
     generator: torch.Generator  # augment and dropout draws, model's device
+    step: int = 0  # train steps taken
 
 
 def init_train_state(model: CVCL, cfg: ExperimentConfig) -> TrainState:
@@ -36,6 +38,22 @@ def init_train_state(model: CVCL, cfg: ExperimentConfig) -> TrainState:
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.train.seed)
     return TrainState(model, build_optimizer(cfg, model), generator)
+
+
+def device_batch(batch: Mapping[str, np.ndarray], device) -> Batch:
+    """A host batch (the loader's numpy arrays) on ``device``: one copy per
+    key, token ids and lengths as int64; the raw utterances stay behind.
+    On one device the JAX package pads no tail batch
+    (``parallel/mesh.py:80``), so a tail batch keeps its true size."""
+    out = {}
+    for k, v in batch.items():
+        if k == "raw":
+            continue
+        v = np.asarray(v)
+        if v.dtype == np.int32:
+            v = v.astype(np.int64)
+        out[k] = torch.from_numpy(v).to(device)
+    return out
 
 
 def calibrate_trunk(model: CVCL, batch: Batch, n: int = 32):
@@ -120,10 +138,11 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
 def make_train_step(model: CVCL, cfg: ExperimentConfig
                     ) -> Callable[[TrainState, Batch], Metrics]:
     """Returns train_step(state, batch) -> metrics; updates the model's
-    trainable parameters in place."""
+    trainable parameters in place and counts the step."""
     loss_fn = make_loss_fn(model, cfg)
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
+        state.step += 1
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, True, state.generator)

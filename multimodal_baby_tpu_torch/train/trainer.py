@@ -1,0 +1,255 @@
+"""The training loop: epochs, validation (joint loss + forced-choice
+trials), plateau LR, checkpointing, resume, logging (counterpart of
+``multimodal_baby_tpu/train/trainer.py``; reference: train.py:58-107 and
+the MultiModalLitModel hooks).
+
+One device: the host loop moves uint8 batches to the card, one copy per
+key, and the train step augments, normalizes and runs the model there.
+A step's metrics stay on the device until the epoch ends, as the JAX
+package's deferred ``to_host``: the host reads nothing back inside an
+epoch (a ``StepTimer`` synchronizes each step when one is given). The
+copy from pageable host memory still waits for the card's queue before
+it starts; pinned buffers and asynchronous copies belong to the host
+input path (ROADMAP Queue 1, item 5).
+
+Not ported: text generation in validation (``eval_textgen`` with
+``lambda_lm``; ROADMAP Queue 1, item 4) and more than one device (a
+``mesh_shape`` beyond one device; item 6): each refuses at construction.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+from multimodal_baby_tpu_torch.core.config import ExperimentConfig
+from multimodal_baby_tpu_torch.data.augment import augment_batch
+from multimodal_baby_tpu_torch.data.loader import DataLoader
+from multimodal_baby_tpu_torch.data.modules import DataModule
+from multimodal_baby_tpu_torch.evaluation.forced_choice import (
+    run_forced_choice)
+from multimodal_baby_tpu_torch.models.layers import resolve_device
+from multimodal_baby_tpu_torch.models.multimodal import CVCL
+from multimodal_baby_tpu_torch.train.checkpoint import CheckpointManager
+from multimodal_baby_tpu_torch.train.metrics import (
+    MetricsLogger, aggregate_epoch, to_host)
+from multimodal_baby_tpu_torch.train.optimizer import (
+    ReduceLROnPlateau, get_learning_rate, set_learning_rate)
+from multimodal_baby_tpu_torch.train.profiler import StepTimer
+from multimodal_baby_tpu_torch.train.step import (
+    calibrate_trunk, device_batch, init_train_state, make_eval_step,
+    make_train_step)
+
+CALIB_FRAMES = 32  # trainer.py:101: the int8 ranges' sample
+
+
+def check_one_device(mesh_shape) -> None:
+    """The port trains on one device: a mesh must resolve to (1, 1), -1
+    standing for the one device there is."""
+    d, m = mesh_shape
+    if (d, m) == (-1, -1) or (1 if d == -1 else d) * (1 if m == -1 else m) \
+            != 1:
+        raise NotImplementedError(
+            f"mesh {tuple(mesh_shape)} asks for more than one device: the "
+            "port trains on one; more waits for ROADMAP Queue 1, item 6")
+
+
+class Trainer:
+    """``device``: where the model trains (the card unless the caller asks
+    for another one). ``step_timer``: when given, each train step is timed
+    to the end of its device work (a synchronization per step)."""
+
+    def __init__(self, cfg: ExperimentConfig,
+                 data: Optional[DataModule] = None, device="cuda",
+                 step_timer: Optional[StepTimer] = None):
+        check_one_device(cfg.parallel.mesh_shape)
+        if cfg.train.eval_textgen and cfg.train.lambda_lm:
+            raise NotImplementedError(
+                "eval_textgen: text generation in validation is not ported "
+                "(ROADMAP Queue 1, item 4)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.data = data or DataModule(
+            cfg.data, vocab_size_hint=cfg.model.vocab_size,
+            seed=cfg.train.seed).setup()
+        cfg.model.vocab_size = self.data.vocab_size
+
+        dtype = {"bfloat16": torch.bfloat16, "float32": None}[
+            cfg.parallel.compute_dtype]
+        self.model = CVCL(cfg.model, dtype, device=self.device,
+                          generator=torch.Generator().manual_seed(
+                              cfg.train.seed))
+
+        self.ckpt = CheckpointManager(
+            Path(cfg.train.checkpoint_dir) / cfg.exp_name,
+            save_top_k=cfg.train.save_top_k)
+        # the checkpoint directory holds the training vocab, so that
+        # from_checkpoint_dir never has to guess a word table
+        if self.data.vocab is not None:
+            vocab_path = self.ckpt.dir / "vocab.json"
+            if not vocab_path.exists():
+                self.data.vocab.save(vocab_path)
+        self.logger = MetricsLogger(
+            Path(cfg.train.checkpoint_dir) / cfg.exp_name,
+            use_wandb=cfg.train.logger == "wandb",
+            wandb_kwargs={"project": "multimodal-saycam-tpu",
+                          "config": cfg.to_json()})
+        self.plateau = ReduceLROnPlateau(cfg.train.factor,
+                                         cfg.train.patience)
+        self.start_epoch = 0
+        self.step_timer = step_timer
+        self.loader_wait_s = 0.0  # the last train epoch's wait on batches
+        self._build()
+
+    # ------------------------------------------------------------------
+
+    def _build(self):
+        cfg = self.cfg
+        self.state = init_train_state(self.model, cfg)
+        self._calib_batch = None
+        trunk = self.model.vision_encoder.model
+        if any(getattr(trunk, "int8_plan", ())):
+            # the int8 ranges, on the first frames of the first unshuffled
+            # batch with the augment off (trainer.py:95-108)
+            loader = DataLoader(self.data.datasets["train"],
+                                cfg.data.batch_size, shuffle=False,
+                                sync=True)
+            frames = next(iter(loader))["image_u8"][:CALIB_FRAMES]
+            self._calib_batch = {"image": augment_batch(
+                torch.from_numpy(frames).to(self.device), augment=False)}
+            calibrate_trunk(self.model, self._calib_batch)
+        self.train_step = make_train_step(self.model, cfg)
+        self.eval_step = make_eval_step(self.model, cfg)
+
+        if cfg.train.resume_ckpt:
+            self._resume(cfg.train.resume_ckpt)
+
+    def _resume(self, which: str):
+        if which == "last":
+            restored, _ = self.ckpt.restore_last(self.device)
+        else:
+            restored = self.ckpt.restore(which, self.device)
+        if restored is None:
+            print("no checkpoint to resume from; starting fresh")
+            return
+        self.model.load_state_dict(restored["model"])
+        self.state.optimizer.load_state_dict(restored["optimizer"])
+        self.state.generator.set_state(restored["generator"].cpu())
+        self.state.step = int(restored["step"])
+        self.plateau.load_state_dict(restored["plateau"])
+        self.start_epoch = int(restored["epoch"]) + 1
+        set_learning_rate(self.state.optimizer, float(restored["lr"]))
+        if self._calib_batch is not None:
+            self._recalibrate()
+        print(f"resumed from epoch {self.start_epoch - 1}")
+
+    def _recalibrate(self):
+        """Measure the int8 activation ranges again on the restored
+        weights: those from ``_build`` belong to the seed's network."""
+        calibrate_trunk(self.model, self._calib_batch)
+
+    def _checkpoint_tree(self, epoch: int) -> dict:
+        """Everything a resume restores: the model's state dict (the int8
+        amax buffers included), the optimizer's state, the generator's
+        state, the step, the plateau, the epoch and the LR."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.state.optimizer.state_dict(),
+                "generator": self.state.generator.get_state(),
+                "step": self.state.step,
+                "plateau": self.plateau.state_dict(),
+                "epoch": epoch,
+                "lr": get_learning_rate(self.state.optimizer)}
+
+    # ------------------------------------------------------------------
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        cfg = self.cfg
+        loader = DataLoader(
+            self.data.datasets["train"], cfg.data.batch_size,
+            shuffle=True, drop_last=cfg.data.drop_last,
+            num_workers=cfg.data.num_workers,
+            seed=cfg.train.seed * 10000 + epoch)
+        timer = self.step_timer
+        device_outputs: List[Dict] = []
+        self.loader_wait_s = 0.0
+        batches = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            self.loader_wait_s += time.perf_counter() - t0
+            if batch is None:
+                break
+            if timer is not None:
+                timer.start()
+            metrics = self.train_step(self.state,
+                                      device_batch(batch, self.device))
+            if timer is not None:
+                timer.stop(self.device)
+            device_outputs.append(metrics)
+        outputs = [to_host(m) for m in device_outputs]
+        for step_idx, host in enumerate(outputs):
+            if step_idx % cfg.train.log_every_n_steps == 0:
+                self.logger.log(
+                    host, self.state.step - len(outputs) + step_idx + 1,
+                    prefix="train_")
+        agg = aggregate_epoch(outputs)
+        self.logger.log(agg, self.state.step, prefix="train_epoch_")
+        return agg
+
+    def validate(self, split: str = "val") -> Dict[str, float]:
+        cfg = self.cfg
+        out: Dict[str, float] = {}
+        dataset = self.data.datasets.get(split)
+        if dataset is not None:
+            loader = DataLoader(dataset, cfg.data.val_batch_size,
+                                shuffle=False,
+                                num_workers=cfg.data.num_workers)
+            outputs = [self.eval_step(device_batch(batch, self.device))
+                       for batch in loader]
+            out.update(aggregate_epoch([to_host(m) for m in outputs]))
+
+        eval_ds = self.data.eval_datasets.get(split)
+        if eval_ds is not None:
+            accs, _ = run_forced_choice(self.model, eval_ds,
+                                        cfg.data.eval_type)
+            out["accuracy"] = accs["total"]
+            for cat, acc in accs.items():
+                if cat != "total":
+                    out[f"accuracy_{cat}"] = acc
+        self.logger.log(out, self.state.step, prefix=f"{split}_")
+        return out
+
+    # ------------------------------------------------------------------
+
+    def fit(self) -> Dict[str, float]:
+        cfg = self.cfg
+        last_val: Dict[str, float] = {}
+        for epoch in range(self.start_epoch, cfg.train.max_epochs):
+            t0 = time.time()
+            train_metrics = self.train_epoch(epoch)
+            if (epoch + 1) % cfg.train.val_every_n_epochs == 0:
+                last_val = self.validate("val")
+                val_loss = last_val.get("loss", float("inf"))
+                if cfg.train.lr_scheduler:
+                    lr = get_learning_rate(self.state.optimizer)
+                    new_lr = self.plateau.step(val_loss, lr)
+                    if new_lr != lr:
+                        set_learning_rate(self.state.optimizer, new_lr)
+                        print(f"plateau: lr {lr:.2e} -> {new_lr:.2e}")
+                self.ckpt.save(self._checkpoint_tree(epoch), epoch,
+                               val_loss, cfg)
+            if cfg.data.test_while_val and \
+                    (epoch + 1) % cfg.train.val_every_n_epochs == 0:
+                self.validate("test")
+            dt = time.time() - t0
+            print(f"epoch {epoch}: train_loss="
+                  f"{train_metrics.get('loss', float('nan')):.4f} "
+                  f"val_loss={last_val.get('loss', float('nan')):.4f} "
+                  f"val_acc={last_val.get('accuracy', float('nan')):.3f} "
+                  f"({dt:.1f}s, {self.loader_wait_s:.2f}s waiting on "
+                  f"the loader)")
+        self.ckpt.wait()
+        return last_val

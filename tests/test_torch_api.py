@@ -165,7 +165,7 @@ def test_preprocess_matches_jax():
 def test_load_model_refusals(ckpts, tmp_path):
     with pytest.raises(RuntimeError, match="Hugging Face"):
         tapi.load_model("cvcl", device="cpu")
-    with pytest.raises(NotImplementedError, match="directory"):
+    with pytest.raises(ValueError, match="not a checkpoint directory"):
         tapi.load_model(str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="not found"):
         tapi.load_model(str(tmp_path / "missing.ckpt"), device="cpu")

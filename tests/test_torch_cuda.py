@@ -1007,3 +1007,50 @@ def test_forced_choice_on_the_card_matches_its_cpu_run(cuda):
     assert clear.sum() >= 8
     assert all(g["pred"] == w["pred"]
                for g, w, c in zip(got, want, clear) if c)
+
+
+# the published recipe's trainer at a small data size: 64 synthetic frames
+# at B = 32 (2 steps an epoch; the int8 plan runs at B % 32 == 0), the int8
+# ranges measured again after a resume within 1e-6 relative of the saved
+def test_trainer_published_trunk_and_resume(cuda, tmp_path):
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+
+    argv = ["--dataset", "synthetic", "--synthetic_size", "64",
+            "--cnn_dino", "--frozen_bn", "running", "--trunk_int8",
+            "0,0,1,1", "--embedding_dim", "512", "--normalize_features",
+            "--fix_temperature", "--augment_frames", "--dropout_i", "0.5",
+            "--lr", "1e-4", "--weight_decay", "0.1", "--lr_scheduler",
+            "--batch_size", "32", "--val_batch_size", "32", "--drop_last",
+            "--optimize_unused", "--num_workers", "4", "--max_epochs", "2",
+            "--checkpoint_dir", str(tmp_path), "--device", "cuda"]
+    counters = [(fused_bottleneck, "launches"),
+                (fused_bottleneck, "launches_q"),
+                (fused_stage, "launches"), (fused_stage_banded, "launches")]
+    trainer = make_trainer(argv)
+    per_step = []
+    step = trainer.train_step
+
+    def counted(state, batch):
+        before = [getattr(fn, attr) for fn, attr in counters]
+        out = step(state, batch)
+        per_step.append([getattr(fn, attr) - b
+                         for (fn, attr), b in zip(counters, before)])
+        return out
+
+    trainer.train_step = counted
+    out = trainer.fit()
+    assert torch.isfinite(torch.tensor(out["loss"]))
+    assert per_step == [[4, 1, 2, 1]] * 4
+    saved = torch.load(tmp_path / "default" / "last" / "state.pt",
+                       map_location="cuda", weights_only=True)["model"]
+    resumed = make_trainer(argv + ["--resume_ckpt", "last",
+                                   "--max_epochs", "3"])
+    assert (resumed.start_epoch, resumed.state.step) == (2, 4)
+    now = resumed.model.state_dict()
+    amax = [k for k in now if k.endswith("_amax")]
+    assert len(amax) == 1 + 2 * (6 + 3) + 16  # stem; h1, h2 of layers 3-4
+    for k in amax:
+        assert float(saved[k]) > 0
+        assert abs(float(now[k] - saved[k])) <= 1e-6 * float(saved[k]), k
+    resumed.fit()
+    assert resumed.state.step == 6

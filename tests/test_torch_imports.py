@@ -39,6 +39,14 @@ MODULES = [
     "multimodal_baby_tpu_torch.data.augment",
     "multimodal_baby_tpu_torch.train.optimizer",
     "multimodal_baby_tpu_torch.train.step",
+    "multimodal_baby_tpu_torch.train.metrics",
+    "multimodal_baby_tpu_torch.train.checkpoint",
+    "multimodal_baby_tpu_torch.train.profiler",
+    "multimodal_baby_tpu_torch.train.trainer",
+    "multimodal_baby_tpu_torch.data.loader",
+    "multimodal_baby_tpu_torch.data.modules",
+    "multimodal_baby_tpu_torch.cli.args",
+    "multimodal_baby_tpu_torch.cli.train",
     "multimodal_baby_tpu_torch.api.convert",
     "multimodal_baby_tpu_torch.api.model",
     "multimodal_baby_tpu_torch.data.vocab",

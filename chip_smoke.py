@@ -252,6 +252,40 @@ Phases (each raises on failure, and the script then exits non-zero):
    equal to the trainer's model's bit for bit, and its forced-choice
    accuracy equal to the one the validation logged. Prints pairs/s with
    PNG decoding and the loader's wait.
+11. Text generation, grad-CAM and the analyses that run a model, on the
+   published trunk's kernels. 11a: the joint recipe
+   (configs/saycam_joint.py: ``--text_encoder lstm --lambda_mm 0.5
+   --lambda_lm 0.5 --eval_textgen``, beam 3, 25 steps, val batch 16) with
+   phase 10's flags through ``cli/train.py``, one epoch of phase 10c's
+   directory: launches [4, 1, 2, 1] in every train step, BLEU-1..4,
+   METEOR, ROUGE_L, CIDEr and SPICE finite, and the same validation under
+   ``plain_kernels()`` gives the same hypotheses (the unconditioned
+   decode runs no trunk kernel); prints the decode's time a batch and
+   sequences/s. 11b: a captioning LSTM on phase 5's calibrated trunk
+   (its own seeded head), ``run_textgen_eval`` over phase 9b's 64 frames
+   at B = 64 (the category names as references): [4, 1, 2, 1] launches,
+   the trunk's features at per-row cosine >= 0.999 to
+   ``plain_kernels()`` (the image features printed), sequences equal
+   where the plain run's top two beam scores differ by more than 0.05;
+   prints sequences/s and the encode/decode split. 11c: ``cli/eval.py
+   --dump_attention_maps 8`` on phase 9a's checkpoint writes 32 overlays;
+   ``grad_cam`` on those 8 trials (B = 4) launches the bf16 plan a trial
+   and, on a seeded random head, reaches per-map cosine >= 0.999 to plain
+   (the f32 conv path's agreement, and both on phase 9's fitted head,
+   printed: that head's gain scales bf16 differences up);
+   ``grad_cam_captioning`` on 11b's first frame and caption over 8
+   steps: step 0 zero, maps in [0, 1], cosine >= 0.999 to plain. 11d: the
+   alignment's feature sets over phase 9b's frames (one directory per
+   category; ``category_feature_sets`` and the alignment CSVs) at per-row
+   cosine >= 0.999 to plain, and the leak audit on 10c's directory, its
+   eval frames' trunk features at >= 0.999 to plain; launches per chunk
+   against the plan; prints the Pearson r. t-SNE and the audit's figures are host code the
+   CPU tests hold (the card's machine has no scikit-learn or matplotlib).
+   11e: ``collect_token_data`` over the directory's 640 utterances
+   (``sentence_batches``, L = 25) on phase 7b's joint model with
+   ``fused_lstm=True``: one K9 launch per ``lm_forward``, per-token
+   cross-entropy within 1e-4 of the plain scan, hidden states at per-row
+   cosine >= 0.9999; prints tokens/s.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1928,6 +1962,8 @@ def phase_lstm_slice():
                              f"{forwards}")
     total[0] += k9
     check_frozen_and_heads(model, frozen, heads)
+    joint_state = {k: v.detach().clone()
+                   for k, v in model.state_dict().items()}
     time_steps(state, train_step, batch, "joint")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1965,7 +2001,7 @@ def phase_lstm_slice():
                  fused_infonce_with_metrics.launches_bwd]
     log(f"  phase 7 launches: K9 {total[0]}, K4 forward {total[1]}, K4 "
         f"backward {total[2]}")
-    return total
+    return total, (model, joint_state)
 
 
 # ---------------------------------------------------------------- phase 2f
@@ -2574,6 +2610,27 @@ def eval_resnext(what, model, datasets, card):
             f"({len(decoded) / secs_dec:.1f} trials/s); {card}")
 
 
+def write_reference_ckpt(model, root):
+    """``model``'s weights (no amax buffers, the tied LM weight added) as a
+    reference Lightning ``.ckpt`` with its hparams, the packaged
+    ``vocab.json`` beside it. Returns the checkpoint's path."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if not k.endswith("_amax")}
+    sd["language_model.output_layer.weight"] = \
+        sd["text_encoder.embedding.weight"]  # tied, as the reference
+    mc = model.cfg
+    hparams = {"text_encoder": "embedding",
+               "embedding_dim": mc.embedding_dim,
+               "embedding_type": "flat", "normalize_features": True,
+               "fix_temperature": True, "temperature": mc.temperature,
+               "cnn_dino": True, "vit_dino": False, "tie": True,
+               "bias": True}
+    ckpt = root / "cvcl.ckpt"
+    torch.save({"state_dict": sd, "hyper_parameters": hparams}, ckpt)
+    (root / "vocab.json").write_bytes(PACKAGED_VOCAB.read_bytes())
+    return ckpt
+
+
 def phase_eval_and_api(published, vit_model, card):
     """9a: phase 5's weights through a reference-format checkpoint and
     load_model; 9b: forced choice with it and with phase 5's int8 model;
@@ -2592,20 +2649,7 @@ def phase_eval_and_api(published, vit_model, card):
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         log("  -- 9a the checkpoint round trip")
-        sd = {k: v.detach().cpu() for k, v in int8_model.state_dict().items()
-              if not k.endswith("_amax")}
-        sd["language_model.output_layer.weight"] = \
-            sd["text_encoder.embedding.weight"]  # tied, as the reference
-        mc = int8_model.cfg
-        hparams = {"text_encoder": "embedding",
-                   "embedding_dim": mc.embedding_dim,
-                   "embedding_type": "flat", "normalize_features": True,
-                   "fix_temperature": True, "temperature": mc.temperature,
-                   "cnn_dino": True, "vit_dino": False, "tie": True,
-                   "bias": True}
-        ckpt = root / "cvcl.ckpt"
-        torch.save({"state_dict": sd, "hyper_parameters": hparams}, ckpt)
-        (root / "vocab.json").write_bytes(PACKAGED_VOCAB.read_bytes())
+        ckpt = write_reference_ckpt(int8_model, root)
         api, prep = load_model(str(ckpt))
         loaded = api.model
         trunk = loaded.vision_encoder.model
@@ -2981,6 +3025,448 @@ def phase_trainer(card, phase5_step_s):
         phase_trainer_saycam(Path(tmp), card)
 
 
+# ----------------------------------------------------------------- phase 11
+
+# configs/saycam_joint.py on the published trunk (phase 10's flags), with the
+# validation's text generation at the recipe's val_batch_size
+JOINT_ARGV = ["--text_encoder", "lstm", "--sim", "mean", "--lambda_mm",
+              "0.5", "--lambda_lm", "0.5", "--eval_textgen", "--beam_width",
+              "3", "--decode_length", "25", "--val_batch_size", "16"]
+TEXTGEN_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L",
+                "CIDEr", "SPICE")
+CAM_TRIALS = 8       # 11c: the overlays of 8 trials, 32 maps
+CAM_STEPS = 8        # 11c: grad_cam_captioning's steps on one frame
+CE_ATOL = 1e-4       # 11e: per-token cross-entropy, K9 against the scan
+HIDDEN_COS = 0.9999  # 11e: hidden states, per row
+
+
+@contextlib.contextmanager
+def recorded_textgen():
+    """Yields (runs, decodes): each (scores, references, hypotheses) the
+    trainer's validation gets from run_textgen_eval, and each
+    decode_batch call's (batch, seconds to the end of its device work)."""
+    import multimodal_baby_tpu_torch.train.trainer as trainer_module
+    from multimodal_baby_tpu_torch.evaluation import textgen
+    real_run, real_decode = (trainer_module.run_textgen_eval,
+                             textgen.decode_batch)
+    runs, decodes = [], []
+
+    def run(*args, **kwargs):
+        runs.append(real_run(*args, **kwargs))
+        return runs[-1]
+
+    def decode(model, batch, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_decode(model, batch, *args, **kwargs)
+        torch.cuda.synchronize()
+        decodes.append((len(batch["text"]), time.perf_counter() - t0))
+        return out
+
+    trainer_module.run_textgen_eval, textgen.decode_batch = run, decode
+    try:
+        yield runs, decodes
+    finally:
+        trainer_module.run_textgen_eval, textgen.decode_batch = (
+            real_run, real_decode)
+
+
+def map_cosines(a, b):
+    """Per-map cosine of [N, H, W] maps; two all-zero maps agree."""
+    a, b = a.flatten(1).double(), b.flatten(1).double()
+    den = a.norm(dim=1) * b.norm(dim=1)
+    both_zero = (a.abs().amax(1) == 0) & (b.abs().amax(1) == 0)
+    return torch.where(both_zero, 1.0, (a * b).sum(1) / den.clamp_min(1e-300))
+
+
+def phase_textgen_trainer(root, card):
+    """11a: the joint recipe through cli/train with eval_textgen on a
+    SAYCam-format directory; the validation again under plain_kernels()."""
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+
+    log("  -- 11a the joint recipe (configs/saycam_joint.py) with "
+        "eval_textgen, one epoch")
+    data = root / "saycam_data"
+    write_saycam_dir(data, np.random.RandomState(10))
+    trainer = make_trainer(trainer_argv(
+        root, "joint", "--dataset", "saycam", "--data_dir", str(data),
+        "--multiple_frames", "--eval_include_sos_eos", "--max_epochs", "1",
+        *JOINT_ARGV))
+    calls = []
+    count_calls(trainer, calls)
+    with recorded_textgen() as (runs, decodes):
+        t0 = time.perf_counter()
+        val = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        n_decodes = len(decodes)
+        with plain_kernels():
+            plain_val = trainer.validate("val")
+    decodes = decodes[:n_decodes]
+    per_step = [n for kind, _, n in calls if kind == "train"]
+    scores = {k: val.get(k, float("nan")) for k in TEXTGEN_KEYS}
+    hyps, plain_hyps = runs[0][2], runs[1][2]
+    dec_s = sum(t for _, t in decodes)
+    n_seq = sum(b for b, _ in decodes)
+    log(f"  launches per train step {per_step}; val loss {val['loss']:.5f}, "
+        f"forced-choice accuracy {val['accuracy']:.4f}; text generation "
+        f"{scores}; {len(hyps)} hypotheses ({len(set(hyps))} distinct: the "
+        f"unconditioned decode starts every row from SOS), e.g. "
+        f"{hyps[0]!r}; under plain_kernels() equal token for token: "
+        f"{hyps == plain_hyps} (scores {plain_val['CIDEr']:.6f} CIDEr)")
+    log(f"  decode: {len(decodes)} validation batches of "
+        f"{sorted({b for b, _ in decodes})} in {dec_s:.3f} s, "
+        f"{dec_s / len(decodes) * 1e3:.1f} ms a batch, {n_seq / dec_s:.1f} "
+        f"sequences/s (beam 3, 25 steps); the fit {fit_s:.2f} s; {card}")
+    if not (per_step and all(n == PLAN_INT8 for n in per_step)
+            and all(math.isfinite(v) for v in scores.values())
+            and len(hyps) == SAYCAM_VAL and hyps == plain_hyps):
+        raise AssertionError(f"11a: launches {per_step}, scores {scores}")
+    return data
+
+
+def captioning_model(published):
+    """A captioning LSTM on phase 5's calibrated trunk (its weights and int8
+    ranges; the head, the LSTM and the connector freshly seeded: phase 9's
+    fitted head would scale the embeddings' bf16 differences up, 11c)."""
+    cfg = recipe_cfg(0.0, 1.0)
+    cfg.model.text = TextConfig(text_encoder="lstm", captioning=True)
+    model = CVCL(cfg.model, torch.bfloat16, device="cuda",
+                 generator=torch.Generator().manual_seed(11))
+    trunk = {k: v for k, v in published[0].model.state_dict().items()
+             if k.startswith("vision_encoder.model.")
+             and not k.startswith("vision_encoder.model.fc.")}
+    missing, unexpected = model.load_state_dict(trunk, strict=False)
+    if unexpected or any(k.startswith("vision_encoder.") and
+                         not k.startswith("vision_encoder.model.fc.")
+                         for k in missing):
+        raise AssertionError(f"11b: trunk keys {unexpected}, {missing}")
+    return model
+
+
+def phase_captioning(published, card):
+    """11b: run_textgen_eval in captioning mode over phase 9b's frames;
+    image features and decodes against plain_kernels()."""
+    from multimodal_baby_tpu_torch.evaluation.textgen import (
+        ids_to_sentence, run_textgen_eval)
+
+    log("  -- 11b captioning text generation on phase 5's trunk, 64 frames "
+        "at B = 64")
+    model = captioning_model(published)
+    frames, cats = eval_frames(np.random.RandomState(9), 4)
+    vocab = Vocab.load(PACKAGED_VOCAB)
+    n = len(frames)
+    batch = {"text": np.zeros((n, MAX_LEN_UTTERANCE), np.int64),
+             "text_len": np.ones((n,), np.int64),
+             "raw": [EVAL_CATS[c] for c in cats], "image_u8": frames}
+    run_textgen_eval(model, [batch], vocab, captioning=True)  # warm-up
+    for fn, attr in RESNEXT_COUNTERS:
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, _, hyps = run_textgen_eval(model, [batch], vocab,
+                                       captioning=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+    x = normalize_image(torch.from_numpy(frames).cuda())
+    runs = {}
+    for path in ("kernels", "plain"):
+        with trunk_path(model, path), torch.no_grad(), \
+                per_chunk(model, RESNEXT_COUNTERS) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats, _ = model.encode_image(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            seq, beam = model.beam_search_decode(n, 3, 25, 0.0, feats)
+            torch.cuda.synchronize()
+            runs[path] = (calls[0][2], calls[0][3], seq[:, 0], beam,
+                          t1 - t0, time.perf_counter() - t1)
+    (trunk, feats, seq, _, enc_s, dec_s), (p_trunk, p_feats, p_seq, p_beam,
+                                           _, _) = runs["kernels"], \
+        runs["plain"]
+    # the gate reads the trunk's output: phase 9's fitted head scales the
+    # features' small spread, and with it their differences, up
+    cos = float(row_cosines(trunk, p_trunk).min())
+    emb_cos = float(row_cosines(feats, p_feats).min())
+    clear = (p_beam[:, 0] - p_beam[:, 1]) > EVAL_GAP
+    same = (seq == p_seq).all(dim=1)
+    log(f"  launches K1, K2, K3a, K3b {counts} (one batch); trunk features "
+        f"vs plain per-row cos min {cos:.7f} (image features "
+        f"{emb_cos:.7f}); sequences equal to plain on "
+        f"{int(same.sum())}/{n} ({int(same[clear].sum())}/"
+        f"{int(clear.sum())} with a top-two beam gap > {EVAL_GAP}); "
+        f"{len(set(hyps))} distinct captions, e.g. {hyps[0]!r}; scores "
+        f"against the category names {scores}")
+    log(f"  run_textgen_eval: {n} sequences in {secs:.3f} s, {n / secs:.1f} "
+        f"sequences/s (scoring included); encode {enc_s * 1e3:.2f} ms, "
+        f"decode {dec_s * 1e3:.2f} ms: {n / (enc_s + dec_s):.1f} "
+        f"sequences/s; {card}")
+    if not (counts == PLAN_INT8 and cos >= SLICE_COS_TOL
+            and bool(same[clear].all())
+            and hyps == [ids_to_sentence(s, vocab) for s in seq.cpu()]
+            and all(math.isfinite(v) for v in scores.values())):
+        raise AssertionError(f"11b: launches {counts}, cos {cos:.7f}, "
+                             f"{int(same.sum())}/{n} equal")
+    return model, frames[0], seq[0, :CAM_STEPS].cpu()
+
+
+def phase_grad_cam(root, published, captioning, card):
+    """11c: cli/eval --dump_attention_maps on phase 9a's checkpoint; grad_cam
+    and grad_cam_captioning against plain_kernels()."""
+    from multimodal_baby_tpu_torch.analysis.attention_maps import (
+        grad_cam, grad_cam_captioning)
+    from multimodal_baby_tpu_torch.cli.eval import main as eval_main
+
+    log(f"  -- 11c grad-CAM: cli/eval --dump_attention_maps {CAM_TRIALS} on "
+        f"phase 9a's checkpoint")
+    root.mkdir()
+    ckpt = write_reference_ckpt(published[0].model, root)
+    rng = np.random.RandomState(9)
+    frames, cats = eval_frames(rng, 4)
+    write_eval_set(root, rng, frames, cats, n_trials=2 * CAM_TRIALS)
+    out = root / "results"
+    t0 = time.perf_counter()
+    eval_main(["--checkpoint", str(ckpt), "--data_dir", str(root),
+               "--eval_type", "image", "--eval_include_sos_eos",
+               "--dump_attention_maps", str(CAM_TRIALS), "--output_dir",
+               str(out), "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    pngs = sorted((out / f"attention_maps_{ckpt.stem}").glob("*.png"))
+    api, _ = load_model(str(ckpt), device="cuda")
+    model = api.model
+    dataset = EvalTrialDataset(load_metadata(root / "eval_filtered_dev.json"),
+                               api.vocab, eval_include_sos_eos=True)
+    items = [dataset[i] for i in range(CAM_TRIALS)]
+
+    def cam_maps(path):
+        """(maps [4 * CAM_TRIALS, 224, 224], launches per trial, seconds)
+        of grad_cam on each trial's images against its label."""
+        got, per_trial, secs = [], [], 0.0
+        with trunk_path(model, path):
+            for imgs, ids, ln, _ in items:
+                k = imgs.shape[0]
+                before = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got.append(torch.from_numpy(grad_cam(
+                    model, normalize_image(torch.from_numpy(imgs).cuda()),
+                    torch.from_numpy(ids).cuda().long()[None].expand(k, -1),
+                    torch.full((k,), int(ln), device="cuda"))))
+                torch.cuda.synchronize()
+                secs += time.perf_counter() - t0
+                per_trial.append([getattr(fn, attr) - b for (fn, attr), b
+                                  in zip(RESNEXT_COUNTERS, before)])
+        return torch.cat(got), per_trial, secs
+
+    # Phase 9's fitted head maps each category's mean feature onto its
+    # label, so a frame's embedding lies close to its own label's and the
+    # gradient of their product (the part orthogonal to the embedding) is
+    # small beside the embeddings' bf16 differences, which the head's gain
+    # scales up (phase 9b: embeddings at cosine 0.9995 where the trunk's
+    # features are at 0.999999). Its maps are printed; the gate takes them
+    # with a seeded random head, where the gradient is well conditioned.
+    fitted = {path: cam_maps(path) for path in ("kernels", "plain", "f32")}
+    fc = model.vision_encoder.model.fc
+    saved = {k: v.clone() for k, v in fc.state_dict().items()}
+    gen = torch.Generator().manual_seed(15)
+    bound_w = 1.0 / math.sqrt(fc.in_features)
+    with torch.no_grad():
+        for t in (fc.weight, fc.bias):
+            t.copy_(torch.rand(t.shape, generator=gen) * 2 * bound_w
+                    - bound_w)
+    maps = {path: cam_maps(path) for path in ("kernels", "plain", "f32")}
+    fc.load_state_dict(saved)
+    per_trial, secs = maps["kernels"][1], maps["kernels"][2]
+    cos = float(map_cosines(maps["kernels"][0], maps["plain"][0]).min())
+    cos_f32 = float(map_cosines(maps["kernels"][0], maps["f32"][0]).min())
+    fit_cos = float(map_cosines(fitted["kernels"][0],
+                                fitted["plain"][0]).min())
+    fit_f32 = float(map_cosines(fitted["kernels"][0],
+                                fitted["f32"][0]).min())
+    log(f"  {len(pngs)} overlays written ({cli_s:.2f} s for the CLI's "
+        f"forced choice and maps); grad_cam on {CAM_TRIALS} trials (B = 4): "
+        f"launches per trial {per_trial}; per-map cos vs plain min "
+        f"{cos:.7f}, vs the f32 conv path min {cos_f32:.7f} (phase 9's "
+        f"fitted head: {fit_cos:.7f} and {fit_f32:.7f}); "
+        f"{CAM_TRIALS * 4 / secs:.1f} maps/s; {card}")
+    if not (len(pngs) == 4 * CAM_TRIALS
+            and all(n == PLAN_BF16 for n in per_trial + fitted["kernels"][1])
+            and cos >= SLICE_COS_TOL
+            and torch.isfinite(fitted["kernels"][0]).all()):
+        raise AssertionError(f"11c: {len(pngs)} overlays, launches "
+                             f"{per_trial}, cos {cos:.7f}")
+
+    cap_model, frame, caption = captioning
+    x = normalize_image(torch.from_numpy(frame).cuda())
+    cams = {}
+    for path in ("kernels", "plain"):
+        with trunk_path(cap_model, path):
+            cams[path] = torch.from_numpy(grad_cam_captioning(
+                cap_model, x, caption, CAM_STEPS))
+    k, p = cams["kernels"], cams["plain"]
+    cos = map_cosines(k[1:], p[1:])
+    log(f"  grad_cam_captioning on 11b's first frame and caption "
+        f"{caption.tolist()}: {tuple(k.shape)} maps, step 0 zero "
+        f"{bool((k[0] == 0).all())}, in [{float(k.min()):.3f}, "
+        f"{float(k.max()):.3f}]; per-map cos vs plain min "
+        f"{float(cos.min()):.7f}")
+    if not (k.shape == (CAM_STEPS, *frame.shape[:2])
+            and bool((k[0] == 0).all())
+            and float(k.min()) >= 0 and float(k.max()) <= 1 + 1e-6
+            and float(cos.min()) >= SLICE_COS_TOL):
+        raise AssertionError(f"11c: captioning maps, cos {cos.tolist()}")
+    return api
+
+
+def phase_alignment(root, api, data, card):
+    """11d: the alignment's feature sets over phase 9b's frames, one
+    directory per category, and the leak audit's embeddings on 11a's
+    SAYCam-format directory, each against plain_kernels()."""
+    from PIL import Image
+    from multimodal_baby_tpu_torch.analysis.duplicates import run_leak_audit
+    from multimodal_baby_tpu_torch.analysis.embeddings import (
+        category_feature_sets, write_alignment_csvs)
+    from multimodal_baby_tpu_torch.cli.analyze import (
+        frame_embedder, frame_loader, leak_audit_metadata)
+
+    log("  -- 11d the alignment's feature sets and the leak audit")
+    model = api.model
+    frames_dir = root / "eval_frames"
+    frames, cats = eval_frames(np.random.RandomState(9), 4)
+    for i, (frame, c) in enumerate(zip(frames, cats)):
+        d = frames_dir / EVAL_CATS[c]
+        d.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(frame).save(d / f"{i}.png")
+    sets = {}
+    for path in ("kernels", "plain"):
+        with trunk_path(model, path), \
+                per_chunk(model, RESNEXT_COUNTERS) as calls:
+            t0 = time.perf_counter()
+            sets[path] = category_feature_sets(model, frames_dir, api.vocab)
+            secs = time.perf_counter() - t0
+        if path == "kernels":
+            chunks = [(b, n) for b, n, _, _ in calls]
+            align_s = secs
+    cos = min(float(row_cosines(torch.from_numpy(sets["kernels"][k]),
+                                torch.from_numpy(sets["plain"][k])).min())
+              for k in ("all_image_features", "mean_image_features"))
+    feats = sets["kernels"]
+    _, _, (r, pval) = write_alignment_csvs(
+        feats["mean_image_features"], feats["text_features"],
+        feats["categories"], root / "alignment")
+    log(f"  alignment: {feats['all_image_features'].shape[0]} frames of "
+        f"{len(feats['categories'])} categories in {align_s:.3f} s with PNG "
+        f"decoding; launches per chunk (B, counts) {chunks}; feature sets "
+        f"vs plain per-row cos min {cos:.7f}; Pearson r {r:.4f} (p "
+        f"{pval:.2e}); {card}")
+    if not (cos >= SLICE_COS_TOL
+            and all(n == PLAN_BF16 for _, n in chunks)
+            and len(chunks) == len(feats["categories"])):
+        raise AssertionError(f"11d: alignment cos {cos:.7f}, chunks {chunks}")
+
+    train_md, eval_md = leak_audit_metadata(data, "eval_filtered_dev.json")
+    embed = frame_embedder(model, frame_loader(data / "train_5fps"))
+    with per_chunk(model, RESNEXT_COUNTERS) as calls:
+        t0 = time.perf_counter()
+        report = run_leak_audit(train_md, eval_md, embed, root / "dups")
+        audit_s = time.perf_counter() - t0
+    chunks = collections.Counter((b, tuple(n)) for b, n, _, _ in calls)
+    # the gate reads the trunk's output, as phase 9's: the fitted head
+    # scales the embeddings' bf16 differences up (11c)
+    eval_files = [e["target_img_filename"] for e in eval_md]
+    embs = {}
+    for path in ("kernels", "plain"):
+        with trunk_path(model, path), \
+                per_chunk(model, RESNEXT_COUNTERS) as calls:
+            embed(eval_files)
+        embs[path] = calls[0][2:]
+    cos = float(row_cosines(embs["kernels"][0], embs["plain"][0]).min())
+    emb_cos = float(row_cosines(embs["kernels"][1], embs["plain"][1]).min())
+    log(f"  leak audit: {report['n_pairs']} eval frames matched in "
+        f"{audit_s:.3f} s, proportions over {report['proportions_over']}; "
+        f"chunks (B, launches): count {dict(chunks)}; the eval frames' "
+        f"trunk features vs plain per-row cos min {cos:.7f} (embeddings "
+        f"{emb_cos:.7f})")
+    if not (cos >= SLICE_COS_TOL and report["n_pairs"] == len(eval_md)
+            and all(n == tuple(PLAN_BF16) for _, n in chunks)):
+        raise AssertionError(f"11d: leak audit cos {cos:.7f}, {report}")
+
+
+def phase_token_pass(joint, data, card):
+    """11e: collect_token_data over the directory's utterances on phase
+    7b's joint model, K9 (fused_lstm=True) against the plain scan."""
+    from multimodal_baby_tpu_torch.analysis.processing import (
+        collect_token_data, sentence_batches)
+
+    log("  -- 11e the per-token pass on phase 7b's joint model, "
+        "fused_lstm=True")
+    model, state = joint
+    model.load_state_dict(state)
+    utts = [r["utterance"] for split in ("train", "val") for r in
+            json.loads((data / f"{split}.json").read_text())["data"]]
+    vocab = Vocab.load(PACKAGED_VOCAB)
+    batches = list(sentence_batches(utts, vocab, batch_size=64,
+                                    max_len=MAX_LEN_UTTERANCE))
+    forwards = []
+    lm_forward = model.lm_forward
+
+    def counted(*args, **kwargs):
+        forwards.append(lstm_fused.launches)
+        out = lm_forward(*args, **kwargs)
+        forwards[-1] = lstm_fused.launches - forwards[-1]
+        return out
+
+    runs = {}
+    model.lm_forward = counted
+    try:
+        for fused in (True, False):
+            model.text_encoder.fused_lstm = fused
+            collect_token_data(model, batches[:1], vocab)  # warm-up
+            forwards.clear()
+            lstm_fused.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[fused] = collect_token_data(model, batches, vocab,
+                                             collect_hidden=True)
+            runs[fused]["seconds"] = time.perf_counter() - t0
+            runs[fused]["k9"] = list(forwards)
+    finally:
+        del model.lm_forward
+    got, want = runs[True], runs[False]
+    n_tok = len(got["token_id"])
+    ce_err = float(np.abs(got["ce_loss"] - want["ce_loss"]).max())
+    cos = float(row_cosines(torch.from_numpy(got["hidden"]),
+                            torch.from_numpy(want["hidden"])).min())
+    log(f"  {len(utts)} utterances, {len(batches)} batches, {n_tok} tokens: "
+        f"K9 launches per lm_forward {got['k9']} (plain scan "
+        f"{want['k9']}); cross-entropy vs the plain scan max abs err "
+        f"{ce_err:.2e} (mean {float(got['ce_loss'].mean()):.4f}); hidden "
+        f"states per-row cos min {cos:.7f}; {n_tok / got['seconds']:.1f} "
+        f"tokens/s with K9, {n_tok / want['seconds']:.1f} with the scan; "
+        f"{card}")
+    if not (got["k9"] == [1] * len(batches) and want["k9"] == [0] *
+            len(batches) and np.array_equal(got["token_id"],
+                                            want["token_id"])
+            and ce_err <= CE_ATOL and cos >= HIDDEN_COS):
+        raise AssertionError(f"11e: K9 {got['k9']}, ce err {ce_err}, cos "
+                             f"{cos}")
+
+
+def phase_analyses(published, joint, card):
+    import tempfile
+    from pathlib import Path
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data = phase_textgen_trainer(root, card)
+        captioning = phase_captioning(published, card)
+        api = phase_grad_cam(root / "cam", published, captioning, card)
+        phase_alignment(root, api, data, card)
+        phase_token_pass(joint, data, card)
+        log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3103,7 +3589,7 @@ def main() -> int:
     k4 = phase_infonce_kernels()
     log("phase 7: the LSTM text encoders and their language model")
     (k9["launches"], k4["fwd"]["launches"],
-     k4["bwd"]["launches"]) = phase_lstm_slice()
+     k4["bwd"]["launches"]), joint = phase_lstm_slice()
     log("phase 2f: K10a, K10b and K11 against their plain versions")
     t = phase_transport_kernels()
     log("phase 8: the int8-transport trunk plans, K10b and K11 entry points")
@@ -3113,6 +3599,9 @@ def main() -> int:
     phase_eval_and_api(published, vit[1], card)
     log("phase 10: the trainer, checkpoints, resume and load_model")
     phase_trainer(card, phase5_step_s)
+    log("phase 11: text generation, grad-CAM and the analyses that run a "
+        "model")
+    phase_analyses(published, joint, card)
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"

@@ -8,11 +8,15 @@
 Loads a reference Lightning checkpoint on ``--device`` (the card by
 default), runs the forced-choice harness over the eval-trial metadata,
 prints the per-class accuracy table and writes the predictions JSON
-(schema of eval.py:248-266) to ``--output_dir``.
+(schema of eval.py:248-266) to ``--output_dir``. With
+``--dump_attention_maps N`` (image mode), the grad-CAM overlay of each
+image of the first N trials goes to
+``<output_dir>/attention_maps_<checkpoint>/`` as a PNG (reference:
+eval_shuffled.py:196-228); a trial's K images go through the trunk in one
+call.
 
 Not ported: ``--clip_eval`` (the CLIP baseline needs the Hugging Face
-CLIP weights) and ``--dump_attention_maps`` (grad-CAM waits for the port
-of ``analysis/attention_maps.py``); each refuses with a message.
+CLIP weights), which refuses with a message.
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dump_attention_maps", type=int, default=0,
-                        help="not ported: grad-CAM overlays wait for the "
-                             "port of analysis/attention_maps.py")
+                        help="save grad-CAM overlays for the first N "
+                             "trials (reference: eval_shuffled.py:196-228)")
     parser.add_argument("--clip_eval", action="store_true",
                         help="not ported: the CLIP baseline needs the "
                              "Hugging Face CLIP weights")
@@ -56,9 +60,6 @@ def main(argv=None):
         parser.error("--clip_eval is not ported: the CLIP baseline "
                      "(evaluation/clip_baseline.py) needs the Hugging Face "
                      "CLIP weights; run it from the JAX package")
-    if args.dump_attention_maps:
-        parser.error("--dump_attention_maps is not ported: grad-CAM waits "
-                     "for the port of analysis/attention_maps.py")
 
     from multimodal_baby_tpu_torch.api.model import load_model
     model, _ = load_model(args.checkpoint, device=args.device)
@@ -90,7 +91,42 @@ def main(argv=None):
         "use_kitty_label": args.use_kitty_label,
     })
     print(f"saved predictions to {out}")
+
+    if args.dump_attention_maps > 0 and args.eval_type == "image":
+        map_dir = Path(args.output_dir) / f"attention_maps_{ckpt_name}"
+        dump_attention_maps(model.model, dataset, args.dump_attention_maps,
+                            map_dir)
+        print(f"saved attention maps to {map_dir}")
     return accs
+
+
+def dump_attention_maps(model, dataset, n_trials: int, map_dir) -> None:
+    """grad-CAM overlays of every image of the first ``n_trials`` image-mode
+    trials against the trial's label, one PNG each:
+    ``trial{i}_{category}_img{j}.png``."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_baby_tpu_torch.analysis.attention_maps import (
+        get_attention_overlay, grad_cam)
+    from multimodal_baby_tpu_torch.data.augment import normalize_image
+
+    device = next(model.parameters()).device
+    Path(map_dir).mkdir(parents=True, exist_ok=True)
+    for i in range(min(n_trials, len(dataset))):
+        imgs, ids, ln, cat = dataset[i]
+        k = imgs.shape[0]
+        cams = grad_cam(
+            model, normalize_image(torch.from_numpy(imgs).to(device)),
+            torch.as_tensor(ids, device=device).long()[None].expand(k, -1),
+            torch.full((k,), int(ln), device=device))
+        for j in range(k):
+            overlay = get_attention_overlay(
+                imgs[j].astype(np.float32) / 255.0, cams[j])
+            Image.fromarray(
+                (np.clip(overlay, 0, 1) * 255).astype(np.uint8)
+            ).save(Path(map_dir) / f"trial{i}_{cat}_img{j}.png")
 
 
 if __name__ == "__main__":

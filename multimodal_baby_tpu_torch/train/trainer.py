@@ -12,9 +12,14 @@ copy from pageable host memory still waits for the card's queue before
 it starts; pinned buffers and asynchronous copies belong to the host
 input path (ROADMAP Queue 1, item 5).
 
-Not ported: text generation in validation (``eval_textgen`` with
-``lambda_lm``; ROADMAP Queue 1, item 4) and more than one device (a
-``mesh_shape`` beyond one device; item 6): each refuses at construction.
+With ``eval_textgen`` and an LM term (``lambda_lm``), the validation
+also beam-decodes the split (``evaluation/textgen.py``) and logs BLEU-1..4,
+METEOR, ROUGE_L, CIDEr and SPICE under the split's prefix, as the JAX
+package's ``validate`` does (``multimodal_baby_tpu/train/trainer.py:
+235-251``).
+
+Not ported: more than one device (a ``mesh_shape`` beyond one device;
+ROADMAP Queue 1, item 6), which refuses at construction.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from multimodal_baby_tpu_torch.data.loader import DataLoader
 from multimodal_baby_tpu_torch.data.modules import DataModule
 from multimodal_baby_tpu_torch.evaluation.forced_choice import (
     run_forced_choice)
+from multimodal_baby_tpu_torch.evaluation.textgen import run_textgen_eval
 from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.multimodal import CVCL
 from multimodal_baby_tpu_torch.train.checkpoint import CheckpointManager
@@ -66,10 +72,6 @@ class Trainer:
                  data: Optional[DataModule] = None, device="cuda",
                  step_timer: Optional[StepTimer] = None):
         check_one_device(cfg.parallel.mesh_shape)
-        if cfg.train.eval_textgen and cfg.train.lambda_lm:
-            raise NotImplementedError(
-                "eval_textgen: text generation in validation is not ported "
-                "(ROADMAP Queue 1, item 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.data = data or DataModule(
@@ -210,6 +212,16 @@ class Trainer:
             outputs = [self.eval_step(device_batch(batch, self.device))
                        for batch in loader]
             out.update(aggregate_epoch([to_host(m) for m in outputs]))
+
+        if cfg.train.eval_textgen and cfg.train.lambda_lm \
+                and dataset is not None:
+            scores, _, _ = run_textgen_eval(
+                self.model, loader, self.data.vocab,
+                beam_width=cfg.train.beam_width,
+                decode_length=cfg.train.decode_length,
+                length_penalty_alpha=cfg.train.length_penalty_alpha,
+                captioning=cfg.model.text.captioning)
+            out.update(scores)
 
         eval_ds = self.data.eval_datasets.get(split)
         if eval_ds is not None:

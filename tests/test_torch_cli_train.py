@@ -111,14 +111,12 @@ def test_prepare_data_only(tmp_path, capsys):
 
 
 def test_refusals(tmp_path):
-    """More than one device (--mesh), text generation in validation, and
-    the card where there is none: each raises before any data is made or
-    any file written."""
+    """More than one device (--mesh) and the card where there is none:
+    each raises before any data is made or any file written. Text
+    generation in validation no longer refuses: the joint recipe's
+    ``--eval_textgen`` validates with the scores."""
     with pytest.raises(NotImplementedError, match="item 6"):
         ttrain.main(smoke_argv(tmp_path, "--mesh", "2,1"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttrain.main(smoke_argv(tmp_path, "--eval_textgen", "--lambda_lm",
-                               "1"))
     if not torch.cuda.is_available():
         argv = smoke_argv(tmp_path)
         argv[argv.index("cpu")] = "cuda"
@@ -128,6 +126,12 @@ def test_refusals(tmp_path):
     # one device, however the mesh names it, trains
     assert ttrain.make_trainer(smoke_argv(
         tmp_path, "--mesh", "1,-1", "--per_shard_negatives")) is not None
+    out = ttrain.main(smoke_argv(
+        tmp_path, "--exp_name", "textgen", "--text_encoder", "lstm",
+        "--lambda_mm", "0.5", "--lambda_lm", "0.5", "--optimize_unused",
+        "--eval_textgen", "--beam_width", "2", "--decode_length", "4"))
+    for k in ("Bleu_1", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE"):
+        assert math.isfinite(out[k]), k
 
 
 def test_eval_cli_reads_a_trained_directory(tmp_path):

@@ -15,7 +15,11 @@ the bf16 stage kernel equal bit for bit across band counts and to its
 blocks' K1 launches, K2 on the int8 tile at every int8 block shape of the
 published plan (B = 32) and at ragged row counts (B = 2), the int8 stage
 equal code for code to its blocks' K2 launches and across band counts,
-and on the arguments they refuse.
+and on the arguments they refuse. The slice's entry points on the
+published trunk's kernels against the same calls with the trunk's plain
+versions on the card (per-row or per-map cosine >= 0.999): ``grad_cam``
+at B = 4 and 1, captioning ``run_textgen_eval`` at B = 64 (int8 plan)
+and 16 (bf16), and ``category_feature_sets`` with a 36-frame tail.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -1054,3 +1058,185 @@ def test_trainer_published_trunk_and_resume(cuda, tmp_path):
         assert abs(float(now[k] - saved[k])) <= 1e-6 * float(saved[k]), k
     resumed.fit()
     assert resumed.state.step == 6
+
+
+# ------------------------------------------------- text generation, grad-CAM
+# and the alignment's features on the published trunk's kernels: each run
+# against the same run with the trunk's kernels replaced by their plain
+# versions on the card (bf16 both, the same rounding points), per-row or
+# per-map cosine >= 0.999 (chip_smoke.py's slice gate)
+
+SLICE_COS = 0.999
+PLAN_BF16 = [5, 0, 2, 1]   # K1, K2, K3a, K3b launches a forward
+PLAN_INT8 = [4, 1, 2, 1]
+RESNEXT_COUNTERS = [(fused_bottleneck, "launches"),
+                    (fused_bottleneck, "launches_q"),
+                    (fused_stage, "launches"), (fused_stage_banded, "launches")]
+
+
+def launches():
+    return [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+
+
+class plain_trunk:
+    """The trunk's kernels replaced by their plain versions on CUDA tensors
+    (the wrappers take those only for CPU tensors)."""
+
+    def __enter__(self):
+        from multimodal_baby_tpu_torch.models import vision_resnext
+        from multimodal_baby_tpu_torch.ops.bottleneck import block_reference
+        self.saved = {n: getattr(vision_resnext, n) for n in (
+            "fused_bottleneck", "fused_stage", "fused_stage_banded")}
+        vision_resnext.fused_bottleneck = \
+            lambda x, fw, stride=1: block_reference(x, fw, stride=stride)
+        vision_resnext.fused_stage = vision_resnext.fused_stage_banded = \
+            lambda x, fws, strides, band=None: stage_reference(x, fws,
+                                                               strides)
+        self.module = vision_resnext
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def row_cos(a, b):
+    a, b = a.flatten(1).double(), b.flatten(1).double()
+    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)
+
+
+def card_model(device, text="embedding", captioning=False, int8=False,
+               vocab=40):
+    """A ResNeXt-50 CVCL in bf16 on the card with perturbed BN statistics,
+    its int8 plan (layers 3-4) calibrated when asked for."""
+    import numpy as np
+    from multimodal_baby_tpu_torch.core.config import (
+        ModelConfig, TextConfig, VisionConfig)
+    from multimodal_baby_tpu_torch.models.multimodal import CVCL
+    from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
+    from multimodal_baby_tpu_torch.train.step import calibrate_trunk
+
+    cfg = ModelConfig(
+        embedding_dim=64, vocab_size=vocab, normalize_features=True,
+        fix_temperature=True,
+        vision=VisionConfig(frozen_bn="running", trunk_int8=(
+            (False, False, True, True) if int8 else False)),
+        text=TextConfig(text_encoder=text, captioning=captioning))
+    g = torch.Generator().manual_seed(0)
+    model = CVCL(cfg, dtype=torch.bfloat16, device=device, generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, InferenceBN):
+                c = m.weight.numel()
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.75 + 0.5 * torch.rand(c, generator=g))
+    if int8:
+        frames = np.random.RandomState(5).randint(0, 256, (32, 224, 224, 3),
+                                                  np.uint8)
+        calibrate_trunk(model, {"image_u8": torch.from_numpy(frames).to(
+            device)})
+    return model
+
+
+@pytest.mark.parametrize("B", [4, 1])
+def test_grad_cam_on_the_card_matches_plain(cuda, B):
+    from multimodal_baby_tpu_torch.analysis.attention_maps import grad_cam
+
+    model = card_model(cuda)
+    g = torch.Generator().manual_seed(B)
+    images = torch.randn((B, 224, 224, 3), generator=g).to(cuda)
+    text = torch.zeros((B, 25), dtype=torch.long, device=cuda)
+    text[:, 0] = torch.arange(4, 4 + B)
+    lens = torch.ones((B,), dtype=torch.long, device=cuda)
+    before = launches()
+    got = grad_cam(model, images, text, lens)
+    assert [a - b for a, b in zip(launches(), before)] == PLAN_BF16
+    with plain_trunk():
+        want = grad_cam(model, images, text, lens)
+    assert got.shape == (B, 224, 224) and got.min() >= 0
+    cos = row_cos(torch.from_numpy(got), torch.from_numpy(want))
+    assert float(cos.min()) >= SLICE_COS
+
+
+@pytest.mark.parametrize("B", [64, 16])
+def test_captioning_textgen_on_the_card_matches_plain(cuda, B):
+    import numpy as np
+    from multimodal_baby_tpu_torch.data.augment import normalize_image
+    from multimodal_baby_tpu_torch.data.vocab import Vocab
+    from multimodal_baby_tpu_torch.evaluation.textgen import (
+        ids_to_sentence, run_textgen_eval)
+
+    model = card_model(cuda, text="lstm", captioning=True, int8=True)
+    vocab = Vocab({w: i for i, w in enumerate(
+        ["<pad>", "<unk>", "<sos>", "<eos>"] + [f"w{i}" for i in range(36)])})
+    rng = np.random.RandomState(B)
+    batch = {"text": np.zeros((B, 25), np.int32),
+             "text_len": np.ones((B,), np.int32),
+             "raw": [f"w{i % 36} w{(3 * i) % 36}" for i in range(B)],
+             "image_u8": rng.randint(0, 256, (B, 224, 224, 3), np.uint8)}
+    x = normalize_image(torch.from_numpy(batch["image_u8"]).to(cuda))
+    runs = {}
+    for path in ("kernels", "plain"):
+        ctx = plain_trunk() if path == "plain" else torch.no_grad()
+        with ctx:
+            before = launches()
+            scores, _, hyps = run_textgen_eval(model, [batch], vocab,
+                                               captioning=True)
+            counts = [a - b for a, b in zip(launches(), before)]
+            with torch.no_grad():
+                feats, _ = model.encode_image(x)
+                seq, beam = model.beam_search_decode(B, 3, 25, 0.0, feats)
+        runs[path] = (counts, scores, hyps, feats, seq, beam)
+    counts, scores, hyps, feats, seq, _ = runs["kernels"]
+    _, _, p_hyps, p_feats, p_seq, p_beam = runs["plain"]
+    assert counts == (PLAN_INT8 if B % 32 == 0 else PLAN_BF16)
+    assert float(row_cos(feats, p_feats).min()) >= SLICE_COS
+    assert hyps == [ids_to_sentence(s, vocab) for s in seq[:, 0].cpu()]
+    clear = (p_beam[:, 0] - p_beam[:, 1]) > 0.05
+    same = (seq[:, 0] == p_seq[:, 0]).all(dim=1)
+    assert bool(same[clear].all())
+    assert all(np.isfinite(v) for v in scores.values())
+
+
+def test_category_feature_sets_on_the_card_match_plain(cuda, tmp_path):
+    import numpy as np
+    from PIL import Image
+    from multimodal_baby_tpu_torch.analysis.embeddings import (
+        category_feature_sets)
+    from multimodal_baby_tpu_torch.data.vocab import Vocab
+
+    model = card_model(cuda, int8=True)
+    rng = np.random.RandomState(7)
+    for cat, n in (("ball", 100), ("car", 8)):  # chunks of 64 and 36; 8
+        (tmp_path / cat).mkdir()
+        for i in range(n):
+            Image.fromarray(rng.randint(0, 256, (32, 32, 3), np.uint8)).save(
+                tmp_path / cat / f"{i}.png")
+    vocab = Vocab({w: i for i, w in enumerate(
+        ["<pad>", "<unk>", "<sos>", "<eos>", "ball", "car"])})
+    chunks = []
+    encode = model.encode_image
+
+    def counted(x, train=False):
+        before = launches()
+        out = encode(x, train)
+        chunks.append((x.shape[0], [a - b for a, b in
+                                    zip(launches(), before)]))
+        return out
+
+    model.encode_image = counted
+    try:
+        got = category_feature_sets(model, tmp_path, vocab)
+        with plain_trunk():
+            want = category_feature_sets(model, tmp_path, vocab)
+    finally:
+        del model.encode_image
+    assert chunks[:3] == [(64, PLAN_INT8), (36, PLAN_BF16), (8, PLAN_BF16)]
+    assert got["all_image_features"].shape == (108, 64)
+    for k in ("all_image_features", "mean_image_features"):
+        cos = row_cos(torch.from_numpy(got[k]), torch.from_numpy(want[k]))
+        assert float(cos.min()) >= SLICE_COS, k
+    np.testing.assert_array_equal(got["text_features"],
+                                  want["text_features"])

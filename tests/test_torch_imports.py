@@ -60,6 +60,19 @@ MODULES = [
     "multimodal_baby_tpu_torch.cli.eval",
     "multimodal_baby_tpu_torch.cli.parity",
     "multimodal_baby_tpu_torch.cli.linear_decoding",
+    "multimodal_baby_tpu_torch.cli.analyze",
+    "multimodal_baby_tpu_torch.evaluation.porter",
+    "multimodal_baby_tpu_torch.evaluation.textgen_metrics",
+    "multimodal_baby_tpu_torch.evaluation.meteor",
+    "multimodal_baby_tpu_torch.evaluation.spice",
+    "multimodal_baby_tpu_torch.evaluation.textgen",
+    "multimodal_baby_tpu_torch.analysis",
+    "multimodal_baby_tpu_torch.analysis.attention_maps",
+    "multimodal_baby_tpu_torch.analysis.representation_similarity",
+    "multimodal_baby_tpu_torch.analysis.embeddings",
+    "multimodal_baby_tpu_torch.analysis.duplicates",
+    "multimodal_baby_tpu_torch.analysis.ngram",
+    "multimodal_baby_tpu_torch.analysis.processing",
 ]
 
 PROBE = """

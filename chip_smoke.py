@@ -286,6 +286,39 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``fused_lstm=True``: one K9 launch per ``lm_forward``, per-token
    cross-entropy within 1e-4 of the plain scan, hidden states at per-row
    cosine >= 0.9999; prints tokens/s.
+12. The host input path, the host-only analysis chain and the sweep
+   runner, on phase 10's checkpoint root and 10c's directory. 12a: the
+   decoder that runs (the native C++ decoder, ``data/native``, built with
+   g++ against libjpeg and libpng, or PIL with the build's error where it
+   cannot be built) and ``os.cpu_count()``; 1,024 JPEGs made as
+   ``bench.py::ensure_jpeg_dataset`` makes them (256 px, quality 90) and
+   10c's PNG frames: with the native decoder, one ``decode_batch_checked``
+   call over 128 paths equal byte for byte to ``decode_image`` frame by
+   frame with the mask all ones, its exact mode within
+   tests/test_native_pipeline.py's tolerance of PIL's bilinear resize
+   (mean 2 u8) and 224 px PNGs equal to PIL's; frames/s of the native
+   batch, the native per frame and PIL per frame, JPEG and PNG. 12b: 10c's
+   recipe for one epoch on its PNG directory and on a JPEG copy (quality
+   90), each again with the loader in ``sync`` mode: [4, 1, 2, 1]
+   launches in every train step, every device batch equal to its host
+   batch (frames, ids, lengths: the pinned staging ring of
+   ``train/step.py::HostStaging``), the epoch's train losses equal bit for
+   bit to the sync run's; prints pairs/s and the loader's share of the
+   epoch. 12c: ``scripts/real_io_torch.py`` (1,024 JPEGs, 4 loader
+   threads, prefetch 6, B = 128): [4, 1, 2, 1] launches a step, finite
+   losses; prints pairs/s, the loader's wait, the host's staging time and
+   the H2D rate of one batch's frames from pageable and from pinned
+   memory. 12d: phase 9b's 257 image-mode trials from JPEG files of its
+   frames through phase 9a's checkpoint (bf16 plan, batch 64): every
+   decision equal to the decision on the same frames decoded first;
+   prints trials/s. 12e: ``CheckpointRegistry`` over phase 10's root, its
+   best entry's ``load`` equal bit for bit to ``from_checkpoint_dir``;
+   ``cli/eval.py`` on 10c's checkpoint, then ``cli/analyze.py summaries``
+   and ``descriptives`` on its predictions and directory (``figures`` where
+   matplotlib is installed; which ran is printed); ``cli/runner.py
+   --config configs.saycam_contrastive --dry_run`` lists the grid's jobs,
+   and one job of ``--emit_scripts`` run on 10c's directory for one epoch
+   at B = 128 exits 0.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -295,11 +328,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2439,15 +2475,18 @@ def fit_head(model, frames, labels, vocab):
         head.bias.copy_(-(w @ mean).float())
 
 
-def write_eval_set(root, rng, frames, labels, n_trials=EVAL_TRIALS):
-    """The 64 frames (4 per category) as PNG and ``n_trials`` trials over
-    them (eval_filtered_dev.json): target t % 16, three foil categories
-    drawn without replacement, a random frame of each."""
+def write_eval_set(root, rng, frames, labels, n_trials=EVAL_TRIALS,
+                   ext=".png"):
+    """The 64 frames (4 per category) as PNG (or JPEG at quality 90, ext
+    ".jpg") and ``n_trials`` trials over them (eval_filtered_dev.json):
+    target t % 16, three foil categories drawn without replacement, a
+    random frame of each."""
     from PIL import Image
     paths = {c: [] for c in EVAL_CATS}
     for i, (frame, label) in enumerate(zip(frames, labels)):
-        path = root / f"{EVAL_CATS[label]}_{i % 4}.png"
-        Image.fromarray(frame).save(path)
+        path = root / f"{EVAL_CATS[label]}_{i % 4}{ext}"
+        Image.fromarray(frame).save(path, **(
+            {"quality": 90} if ext == ".jpg" else {}))
         paths[EVAL_CATS[label]].append(str(path))
     trials = []
     for t in range(n_trials):
@@ -2637,9 +2676,6 @@ def phase_eval_and_api(published, vit_model, card):
     9c: the ViT eval; 9d: the linear probe's features and a probe. The
     ResNeXt's and the ViT's heads are first fitted to the eval's
     categories (``fit_head``)."""
-    import tempfile
-    from pathlib import Path
-
     rng = np.random.RandomState(9)
     int8_model = published[0].model
     frames, cats = eval_frames(rng, 4)
@@ -3017,12 +3053,10 @@ def phase_trainer_saycam(root, card):
         raise AssertionError("10c: the loaded checkpoint differs")
 
 
-def phase_trainer(card, phase5_step_s):
-    import tempfile
-    from pathlib import Path
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_trainer_synthetic(Path(tmp), card, phase5_step_s)
-        phase_trainer_saycam(Path(tmp), card)
+def phase_trainer(card, phase5_step_s, root):
+    """10a-10c under ``root``, which phase 12 reads afterwards."""
+    phase_trainer_synthetic(root, card, phase5_step_s)
+    phase_trainer_saycam(root, card)
 
 
 # ----------------------------------------------------------------- phase 11
@@ -3454,8 +3488,6 @@ def phase_token_pass(joint, data, card):
 
 
 def phase_analyses(published, joint, card):
-    import tempfile
-    from pathlib import Path
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
@@ -3465,6 +3497,341 @@ def phase_analyses(published, joint, card):
         phase_alignment(root, api, data, card)
         phase_token_pass(joint, data, card)
         log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
+# ----------------------------------------------------------------- phase 12
+
+JPEG_FRAMES = 1024       # 12a, 12c: bench.py::ensure_jpeg_dataset's set
+DECODE_BATCH = 128       # 12a: one decode_batch_checked call
+EXACT_JPEG_MEAN = 2.0    # 12a: exact decode vs PIL bilinear, mean abs u8
+                         # (tests/test_native_pipeline.py:47-53)
+
+
+def real_io_module():
+    """scripts/real_io_torch.py, imported from the checkout."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "scripts" / "real_io_torch.py"
+    spec = importlib.util.spec_from_file_location("real_io_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def frames_per_s(fn, paths, reps=1):
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(paths)
+    return reps * len(paths) / (time.perf_counter() - t0)
+
+
+def pil_frame(path, size=224):
+    """The loader's PIL path (``load_image_uint8`` without the library):
+    decode, bicubic resize when needed."""
+    from PIL import Image
+    with Image.open(path) as src:
+        img = src.convert("RGB")
+    if img.size != (size, size):
+        img = img.resize((size, size), Image.BICUBIC)
+    return np.asarray(img, np.uint8)
+
+
+def phase_decoder(root, card):
+    """12a: which decoder runs; the native decoder's batch against its
+    frame-by-frame decode and its exact mode against PIL; frames/s of the
+    native batch, native per frame and PIL per frame, JPEG and PNG."""
+    import os
+    from PIL import Image
+    from multimodal_baby_tpu_torch.data import native
+
+    decoder = ("native" if native.available()
+               else f"pil ({native.build_error()})")
+    log(f"  -- 12a decoder: {decoder}; os.cpu_count() {os.cpu_count()}")
+    meta = real_io_module().write_jpeg_dataset(root / "jpegs", JPEG_FRAMES)
+    jpegs = [r["frame_filename"] for r in load_metadata(meta)]
+    pngs = sorted(str(p) for p in (root / "saycam_data").glob("*.png"))
+    rates = {}
+    for kind, paths in (("JPEG 256 px", jpegs), ("PNG 224 px", pngs)):
+        rates[kind] = {"PIL per frame": frames_per_s(
+            lambda ps: [pil_frame(p) for p in ps], paths)}
+        if native.available():
+            rates[kind]["native per frame"] = frames_per_s(
+                lambda ps: [native.decode_image(p) for p in ps], paths)
+            rates[kind]["native batch"] = frames_per_s(
+                lambda ps: [native.decode_batch_checked(
+                    ps[i:i + DECODE_BATCH])
+                    for i in range(0, len(ps), DECODE_BATCH)], paths)
+    if native.available():
+        batch, ok = native.decode_batch_checked(jpegs[:DECODE_BATCH])
+        same = all(np.array_equal(batch[i], native.decode_image(p))
+                   for i, p in enumerate(jpegs[:DECODE_BATCH]))
+        exact = np.stack([native.decode_image(p, fast=False)
+                          for p in jpegs[:32]]).astype(int)
+        pil = np.stack([np.asarray(Image.open(p).convert("RGB").resize(
+            (224, 224), Image.BILINEAR)) for p in jpegs[:32]]).astype(int)
+        png = all(np.array_equal(
+            native.decode_image(p, Image.open(p).size[0], fast=False),
+            np.asarray(Image.open(p).convert("RGB"))) for p in pngs[:16])
+        err = float(np.abs(exact - pil).mean())
+        log(f"  one decode_batch_checked call over {DECODE_BATCH} JPEGs "
+            f"equal to decode_image frame by frame: {same}; mask all ones: "
+            f"{bool(ok.all())}; the exact decode against PIL's bilinear "
+            f"resize: mean abs {err:.4f} (gate {EXACT_JPEG_MEAN}); the PNGs "
+            f"equal to PIL's: {png}")
+        if not (same and ok.all() and err < EXACT_JPEG_MEAN and png):
+            raise AssertionError("12a: the native decoder's checks failed")
+    else:
+        log("  the native decoder is not built here: its checks and rates "
+            "are not measured; the loader decodes with PIL")
+    for kind, r in rates.items():
+        log(f"  {kind}: " + ", ".join(f"{k} {v:.1f} frames/s"
+                                      for k, v in r.items())
+            + f"; {card}")
+    return decoder, jpegs
+
+
+def jpeg_copy(src, dst):
+    """The SAYCam-format directory ``src`` with its PNG frames as JPEGs
+    at quality 90 (same names, .jpg) and its metadata pointing at them."""
+    from PIL import Image
+    dst.mkdir()
+    for p in src.glob("*.png"):
+        with Image.open(p) as img:
+            img.convert("RGB").save(dst / f"{p.stem}.jpg", quality=90)
+    for p in src.glob("*.json"):
+        text = p.read_text()
+        if p.name != "vocab.json":
+            text = text.replace(str(src), str(dst)).replace(".png", ".jpg")
+        (dst / p.name).write_text(text)
+    return dst
+
+
+def fit_recorded(root, exp, data, sync):
+    """One epoch of 10c's flags on ``data`` through cli/train, with the
+    loader in ``sync`` mode: (trainer, launches per train step, the
+    epoch's seconds and loader wait, every (host, device) batch)."""
+    import functools
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+    from multimodal_baby_tpu_torch.data.loader import DataLoader
+    import multimodal_baby_tpu_torch.train.trainer as trainer_module
+
+    trainer = make_trainer(trainer_argv(
+        root, exp, "--dataset", "saycam", "--data_dir", str(data),
+        "--multiple_frames", "--eval_include_sos_eos", "--max_epochs", "1"))
+    calls, secs, waits, pairs = [], [], [], []
+    count_calls(trainer, calls)
+    time_epochs(trainer, secs, waits)
+    to_device = trainer_module.device_batch
+
+    def recorded(batch, device, staging=None):
+        out = to_device(batch, device, staging)
+        pairs.append((batch, out))
+        return out
+
+    trainer_module.device_batch = recorded
+    if sync:
+        trainer_module.DataLoader = functools.partial(DataLoader, sync=True)
+    try:
+        trainer.fit()
+    finally:
+        trainer_module.device_batch = to_device
+        trainer_module.DataLoader = DataLoader
+    per_step = [n for kind, _, n in calls if kind == "train"]
+    return trainer, per_step, secs[0], waits[0], pairs
+
+
+def phase_trainer_real_frames(root, card):
+    """12b: 10c's recipe for one epoch on its PNG directory and on a JPEG
+    copy; launches per step, every device batch against its host batch,
+    the losses against the same epoch with the loader in sync mode."""
+    log("  -- 12b the trainer on 10c's PNG frames and on their JPEG copy")
+    dirs = {"png": root / "saycam_data",
+            "jpeg": jpeg_copy(root / "saycam_data", root / "saycam_jpeg")}
+    for kind, data in dirs.items():
+        _, per_step, secs, wait, pairs = fit_recorded(
+            root, f"real_{kind}", data, sync=False)
+        _, _, sync_secs, _, _ = fit_recorded(root, f"real_{kind}_sync",
+                                             data, sync=True)
+        bad = [i for i, (host, dev) in enumerate(pairs)
+               if set(dev) != {"image_u8", "text", "text_len"} or not all(
+                   torch.equal(dev[k].cpu(), torch.from_numpy(
+                       np.asarray(host[k], np.int64) if k != "image_u8"
+                       else host[k])) for k in dev)]
+        losses = logged(root / f"real_{kind}", "train_loss")
+        sync_losses = logged(root / f"real_{kind}_sync", "train_loss")
+        pairs_n = SAYCAM_TRAIN // TRAIN_BATCH * TRAIN_BATCH
+        log(f"  {kind}: launches per train step {per_step}; "
+            f"{len(pairs) - len(bad)}/{len(pairs)} device batches equal to "
+            f"their host batches; train losses {losses}, with the loader in "
+            f"sync mode {sync_losses}: equal bit for bit "
+            f"{losses == sync_losses}; the epoch {secs:.3f} s, "
+            f"{pairs_n / secs:.1f} pairs/s, {wait:.3f} s "
+            f"({100 * wait / secs:.1f}%) waiting on the loader (sync mode: "
+            f"{pairs_n / sync_secs:.1f} pairs/s); {card}")
+        if not (per_step and all(n == PLAN_INT8 for n in per_step)
+                and not bad and len(losses) == len(per_step)
+                and losses == sync_losses
+                and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"12b {kind}: launches {per_step}, batches "
+                                 f"{bad} differ, losses {losses} against "
+                                 f"{sync_losses}")
+
+
+def phase_real_io(root, card):
+    """12c: scripts/real_io_torch.py at B = 128."""
+    log(f"  -- 12c scripts/real_io_torch.py: {JPEG_FRAMES} JPEGs, B = "
+        f"{TRAIN_BATCH}, 4 loader threads")
+    res = real_io_module().run(root / "real_io", JPEG_FRAMES, TRAIN_BATCH,
+                               TRAIN_DEVICE)
+    h2d = res.get("h2d_mb_s", {"pageable": math.nan, "pinned": math.nan})
+    log(f"  decoder {res['decoder']}; {res['pairs_per_s']:.1f} pairs/s over "
+        f"{len(res['loss'])} timed steps ({res['seconds']:.3f} s: "
+        f"{res['wait_s']:.3f} s waiting on the loader, "
+        f"{res['stage_s']:.3f} s staging the copies); launches per step "
+        f"{res['launches']}; H2D of one batch's frames "
+        f"({TRAIN_BATCH * 224 * 224 * 3 / 1e6:.1f} MB): pageable "
+        f"{h2d['pageable']:.1f} MB/s, pinned {h2d['pinned']:.1f} MB/s; "
+        f"{card}")
+    if not (all(n == PLAN_INT8 for n in res["launches"])
+            and all(math.isfinite(v) for v in res["loss"])):
+        raise AssertionError(f"12c: launches {res['launches']}, losses "
+                             f"{res['loss']}")
+
+
+def phase_forced_choice_jpeg(root, published, card):
+    """12d: phase 9b's image-mode trials from JPEG files of its frames,
+    through phase 9a's checkpoint (bf16 plan), decoding as it goes and on
+    the same frames decoded first."""
+    log(f"  -- 12d forced choice with decoding, {EVAL_TRIALS} image-mode "
+        "trials from JPEG frames")
+    root.mkdir()
+    rng = np.random.RandomState(9)  # phase 9's frames and trials
+    frames, cats = eval_frames(rng, 4)
+    eval_frames(rng, 1)
+    api, _ = load_model(str(write_reference_ckpt(published[0].model, root)),
+                        device=TRAIN_DEVICE)
+    meta = load_metadata(write_eval_set(root, rng, frames, cats,
+                                        ext=".jpg")[0])
+    dataset = EvalTrialDataset(meta, api.vocab, eval_include_sos_eos=True)
+    decoded = Decoded(dataset)
+    run_eval(api.model, decoded, "image", RESNEXT_COUNTERS)  # warm
+    want, _, dec_s = run_eval(api.model, decoded, "image", RESNEXT_COUNTERS)
+    got, calls, secs = run_eval(api.model, dataset, "image",
+                                RESNEXT_COUNTERS)
+    same = [a["pred"] == b["pred"] for a, b in zip(got, want)]
+    log(f"  {len(got)} trials in {secs:.3f} s decoding JPEGs "
+        f"({len(got) / secs:.1f} trials/s), "
+        f"{dec_s:.3f} s on decoded frames ({len(got) / dec_s:.1f} "
+        f"trials/s); decisions equal to those on the decoded frames: "
+        f"{sum(same)}/{len(same)}; {card}")
+    check_chunks("12d", calls, lambda b: PLAN_BF16)
+    if not (len(same) == len(meta) and all(same)):
+        raise AssertionError("12d: decisions differ with decoding")
+
+
+def phase_host_chain(root, card):
+    """12e: CheckpointRegistry over phase 10's checkpoint root, cli/analyze
+    summaries, descriptives (and figures where matplotlib is installed) on
+    10c's outputs and directory, and cli/runner on a configs/ grid."""
+    import importlib
+    import importlib.util
+    from PIL import Image
+    from multimodal_baby_tpu_torch.analysis.checkpoints import (
+        CheckpointRegistry)
+    from multimodal_baby_tpu_torch.cli import analyze, runner
+    from multimodal_baby_tpu_torch.cli import eval as cli_eval
+
+    log("  -- 12e the checkpoint registry, the analysis CLI and the runner")
+    found = CheckpointRegistry(root).scan()
+    best = min((e for e in found.values()
+                if e["best_val_loss"] is not None),
+               key=lambda e: e["best_val_loss"])
+    name = next(k for k, e in found.items() if e is best)
+    loaded = CheckpointRegistry(root).load(name, device=TRAIN_DEVICE)
+    direct, prep = load_model(best["path"], device=TRAIN_DEVICE)
+    images = np.stack([prep(Image.fromarray(f)) for f in
+                       eval_frames(np.random.RandomState(11), 1)[0][:8]])
+    equal = torch.equal(loaded.encode_image(images),
+                        direct.encode_image(images))
+    log(f"  registry: {len(found)} experiments {sorted(found)}; best "
+        f"{name!r} (val loss {best['best_val_loss']:.5f}); its load's image "
+        f"features equal to from_checkpoint_dir's bit for bit: {equal}")
+    if not equal:
+        raise AssertionError("12e: the registry's model differs")
+
+    data, results = root / "saycam_data", root / "results"
+    t0 = time.perf_counter()
+    quiet = contextlib.redirect_stdout(io.StringIO())  # the CLIs' tables
+    with quiet:
+        cli_eval.main(["--checkpoint", str(root / "saycam"), "--data_dir",
+                       str(data), "--eval_include_sos_eos", "--output_dir",
+                       str(root / "predictions"), "--device", TRAIN_DEVICE])
+    preds = root / "predictions" / "saycam_image_dev_saycam_predictions.json"
+    dst = (results / "saycam" / "embedding_frozen_pretrained_seed_0_image_"
+           "saycam_test_eval_predictions.json")
+    dst.parent.mkdir(parents=True)
+    dst.write_bytes(preds.read_bytes())
+    with quiet:
+        tables = analyze.main(["summaries", "--results_dir", str(results)])
+        desc = analyze.main(["descriptives", "--data_dir", str(data),
+                             "--out_csv", str(results / "descriptives.csv")])
+    bounds = tables["saycam-bounds-summary"]
+    total = desc[desc["split"] == "TOTAL"].iloc[0]
+    ran = ["summaries", "descriptives"]
+    if importlib.util.find_spec("matplotlib") is not None:
+        with quiet:
+            analyze.main(["figures", "--summary_csv", str(
+                results / "summary" / "saycam-bounds-summary.csv"),
+                "--out_dir", str(results / "figures")])
+        ran.append("figures")
+    note = "all three" if len(ran) == 3 else "figures: no matplotlib"
+    log(f"  cli/analyze ran {ran} ({note}) in "
+        f"{time.perf_counter() - t0:.2f} s, cli/eval included: "
+        f"saycam-bounds-summary {len(bounds)} rows (accuracy "
+        f"{bounds['correct'].mean():.4f}); descriptives TOTAL "
+        f"{int(total['n_utterances'])} utterances, {int(total['n_tokens'])} "
+        f"tokens, {int(total['n_frames'])} frames")
+    if not (len(bounds) == SAYCAM_TRIALS and int(total["n_utterances"])
+            == SAYCAM_TRAIN + SAYCAM_VAL):
+        raise AssertionError("12e: the analysis CLI's tables")
+
+    grid = importlib.import_module("configs.saycam_contrastive")
+    scripts = root / "sweep"
+    with quiet:  # the job lines
+        jobs = runner.main(["--config", "configs.saycam_contrastive",
+                            "--dry_run"])
+        runner.main(["--config", "configs.saycam_contrastive",
+                     "--emit_scripts", str(scripts), "--", "--data_dir",
+                     str(data), "--max_epochs", "1", "--batch_size",
+                     str(TRAIN_BATCH), "--val_batch_size", str(TRAIN_BATCH),
+                     "--frozen_bn", "running", "--trunk_int8", "0,0,1,1",
+                     "--checkpoint_dir", str(root / "sweep_runs"),
+                     "--device", TRAIN_DEVICE])
+    script = sorted(scripts.glob("*.sh"))[0]
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", str(script)], capture_output=True,
+                          text=True, timeout=600, check=False)
+    job_s = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-1:]
+    log(f"  cli/runner: --dry_run lists {len(jobs)} jobs, the grid expands "
+        f"to {len(runner.expand_grids(grid.grids))}; --emit_scripts wrote "
+        f"{len(list(scripts.glob('*.sh')))} scripts; {script.name} exited "
+        f"{proc.returncode} in {job_s:.1f} s: {tail}")
+    if not (len(jobs) == len(runner.expand_grids(grid.grids))
+            and proc.returncode == 0):
+        raise AssertionError(f"12e: runner jobs {len(jobs)}, the job "
+                             f"exited {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+
+
+def phase_host_input(root, published, card):
+    t0 = time.perf_counter()
+    decoder, _ = phase_decoder(root, card)
+    phase_trainer_real_frames(root, card)
+    phase_real_io(root, card)
+    phase_forced_choice_jpeg(root / "fc_jpeg", published, card)
+    phase_host_chain(root, card)
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s; decoder: "
+        f"{decoder}")
 
 
 def main() -> int:
@@ -3597,11 +3964,15 @@ def main() -> int:
         t[name]["launches"] = n
     log("phase 9: forced-choice evaluation, the five-call API and the probe")
     phase_eval_and_api(published, vit[1], card)
-    log("phase 10: the trainer, checkpoints, resume and load_model")
-    phase_trainer(card, phase5_step_s)
-    log("phase 11: text generation, grad-CAM and the analyses that run a "
-        "model")
-    phase_analyses(published, joint, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        log("phase 10: the trainer, checkpoints, resume and load_model")
+        phase_trainer(card, phase5_step_s, Path(tmp))
+        log("phase 11: text generation, grad-CAM and the analyses that run "
+            "a model")
+        phase_analyses(published, joint, card)
+        log("phase 12: the host input path, the host-only analysis chain "
+            "and the sweep runner")
+        phase_host_input(Path(tmp), published, card)
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"

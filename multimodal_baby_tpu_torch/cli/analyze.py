@@ -1,21 +1,26 @@
 """Analysis-artifact writers as a CLI (counterpart of
 ``multimodal_baby_tpu/cli/analyze.py``; reference: analysis_cvcl/
-alignment.py and duplicates.py), with the same file contracts:
+clean.py, alignment.py, duplicates.py, descriptives.py and figures.R),
+with the same file contracts:
 
+    python -m multimodal_baby_tpu_torch.cli.analyze summaries \\
+        --results_dir results                 # the three clean.py CSVs
     python -m multimodal_baby_tpu_torch.cli.analyze alignment \\
         --checkpoint <ckpt> --eval_frames_dir data/eval_filtered/test \\
         --out_dir results/alignment --seed 0 [--device cuda|cpu]
     python -m multimodal_baby_tpu_torch.cli.analyze duplicates \\
         --checkpoint <ckpt> --data_dir data --out_dir results/duplicates \\
         [--device cuda|cpu]
+    python -m multimodal_baby_tpu_torch.cli.analyze descriptives \\
+        --data_dir data --out_csv results/descriptives.csv
+    python -m multimodal_baby_tpu_torch.cli.analyze figures \\
+        --summary_csv results/summary/saycam-bounds-summary.csv \\
+        --out_dir results/figures [--metadata data/train.json]
 
-The checkpoint loads with ``load_model`` on ``--device`` (the card by
-default); the image embeddings run through the trunk's kernel plan there.
-
-Not ported: ``summaries``, ``descriptives`` and ``figures``, which read
-and write the CSV contracts of the reference's result tables
-(``analysis/summaries.py``, ``descriptives.py``, ``figures.py``,
-``plotting.py``; ROADMAP Queue 1, item 7); each refuses with a message.
+``alignment`` and ``duplicates`` load the checkpoint with ``load_model``
+on ``--device`` (the card by default) and run the image embeddings
+through the trunk's kernel plan there. ``summaries`` and ``descriptives``
+run on the host with pandas; ``figures`` needs matplotlib.
 """
 
 from __future__ import annotations
@@ -26,10 +31,21 @@ from pathlib import Path
 
 import numpy as np
 
-_NOT_PORTED = ("is not ported: the CSV-contract modules (analysis/"
-               "summaries.py, descriptives.py, figures.py, plotting.py) wait "
-               "for ROADMAP Queue 1, item 7; run it from the JAX package "
-               "(python -m multimodal_baby_tpu.cli.analyze {cmd} ...)")
+
+def _summaries(args):
+    from multimodal_baby_tpu_torch.analysis.summaries import (
+        write_ablations_summary, write_bounds_summary,
+        write_object_categories_summary)
+
+    d = Path(args.results_dir)
+    out = {}
+    for name, fn in (("saycam-bounds-summary", write_bounds_summary),
+                     ("saycam-ablations", write_ablations_summary),
+                     ("object-categories",
+                      write_object_categories_summary)):
+        out[name] = fn(d)
+        print(f"{name}.csv: {len(out[name])} rows")
+    return out
 
 
 def _alignment(args):
@@ -109,15 +125,48 @@ def _duplicates(args):
     return report
 
 
-def _not_ported(parser, cmd):
-    def refuse(args):
-        parser.error(f"{cmd} {_NOT_PORTED.format(cmd=cmd)}")
-    return refuse
+def _descriptives(args):
+    from multimodal_baby_tpu_torch.analysis.descriptives import (
+        dataset_descriptives, date_descriptives, load_split_frame)
+
+    df = load_split_frame(args.data_dir)
+    vocab_path = Path(args.data_dir) / "vocab.json"
+    vocab_size = len(json.loads(vocab_path.read_text())) \
+        if vocab_path.exists() else None
+    table = dataset_descriptives(df, vocab_size=vocab_size)
+    print(table.to_string(index=False))
+    if args.out_csv:
+        Path(args.out_csv).parent.mkdir(parents=True, exist_ok=True)
+        table.to_csv(args.out_csv, index=False)
+    try:
+        print(json.dumps(date_descriptives(df), indent=2))
+    except (KeyError, IndexError, TypeError, ValueError):
+        pass  # frame filenames without embedded dates
+    return table
+
+
+def _figures(args):
+    from multimodal_baby_tpu_torch.analysis.figures import render_all
+    utterances = None
+    if args.metadata:
+        with open(args.metadata) as f:
+            payload = json.load(f)
+        data = payload.get("data", payload)
+        utterances = [r.get("utterance", "") for r in data]
+    written = render_all(args.summary_csv, args.out_dir,
+                         utterances=utterances)
+    for p in written:
+        print(p)
+    return written
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("summaries")
+    p.add_argument("--results_dir", default="results")
+    p.set_defaults(fn=_summaries)
 
     p = sub.add_parser("alignment")
     p.add_argument("--checkpoint", required=True)
@@ -136,13 +185,21 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=_duplicates)
 
-    for cmd in ("summaries", "descriptives", "figures"):
-        p = sub.add_parser(cmd, help="not ported (ROADMAP Queue 1, item 7)")
-        p.set_defaults(fn=_not_ported(parser, cmd))
+    p = sub.add_parser("descriptives")
+    p.add_argument("--data_dir", default="data")
+    p.add_argument("--out_csv", default=None)
+    p.set_defaults(fn=_descriptives)
 
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd in ("alignment", "duplicates") and extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    p = sub.add_parser(
+        "figures",
+        help="paper figures from a summary CSV (figures.R equivalent)")
+    p.add_argument("--summary_csv", required=True)
+    p.add_argument("--out_dir", default="results/figures")
+    p.add_argument("--metadata", default=None,
+                   help="train metadata JSON for the corpus panel")
+    p.set_defaults(fn=_figures)
+
+    args = parser.parse_args(argv)
     return args.fn(args)
 
 

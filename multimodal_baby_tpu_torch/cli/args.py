@@ -72,8 +72,12 @@ def add_all_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--fix_temperature", action="store_true")
 
     # --- language model (multimodal.py:838-843) ---
-    g.add_argument("--tie", type=_bool_expr, default=True)
-    g.add_argument("--bias", type=_bool_expr, default=True)
+    # a bare flag means True: the sweep runner (cli/runner.py) emits a
+    # grid's True as the bare flag (configs/saycam_lm.py: tie, bias)
+    g.add_argument("--tie", type=_bool_expr, nargs="?", const=True,
+                   default=True)
+    g.add_argument("--bias", type=_bool_expr, nargs="?", const=True,
+                   default=True)
 
     # --- optimization (multimodal_lit.py:76-110) ---
     g = parser.add_argument_group("train")

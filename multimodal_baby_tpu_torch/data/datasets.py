@@ -10,24 +10,26 @@ Training metadata: ``{"data": [{"utterance": str, "frame_filenames" or
 "foil_img_filenames": [str], "target_category": str, "foil_categories":
 [str]}]}`` (reference: multimodal_data_module.py:112-214).
 
-Images are decoded with PIL only. The JAX package prefers its native C++
-decoder (``multimodal_baby_tpu/data/native``), whose resize is bilinear
-where PIL's is bicubic: the two agree exactly on frames already at 224 px
-and differ on frames that need a resize. Copying the native decoder's
-sources into the port waits for the host input path (ROADMAP Queue 1,
-item 5).
+Frames are decoded on the host in the JAX package's order: the native
+C++ decoder (``data/native``: libjpeg and libpng, bilinear resize, the
+DCT-scaled JPEG decode when ``fast_decode``) first, PIL (bicubic resize)
+where the library is not built or a file does not decode. A training
+batch is decoded in one call of the decoder's thread pool. The frames stay
+uint8; the augment and the normalization run on the device
+(``data/augment.py``).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Tuple
+import warnings
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from multimodal_baby_tpu_torch.core.constants import (
     EOS_TOKEN_ID, IMAGE_H, MAX_LEN_UTTERANCE, PAD_TOKEN_ID, SOS_TOKEN_ID)
-from multimodal_baby_tpu_torch.data.loader import collate
+from multimodal_baby_tpu_torch.data import native
 from multimodal_baby_tpu_torch.data.tokenizer import Tokenizer
 from multimodal_baby_tpu_torch.data.vocab import Vocab
 
@@ -37,10 +39,17 @@ def load_metadata(path) -> List[dict]:
         return json.load(f)["data"]
 
 
-def load_image_uint8(path: str, size: int = IMAGE_H) -> np.ndarray:
-    """Decode to [size, size, 3] uint8 with PIL, bicubic resize if needed."""
+def load_image_uint8(path: str, size: int = IMAGE_H,
+                     fast: bool = True) -> np.ndarray:
+    """Decode to [size, size, 3] uint8, resized if needed: with the native
+    decoder (``fast``: its DCT-scaled JPEG decode), else with PIL (bicubic
+    resize), as the JAX package's ``_load_image_uint8``."""
+    out = native.decode_image(path, size, fast)
+    if out is not None:
+        return out
     from PIL import Image
-    img = Image.open(path).convert("RGB")
+    with Image.open(path) as src:
+        img = src.convert("RGB")
     if img.size != (size, size):
         img = img.resize((size, size), Image.BICUBIC)
     return np.asarray(img, np.uint8)
@@ -53,13 +62,17 @@ class PairedImageTextDataset:
     <sos>/<eos> wrapping, UNK fallback, and the ``shuffle_utterances``
     ablation (the pairing broken by a fixed permutation). The frame choice
     and the permutation are the JAX package's ``np.random.RandomState``
-    draws, so a seed gives the same pairs in both packages."""
+    draws, so a seed gives the same pairs in both packages.
+    ``fast_decode``: the native decoder's DCT-scaled JPEG decode (the JAX
+    package's default, ``MMB_FAST_DECODE=1``)."""
 
     def __init__(self, data: List[dict], vocab: Vocab,
                  multiple_frames: bool = False,
                  shuffle_utterances: bool = False,
-                 max_len: int = MAX_LEN_UTTERANCE, seed: int = 0):
+                 max_len: int = MAX_LEN_UTTERANCE, seed: int = 0,
+                 fast_decode: bool = True):
         self.data = data
+        self.fast_decode = fast_decode
         self.tokenizer = Tokenizer(vocab, max_len)
         self.multiple_frames = multiple_frames
         self.max_len = max_len
@@ -84,17 +97,55 @@ class PairedImageTextDataset:
                     ) -> Tuple[np.ndarray, np.ndarray, int, str]:
         img_entry = self.data[idx]
         txt_entry = self.data[self.utterance_order[idx]]
-        img = load_image_uint8(self.frame_filename(img_entry))
+        img = load_image_uint8(self.frame_filename(img_entry),
+                               fast=self.fast_decode)
         utterance = txt_entry["utterance"]
         ids, length = self.tokenizer.encode_utterance(utterance)
         return img, ids, length, utterance
 
-    def batch_items(self, idxs) -> Dict[str, np.ndarray]:
-        """A collated batch of the items ``idxs``, decoded one by one with
-        PIL. The JAX package decodes a whole batch in one call of its
-        native C++ decoder when that is built; porting it waits for the
-        host input path (ROADMAP Queue 1, item 5)."""
-        return collate([self[int(j)] for j in idxs])
+    def batch_frames(self, idxs) -> List[str]:
+        """The frame file of each item of ``idxs``, in order (with
+        ``multiple_frames``, the batch's random draws). The loader calls it
+        on its own thread in batch order, so that threads that build
+        batches at once draw the same frames as a loop would."""
+        return [self.frame_filename(self.data[int(j)]) for j in idxs]
+
+    def batch_items(self, idxs, frames: Optional[List[str]] = None
+                    ) -> Dict[str, np.ndarray]:
+        """The collated batch of the items ``idxs`` with the frame files
+        ``frames`` (drawn here when not given): every frame decoded in one
+        call of the native decoder's thread pool, the utterances tokenized
+        in a loop. A frame the decoder does not read (a corrupt file, a
+        format other than JPEG and PNG) goes through PIL, with one warning
+        for the batch; a file neither reads raises. Without the native
+        library, every frame goes through PIL."""
+        paths = self.batch_frames(idxs) if frames is None else list(frames)
+        decoded = native.decode_batch_checked(paths, IMAGE_H,
+                                              fast=self.fast_decode)
+        if decoded is None:
+            imgs = np.stack([load_image_uint8(p, IMAGE_H, self.fast_decode)
+                             for p in paths])
+        else:
+            imgs, ok = decoded
+            if not ok.all():
+                failed = np.flatnonzero(ok == 0)
+                warnings.warn(
+                    f"native decode failed for {len(failed)} of "
+                    f"{len(paths)} frames (e.g. {paths[failed[0]]}); "
+                    "falling back to PIL for those slots")
+                for i in failed:
+                    imgs[i] = load_image_uint8(paths[int(i)], IMAGE_H,
+                                               self.fast_decode)
+        n = len(idxs)
+        text = np.empty((n, self.max_len), np.int32)
+        lens = np.empty((n,), np.int32)
+        raws = []
+        for i, j in enumerate(idxs):
+            utterance = self.data[self.utterance_order[int(j)]]["utterance"]
+            text[i], lens[i] = self.tokenizer.encode_utterance(utterance)
+            raws.append(utterance)
+        return {"image_u8": imgs, "text": text, "text_len": lens,
+                "raw": raws}
 
 
 class SyntheticPairedDataset:
@@ -135,13 +186,15 @@ class EvalTrialDataset:
     """4-way forced-choice trials, image mode: one label, target + N foil
     images, target always index 0 (multimodal_data_module.py:112-161).
     An item is (images [K, H, W, 3] uint8, label ids [25], label length,
-    target category)."""
+    target category). ``fast_decode`` as ``PairedImageTextDataset``'s."""
 
     def __init__(self, data: List[dict], vocab: Vocab,
-                 eval_include_sos_eos: bool = False):
+                 eval_include_sos_eos: bool = False,
+                 fast_decode: bool = True):
         self.data = data
         self.vocab = vocab
         self.eval_include_sos_eos = eval_include_sos_eos
+        self.fast_decode = fast_decode
 
     def __len__(self):
         return len(self.data)
@@ -153,7 +206,8 @@ class EvalTrialDataset:
         trial = self.data[idx]
         filenames = [trial["target_img_filename"]] + \
             list(trial["foil_img_filenames"])
-        imgs = np.stack([load_image_uint8(f) for f in filenames])
+        imgs = np.stack([load_image_uint8(f, fast=self.fast_decode)
+                         for f in filenames])
         label = _label_ids(self.vocab, trial["target_category"],
                            self.eval_include_sos_eos)
         ids = np.full((MAX_LEN_UTTERANCE,), PAD_TOKEN_ID, np.int32)
@@ -164,20 +218,24 @@ class EvalTrialDataset:
 class TextEvalTrialDataset:
     """Text mode: one image, target + foil labels
     (multimodal_data_module.py:163-214). An item is (image [H, W, 3]
-    uint8, label ids [K, 25], label lengths [K], target category)."""
+    uint8, label ids [K, 25], label lengths [K], target category).
+    ``fast_decode`` as ``PairedImageTextDataset``'s."""
 
     def __init__(self, data: List[dict], vocab: Vocab,
-                 eval_include_sos_eos: bool = False):
+                 eval_include_sos_eos: bool = False,
+                 fast_decode: bool = True):
         self.data = data
         self.vocab = vocab
         self.eval_include_sos_eos = eval_include_sos_eos
+        self.fast_decode = fast_decode
 
     def __len__(self):
         return len(self.data)
 
     def __getitem__(self, idx):
         trial = self.data[idx]
-        img = load_image_uint8(trial["target_img_filename"])
+        img = load_image_uint8(trial["target_img_filename"],
+                               fast=self.fast_decode)
         raw_labels = [trial["target_category"]] + \
             list(trial["foil_categories"])
         ids = np.full((len(raw_labels), MAX_LEN_UTTERANCE),

@@ -37,7 +37,13 @@ class DataLoader:
 
     ``sync`` makes the batches inline on the consumer's thread, with no
     executor and no prefetch (a measurement and debugging bypass; the JAX
-    package reads it from ``MMB_LOADER_SYNC`` at each iteration)."""
+    package reads it from ``MMB_LOADER_SYNC`` at each iteration).
+
+    A dataset with ``batch_frames`` (random frame draws) has them drawn on
+    the consumer's thread in batch order before a batch goes to a worker,
+    so that the threaded loader gives the batches of the inline one. (The
+    JAX package's workers draw from the shared generator in whatever order
+    they run.)"""
 
     def __init__(
         self,
@@ -77,15 +83,20 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batch_items = getattr(self.dataset, "batch_items", None)
+        batch_frames = getattr(self.dataset, "batch_frames", None)
 
-        def make(idxs):
+        def plan(idxs):  # on this thread, in batch order
+            return (idxs,) if batch_frames is None else (
+                idxs, batch_frames(idxs))
+
+        def make(idxs, *frames):
             if batch_items is not None:
-                return batch_items(idxs)
+                return batch_items(idxs, *frames)
             return collate([self.dataset[int(j)] for j in idxs])
 
         if self.sync:
             for idxs in self._batch_indices():
-                yield make(idxs)
+                yield make(*plan(idxs))
             return
 
         it = self._batch_indices()
@@ -93,14 +104,14 @@ class DataLoader:
         try:
             in_flight: deque = deque()
             for idxs in it:
-                in_flight.append(ex.submit(make, idxs))
+                in_flight.append(ex.submit(make, *plan(idxs)))
                 if len(in_flight) >= self.prefetch + self.num_workers:
                     break
             while in_flight:
                 batch = in_flight.popleft().result()
                 nxt = next(it, None)
                 if nxt is not None:
-                    in_flight.append(ex.submit(make, nxt))
+                    in_flight.append(ex.submit(make, *plan(nxt)))
                 yield batch
         finally:
             # an abandoned iterator does not wait for prefetched work; at

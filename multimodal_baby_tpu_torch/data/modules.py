@@ -29,12 +29,15 @@ _NOT_PORTED = ("is not ported: the ETL and the COCO dataset wait for "
 
 class DataModule:
     """Holds the vocab, the train/val/test paired datasets and the
-    eval-trial datasets."""
+    eval-trial datasets. ``fast_decode``: the native decoder's DCT-scaled
+    JPEG decode in every dataset (``data/native``; on by default, as the
+    JAX package's ``MMB_FAST_DECODE``)."""
 
     def __init__(self, cfg: DataConfig, vocab_size_hint: int = 2350,
-                 seed: int = 0):
+                 seed: int = 0, fast_decode: bool = True):
         self.cfg = cfg
         self.seed = seed
+        self.fast_decode = fast_decode
         self.data_dir = Path(cfg.data_dir)
         self.vocab: Optional[Vocab] = None
         self.datasets: Dict[str, object] = {}
@@ -83,7 +86,7 @@ class DataModule:
                     load_metadata(path), self.vocab,
                     multiple_frames=c.multiple_frames and split == "train",
                     shuffle_utterances=False,  # pairing handled by file
-                    seed=self.seed)
+                    seed=self.seed, fast_decode=self.fast_decode)
 
         dev_name = c.eval_metadata_filename
         test_name = dev_name.replace("dev", "test")
@@ -94,7 +97,8 @@ class DataModule:
             if path.exists():
                 self.eval_datasets[split] = cls(
                     load_metadata(path), self.vocab,
-                    eval_include_sos_eos=c.eval_include_sos_eos)
+                    eval_include_sos_eos=c.eval_include_sos_eos,
+                    fast_decode=self.fast_decode)
         return self
 
     @property

@@ -40,20 +40,76 @@ def init_train_state(model: CVCL, cfg: ExperimentConfig) -> TrainState:
     return TrainState(model, build_optimizer(cfg, model), generator)
 
 
-def device_batch(batch: Mapping[str, np.ndarray], device) -> Batch:
-    """A host batch (the loader's numpy arrays) on ``device``: one copy per
-    key, token ids and lengths as int64; the raw utterances stay behind.
-    On one device the JAX package pads no tail batch
-    (``parallel/mesh.py:80``), so a tail batch keeps its true size."""
-    out = {}
-    for k, v in batch.items():
-        if k == "raw":
-            continue
-        v = np.asarray(v)
-        if v.dtype == np.int32:
-            v = v.astype(np.int64)
-        out[k] = torch.from_numpy(v).to(device)
-    return out
+class HostStaging:
+    """A ring of ``depth`` pinned host slots for ``device_batch``'s copies
+    to a CUDA device, sized from the first batch (a larger batch, or a key
+    of another shape or dtype, re-allocates that slot).
+
+    A batch is copied into the next slot, then from the slot to the device
+    with ``non_blocking=True``, and a CUDA event is recorded after the
+    slot's copies. Before a slot is written again, the host waits on that
+    event: a slot refilled while its earlier copy is still queued would
+    hand the device a later batch's data. With ``depth`` slots the host
+    may run ``depth - 1`` batches ahead of the copies."""
+
+    def __init__(self, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self.depth = depth
+        self._slots = [dict() for _ in range(depth)]
+        self._events = [None] * depth
+        self._next = 0
+
+    def to_device(self, arrays: Mapping[str, np.ndarray], device
+                  ) -> Dict[str, torch.Tensor]:
+        """The arrays on the CUDA ``device``, through the next slot: the
+        host waits for the slot's previous copies, fills it, queues its
+        copies and records their event."""
+        i = self._next
+        self._next = (i + 1) % self.depth
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        slot, out = self._slots[i], {}
+        for k, v in arrays.items():
+            src = torch.from_numpy(v)
+            buf = slot.get(k)
+            if (buf is None or buf.shape[1:] != src.shape[1:]
+                    or buf.shape[0] < src.shape[0]
+                    or buf.dtype != src.dtype):
+                buf = slot[k] = torch.empty(src.shape, dtype=src.dtype,
+                                            pin_memory=True)
+            staged = buf[:src.shape[0]]
+            # one memcpy on this thread: torch's threaded copy_ slows
+            # several-fold beside the loader's decoding threads
+            np.copyto(staged.numpy(), v)
+            out[k] = staged.to(device, non_blocking=True)
+        self._events[i] = torch.cuda.Event()
+        self._events[i].record()
+        return out
+
+
+def device_batch(batch: Mapping[str, np.ndarray], device,
+                 staging: HostStaging | None = None) -> Batch:
+    """A host batch (the loader's numpy arrays) on ``device``, token ids
+    and lengths as int64; the raw utterances stay behind. On one device
+    the JAX package pads no tail batch (``parallel/mesh.py:80``), so a tail
+    batch keeps its true size.
+
+    On a CUDA device every array goes through a pinned slot of ``staging``
+    (a ring the caller keeps across batches; without one, a ring of one
+    slot for this call) and is copied without blocking the host; int32
+    arrays are copied as int32 and widened on the device. On the CPU each
+    array is converted and copied as it is."""
+    device = torch.device(device)
+    arrays = {k: np.ascontiguousarray(v) for k, v in batch.items()
+              if k != "raw"}
+    if device.type != "cuda":
+        return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32
+                                    else v).to(device)
+                for k, v in arrays.items()}
+    out = (staging or HostStaging(1)).to_device(arrays, device)
+    return {k: v.long() if v.dtype == torch.int32 else v
+            for k, v in out.items()}
 
 
 def calibrate_trunk(model: CVCL, batch: Batch, n: int = 32):

@@ -3,14 +3,15 @@ trials), plateau LR, checkpointing, resume, logging (counterpart of
 ``multimodal_baby_tpu/train/trainer.py``; reference: train.py:58-107 and
 the MultiModalLitModel hooks).
 
-One device: the host loop moves uint8 batches to the card, one copy per
-key, and the train step augments, normalizes and runs the model there.
-A step's metrics stay on the device until the epoch ends, as the JAX
-package's deferred ``to_host``: the host reads nothing back inside an
-epoch (a ``StepTimer`` synchronizes each step when one is given). The
-copy from pageable host memory still waits for the card's queue before
-it starts; pinned buffers and asynchronous copies belong to the host
-input path (ROADMAP Queue 1, item 5).
+One device: the loader's threads decode each batch (the native decoder,
+``data/native``, or PIL where it is not built), the host loop copies its uint8 frames and
+token ids to the card through a ring of pinned slots
+(``train/step.py::HostStaging``) without waiting for the card, and the
+train step augments, normalizes and runs the model there. A step's
+metrics stay on the device until the epoch ends, as the JAX package's
+deferred ``to_host``: the host reads nothing back inside an epoch (a
+``StepTimer`` synchronizes each step when one is given), so it prepares
+the next batch while the card runs the last.
 
 With ``eval_textgen`` and an LM term (``lambda_lm``), the validation
 also beam-decodes the split (``evaluation/textgen.py``) and logs BLEU-1..4,
@@ -46,8 +47,8 @@ from multimodal_baby_tpu_torch.train.optimizer import (
     ReduceLROnPlateau, get_learning_rate, set_learning_rate)
 from multimodal_baby_tpu_torch.train.profiler import StepTimer
 from multimodal_baby_tpu_torch.train.step import (
-    calibrate_trunk, device_batch, init_train_state, make_eval_step,
-    make_train_step)
+    HostStaging, calibrate_trunk, device_batch, init_train_state,
+    make_eval_step, make_train_step)
 
 CALIB_FRAMES = 32  # trainer.py:101: the int8 ranges' sample
 
@@ -103,6 +104,7 @@ class Trainer:
                                          cfg.train.patience)
         self.start_epoch = 0
         self.step_timer = step_timer
+        self.staging = HostStaging()  # the pinned slots of the H2D copies
         self.loader_wait_s = 0.0  # the last train epoch's wait on batches
         self._build()
 
@@ -186,8 +188,8 @@ class Trainer:
                 break
             if timer is not None:
                 timer.start()
-            metrics = self.train_step(self.state,
-                                      device_batch(batch, self.device))
+            metrics = self.train_step(
+                self.state, device_batch(batch, self.device, self.staging))
             if timer is not None:
                 timer.stop(self.device)
             device_outputs.append(metrics)
@@ -209,7 +211,8 @@ class Trainer:
             loader = DataLoader(dataset, cfg.data.val_batch_size,
                                 shuffle=False,
                                 num_workers=cfg.data.num_workers)
-            outputs = [self.eval_step(device_batch(batch, self.device))
+            outputs = [self.eval_step(device_batch(batch, self.device,
+                                                   self.staging))
                        for batch in loader]
             out.update(aggregate_epoch([to_host(m) for m in outputs]))
 

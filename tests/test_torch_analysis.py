@@ -19,7 +19,8 @@ and moved through ``api/convert.py``, in f32 on the CPU:
   hidden states within 1e-5; ``sentence_batches`` equal;
 - ``cli/analyze.py alignment`` and ``duplicates`` end to end on a toy
   checkpoint directory with ``--device cpu``, the other subcommands
-  refused; ``cli/eval.py --dump_attention_maps`` writing its overlays.
+  running (no longer refused); ``cli/eval.py --dump_attention_maps``
+  writing its overlays.
 """
 
 import json
@@ -423,10 +424,25 @@ def test_cli_duplicates_end_to_end(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["summaries", "descriptives", "figures"])
-def test_cli_analyze_refuses_the_csv_contracts(cmd, capsys):
-    with pytest.raises(SystemExit):
-        analyze.main([cmd])
-    assert "ROADMAP Queue 1, item 7" in capsys.readouterr().err
+def test_cli_analyze_refuses_the_csv_contracts(cmd, tmp_path, capsys):
+    """The CSV-contract subcommands no longer refuse: each runs on small
+    inputs and writes its artifact (tests/test_torch_analysis_host.py
+    holds them equal to the JAX package's)."""
+    (tmp_path / "train.json").write_text(json.dumps({"data": [
+        {"utterance": "the ball", "frame_filenames": ["f.png"]}]}))
+    csv = tmp_path / "summary.csv"
+    pd.DataFrame({"target_category": ["ball", "cat"], "correct": [1, 0],
+                  "config": ["a", "a"], "seed": [0, 0]}).to_csv(csv)
+    argv = {"summaries": ["--results_dir", str(tmp_path)],
+            "descriptives": ["--data_dir", str(tmp_path), "--out_csv",
+                             str(tmp_path / "d.csv")],
+            "figures": ["--summary_csv", str(csv), "--out_dir",
+                        str(tmp_path / "figs")]}[cmd]
+    analyze.main([cmd, *argv])
+    assert "not ported" not in capsys.readouterr().err
+    assert {"summaries": tmp_path / "summary" / "object-categories.csv",
+            "descriptives": tmp_path / "d.csv",
+            "figures": tmp_path / "figs" / "eval_accuracy.png"}[cmd].exists()
 
 
 def test_cli_eval_dumps_attention_maps(tmp_path):

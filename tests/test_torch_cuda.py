@@ -19,7 +19,11 @@ and on the arguments they refuse. The slice's entry points on the
 published trunk's kernels against the same calls with the trunk's plain
 versions on the card (per-row or per-map cosine >= 0.999): ``grad_cam``
 at B = 4 and 1, captioning ``run_textgen_eval`` at B = 64 (int8 plan)
-and 16 (bf16), and ``category_feature_sets`` with a 36-frame tail.
+and 16 (bf16), and ``category_feature_sets`` with a 36-frame tail. The
+host input path: ``device_batch``'s pinned staging ring against a
+consumer that lags on the device (every device batch equal to its host
+batch), and the trainer's first step on JPEG frames against the plain
+versions.
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -1240,3 +1244,91 @@ def test_category_feature_sets_on_the_card_match_plain(cuda, tmp_path):
         assert float(cos.min()) >= SLICE_COS, k
     np.testing.assert_array_equal(got["text_features"],
                                   want["text_features"])
+
+
+# ------------------------------------------------- the host input path: the
+# pinned staging ring of device_batch, and the trainer on JPEG frames
+
+
+def test_staging_ring_survives_a_slow_consumer(cuda):
+    """device_batch through a HostStaging ring of depth 2, 8 batches, each
+    consumed behind a device-side delay (torch.cuda._sleep) while the host
+    stages the next: every device batch equals its host batch (a slot
+    refilled before its copy ran would hand a batch the next one's data);
+    int32 ids and lengths arrive as int64 with the host's values."""
+    import numpy as np
+    from multimodal_baby_tpu_torch.train.step import (
+        HostStaging, device_batch)
+
+    rng = np.random.RandomState(0)
+    staging = HostStaging(depth=2)
+    hosts, seen = [], []
+    for i in range(8):
+        b = 16 if i < 7 else 5  # a tail batch reuses a slot's first rows
+        host = {"image_u8": rng.randint(0, 256, (b, 224, 224, 3), np.uint8),
+                "text": rng.randint(0, 2350, (b, 25)).astype(np.int32),
+                "text_len": rng.randint(1, 26, b).astype(np.int32),
+                "raw": [""] * b}
+        dev = device_batch(host, cuda, staging)
+        torch.cuda._sleep(20_000_000)  # ~10 ms behind on the stream
+        seen.append({k: v.clone() for k, v in dev.items()})
+        hosts.append(host)
+    torch.cuda.synchronize()
+    for host, dev in zip(hosts, seen):
+        assert set(dev) == {"image_u8", "text", "text_len"}
+        assert dev["image_u8"].dtype == torch.uint8
+        assert dev["text"].dtype == dev["text_len"].dtype == torch.int64
+        for k, v in dev.items():
+            assert torch.equal(v.cpu(), torch.from_numpy(
+                host[k].astype(np.int64) if k != "image_u8" else host[k]))
+
+
+def test_trainer_first_step_on_jpeg_frames_matches_plain(cuda, tmp_path):
+    """The published recipe's first train step through cli/train on a
+    SAYCam-format directory of 256 px JPEG frames at B = 32: K1, K2, K3a
+    and K3b launched [4, 1, 2, 1] times, and its loss within 1e-2 of the
+    same step with the trunk's plain versions (chip_smoke.py's phase 10
+    gate)."""
+    import json
+    import numpy as np
+    from PIL import Image
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+    from multimodal_baby_tpu_torch.train.step import device_batch
+
+    rng = np.random.RandomState(3)
+    words = ["ball", "car", "cat", "look", "the"]
+    frames = []
+    for i in range(16):
+        low = rng.randint(0, 256, (16, 16, 3), np.uint8)
+        img = Image.fromarray(low).resize((256, 256), Image.BILINEAR)
+        path = tmp_path / f"f{i}.jpg"
+        img.save(path, quality=90)
+        frames.append(str(path))
+    data = [{"utterance": " ".join(rng.choice(words, 3)),
+             "frame_filenames": list(rng.choice(frames, 2))}
+            for _ in range(64)]
+    (tmp_path / "train.json").write_text(json.dumps({"data": data}))
+    (tmp_path / "vocab.json").write_text(json.dumps({w: i for i, w in
+        enumerate(["<pad>", "<unk>", "<sos>", "<eos>"] + words)}))
+    argv = ["--dataset", "saycam", "--data_dir", str(tmp_path),
+            "--cnn_dino", "--frozen_bn", "running", "--trunk_int8",
+            "0,0,1,1", "--embedding_dim", "512", "--normalize_features",
+            "--fix_temperature", "--augment_frames", "--batch_size", "32",
+            "--drop_last", "--optimize_unused", "--multiple_frames",
+            "--checkpoint_dir", str(tmp_path / "ck"), "--device", "cuda"]
+    losses = []
+    for plain in (False, True):
+        trainer = make_trainer(argv)
+        batch = trainer.data.datasets["train"].batch_items(np.arange(32))
+        before = launches()
+        if plain:
+            with plain_trunk():
+                out = trainer.train_step(trainer.state, device_batch(
+                    batch, cuda, trainer.staging))
+        else:
+            out = trainer.train_step(trainer.state, device_batch(
+                batch, cuda, trainer.staging))
+            assert [a - b for a, b in zip(launches(), before)] == PLAN_INT8
+        losses.append(float(out["loss"]))
+    assert all(np.isfinite(losses))
+    assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])

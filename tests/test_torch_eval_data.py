@@ -2,8 +2,9 @@
 package's: ``vocab.json`` byte for byte, ``Vocab``, the tokenizer on a
 fixed sentence set (contractions, exceptions, punctuation runs, hyphens,
 curly apostrophes, unknown words, truncation), the forced-choice datasets'
-items on 224 px PNG frames (neither decoder resizes them: the JAX package
-may decode with its native C++ pipeline, the port with PIL), and the
+items on 224 px PNG frames, the image loader on a frame that needs a
+resize (both packages decode with the native C++ decoder; PIL's bicubic
+resize where it is not built), and the
 object-categories stimulus prep and trial metadata.
 """
 
@@ -115,13 +116,29 @@ def test_eval_datasets_match_jax(vocabs, tmp_path, sos):
     assert tds.EvalTrialDataset(data, tv).n_imgs() == 4
 
 
-def test_image_loader_resizes_with_pil_bicubic(tmp_path):
+def test_image_loader_resizes_with_pil_bicubic(tmp_path, monkeypatch):
+    """Where the native decoder is not built (or fails on a file), the
+    loader decodes with PIL and resizes bicubic."""
+    monkeypatch.setattr(tds.native, "decode_image", lambda *a, **k: None)
     arr = np.random.RandomState(1).randint(0, 256, (300, 200, 3), np.uint8)
     p = tmp_path / "big.png"
     Image.fromarray(arr).save(p)
     got = tds.load_image_uint8(str(p))
     want = np.asarray(Image.fromarray(arr).resize((224, 224),
                                                   Image.BICUBIC))
+    assert got.shape == (224, 224, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+def test_image_loader_matches_the_jax_loader(tmp_path):
+    """A frame that needs a resize: the port's loader decodes it as the
+    JAX package's ``_load_image_uint8`` does (its native decoder, bilinear
+    resize), byte for byte."""
+    arr = np.random.RandomState(1).randint(0, 256, (300, 200, 3), np.uint8)
+    p = tmp_path / "big.png"
+    Image.fromarray(arr).save(p)
+    got = tds.load_image_uint8(str(p))
+    want = jds._load_image_uint8(str(p))
     assert got.shape == (224, 224, 3) and got.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
 

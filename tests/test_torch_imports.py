@@ -73,6 +73,15 @@ MODULES = [
     "multimodal_baby_tpu_torch.analysis.duplicates",
     "multimodal_baby_tpu_torch.analysis.ngram",
     "multimodal_baby_tpu_torch.analysis.processing",
+    "multimodal_baby_tpu_torch.data.native",
+    "multimodal_baby_tpu_torch.analysis.descriptives",
+    "multimodal_baby_tpu_torch.analysis.summaries",
+    "multimodal_baby_tpu_torch.analysis.word_analysis",
+    "multimodal_baby_tpu_torch.analysis.token_items",
+    "multimodal_baby_tpu_torch.analysis.plotting",
+    "multimodal_baby_tpu_torch.analysis.figures",
+    "multimodal_baby_tpu_torch.analysis.checkpoints",
+    "multimodal_baby_tpu_torch.cli.runner",
 ]
 
 PROBE = """
@@ -100,6 +109,18 @@ def test_chip_smoke_imports_no_jax():
     probe = PROBE.replace("importlib.import_module(name)",
                           "importlib.import_module(name)\n"
                           "import runpy; runpy.run_path('chip_smoke.py')")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe.format(modules=MODULES)], cwd=REPO,
+        capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_real_io_script_imports_no_jax():
+    """scripts/real_io_torch.py's module scope and its imports."""
+    probe = PROBE.replace("importlib.import_module(name)",
+                          "importlib.import_module(name)\n"
+                          "import runpy; runpy.run_path("
+                          "'scripts/real_io_torch.py')")
     proc = subprocess.run(
         [sys.executable, "-c", probe.format(modules=MODULES)], cwd=REPO,
         capture_output=True, text=True, timeout=120, check=False)

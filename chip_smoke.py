@@ -328,6 +328,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import csv
 import io
 import json
 import math
@@ -2444,30 +2445,31 @@ def eval_frames(rng, per_base, size=224):
     return (np.clip(bases[labels] + noise, 0, 255).astype(np.uint8), labels)
 
 
-def fit_head(model, frames, labels, vocab):
+def fit_head(model, frames, labels, vocab, categories=EVAL_CATS):
     """Set the vision head (``fc`` or ``head``) by least squares so that
     each category's mean f32 trunk feature, less the mean over all
     ``frames``, maps to its label's text features (the eval's labels,
     <sos> word <eos>), as a trained head would place them: a random
     trunk's features of different images lie close together (the
     category means' least pairwise cosine is printed), so with a random
-    head every trial is a near-tie."""
+    head every trial is a near-tie. ``labels`` index ``categories``."""
     trunk = model.vision_encoder.model
     vit = model.cfg.vision.vit_dino
-    ids = torch.zeros((16, MAX_LEN_UTTERANCE), dtype=torch.long)
+    n = len(categories)
+    ids = torch.zeros((n, MAX_LEN_UTTERANCE), dtype=torch.long)
     ids[:, 0], ids[:, 2] = 2, 3
-    ids[:, 1] = torch.tensor([vocab[c] for c in EVAL_CATS])
+    ids[:, 1] = torch.tensor([vocab[c] for c in categories])
     with torch.no_grad(), trunk_path(model, "f32"):
         x = normalize_image(torch.from_numpy(frames).cuda())
         feats = (trunk(x) if vit else trunk(x)["pooled"]).double()
         text = model.encode_text(ids.cuda(), torch.full(
-            (16,), 3, device="cuda"))[0].double()
+            (n,), 3, device="cuda"))[0].double()
         mean = feats.mean(0)
         delta = torch.stack([feats[torch.from_numpy(labels == c).cuda()]
-                             .mean(0) for c in range(16)]) - mean
+                             .mean(0) for c in range(n)]) - mean
         w = text.T @ torch.linalg.pinv(delta.T)
         means = F.normalize(delta + mean, dim=1)
-        log(f"  {'ViT' if vit else 'ResNeXt'} head fitted to 16 categories: "
+        log(f"  {'ViT' if vit else 'ResNeXt'} head fitted to {n} categories: "
             f"their mean f32 trunk features at pairwise cosine >= "
             f"{float((means @ means.T).min()):.7f}")
         head = trunk.head if vit else trunk.fc
@@ -3834,6 +3836,498 @@ def phase_host_input(root, published, card):
         f"{decoder}")
 
 
+# ----------------------------------------------------------------- phase 13
+
+# 22 Labeled-S-style categories of the packaged vocabulary, and the four the
+# ETL drops from the trials (etl.py: EXCLUDED_EVAL_CATEGORIES)
+LABELED_S_CATS = ("ball", "basket", "car", "cat", "chair", "computer",
+                  "crib", "door", "floor", "foot", "ground", "kitchen",
+                  "paper", "puzzle", "road", "room", "sand", "stairs",
+                  "table", "toy", "tv", "window")
+EXCLUDED_CATS = ("carseat", "couch", "greenery", "plushanimal")
+SPEAKERS = ("M", "Mom", "mother", "S", "Child")  # the last two are dropped
+
+
+def can_write_mp4(root) -> bool:
+    """Whether cv2 is installed and writes an .mp4 it reads back."""
+    try:
+        import cv2
+    except ImportError:
+        return False
+    path = Path(root) / ".probe.mp4"
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 5,
+                          (64, 48))
+    for _ in range(3):
+        out.write(np.zeros((48, 64, 3), np.uint8))
+    out.release()
+    cap = cv2.VideoCapture(str(path))
+    ok = cap.read()[0]
+    cap.release()
+    path.unlink(missing_ok=True)
+    return bool(ok)
+
+
+def write_raw_saycam(root, rng, words, n_transcripts, n_rows,
+                     categories=LABELED_S_CATS + EXCLUDED_CATS,
+                     per_category=6, size=224, video=True,
+                     video_seconds=None, max_gap=8):
+    """A raw SAYCam-format tree under ``root`` from ``rng``:
+    ``transcripts/`` (CSVs with Time, Speaker, Utterance, Video Name:
+    ``n_rows`` rows each, 1 to ``max_gap`` - 1 s apart, in the mixed time
+    forms, with bracketed asides, inaudible marks, two-sentence turns and
+    speakers the ETL drops), ``labeled_s/<category>/`` (``per_category``
+    PNG frames of ``size`` px each) and, with ``video``, ``videos/`` (an
+    .mp4 per transcript at 5 fps, 320 x 240, as long as the transcript or
+    ``video_seconds``). Returns the three directories (videos None
+    without ``video``)."""
+    root = Path(root)
+    tdir, ldir = root / "transcripts", root / "labeled_s"
+    tdir.mkdir(parents=True)
+    words = list(words)
+    last = {}
+    for t in range(n_transcripts):
+        name = f"S_{t:03d}"
+        sec, rows = rng.randint(0, 3), []
+        for _ in range(n_rows):
+            mm, ss = divmod(sec, 60)
+            form = rng.randint(6)
+            time_ = (f"{mm}.{ss:02d}" if form == 0
+                     else f"{mm}:{ss:02d}-{mm}:{ss + 1:02d}" if form == 1
+                     and ss < 59 else f"{mm}:{ss:02d}")
+            utt = " ".join(rng.choice(words, rng.randint(1, 7)))
+            extra = rng.randint(8)
+            if extra == 0:
+                utt += ". " + " ".join(rng.choice(words, rng.randint(1, 4)))
+            elif extra == 1:
+                utt += " [laughs]"
+            elif extra == 2:
+                utt = "[inaudible] " + utt
+            rows.append((time_, SPEAKERS[rng.randint(len(SPEAKERS))], utt,
+                         f"{name}.avi"))
+            sec += rng.randint(1, max_gap)
+        last[name] = sec
+        with open(tdir / f"{name}.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["Time", "Speaker", "Utterance", "Video Name"])
+            w.writerows(rows)
+    from PIL import Image
+    for ci, cat in enumerate(categories):
+        d = ldir / cat
+        d.mkdir(parents=True)
+        base = rng.randint(0, 256, (size // 8, size // 8, 3)).astype(
+            np.int16).repeat(8, 0).repeat(8, 1)
+        for i in range(per_category):
+            img = np.clip(base + rng.randint(-24, 25, base.shape), 0, 255)
+            Image.fromarray(img.astype(np.uint8)).save(d / f"{cat}_{i}.png")
+    vdir = None
+    if video:
+        import cv2
+        vdir = root / "videos"
+        vdir.mkdir()
+        for name, sec in last.items():
+            out = cv2.VideoWriter(str(vdir / f"{name}.mp4"),
+                                  cv2.VideoWriter_fourcc(*"mp4v"), 5,
+                                  (320, 240))
+            cells = rng.randint(0, 256, (30, 40, 3)).astype(np.int16)
+            for k in range(5 * (video_seconds or sec + 8)):
+                frame = np.roll(cells, k, axis=1).repeat(8, 0).repeat(8, 1)
+                out.write(frame.astype(np.uint8))
+            out.release()
+    return tdir, ldir, vdir
+
+
+ETL_TRANSCRIPTS, ETL_ROWS, ETL_MAX_GAP = 3, 150, 3  # ~2,000 frame rows
+ETL_PER_CATEGORY = 6
+ETL_CATEGORIES = LABELED_S_CATS + EXCLUDED_CATS  # 22 in the trials
+COCO_IMAGES, COCO_CAPTIONS, COCO_BATCH = 256, 5, 64
+DIST_RTOL = 1e-6     # 13d: distributed step against the one-device step
+
+
+def available(module: str) -> bool:
+    import importlib.util
+    return importlib.util.find_spec(module) is not None
+
+
+def tree_stamps(root):
+    return {str(p.relative_to(root)): p.stat().st_mtime_ns
+            for p in Path(root).rglob("*") if p.is_file()}
+
+
+@contextlib.contextmanager
+def decode_once():
+    """Each eval frame decoded once: ``load_image_uint8`` memoized by
+    path inside (the trial datasets read every frame once per trial)."""
+    import functools
+    from multimodal_baby_tpu_torch.data import datasets
+    load = datasets.load_image_uint8
+    datasets.load_image_uint8 = functools.lru_cache(maxsize=None)(load)
+    try:
+        yield
+    finally:
+        datasets.load_image_uint8 = load
+
+
+def write_missing_frames(data, rng):
+    """Without cv2's video step: a JPEG for every frame the metadata
+    names, at 320 x 240 cropped as the ETL crops (the transcript step's
+    file names, frames drawn here)."""
+    from PIL import Image
+    names = {f for split in ("train", "val", "test") for e in json.loads(
+        (data / f"{split}.json").read_text())["data"]
+        for f in e["frame_filenames"]}
+    cells = rng.randint(0, 256, (28, 28, 3)).astype(np.uint8)
+    for i, name in enumerate(sorted(names)):
+        img = np.roll(cells, i, axis=1).repeat(8, 0).repeat(8, 1)
+        Path(name).parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img).save(name, quality=90)
+    return len(names)
+
+
+def phase_etl(root, card):
+    """13a: a raw SAYCam tree through prepare_data (twice), one epoch of
+    the published recipe on its output, forced choice on its trials."""
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+    from multimodal_baby_tpu_torch.data.datasets import (
+        EvalTrialDataset, load_metadata)
+
+    mods = {m: available(m) for m in ("cv2", "pandas", "spacy")}
+    video = mods["cv2"] and can_write_mp4(root)
+    log(f"  -- 13a the ETL to a trained epoch; installed {mods}, cv2 "
+        f"writes and reads .mp4: {video}")
+    if not mods["cv2"]:
+        log("  cv2 is missing: no video step; the frames the transcripts "
+            "name are written by this phase (the video step is held by "
+            "the CPU tests)")
+    # the categories four times over beside the vocab's 100 most frequent
+    # words: every category passes the vocab's count threshold of 3
+    vocab = Vocab.load(PACKAGED_VOCAB)
+    words = [w for w in vocab.word2idx if not w.startswith("<")][:100]
+    words += [c for c in ETL_CATEGORIES if c not in EXCLUDED_CATS] * 4
+    rng = np.random.RandomState(13)
+    t0 = time.perf_counter()
+    tdir, ldir, vdir = write_raw_saycam(
+        root / "raw", rng, words, ETL_TRANSCRIPTS, ETL_ROWS,
+        categories=ETL_CATEGORIES, per_category=ETL_PER_CATEGORY,
+        video=video, max_gap=ETL_MAX_GAP)
+    raw_s = time.perf_counter() - t0
+    data = root / "etl_data"
+    argv = trainer_argv(root, "etl", "--dataset", "saycam", "--data_dir",
+                        str(data), "--multiple_frames", "--max_epochs", "1",
+                        "--eval_include_sos_eos",
+                        "--transcript_dir", str(tdir), "--labeled_s_dir",
+                        str(ldir), *(("--video_dir", str(vdir)) if vdir
+                                     else ()))
+    t0 = time.perf_counter()
+    make_trainer([*argv, "--prepare_data_only"])
+    etl_s = time.perf_counter() - t0
+    stamps = tree_stamps(data)
+    t0 = time.perf_counter()
+    make_trainer([*argv, "--prepare_data_only"])
+    again_s = time.perf_counter() - t0
+    rewritten = [f for f, t in tree_stamps(data).items()
+                 if stamps.get(f) != t]
+    import pandas as pd
+    rows = sum(len(pd.read_csv(f)) for f in
+               (data / "preprocessed_transcripts_5fps").glob("*.csv"))
+    splits = {s: len(load_metadata(data / f"{s}.json"))
+              for s in ("train", "val", "test")}
+    extracted = len(list((data / "train_5fps").glob("*.jpg"))) \
+        if (data / "train_5fps").exists() else 0
+    trials = {s: len(load_metadata(data / f"eval_{s}.json"))
+              for s in ("dev", "test")}
+    log(f"  raw tree {raw_s:.2f} s; prepare_data {etl_s:.2f} s: {rows} "
+        f"frame rows, utterances {splits}, {extracted} frames extracted, "
+        f"trials {trials}, vocab {len(Vocab.load(data / 'vocab.json'))}; "
+        f"the second run {again_s:.3f} s rewrote {len(rewritten)} files")
+    n_trials = 100 * len(set(ETL_CATEGORIES) - set(EXCLUDED_CATS))
+    if rewritten or not (1500 <= rows <= 3000 and splits["train"]
+                         >= 2 * TRAIN_BATCH and trials["dev"] == n_trials
+                         and (extracted > 0) == video):
+        raise AssertionError(f"13a: rewritten {rewritten[:3]}, rows {rows}, "
+                             f"{splits}, {trials}, {extracted} frames")
+    if not video:
+        log(f"  wrote {write_missing_frames(data, rng)} frames")
+
+    trainer = make_trainer(argv)
+    calls, secs, waits = [], [], []
+    count_calls(trainer, calls)
+    time_epochs(trainer, secs, waits)
+    val = trainer.fit()
+    per_step = [n for kind, _, n in calls if kind == "train"]
+    pairs = len(per_step) * TRAIN_BATCH
+    log(f"  one epoch: launches per train step {per_step}, val loss "
+        f"{val['loss']:.5f}; {secs[0]:.3f} s, {pairs / secs[0]:.1f} pairs/s, "
+        f"{waits[0] / secs[0]:.1%} of it waiting on the loader; {card}")
+    if not (per_step and all(n == PLAN_INT8 for n in per_step)
+            and math.isfinite(val["loss"])):
+        raise AssertionError(f"13a: launches {per_step}, val {val}")
+
+    # the head fitted to the dev frames' categories: clear decisions
+    from PIL import Image
+    cats = sorted(d.name for d in (data / "eval" / "dev").iterdir()
+                  if d.name not in EXCLUDED_CATS)
+    dev = [(i, np.asarray(Image.open(f).convert("RGB")))
+           for i, c in enumerate(cats)
+           for f in sorted((data / "eval" / "dev" / c).iterdir())]
+    model = trainer.model
+    fit_head(model, np.stack([f for _, f in dev]),
+             np.asarray([i for i, _ in dev]), trainer.data.vocab, cats)
+    dataset = EvalTrialDataset(load_metadata(data / "eval_dev.json"),
+                               trainer.data.vocab, eval_include_sos_eos=True)
+    with decode_once():
+        run_eval(model, Decoded(dataset, 4), "image", RESNEXT_COUNTERS)
+        k_rec, k_calls, k_s = run_eval(model, dataset, "image",
+                                       RESNEXT_COUNTERS)
+        p_rec, _, p_s = run_eval(model, dataset, "image", RESNEXT_COUNTERS,
+                                 "plain")
+    preds = [np.asarray([r["pred"] for r in rec]) for rec in (k_rec, p_rec)]
+    lp = np.log([r["logits"] for r in p_rec])
+    top2 = np.sort(lp, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > EVAL_GAP
+    same = preds[0] == preds[1]
+    chunks = sorted({(b, tuple(n)) for b, n, _, _ in k_calls})
+    log(f"  forced choice on eval_dev.json: {len(k_rec)} trials, accuracy "
+        f"{np.mean([r['correct'] for r in k_rec]):.4f}; decisions equal to "
+        f"plain on {int(same.sum())}/{same.size} "
+        f"({int(same[clear].sum())}/{int(clear.sum())} with a top-two gap "
+        f"> {EVAL_GAP}); launches per chunk {chunks}; "
+        f"{len(k_rec) / k_s:.1f} trials/s (each frame decoded once), plain "
+        f"versions {len(k_rec) / p_s:.1f}")
+    if not (len(k_rec) == n_trials and same[clear].all()
+            and clear.mean() >= 0.5
+            and all(n == tuple(PLAN_INT8) for b, n in chunks
+                    if b % Q_CHECK_BATCH == 0)):
+        raise AssertionError(f"13a: forced choice {int(same.sum())} equal, "
+                             f"chunks {chunks}")
+
+
+def karpathy_json(root, rng, words, n=COCO_IMAGES, captions=COCO_CAPTIONS):
+    """A Karpathy-format dataset_coco.json under ``root``: ``n`` 224 px
+    JPEGs (train2014/ and val2014/), ``captions`` captions each over
+    ``words``, split 3/4 train and restval, 1/8 val, 1/8 test."""
+    from PIL import Image
+    images = []
+    for i in range(n):
+        sub = "train2014" if i % 2 == 0 else "val2014"
+        (root / sub).mkdir(parents=True, exist_ok=True)
+        fname = f"COCO_{sub}_{i:012d}.jpg"
+        cells = rng.randint(0, 256, (28, 28, 3)).astype(np.uint8)
+        Image.fromarray(cells.repeat(8, 0).repeat(8, 1)).save(
+            root / sub / fname, quality=90)
+        split = ("val" if i % 8 == 1 else "test" if i % 8 == 3
+                 else "restval" if i % 8 == 5 else "train")
+        images.append({"filename": fname, "filepath": sub, "split": split,
+                       "imgid": i, "sentences": [
+                           {"tokens": list(rng.choice(words,
+                                                      rng.randint(5, 12))),
+                            "sentid": i * captions + j}
+                           for j in range(captions)]})
+    (root / "dataset_coco.json").write_text(json.dumps({"images": images}))
+
+
+def phase_coco(root, card):
+    """13b: prepare_coco, COCOCaptionsDataset and the captioning recipe
+    through cli/train; a text-generation batch against plain."""
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+    from multimodal_baby_tpu_torch.data.loader import DataLoader
+
+    log(f"  -- 13b COCO: {COCO_IMAGES} images x {COCO_CAPTIONS} captions, "
+        f"the captioning recipe at B = {COCO_BATCH}")
+    data = root / "coco"
+    vocab = Vocab.load(PACKAGED_VOCAB)
+    words = [w for w in vocab.word2idx if not w.startswith("<")][:300]
+    karpathy_json(data, np.random.RandomState(14), words)
+    argv = [*RECIPE_ARGV, "--text_encoder", "lstm", "--captioning",
+            "--lambda_mm", "0", "--lambda_lm", "1", "--dataset", "coco",
+            "--data_dir", str(data), "--batch_size", str(COCO_BATCH),
+            "--val_batch_size", str(COCO_BATCH), "--device", TRAIN_DEVICE,
+            "--checkpoint_dir", str(root), "--exp_name", "coco",
+            "--max_epochs", "1"]
+    t0 = time.perf_counter()
+    make_trainer([*argv, "--prepare_data_only"])
+    prep_s = time.perf_counter() - t0
+    trainer = make_trainer(argv)
+    sizes = {k: len(v) for k, v in trainer.data.datasets.items()}
+    calls, secs, waits = [], [], []
+    count_calls(trainer, calls)
+    time_epochs(trainer, secs, waits)
+    val = trainer.fit()
+    per_step = [n for kind, _, n in calls if kind == "train"]
+    log(f"  prepare_coco {prep_s:.3f} s: vocab {trainer.data.vocab_size}, "
+        f"splits {sizes}; launches per train step {per_step}; val ce "
+        f"{val.get('ce_loss', float('nan')):.5f}; epoch {secs[0]:.3f} s")
+    if not (per_step and all(n == PLAN_INT8 for n in per_step)
+            and math.isfinite(val["loss"])):
+        raise AssertionError(f"13b: launches {per_step}, val {val}")
+
+    model = trainer.model
+    batch = next(iter(DataLoader(trainer.data.datasets["val"], COCO_BATCH,
+                                 shuffle=False, sync=True)))
+    n = len(batch["text"])
+    x = normalize_image(torch.from_numpy(batch["image_u8"]).cuda())
+    runs = {}
+    for path in ("kernels", "plain"):
+        for fn, attr in RESNEXT_COUNTERS:
+            setattr(fn, attr, 0)
+        with trunk_path(model, path), torch.no_grad():
+            feats, _ = model.encode_image(x)
+            seq, beam = model.beam_search_decode(n, 3, 25, 0.0, feats)
+        runs[path] = (seq[:, 0], beam, [getattr(fn, attr)
+                                        for fn, attr in RESNEXT_COUNTERS])
+    (seq, _, counts), (p_seq, p_beam, _) = runs["kernels"], runs["plain"]
+    clear = (p_beam[:, 0] - p_beam[:, 1]) > EVAL_GAP
+    same = (seq == p_seq).all(dim=1)
+    log(f"  text generation on {n} val images: launches {counts}; decodes "
+        f"equal to plain on {int(same.sum())}/{n} "
+        f"({int(same[clear].sum())}/{int(clear.sum())} with a top-two beam "
+        f"gap > {EVAL_GAP}); {card}")
+    want = PLAN_INT8 if n % Q_CHECK_BATCH == 0 else PLAN_BF16
+    if not (counts == want and bool(same[clear].all())):
+        raise AssertionError(f"13b: launches {counts}, {int(same.sum())} "
+                             "equal")
+
+
+def save_dino(path, trunk_state):
+    """A DINO-style checkpoint: the trunk under teacher/module.backbone.,
+    beside a projection head and the epoch."""
+    inner = {f"module.backbone.{k}": v.detach().cpu()
+             for k, v in trunk_state.items()}
+    inner["module.head.last_layer.weight_g"] = torch.ones(65536, 1)
+    torch.save({"teacher": inner, "epoch": 100}, path)
+
+
+def phase_backbones(root, published, card):
+    """13c: local DINO checkpoints of seeded trunks loaded through
+    api/backbones; features bit for bit those of the written model."""
+    from multimodal_baby_tpu_torch.api.backbones import load_backbone
+
+    log("  -- 13c backbones from local checkpoints, features at B = "
+        f"{BATCH}")
+    state, _, batch = published
+    src = state.model
+    vit_cfg, vit_src, _ = build_vit_slice()
+    for name, cfg, model_a, counters, want in (
+            ("dino_sfp_resnext50", src.cfg, src, RESNEXT_COUNTERS,
+             PLAN_INT8),
+            ("dino_sfp_vitb14", vit_cfg.model, vit_src, VIT_COUNTERS,
+             [VIT_DEPTH, VIT_DEPTH])):
+        trunk_a = model_a.vision_encoder.model
+        keep = {k: v for k, v in trunk_a.state_dict().items()
+                if not k.startswith(("fc.", "head."))
+                and not k.endswith("_amax")}
+        path = root / f"{name}.pth"
+        save_dino(path, keep)
+        model_b = CVCL(cfg, torch.bfloat16, device="cuda",
+                       generator=torch.Generator().manual_seed(77))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arch = load_backbone(model_b, name, str(path))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        trunk_b = model_b.vision_encoder.model
+        head = "head" if cfg.vision.vit_dino else "fc"
+        getattr(trunk_b, head).load_state_dict(
+            getattr(trunk_a, head).state_dict())
+        if any(getattr(trunk_b, "int8_plan", ())):
+            calibrate_trunk(model_a, batch)
+            calibrate_trunk(model_b, batch)
+        x = augment_batch(batch["image_u8"], augment=False,
+                          dtype=torch.bfloat16)
+        feats = []
+        for model in (model_a, model_b):
+            for fn, attr in counters:
+                setattr(fn, attr, 0)
+            with torch.no_grad():
+                feats.append(model.encode_image(x)[0])
+            counts = [getattr(fn, attr) for fn, attr in counters]
+            if counts != want:
+                raise AssertionError(f"13c {name}: launches {counts}")
+        equal = torch.equal(feats[0], feats[1])
+        log(f"  {name} ({arch}, {path.stat().st_size / 2**20:.1f} MiB): "
+            f"loaded in {load_s:.3f} s; launches {want} a forward; "
+            f"features equal to the written model's bit for bit: {equal}")
+        if not equal:
+            raise AssertionError(f"13c {name}: features differ")
+        del model_b
+    del vit_src
+    log(f"  {card}")
+
+
+def phase_distributed(root, published, phase5_step_s, card):
+    """13d: the published recipe's train step through the distributed
+    path (an nccl group of one, mesh (1, 1)) against the one-device step,
+    in both negatives modes."""
+    import torch.distributed as dist
+    from multimodal_baby_tpu_torch.parallel.mesh import create_mesh
+
+    log("  -- 13d the distributed step at world 1 (nccl, mesh 1,1)")
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl_store",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh((1, 1))
+        batch = published[2]
+        for global_negatives in (True, False):
+            models = []
+            for on_mesh in (True, False):
+                cfg, model, _ = build_resnext_slice(MIXED, None)
+                calibrate_trunk(model, batch)
+                cfg.parallel.global_batch_negatives = global_negatives
+                cfg.parallel.mesh_shape = (1, 1)
+                m = mesh if on_mesh else None
+                state = init_train_state(model, cfg, m)
+                models.append((model, state, make_train_step(model, cfg, m)))
+            out = []
+            for model, state, step in models:
+                for fn, attr in RESNEXT_COUNTERS:
+                    setattr(fn, attr, 0)
+                metrics = [step(state, batch) for _ in range(2)]
+                counts = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+                out.append(([float(mm["loss"]) for mm in metrics], counts,
+                            {k: v.detach().clone() for k, v in
+                             model.named_parameters() if v.requires_grad}))
+            (d_loss, d_counts, d_heads), (p_loss, p_counts, p_heads) = out
+            bitwise = d_loss == p_loss and all(
+                torch.equal(v, p_heads[k]) for k, v in d_heads.items())
+            rel = max(max(abs(a - b) / abs(b) for a, b in zip(d_loss,
+                                                              p_loss)),
+                      max(float((v - p_heads[k]).abs().max()
+                                / p_heads[k].abs().max().clamp_min(1e-30))
+                          for k, v in d_heads.items()))
+            mode = "global" if global_negatives else "per-shard"
+            log(f"  {mode} negatives: losses {d_loss} against one device's "
+                f"{p_loss}; updated heads and losses equal bit for bit: "
+                f"{bitwise} (largest relative difference {rel:.3e}, gate "
+                f"{DIST_RTOL}); launches over 2 steps {d_counts} against "
+                f"{p_counts}")
+            if not (rel <= DIST_RTOL and d_counts == p_counts
+                    == [2 * n for n in PLAN_INT8]):
+                raise AssertionError(f"13d {mode}: {d_loss} vs {p_loss}")
+        # the two steps in turns (distributed, one device, one device,
+        # distributed), from their states after the checks
+        times = {0: [], 1: []}
+        for i in (0, 1, 1, 0):
+            _, state, step = models[i]
+            times[i].append(time_steps(state, step, batch,
+                                       ("13d distributed (1, 1)",
+                                        "13d one device")[i]))
+        d_s, p_s = (float(np.mean(times[i])) for i in (0, 1))
+        log(f"  distributed step {d_s * 1e3:.3f} ms, one device "
+            f"{p_s * 1e3:.3f} ms (means of 2 turns of {TIMED_STEPS}); "
+            f"phase 5's {phase5_step_s * 1e3:.3f} ms; {card}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_etl_coco_backbones_distributed(root, published, phase5_step_s,
+                                         card):
+    t0 = time.perf_counter()
+    phase_etl(root, card)
+    phase_coco(root, card)
+    phase_backbones(root, published, card)
+    phase_distributed(root, published, phase5_step_s, card)
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3973,6 +4467,10 @@ def main() -> int:
         log("phase 12: the host input path, the host-only analysis chain "
             "and the sweep runner")
         phase_host_input(Path(tmp), published, card)
+        log("phase 13: the ETL and COCO, local backbone checkpoints and "
+            "the distributed step")
+        phase_etl_coco_backbones_distributed(Path(tmp), published,
+                                             phase5_step_s, card)
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"

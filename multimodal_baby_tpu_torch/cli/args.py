@@ -4,10 +4,11 @@ which a test holds equal, plus ``--device``).
 
 The flag set of the reference's argparse registry (composed in
 train.py:18-55 from each component's ``add_to_argparse``) and the JAX
-package's scaling flags. Parsing produces an ``ExperimentConfig``. The
-port trains on one device: a ``--mesh`` beyond it refuses when the
-trainer is built (ROADMAP Queue 1, item 6), and ``--per_shard_negatives``
-changes nothing there, as in the JAX package on one data shard.
+package's scaling flags. Parsing produces an ``ExperimentConfig``.
+``--mesh d,m`` lays the ranks of a ``torchrun`` launch out as d data
+shards by m vocab shards (``parallel/mesh.py``); without ``torchrun`` the
+world is one device, and ``--per_shard_negatives`` changes nothing on one
+data shard, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -141,8 +142,8 @@ def add_all_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--device", type=str, default="cuda",
                    help="the device to train on (the card by default)")
     g.add_argument("--mesh", type=str, default="-1,1",
-                   help="data,model mesh shape; -1 = all; the port "
-                        "trains on one device")
+                   help="data,model mesh shape (e.g. 4,2) over the ranks "
+                        "of a torchrun launch; -1 = all")
     g.add_argument("--per_shard_negatives", action="store_true",
                    help="independent InfoNCE per data shard "
                         "(small-batch recipe parity at scale)")

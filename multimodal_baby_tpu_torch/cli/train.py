@@ -18,7 +18,11 @@ kernels.
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 from multimodal_baby_tpu_torch.cli.args import add_all_args, args_to_config
 
@@ -30,9 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="one tiny epoch as a smoke test "
                              "(reference: run.sh:13)")
     parser.add_argument("--prepare_data_only", action="store_true",
-                        help="check the data directory and exit without "
-                             "training (the ETL from raw inputs is not "
-                             "ported)")
+                        help="run the offline ETL (idempotent, "
+                             "resumable) and exit without training")
     return parser
 
 
@@ -48,8 +51,12 @@ def make_trainer(argv=None, step_timer=None):
         cfg.data.synthetic_size = max(2 * cfg.data.batch_size, 8)
 
     from multimodal_baby_tpu_torch.data.modules import DataModule
-    if args.dataset in ("saycam", "coco"):
+    distributed = dist.is_available() and dist.is_initialized()
+    if args.dataset in ("saycam", "coco") and (
+            not distributed or dist.get_rank() == 0):
         DataModule(cfg.data, seed=cfg.train.seed).prepare_data()
+    if distributed:
+        dist.barrier()
     if args.prepare_data_only:
         print(f"prepare_data complete under {cfg.data.data_dir}")
         return None
@@ -58,17 +65,36 @@ def make_trainer(argv=None, step_timer=None):
     trainer = Trainer(cfg, device=args.device, step_timer=step_timer)
     print(f"experiment {cfg.exp_name}: "
           f"{len(trainer.data.datasets['train'])} train examples, "
-          f"vocab {trainer.data.vocab_size}, device {trainer.device}")
+          f"vocab {trainer.data.vocab_size}, device {trainer.device}, "
+          f"{trainer.mesh}")
     return trainer
 
 
+def init_distributed(device: str) -> bool:
+    """Initialise the default process group from torchrun's environment
+    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): ``nccl``
+    for the card, ``gloo`` for the CPU. False (nothing done) outside
+    torchrun or when a group exists."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    dist.init_process_group(
+        "nccl" if torch.device(device).type == "cuda" else "gloo")
+    return True
+
+
 def main(argv=None) -> Optional[dict]:
-    trainer = make_trainer(argv)
-    if trainer is None:
-        return None
-    result = trainer.fit()
-    print("final:", result)
-    return result
+    device = build_parser().parse_args(argv).device
+    started = init_distributed(device)
+    try:
+        trainer = make_trainer(argv)
+        if trainer is None:
+            return None
+        result = trainer.fit()
+        print("final:", result)
+        return result
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,3 +21,7 @@ IMAGE_H = 224
 IMAGE_W = 224
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+# mesh axis names (parallel/mesh.py)
+DATA_AXIS = "data"    # batch / data-parallel axis
+MODEL_AXIS = "model"  # vocab-sharded token embedding and tied LM head

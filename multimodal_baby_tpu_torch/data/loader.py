@@ -12,9 +12,11 @@ from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from multimodal_baby_tpu_torch.parallel.mesh import local_rows
 
 
 def collate(items) -> Dict[str, np.ndarray]:
@@ -43,7 +45,15 @@ class DataLoader:
     the consumer's thread in batch order before a batch goes to a worker,
     so that the threaded loader gives the batches of the inline one. (The
     JAX package's workers draw from the shared generator in whatever order
-    they run.)"""
+    they run.)
+
+    On a ``mesh`` (``parallel/mesh.py``) each batch is this rank's rows of
+    the global batch the same seed gives every rank: a ragged global batch
+    is padded with wrap-around rows up to ``pad_to`` or the next multiple
+    of the data axis and the batch gains its rows' ``valid`` mask, as
+    ``parallel.shard_batch`` would give; only the rank's rows are decoded.
+    Random frame draws are made for the whole global batch, so that every
+    mesh shape pairs the same frames."""
 
     def __init__(
         self,
@@ -55,6 +65,8 @@ class DataLoader:
         prefetch: int = 4,
         seed: int = 0,
         sync: bool = False,
+        mesh=None,
+        pad_to: Optional[int] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -64,6 +76,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.rng = np.random.RandomState(seed)
         self.sync = sync
+        self.mesh = mesh
+        self.pad_to = pad_to
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -86,13 +100,24 @@ class DataLoader:
         batch_frames = getattr(self.dataset, "batch_frames", None)
 
         def plan(idxs):  # on this thread, in batch order
-            return (idxs,) if batch_frames is None else (
-                idxs, batch_frames(idxs))
+            frames = None if batch_frames is None else batch_frames(idxs)
+            valid = None
+            if self.mesh is not None:
+                rows, valid = local_rows(self.mesh, len(idxs), self.pad_to)
+                idxs = idxs[rows]
+                if frames is not None:
+                    frames = [frames[int(i)] for i in rows]
+            return idxs, frames, valid
 
-        def make(idxs, *frames):
+        def make(idxs, frames, valid):
             if batch_items is not None:
-                return batch_items(idxs, *frames)
-            return collate([self.dataset[int(j)] for j in idxs])
+                batch = (batch_items(idxs) if frames is None
+                         else batch_items(idxs, frames))
+            else:
+                batch = collate([self.dataset[int(j)] for j in idxs])
+            if valid is not None:
+                batch["valid"] = valid
+            return batch
 
         if self.sync:
             for idxs in self._batch_indices():

@@ -5,26 +5,30 @@ LightningDataModule filename contract relative to ``data_dir``
 train_shuffled.json / val.json / test.json, eval_*_{dev,test}.json,
 vocab.json. A "synthetic" dataset serves benchmarks and smoke tests.
 
-Not ported: the offline ETL that builds such a directory from raw
-transcripts and videos, and the COCO captions dataset (ROADMAP Queue 1,
-item 7); each refuses with a message.
+``prepare_data`` builds such a directory from raw inputs with the offline
+ETL (``data/etl.py``), or a COCO directory from ``dataset_coco.json`` (the
+Karpathy split, ``data/coco.py``). For COCO, ``setup`` builds
+``COCOCaptionsDataset`` splits from ``{train,val,test}.json``, the images
+found under ``data_dir`` by each entry's ``filepath`` and ``filename``
+(the COCO root's ``train2014/``, ``val2014/``), a random caption per
+image in the train split with ``multiple_frames``; COCO has no
+forced-choice trials.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, Optional
 
 from multimodal_baby_tpu_torch.core.config import DataConfig
+from multimodal_baby_tpu_torch.data.coco import (
+    COCOCaptionsDataset, prepare_coco)
 from multimodal_baby_tpu_torch.data.datasets import (
     EvalTrialDataset, PairedImageTextDataset, SyntheticPairedDataset,
     TextEvalTrialDataset, load_metadata)
+from multimodal_baby_tpu_torch.data.etl import prepare_data
 from multimodal_baby_tpu_torch.data.vocab import Vocab
-
-_NOT_PORTED = ("is not ported: the ETL and the COCO dataset wait for "
-               "ROADMAP Queue 1, item 7; prepare the data directory with "
-               "the JAX package (python -m multimodal_baby_tpu.cli.train "
-               "--prepare_data_only ...)")
 
 
 class DataModule:
@@ -45,25 +49,39 @@ class DataModule:
         self._vocab_size_hint = vocab_size_hint
 
     def prepare_data(self) -> "DataModule":
-        """Nothing to do for a prepared directory or synthetic data.
-        Raw inputs (transcripts, videos, Labeled-S frames) and COCO need
-        the ETL, which the port refuses."""
+        """Run the offline ETL when raw inputs are configured (reference
+        multimodal_saycam_data_module.py:159-176), or prepare COCO from
+        ``data_dir/dataset_coco.json``. Every step skips when its output
+        exists, so a prepared ``data_dir`` is a no-op."""
         c = self.cfg
-        raw = {k: getattr(c, k) for k in (
-            "transcript_dir", "video_dir", "labeled_s_dir",
-            "transcript_links_csv") if getattr(c, k)}
-        if c.dataset == "coco":
-            raise NotImplementedError(f"dataset 'coco' {_NOT_PORTED}")
-        if raw:
-            raise NotImplementedError(
-                f"prepare_data from raw inputs ({', '.join(sorted(raw))}) "
-                f"{_NOT_PORTED}")
+        if c.dataset == "saycam":
+            prepare_data(
+                self.data_dir,
+                transcript_dir=c.transcript_dir,
+                video_dir=c.video_dir,
+                labeled_s_dir=c.labeled_s_dir,
+                transcript_links_csv=c.transcript_links_csv,
+                seed=self.seed)
+        elif c.dataset == "coco":
+            karpathy = self.data_dir / "dataset_coco.json"
+            if karpathy.exists():
+                prepare_coco(self.data_dir, karpathy)
         return self
 
     def setup(self) -> "DataModule":
         c = self.cfg
         if c.dataset == "coco":
-            raise NotImplementedError(f"dataset 'coco' {_NOT_PORTED}")
+            self.vocab = Vocab.load(self.data_dir / "vocab.json")
+            for split in ("train", "val", "test"):
+                path = self.data_dir / f"{split}.json"
+                if path.exists():
+                    with open(path) as f:
+                        self.datasets[split] = COCOCaptionsDataset(
+                            json.load(f), self.data_dir,
+                            multiple_captions=(c.multiple_frames
+                                               and split == "train"),
+                            seed=self.seed)
+            return self
         if c.dataset == "synthetic":
             self.vocab = Vocab({f"w{i}": i for i in range(
                 self._vocab_size_hint)})

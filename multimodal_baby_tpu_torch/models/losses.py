@@ -3,7 +3,7 @@ symmetric InfoNCE, the LM cross-entropy and the attention regulariser."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -76,24 +76,39 @@ def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.where(mask, ce, 0.0), mask
 
 
-def lm_loss_breakdown(ce: torch.Tensor, labels: torch.Tensor
-                      ) -> Dict[str, torch.Tensor]:
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def lm_loss_breakdown(ce: torch.Tensor, labels: torch.Tensor,
+                      reduce: Callable[[torch.Tensor], torch.Tensor]
+                      = _identity) -> Dict[str, torch.Tensor]:
     """Means of ``ce`` over the tokens, then without SOS, then without SOS
-    and EOS, with the token counts."""
+    and EOS, with the token counts. ``reduce`` sums each sum and count
+    over the data group on a mesh (``parallel/collectives.py::
+    all_reduce``), making the means those of the global batch."""
     mask = labels != PAD_TOKEN_ID
-    n = mask.sum()
-    out = {"ce_loss": ce.sum() / n, "n_tokens": n}
+    n = reduce(mask.sum())
+    out = {"ce_loss": reduce(ce.sum()) / n, "n_tokens": n}
     mask = mask & (labels != SOS_TOKEN_ID)
-    n = mask.sum()
-    out.update(ce_loss_wo_sos=(ce * mask).sum() / n, n_tokens_wo_sos=n)
+    n = reduce(mask.sum())
+    out.update(ce_loss_wo_sos=reduce((ce * mask).sum()) / n,
+               n_tokens_wo_sos=n)
     mask = mask & (labels != EOS_TOKEN_ID)
-    n = mask.sum()
-    out.update(ce_loss_wo_sos_eos=(ce * mask).sum() / n,
+    n = reduce(mask.sum())
+    out.update(ce_loss_wo_sos_eos=reduce((ce * mask).sum()) / n,
                n_tokens_wo_sos_eos=n)
     return out
 
 
-def attn_reg_loss(attns: torch.Tensor) -> torch.Tensor:
+def attn_reg_loss(attns: torch.Tensor,
+                  reduce: Callable[[torch.Tensor], torch.Tensor] = _identity
+                  ) -> torch.Tensor:
     """((sum over steps of attn - 1)^2).mean(): each spatial position's
-    total attention over the utterance near 1."""
-    return ((attns.sum(dim=1) - 1.0) ** 2).mean()
+    total attention over the utterance near 1. ``reduce`` as
+    ``lm_loss_breakdown``'s."""
+    sq = (attns.sum(dim=1) - 1.0) ** 2
+    if reduce is _identity:
+        return sq.mean()
+    return reduce(sq.sum()) / reduce(torch.tensor(
+        float(sq.numel()), device=sq.device))

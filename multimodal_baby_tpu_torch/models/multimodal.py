@@ -13,12 +13,18 @@ module's ``state_dict()`` to the JAX package's parameter tree:
 ``model.logit_neg_log_temperature`` (learned temperature only) and
 ``language_model.output_layer.{weight,bias}`` (weight only when untied:
 tied, the head reads the token embedding).
+
+On a mesh (``parallel/``): ``joint_forward``'s ``gather`` concatenates
+the data group's features before the similarity (the global-batch
+negatives), and with a vocab-sharded embedding the tied head computes
+this rank's vocab slice of the logits and gathers them over the model
+group (the padded rows past the vocab dropped) before the bias.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,6 +38,8 @@ from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision import VisionEncoder
 from multimodal_baby_tpu_torch.models.vision_vit import ViTKernels
+from multimodal_baby_tpu_torch.parallel.collectives import (
+    model_copy, model_gather)
 
 Tensor = torch.Tensor
 
@@ -165,7 +173,8 @@ class CVCL(nn.Module):
     def joint_forward(self, image: Optional[Tensor], text: Tensor,
                       text_length: Tensor, train: bool = False,
                       generator: torch.Generator | None = None,
-                      use_mm: bool = True, use_lm: bool = False
+                      use_mm: bool = True, use_lm: bool = False,
+                      gather: Optional[Callable[[Tensor], Tensor]] = None
                       ) -> Dict[str, Tensor]:
         """Everything the train and eval steps need, with the JAX
         package's reuse rules: the contrastive logits when ``use_mm``; the
@@ -173,7 +182,10 @@ class CVCL(nn.Module):
         contrastive text outputs unless the LM is conditioned on the image
         (captioning or attention), which encodes the text again. In
         training, ``generator`` draws the text encoder's dropout; eval is
-        deterministic. ``image`` may be None when neither half reads it."""
+        deterministic. ``image`` may be None when neither half reads it.
+        ``gather`` (a data-group all-gather) makes the contrastive logits
+        those of every rank's features, [B_global, B_global]; the returned
+        features stay this rank's."""
         out: Dict[str, Tensor] = {}
         image_features = image_feature_map = text_outputs = None
         t = self.cfg.text
@@ -183,8 +195,12 @@ class CVCL(nn.Module):
                 image, train=train)
             text_features, text_outputs = self.encode_text(
                 text, text_length, gen)
-            match = self.similarity(image_features, text_features,
-                                    text_length)
+            fi, ft, lengths = image_features, text_features, text_length
+            if gather is not None:
+                fi, ft = gather(fi), gather(ft)
+                if self.cfg.embedding_type == "spatial":
+                    lengths = gather(lengths)
+            match = self.similarity(fi, ft, lengths)
             scale = self.logit_scale()
             out.update(logits_per_image=match * scale,
                        logits_per_text=match.T * scale,
@@ -219,9 +235,16 @@ class CVCL(nn.Module):
         stop it)."""
         weight = (self.text_encoder.embedding.weight if self.cfg.tie
                   else self.language_model.output_layer.weight)
-        return F.linear(outputs, weight,
-                        self.language_model.output_layer.bias
-                        if self.cfg.bias else None)
+        bias = self.language_model.output_layer.bias if self.cfg.bias \
+            else None
+        shard = self.text_encoder.vocab_shard
+        if not self.cfg.tie or shard is None:
+            return F.linear(outputs, weight, bias)
+        # vocab-sharded tied head: this rank's logits, gathered
+        logits = model_gather(F.linear(model_copy(outputs, shard.group),
+                                       weight), shard.group)
+        logits = logits[..., :self.cfg.vocab_size]
+        return logits if bias is None else logits + bias
 
     def lm_forward(self, y: Tensor, y_len: Tensor,
                    outputs: Optional[Tensor] = None,

@@ -30,6 +30,11 @@ Parameter names follow the reference: ``embedding.weight``,
 ``transformer_encoder.layers.0.*``, ``pos_embed`` (learned only,
 ``[25, 1, E]``).
 
+``vocab_shard`` (``parallel/vocab.py``; None unless the mesh's model axis
+has more than one rank) makes ``embedding.weight`` this rank's slice of
+the vocab rows: a lookup then masks the ids outside the slice and sums
+over the model group.
+
 ``fused_lstm`` selects the LSTM recurrence's kernel (K9,
 ``ops/lstm.py``): None is the JAX package's rule (K9 for windows of 64
 steps or more), True K9 at every length, False never; see
@@ -57,6 +62,7 @@ from multimodal_baby_tpu_torch.models.layers import (
     check_fused_lstm, dropout, length_mask, locked_dropout, lstm_gates,
     lstm_scan, lstm_step, padding_safe_embed, resolve_device, reverse_padded,
     sinusoidal_pos_embed)
+from multimodal_baby_tpu_torch.parallel import vocab as vocab_parallel
 
 _ARCHS = ("embedding", "cbow", "lstm", "bilstm", "transformer")
 _POS_EMBEDS = ("no_pos_embed", "learned", "sinusoidal")
@@ -90,6 +96,7 @@ class TextEncoder(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.fused_lstm = fused_lstm
+        self.vocab_shard = None
         E = cfg.embedding_dim
         H = self.hidden_dim
         # torch nn.Embedding init: N(0, 1), PAD row zeroed
@@ -164,9 +171,17 @@ class TextEncoder(nn.Module):
                        projected_image_feature_map: Optional[Tensor] = None):
         """One decoding step from token ids [B]; states (h, c), each [B, H].
         Returns (outputs [B, H], states, attns)."""
-        inputs = padding_safe_embed(self.embedding.weight, ids)
+        inputs = self.embed(ids)
         return self.inputs_to_outputs(inputs, states, image_feature_map,
                                       projected_image_feature_map)
+
+    def embed(self, ids: Tensor) -> Tensor:
+        """The token embeddings of ``ids`` (PAD's lookups pass no gradient
+        to its row), over the model group when the vocab is sharded."""
+        if self.vocab_shard is None:
+            return padding_safe_embed(self.embedding.weight, ids)
+        return vocab_parallel.embed(self.embedding.weight, ids,
+                                    self.vocab_shard)
 
     def inputs_to_outputs(self, inputs: Tensor, states: Tuple[Tensor, Tensor],
                           image_feature_map: Optional[Tensor] = None,
@@ -211,7 +226,7 @@ class TextEncoder(nn.Module):
         mask = length_mask(x_len, L)
         x_len_f = x_len.float()
         attns = ret = None
-        embedding = padding_safe_embed(self.embedding.weight, x)
+        embedding = self.embed(x)
 
         if arch == "embedding":
             raw = embedding

@@ -56,12 +56,14 @@ def to_host(metrics) -> Dict[str, float]:
 
 
 class MetricsLogger:
-    """JSONL logger (one line per event), always written, with optional
-    wandb mirroring (the reference's WandbLogger, train.py:92-100)."""
+    """JSONL logger (one line per event) into ``log_dir/filename``, always
+    written, with optional wandb mirroring (the reference's WandbLogger,
+    train.py:92-100)."""
 
     def __init__(self, log_dir, use_wandb: bool = False,
-                 wandb_kwargs: Optional[dict] = None):
-        self.path = Path(log_dir) / "metrics.jsonl"
+                 wandb_kwargs: Optional[dict] = None,
+                 filename: str = "metrics.jsonl"):
+        self.path = Path(log_dir) / filename
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._file = open(self.path, "a")
         self.wandb = None

@@ -1,6 +1,28 @@
-"""Train and eval steps (counterpart of ``multimodal_baby_tpu/train/step.py``)
-on one device: the joint loss lambda_mm InfoNCE + lambda_lm LM
-cross-entropy + lambda_ar attention regulariser."""
+"""Train and eval steps (counterpart of ``multimodal_baby_tpu/train/step.py``):
+the joint loss lambda_mm InfoNCE + lambda_lm LM cross-entropy + lambda_ar
+attention regulariser, on one device or over a (data, model) mesh
+(``parallel/``).
+
+On a mesh each rank runs the model on its rows of the global batch and
+computes the same, replicated loss:
+
+- **global-batch negatives** (``cfg.parallel.global_batch_negatives``,
+  the default): the features are all-gathered over the data group and the
+  InfoNCE is the B_global x B_global one, padded rows masked by the
+  gathered ``valid``;
+- **per-shard negatives** (on more than one data shard): each rank's
+  B_local x B_local block is its own InfoNCE; the loss and the four
+  diagnostics are pooled by valid count over the data group, as the JAX
+  package's ``_per_shard_infonce``;
+- the LM cross-entropy and the attention regulariser are global means
+  (their sums and counts all-reduced).
+
+The collectives' backward passes sum every rank's gradient (``parallel/
+collectives.py``), and the train step averages the parameter gradients
+over the data group before the update, so every rank's update is the
+world-1 update on the global batch. The vocab-sharded embedding's
+gradient (its rank's rows) is averaged over the same group.
+"""
 
 from __future__ import annotations
 
@@ -11,11 +33,14 @@ import numpy as np
 import torch
 
 from multimodal_baby_tpu_torch.core.config import ExperimentConfig
-from multimodal_baby_tpu_torch.core.constants import PAD_TOKEN_ID
+from multimodal_baby_tpu_torch.core.constants import DATA_AXIS, PAD_TOKEN_ID
 from multimodal_baby_tpu_torch.data.augment import augment_batch
 from multimodal_baby_tpu_torch.models import losses as L
 from multimodal_baby_tpu_torch.models.multimodal import CVCL
 from multimodal_baby_tpu_torch.models.quant_calib import calibrate_cvcl
+from multimodal_baby_tpu_torch.parallel.collectives import (
+    all_gather, all_reduce, reduce_gradients)
+from multimodal_baby_tpu_torch.parallel.mesh import Mesh
 from multimodal_baby_tpu_torch.train.optimizer import build_optimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -30,13 +55,21 @@ class TrainState:
     step: int = 0  # train steps taken
 
 
-def init_train_state(model: CVCL, cfg: ExperimentConfig) -> TrainState:
+# the generator's seed on data shard i: seed + i * DATA_SEED_STRIDE
+DATA_SEED_STRIDE = 1_000_003
+
+
+def init_train_state(model: CVCL, cfg: ExperimentConfig,
+                     mesh: Mesh | None = None) -> TrainState:
     """Optimizer over the model's trainable parameters and a generator for
     the augment and the dropout, on the model's device, seeded with
-    ``cfg.train.seed``."""
+    ``cfg.train.seed`` (on a mesh, plus ``DATA_SEED_STRIDE`` times the
+    data coordinate: the ranks of one data group, which hold the same
+    rows, draw the same; data shard 0 draws as one device does)."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.train.seed)
+    shard = 0 if mesh is None else mesh.coordinate(DATA_AXIS)
+    generator.manual_seed(cfg.train.seed + shard * DATA_SEED_STRIDE)
     return TrainState(model, build_optimizer(cfg, model), generator)
 
 
@@ -126,7 +159,8 @@ def calibrate_trunk(model: CVCL, batch: Batch, n: int = 32):
     return calibrate_cvcl(model, images[:n])
 
 
-def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
+def make_loss_fn(model: CVCL, cfg: ExperimentConfig,
+                 mesh: Mesh | None = None) -> Callable:
     """loss_fn(batch, train, generator) -> (loss, metrics). In training,
     ``generator`` draws the augment and the text encoder's dropout.
 
@@ -135,7 +169,9 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
     (raw frames, augmented and normalized here on the device). The
     contrastive half runs when ``lambda_mm`` is nonzero or unused terms are
     not skipped (``optimize_unused`` False), the LM half likewise with
-    ``lambda_lm``; the frames are read only when a half needs them."""
+    ``lambda_lm``; the frames are read only when a half needs them. On a
+    ``mesh`` with a process group, ``batch`` is this rank's rows and the
+    loss and metrics are the global batch's (the module's docstring)."""
     t = cfg.train
     use_mm = bool(t.lambda_mm) or not t.optimize_unused
     use_lm = bool(t.lambda_lm) or not t.optimize_unused
@@ -145,6 +181,15 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
     compute_dtype = (torch.bfloat16
                      if cfg.parallel.compute_dtype == "bfloat16"
                      else torch.float32)
+    group = None if mesh is None else mesh.group(DATA_AXIS)
+    per_shard = (not cfg.parallel.global_batch_negatives
+                 and mesh is not None and mesh.shape[DATA_AXIS] > 1)
+
+    def reduce(x):
+        return all_reduce(x, group)
+
+    def gather(x):
+        return all_gather(x, group)
 
     def loss_fn(batch: Batch, train: bool,
                 generator: torch.Generator | None = None
@@ -156,20 +201,33 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
             image = augment_batch(
                 batch["image_u8"], augment=cfg.data.augment_frames and train,
                 dtype=compute_dtype, generator=generator)
-        out = model.joint_forward(image, batch["text"], batch["text_len"],
-                                  train=train, generator=generator,
-                                  use_mm=use_mm, use_lm=use_lm)
+        out = model.joint_forward(
+            image, batch["text"], batch["text_len"], train=train,
+            generator=generator, use_mm=use_mm, use_lm=use_lm,
+            gather=gather if group is not None and not per_shard else None)
         # a padded tail batch marks its real rows: they alone count
         valid = batch.get("valid")
+        rows = (valid.sum().float() if valid is not None
+                else batch["text"].new_full((), batch["text"].shape[0],
+                                            dtype=torch.float32))
         metrics: Metrics = {
-            "batch_size": (valid.sum().float() if valid is not None
-                           else torch.tensor(float(batch["text"].shape[0]))),
+            "batch_size": reduce(rows),
             "temperature": torch.exp(-out["logit_neg_log_temperature"]),
         }
         infonce = lm_ce = attn_reg = 0.0
         if use_mm:
-            infonce, m = L.contrastive_loss_from_logits(
-                out["logits_per_image"], out["logits_per_text"], valid=valid)
+            lpi, lpt = out["logits_per_image"], out["logits_per_text"]
+            if per_shard:
+                infonce, m = L.contrastive_loss_from_logits(lpi, lpt,
+                                                            valid=valid)
+                # pooled by valid count: the unsharded computation's
+                infonce = reduce(infonce * rows) / metrics["batch_size"]
+                m = {k: reduce(v.detach() * rows) / metrics["batch_size"]
+                     for k, v in m.items()}
+            else:  # the gathered rows' mask on a mesh
+                infonce, m = L.contrastive_loss_from_logits(
+                    lpi, lpt, valid=(gather(valid) if valid is not None
+                                     else None))
             metrics.update(m)
             metrics["infonce_loss"] = infonce
         if use_lm:
@@ -177,11 +235,13 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
             if valid is not None:  # padded rows add no tokens
                 labels = torch.where(valid[:, None], labels, PAD_TOKEN_ID)
             ce, _ = L.lm_cross_entropy(out["lm_logits"], labels)
-            breakdown = L.lm_loss_breakdown(ce, labels)
+            breakdown = (L.lm_loss_breakdown(ce, labels) if group is None
+                         else L.lm_loss_breakdown(ce, labels, reduce))
             metrics.update(breakdown)
             lm_ce = breakdown["ce_loss"]
             if text_cfg.attention and out.get("attns") is not None:
-                attn_reg = L.attn_reg_loss(out["attns"])
+                attn_reg = (L.attn_reg_loss(out["attns"]) if group is None
+                            else L.attn_reg_loss(out["attns"], reduce))
                 metrics["attn_reg_loss"] = attn_reg
         loss = torch.as_tensor(t.lambda_mm * infonce + t.lambda_lm * lm_ce
                                + t.lambda_ar * attn_reg)
@@ -191,11 +251,14 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig) -> Callable:
     return loss_fn
 
 
-def make_train_step(model: CVCL, cfg: ExperimentConfig
+def make_train_step(model: CVCL, cfg: ExperimentConfig,
+                    mesh: Mesh | None = None
                     ) -> Callable[[TrainState, Batch], Metrics]:
     """Returns train_step(state, batch) -> metrics; updates the model's
-    trainable parameters in place and counts the step."""
-    loss_fn = make_loss_fn(model, cfg)
+    trainable parameters in place and counts the step. On a ``mesh`` the
+    gradients are averaged over the data group before the update."""
+    loss_fn = make_loss_fn(model, cfg, mesh)
+    group = None if mesh is None else mesh.group(DATA_AXIS)
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
         state.step += 1
@@ -209,20 +272,24 @@ def make_train_step(model: CVCL, cfg: ExperimentConfig
         # It matters for parameters outside the graph of the terms in use:
         # e.g. the vision head in the LM-only recipe, or the LM bias, which
         # decay shrinks when a checkpoint made it nonzero.
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group_ in opt.param_groups for p in group_["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if group is not None:
+            reduce_gradients(params, group, mesh.shape[DATA_AXIS])
         opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
 
 
-def make_eval_step(model: CVCL, cfg: ExperimentConfig
+def make_eval_step(model: CVCL, cfg: ExperimentConfig,
+                   mesh: Mesh | None = None
                    ) -> Callable[[Batch], Metrics]:
-    """Validation step: loss and metrics, no gradients, no augment."""
-    loss_fn = make_loss_fn(model, cfg)
+    """Validation step: loss and metrics, no gradients, no augment (on a
+    ``mesh``, the global batch's, as the train step's)."""
+    loss_fn = make_loss_fn(model, cfg, mesh)
 
     def eval_step(batch: Batch) -> Metrics:
         with torch.no_grad():

@@ -15,13 +15,16 @@ warm-up steps, times steps on the host clock without the profiler, then
 traces steps with ``torch.profiler`` and prints the device time per step
 by kernel name, the kernel time per step, the device's busy share (kernel
 time over step time) and, for ``lstm``, the share of the step that K9
-takes. Run from the root of the repository on a machine with an NVIDIA
-GPU:
+takes. With ``--distributed`` the step runs through the distributed path
+(``parallel/``: an nccl process group of one rank through a ``file://``
+store, mesh (1, 1)). The host's time per step by operator (self time)
+follows the kernels. Run from the root of the repository on a machine with
+an NVIDIA GPU:
 
     python3 scripts/profile_torch_step.py [--slice vit|resnext|int8|lstm]
         [--vit-kernels default|attn=1|attn=pairs|attn=qkv|whole_block|
         gelu=tanh] [--fused-lstm none|true] [--trunk-int8 0,0,1,1|t|t,t,1,1]
-        [--steps 5]
+        [--steps 5] [--distributed]
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ def main() -> int:
     ap.add_argument("--trunk-int8", choices=("0,0,1,1", "t", "t,t,1,1"),
                     default="0,0,1,1")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--distributed", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -79,8 +83,17 @@ def main() -> int:
     print(chip_smoke.card_line(), flush=True)
     cfg, model, batch = build(args.slice, args.vit_kernels, args.fused_lstm,
                               args.trunk_int8)
-    state = init_train_state(model, cfg)
-    step = make_train_step(model, cfg)
+    mesh = None
+    if args.distributed:
+        import tempfile
+        import torch.distributed as dist
+        from multimodal_baby_tpu_torch.parallel.mesh import create_mesh
+        store = Path(tempfile.mkdtemp()) / "store"
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+        mesh = create_mesh((1, 1))
+    state = init_train_state(model, cfg, mesh)
+    step = make_train_step(model, cfg, mesh)
     for _ in range(3):
         step(state, batch)
     torch.cuda.synchronize()
@@ -107,7 +120,8 @@ def main() -> int:
         print("profile_torch_step: the profiler recorded no device time",
               file=sys.stderr)
         return 1
-    what = args.slice + {"vit": f" ({args.vit_kernels})",
+    what = ("distributed (1, 1) " if mesh else "") + args.slice + {
+        "vit": f" ({args.vit_kernels})",
                          "lstm": f" (fused_lstm={args.fused_lstm})",
                          "int8": f" (trunk_int8={args.trunk_int8})"}.get(
                              args.slice, "")
@@ -124,6 +138,15 @@ def main() -> int:
         print(f"{ms:9.3f} {launches[name] / args.steps:10.1f}  {name[:110]}")
     print(f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           "GiB")
+    host = collections.Counter()
+    for evt in prof.key_averages():
+        host[evt.key] = evt.self_cpu_time_total / 1e3 / args.steps
+    print(f"{'host ms/step':>12}  operator (self time)")
+    for name, ms in host.most_common(20):
+        print(f"{ms:12.3f}  {name[:110]}")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

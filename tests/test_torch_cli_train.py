@@ -111,11 +111,12 @@ def test_prepare_data_only(tmp_path, capsys):
 
 
 def test_refusals(tmp_path):
-    """More than one device (--mesh) and the card where there is none:
+    """A mesh the world does not cover (--mesh 2,1 without torchrun: one
+    device, the JAX package's message) and the card where there is none:
     each raises before any data is made or any file written. Text
     generation in validation no longer refuses: the joint recipe's
     ``--eval_textgen`` validates with the scores."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         ttrain.main(smoke_argv(tmp_path, "--mesh", "2,1"))
     if not torch.cuda.is_available():
         argv = smoke_argv(tmp_path)

@@ -1332,3 +1332,119 @@ def test_trainer_first_step_on_jpeg_frames_matches_plain(cuda, tmp_path):
         losses.append(float(out["loss"]))
     assert all(np.isfinite(losses))
     assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])
+
+
+def published_model(seed):
+    """The published recipe's CVCL (int8 layers 3-4, the default plan) in
+    bf16 on the card, seeded."""
+    from multimodal_baby_tpu_torch.core.config import (
+        ModelConfig, TextConfig, VisionConfig)
+    from multimodal_baby_tpu_torch.models.multimodal import CVCL
+    cfg = ModelConfig(
+        embedding_dim=512, vocab_size=64, normalize_features=True,
+        fix_temperature=True,
+        vision=VisionConfig(cnn_dino=True, frozen_bn="running",
+                            trunk_int8="0,0,1,1"),
+        text=TextConfig(text_encoder="embedding"))
+    return CVCL(cfg, torch.bfloat16, device="cuda",
+                generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("vit", [False, True])
+def test_backbone_checkpoint_features_bit_for_bit(cuda, tmp_path, vit):
+    """A seeded trunk written as a DINO checkpoint (teacher/module.backbone.)
+    and loaded into a differently seeded CVCL through api/backbones: the
+    image features, through the published plan (B = 32: [4, 1, 2, 1]
+    launches) or K5 and K6 (the ViT, B = 2), equal the written model's bit
+    for bit (the head copied, the int8 ranges calibrated on the same
+    frames)."""
+    from multimodal_baby_tpu_torch.api.backbones import load_backbone
+    from multimodal_baby_tpu_torch.core.config import (
+        ModelConfig, TextConfig, VisionConfig)
+    from multimodal_baby_tpu_torch.models.multimodal import CVCL
+    from multimodal_baby_tpu_torch.train.step import calibrate_trunk
+
+    def build(seed):
+        if not vit:
+            return published_model(seed)
+        cfg = ModelConfig(embedding_dim=512, vocab_size=64,
+                          vision=VisionConfig(vit_dino=True),
+                          text=TextConfig(text_encoder="embedding"))
+        return CVCL(cfg, torch.bfloat16, device="cuda",
+                    generator=torch.Generator().manual_seed(seed))
+
+    a, b = build(1), build(2)
+    trunk_a, trunk_b = a.vision_encoder.model, b.vision_encoder.model
+    head = "head" if vit else "fc"
+    name = "dino_sfp_vitb14" if vit else "dino_sfp_resnext50"
+    inner = {f"module.backbone.{k}": v.cpu()
+             for k, v in trunk_a.state_dict().items()
+             if not k.startswith(head + ".") and not k.endswith("_amax")}
+    torch.save({"teacher": inner, "epoch": 1}, tmp_path / f"{name}.pth")
+    load_backbone(b, name, str(tmp_path / f"{name}.pth"))
+    getattr(trunk_b, head).load_state_dict(
+        getattr(trunk_a, head).state_dict())
+    g = torch.Generator().manual_seed(3)
+    n = 2 if vit else 32
+    x = (torch.randn(n, 224, 224, 3, generator=g)).to(cuda, torch.bfloat16)
+    if not vit:
+        calibrate_trunk(a, {"image": x})
+        calibrate_trunk(b, {"image": x})
+    feats = []
+    for model in (a, b):
+        before = launches()
+        with torch.no_grad():
+            feats.append(model.encode_image(x)[0])
+        if not vit:
+            assert [p - q for p, q in zip(launches(), before)] == PLAN_INT8
+    assert torch.equal(feats[0], feats[1])
+
+
+@pytest.mark.parametrize("global_negatives", [True, False])
+def test_world_one_nccl_step_equals_plain_step(cuda, tmp_path,
+                                               global_negatives):
+    """The published recipe's train step through the distributed path (an
+    nccl process group of one through a file:// store, mesh (1, 1)) and
+    the one-device step, from the same weights on the same batch of 32:
+    equal losses and updated parameters, bit for bit; [4, 1, 2, 1]
+    launches each."""
+    import numpy as np
+    import torch.distributed as dist
+    from multimodal_baby_tpu_torch.core.config import (
+        ExperimentConfig, TrainConfig)
+    from multimodal_baby_tpu_torch.parallel.mesh import create_mesh
+    from multimodal_baby_tpu_torch.train.step import (
+        calibrate_trunk, device_batch, init_train_state, make_train_step)
+
+    rng = np.random.RandomState(4)
+    lens = rng.randint(2, 20, 32)
+    text = np.zeros((32, 25), np.int64)
+    for i, n in enumerate(lens):
+        text[i, :n] = rng.randint(4, 64, n)
+    batch = device_batch({"image_u8": rng.randint(0, 256, (32, 224, 224, 3),
+                                                  np.uint8),
+                          "text": text, "text_len": lens}, cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh((1, 1))
+        out = []
+        for m in (mesh, None):
+            model = published_model(5)
+            cfg = ExperimentConfig(model=model.cfg, train=TrainConfig(
+                lr=1e-4, weight_decay=0.1))
+            cfg.parallel.global_batch_negatives = global_negatives
+            cfg.data.augment_frames = True
+            calibrate_trunk(model, batch)
+            state = init_train_state(model, cfg, m)
+            step = make_train_step(model, cfg, m)
+            before = launches()
+            loss = float(step(state, batch)["loss"])
+            assert [p - q for p, q in zip(launches(), before)] == PLAN_INT8
+            out.append((loss, {k: v.detach().clone() for k, v in
+                               model.named_parameters() if v.requires_grad}))
+        assert out[0][0] == out[1][0]
+        for k, v in out[0][1].items():
+            assert torch.equal(v, out[1][1][k]), k
+    finally:
+        dist.destroy_process_group()

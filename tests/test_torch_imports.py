@@ -82,6 +82,13 @@ MODULES = [
     "multimodal_baby_tpu_torch.analysis.figures",
     "multimodal_baby_tpu_torch.analysis.checkpoints",
     "multimodal_baby_tpu_torch.cli.runner",
+    "multimodal_baby_tpu_torch.data.etl",
+    "multimodal_baby_tpu_torch.data.coco",
+    "multimodal_baby_tpu_torch.api.backbones",
+    "multimodal_baby_tpu_torch.parallel",
+    "multimodal_baby_tpu_torch.parallel.mesh",
+    "multimodal_baby_tpu_torch.parallel.collectives",
+    "multimodal_baby_tpu_torch.parallel.vocab",
 ]
 
 PROBE = """
@@ -140,3 +147,13 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               check=False)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_parallel_worker_imports_no_jax():
+    """tests/torch_parallel_worker.py, which the gloo ranks of
+    tests/test_torch_parallel.py import to find their target."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE.format(
+            modules=["tests.torch_parallel_worker"])], cwd=REPO,
+        capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

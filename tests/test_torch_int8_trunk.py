@@ -12,6 +12,8 @@ what its kernels compute on the card. Tolerances are stated where they are
 used.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -38,10 +40,23 @@ COS_TOL = 0.999       # pooled per-row cosine, calibrated
 CAL_RTOL = 1e-4       # calibrated amaxes: f32 conv paths, other orders
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU forwards on one intra-op thread: beside the other
+    test workers, torch's default thread pool oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
 def random_variables(size=64, seed=0):
     """ResNeXt-50 flax params and batch stats from numpy (He-normal convs,
     BN scale 1 + 0.1 N, bias, mean 0.1 N, var U(0.5, 2)): the tree shapes of
-    JAX's init without running it."""
+    JAX's init without running it. Made once per (size, seed) in a module
+    (the tracing of JAX's init costs seconds a call); the tests only read
+    them."""
     shapes = jax.eval_shape(JResNeXt50(dtype=jnp.bfloat16).init,
                             jax.random.PRNGKey(0),
                             jnp.zeros((2, size, size, 3)))

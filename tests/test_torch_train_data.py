@@ -201,14 +201,22 @@ def test_synthetic_module_matches_jax():
 
 
 def test_prepare_data_refusals(tmp_path):
-    """Nothing to do without raw inputs; raw inputs and COCO need the ETL,
-    which the port refuses."""
-    cfg = tcfg.DataConfig(dataset="saycam", data_dir=str(tmp_path))
+    """Nothing to do without raw inputs; raw inputs run the ETL (an empty
+    transcript directory gives empty splits) and COCO prepares nothing
+    without its dataset_coco.json. The one refusal left is the ETL's
+    default eval-frame scorer, the CLIP baseline (a download)."""
+    from multimodal_baby_tpu_torch.data import etl as tetl
+    cfg = tcfg.DataConfig(dataset="saycam", data_dir=str(tmp_path / "d"))
     assert tmodules.DataModule(cfg).prepare_data() is not None
-    cfg.transcript_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmodules.DataModule(cfg).prepare_data()
-    coco = tcfg.DataConfig(dataset="coco", data_dir=str(tmp_path))
-    for call in ("prepare_data", "setup"):
-        with pytest.raises(NotImplementedError, match="coco"):
-            getattr(tmodules.DataModule(coco), call)()
+    assert not (tmp_path / "d").exists()
+    (tmp_path / "transcripts").mkdir()
+    cfg.transcript_dir = str(tmp_path / "transcripts")
+    tmodules.DataModule(cfg).prepare_data()
+    assert json.loads((tmp_path / "d" / "train.json").read_text()) == {
+        "data": []}
+    coco = tcfg.DataConfig(dataset="coco", data_dir=str(tmp_path / "c"))
+    tmodules.DataModule(coco).prepare_data()
+    assert not (tmp_path / "c").exists()
+    (tmp_path / "labeled" / "ball").mkdir(parents=True)
+    with pytest.raises(RuntimeError, match="CLIP"):
+        tetl.filter_eval_frames(tmp_path / "labeled", tmp_path / "f")

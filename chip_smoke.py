@@ -126,10 +126,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    CLS and logits against the same configuration with its kernels
    swapped for their plain versions on the card and against the plain
    bf16 blocks: per-row cosine >= 0.999 (the cosine against f32 is
-   printed). Then the ViT forward and step time of each, and the step
-   times of the default, attn=1, attn=pairs, attn=qkv and whole_block in
-   turns (default, 1, pairs, qkv, whole_block, whole_block, qkv, pairs,
-   1, default), each from phase 4's weights.
+   printed). The opt-in modes too: ``int8=True``, ``lnfold=True``, both,
+   and ``lnfold=True, attn="qkv"`` (12 K8b launches a forward, or 12 K8c
+   on the folded weights, and no K5, K6 or K7). int8 is gated instead by
+   its CLS against the f32 plain path of the default configuration and
+   against its plain versions on the card (per-row cosine >= 0.99 each,
+   the JAX package's envelope: a bf16 rounding that a kernel moves can
+   move an int8 code, which the later blocks carry), printing its
+   decisions against the plain versions' and its sensitivity to a
+   one-ulp change of 1% of the pixels; LN-fold without int8 also by its
+   CLS against the default configuration's (per-row cosine >= 0.999).
+   Then the ViT forward and step time of each, and the step times of the
+   default, attn=1, attn=pairs, attn=qkv, whole_block and the four opt-in
+   modes in turns (the list, then the list reversed), each from phase 4's
+   weights.
 2e. K9 (``lstm_fused``) against the plain scan at (B, L, H) = (128, 25,
    512) and (128, 64, 512) with random lengths (max absolute error <= 1e-4
    on out, h_last and c_last), and K4's forward and backward
@@ -319,6 +329,25 @@ Phases (each raises on failure, and the script then exits non-zero):
    --config configs.saycam_contrastive --dry_run`` lists the grid's jobs,
    and one job of ``--emit_scripts`` run on 10c's directory for one epoch
    at B = 128 exits 0.
+13. The ETL and COCO, local backbone checkpoints and the distributed step
+   (``phase_etl_coco_backbones_distributed``).
+14. The opt-in modes of the kernel configuration
+   (``models/kernel_config.py``). 14e: phase 5's calibrated published
+   model with each stem (``conv7``, ``s2d``, the split stem, ``cpad``,
+   ``s2d`` + ``cpad``): pooled features per row at cosine >= 0.999 to the
+   default stem's, the stem's device time (torch.profiler, and CUDA
+   events), one train step's launches (the plan's [4, 1, 2, 1]), then the
+   train steps in turns. 14f: the augment's per-channel form against the
+   default on the same draws at B = 128 (max error <= one bf16 ulp of the
+   output's range), and the space-to-depth form against
+   ``space_to_depth`` of the default; each timed. 14g:
+   ``fused_bottleneck_diff`` at layer 1's head block (B = 32): its forward
+   equal to K1's bit for bit, the gradients of x and every folded weight at
+   cosine >= 0.9999 to plain autograd. 14h: ``cli/train.py`` for one epoch
+   of synthetic pairs at B = 128: the ViT flagship with ``--vit_int8 1
+   --vit_lnfold 1`` (12 K8b launches and no other ViT kernel a train step),
+   and the published recipe with ``--split_stem 1`` (the plan's launches a
+   step, the trunk fed 12 channels in training and validation).
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -329,6 +358,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -349,7 +379,8 @@ from multimodal_baby_tpu_torch.core.config import (
     VisionConfig)
 from multimodal_baby_tpu_torch.core.constants import MAX_LEN_UTTERANCE
 from multimodal_baby_tpu_torch.data.augment import (
-    augment_batch, normalize_image)
+    apply_augment, augment_batch, normalize_image, sample_augment,
+    space_to_depth)
 from multimodal_baby_tpu_torch.data.datasets import (
     EvalTrialDataset, TextEvalTrialDataset, load_metadata)
 from multimodal_baby_tpu_torch.data.vocab import Vocab
@@ -360,11 +391,13 @@ from multimodal_baby_tpu_torch.evaluation.linear_probe import (
     train_linear_probe)
 from multimodal_baby_tpu_torch.models import vision_resnext, vision_vit
 from multimodal_baby_tpu_torch.models.beam_search import NEG_INF
+from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
 from multimodal_baby_tpu_torch.models.losses import (
     contrastive_loss_from_logits)
 from multimodal_baby_tpu_torch.models.multimodal import CVCL, l2_normalize
 from multimodal_baby_tpu_torch.models.text import TextEncoder
-from multimodal_baby_tpu_torch.models.vision_resnext import InferenceBN
+from multimodal_baby_tpu_torch.models.vision_resnext import (
+    DEFAULT_PLAN, InferenceBN)
 from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm, ViTKernels
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.attention import (
@@ -375,8 +408,8 @@ from multimodal_baby_tpu_torch.ops.attention import (
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     block_geometry, block_geometry_s8, block_reference,
     bottleneck_reference, default_band,
-    fused_bottleneck, fused_bottleneck_tiles, tiles_geometry,
-    tiles_reference)
+    fused_bottleneck, fused_bottleneck_diff, fused_bottleneck_tiles,
+    tiles_geometry, tiles_reference)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
     conv1x1_bn_residual_relu, epilogue_reference)
 from multimodal_baby_tpu_torch.ops.infonce import (
@@ -460,12 +493,23 @@ VIT_CONFIGS = {
     "whole_block": (ViTKernels(whole_block=True), {"K7": VIT_DEPTH}),
     "gelu=tanh": (ViTKernels(gelu="tanh"), {"K5": VIT_DEPTH,
                                             "K6": VIT_DEPTH}),
+    # the opt-in modes: int8 or LN-fold skips K5, K6 and K7; attention
+    # "block" then runs K8b, and "qkv" K8c on the folded weights
+    "int8": (ViTKernels(int8=True), {"K8b": VIT_DEPTH}),
+    "lnfold": (ViTKernels(lnfold=True), {"K8b": VIT_DEPTH}),
+    "int8+lnfold": (ViTKernels(int8=True, lnfold=True), {"K8b": VIT_DEPTH}),
+    "lnfold attn=qkv": (ViTKernels(lnfold=True, attn="qkv"),
+                        {"K8c": VIT_DEPTH}),
 }
 # phase 6: the configurations whose step times are taken in turns
 VIT_TURNS = {"default": ViTKernels(), "attn=1": ViTKernels(attn="1"),
              "attn=pairs": ViTKernels(attn="pairs"),
              "attn=qkv": ViTKernels(attn="qkv"),
-             "whole_block": ViTKernels(whole_block=True)}
+             "whole_block": ViTKernels(whole_block=True),
+             **{name: VIT_CONFIGS[name][0] for name in (
+                 "int8", "lnfold", "int8+lnfold", "lnfold attn=qkv")}}
+INT8_COS = 0.99       # the int8 ViT's CLS: the JAX package's envelope
+DECISION_GAP = 0.05   # int8 decisions printed where the top-two gap exceeds it
 # phase 2d: K8a-c at the edges of their register-resident design
 # (N = 257 and 272: a row's scores in one chunk of registers; 273: the
 # first N over it, two passes; K8c's cap 416, K8a's 752), with and without
@@ -1542,7 +1586,8 @@ def build_resnext_slice(trunk_int8, fused_plan, cfg=None):
     cfg = cfg or flagship_cfg(vit=False, trunk_int8=trunk_int8)
     gen = torch.Generator().manual_seed(0)
     model = CVCL(cfg.model, dtype=torch.bfloat16, device="cuda",
-                 generator=gen, fused_plan=fused_plan)
+                 generator=gen, kernels=KernelConfig(
+                     trunk_plan=fused_plan or DEFAULT_PLAN))
     with torch.no_grad():
         for m in model.vision_encoder.model.modules():
             if isinstance(m, InferenceBN):
@@ -1678,6 +1723,11 @@ def phase_vit_configs(cfg, model, batch, start):
                                  dtype=torch.bfloat16)
         img_f32 = augment_batch(batch["image_u8"], augment=False)
         img_aug = augment_batch(batch["image_u8"], dtype=torch.bfloat16)
+        # the frozen trunk's CLS in the default configuration, for the
+        # opt-in modes' gates
+        model.load_state_dict(start)
+        trunk.vit_kernels = ViTKernels()
+        default_cls = trunk(img_bf16), trunk.forward_plain(img_f32)
     for name, (kernels, per_forward) in VIT_CONFIGS.items():
         log(f"  -- {name}: {kernels}")
         model.load_state_dict(start)
@@ -1705,18 +1755,67 @@ def phase_vit_configs(cfg, model, batch, start):
                 plain = trunk(img_bf16)
             blocks = trunk.forward_plain(img_bf16)
             f32 = trunk.forward_plain(img_f32)
-            for what, ref in (("its plain versions", plain),
-                              ("the plain bf16 blocks", blocks)):
-                log(f"  against {what}:")
-                cls = [kern, ref, f32]
-                compare_features("CLS", *cls)
-                compare_features("logits", *map(logits, cls))
+            if kernels.int8:
+                int8_gates(name, trunk, img_bf16, kern, plain, default_cls[1],
+                           logits)
+            else:
+                for what, ref in (("its plain versions", plain),
+                                  ("the plain bf16 blocks", blocks)):
+                    log(f"  against {what}:")
+                    cls = [kern, ref, f32]
+                    compare_features("CLS", *cls)
+                    compare_features("logits", *map(logits, cls))
+            if kernels.lnfold and not kernels.int8:
+                cos = float(row_cosines(kern, default_cls[0]).min())
+                log(f"  CLS against the default configuration: per-row "
+                    f"cosine min {cos:.7f} (gate >= {SLICE_COS_TOL})")
+                if not cos >= SLICE_COS_TOL:
+                    raise AssertionError(f"{name}: CLS cosine {cos:.7f} to "
+                                         f"the default configuration")
             fwd = time_ms(lambda: trunk(img_aug), 5)
         log(f"  ViT forward B={BATCH}, {name}: {fwd:.3f} ms")
         time_steps(state, train_step, batch, f"ViT {name}")
     vit_steps_in_turns(cfg, model, batch, start)
     trunk.vit_kernels = ViTKernels()
     return launches
+
+
+def int8_gates(name, trunk, img, kern, plain, f32_default, logits):
+    """The int8 ViT's gates, per row of the CLS features: cosine >= INT8_COS
+    to the f32 plain path of the default configuration (the JAX package's
+    envelope, tests/test_quant_trunk.py:535-537), and >= INT8_COS to the
+    same int8 path with its kernels swapped for their plain versions (two
+    int8 runs, each within the envelope: a bf16 rounding that the kernel
+    moves can move an int8 code, which every later block carries, so the
+    kernel path is held to int8's own noise and not to bf16's). Printed:
+    the image -> text decisions against the plain versions on the rows
+    whose plain top-two logit gap exceeds DECISION_GAP, and the int8 path's
+    own sensitivity, its plain versions on the same frames with 1% of the
+    pixels moved by about one bf16 ulp."""
+    cos = row_cosines(kern, f32_default)
+    cos_plain = row_cosines(kern, plain)
+    lk, lp = logits(kern), logits(plain)
+    top2 = lp.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > DECISION_GAP
+    same = (lk.argmax(1) == lp.argmax(1))
+    gen = torch.Generator(device=img.device).manual_seed(18)
+    moved = torch.rand(img.shape, generator=gen, device=img.device) < 0.01
+    img2 = torch.where(moved, (img.float() * (1 + 2 ** -7)).to(img.dtype),
+                       img)
+    with plain_kernels():
+        cos_moved = row_cosines(trunk(img2), plain)
+    log(f"  int8 CLS per row: against the f32 plain path of the default "
+        f"configuration cosine min {float(cos.min()):.7f}, against its plain "
+        f"versions min {float(cos_plain.min()):.7f} (gates >= {INT8_COS}); "
+        f"the plain versions on 1% of the pixels moved by one ulp against "
+        f"unmoved: min {float(cos_moved.min()):.7f}; decisions equal to the "
+        f"plain versions' on {int((same & clear).sum())} of the "
+        f"{int(clear.sum())} rows with a top-two gap > {DECISION_GAP} "
+        f"({int(same.sum())} of {len(same)} rows in all)")
+    if not (torch.isfinite(kern).all() and float(cos.min()) >= INT8_COS
+            and float(cos_plain.min()) >= INT8_COS):
+        raise AssertionError(f"{name}: cosine {float(cos.min()):.7f} to f32, "
+                             f"{float(cos_plain.min()):.7f} to plain")
 
 
 def vit_steps_in_turns(cfg, model, batch, start):
@@ -4328,6 +4427,255 @@ def phase_etl_coco_backbones_distributed(root, published, phase5_step_s,
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 14
+
+# (e): stem -> (stem, stem_cpad, split_stem); "split" feeds the 4x4 stem
+# the augment's space-to-depth layout
+STEM_CONFIGS = {"conv7": ("conv7", False, False),
+                "s2d": ("s2d", False, False),
+                "split": ("conv7", False, True),
+                "cpad": ("conv7", True, False),
+                "s2d+cpad": ("s2d", True, False)}
+STEM_PROFILED = 10   # stem calls under the profiler, per configuration
+WRAPPER_BLOCK = ("layer1.0", 56, 64, 128, 256, 1, True)  # (g), at B = 32
+VIT_ARGV = [  # bench.py's ViT flagship through cli/train (phase 4's model)
+    "--vit_dino", "--text_encoder", "transformer", "--pos_embed_type",
+    "learned", "--embedding_dim", "512", "--normalize_features",
+    "--fix_temperature", "--temperature", "0.07", "--augment_frames",
+    "--optimizer", "AdamW", "--lr", "1e-4", "--weight_decay", "0.1",
+    "--drop_last", "--num_workers", "8", "--log_every_n_steps", "1"]
+MODES_SYNTHETIC = 256  # (h): 2 train steps an epoch at B = 128
+
+
+def set_stem(model, stem, cpad, split):
+    """Switch a live model's stem and the train step's input layout (a
+    train step made afterwards reads ``model.kernels.split_stem``)."""
+    trunk = model.vision_encoder.model
+    trunk.stem_mode, trunk.stem_cpad = stem, cpad
+    model.kernels = dataclasses.replace(model.kernels, stem=stem,
+                                        stem_cpad=cpad, split_stem=split)
+
+
+def stem_ms(trunk, x):
+    """The stem's device time a call (torch.profiler, the sum over its
+    kernels), None where the profiler saw no device time; x NHWC."""
+    from torch.profiler import ProfilerActivity, profile
+    xn = x.contiguous().permute(0, 3, 1, 2)
+    for _ in range(2):
+        trunk.stem(xn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEM_PROFILED):
+            trunk.stem(xn)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    return us / STEM_PROFILED / 1e3 if us else None
+
+
+def phase_stems(published):
+    """14e: the published recipe (phase 5's model, calibrated) with each
+    stem of STEM_CONFIGS: pooled features per row against the default stem
+    (cosine >= SLICE_COS_TOL), the stem's time (profiler and events), one
+    train step's launches (the published plan's [4, 1, 2, 1]), then the
+    train steps in turns."""
+    model, batch = published[0].model, published[2]
+    trunk = model.vision_encoder.model
+    cfg = flagship_cfg(vit=False, trunk_int8=MIXED)
+    # an optimizer state of its own: the earlier phases train the same
+    # model through other states
+    state = init_train_state(model, cfg)
+    runs, pooled = {}, {}
+    for name, (stem, cpad, split) in STEM_CONFIGS.items():
+        set_stem(model, stem, cpad, split)
+        with torch.no_grad():
+            x = augment_batch(batch["image_u8"], augment=False,
+                              dtype=torch.bfloat16, s2d=split)
+            pooled[name] = trunk(x)["pooled"]
+            x_aug = augment_batch(batch["image_u8"], dtype=torch.bfloat16,
+                                  s2d=split)
+            prof_ms = stem_ms(trunk, x_aug)
+            ev_ms = time_ms(lambda: trunk.stem(
+                x_aug.contiguous().permute(0, 3, 1, 2)), 10)
+        cos = float(row_cosines(pooled[name], pooled["conv7"]).min())
+        step = make_train_step(model, cfg)
+        for fn, attr in RESNEXT_COUNTERS:
+            setattr(fn, attr, 0)
+        loss = float(step(state, batch)["loss"])
+        torch.cuda.synchronize()
+        counts = [getattr(fn, attr) for fn, attr in RESNEXT_COUNTERS]
+        log(f"  stem {name}: input {tuple(x.shape)}, pooled per-row cosine "
+            f"min {cos:.7f} to conv7 (gate >= {SLICE_COS_TOL}); stem "
+            f"{'not measured' if prof_ms is None else f'{prof_ms:.4f}'} ms "
+            f"(profiler), {ev_ms:.4f} ms (events); one train step: loss "
+            f"{loss:.5f}, launches K1, K2, K3a, K3b {counts}")
+        if not (cos >= SLICE_COS_TOL and counts == PLAN_INT8
+                and math.isfinite(loss)):
+            raise AssertionError(f"14e {name}: cosine {cos:.7f}, launches "
+                                 f"{counts}, loss {loss}")
+        runs[name] = (stem, cpad, split, step)
+    times = collections.defaultdict(list)
+    for name in list(STEM_CONFIGS) + list(STEM_CONFIGS)[::-1]:
+        stem, cpad, split, step = runs[name]
+        set_stem(model, stem, cpad, split)
+        step(state, batch)  # untimed: the switch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step(state, batch)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
+    for name, ms in times.items():
+        log(f"  published train step B={BATCH} in turns, stem {name}: "
+            f"{' / '.join(f'{t:.3f}' for t in ms)} ms (mean "
+            f"{sum(ms) / len(ms):.3f})")
+    set_stem(model, "conv7", False, False)
+
+
+def phase_augment_forms(batch):
+    """14f: the augment's per-channel form (csplit) against the default
+    under the same draws: max error <= one bf16 ulp of the output's range;
+    the time of each form, and of the split stem's space-to-depth form."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    u8 = batch["image_u8"]
+    draws = sample_augment(u8.shape[0], tuple(u8.shape[1:3]), gen, "cuda")
+    with torch.no_grad():
+        forms = {"default": {}, "csplit": {"csplit": True},
+                 "s2d": {"s2d": True}}
+        size = u8.shape[1]  # 224: the frames' own size
+        out = {k: apply_augment(u8, draws, size, torch.bfloat16, **kw)
+               for k, kw in forms.items()}
+        ms = {k: time_ms(lambda kw=kw: apply_augment(
+            u8, draws, size, torch.bfloat16, **kw), 10)
+            for k, kw in forms.items()}
+    ulp = float(out["default"].float().abs().max()) * 2 ** -7
+    err = float((out["csplit"].float() - out["default"].float()).abs().max())
+    s2d_err = float((out["s2d"].float() - space_to_depth(
+        out["default"]).float()).abs().max())
+    log(f"  augment B={BATCH}, bf16: csplit against default max error "
+        f"{err:.4g} (gate <= one bf16 ulp of the range, {ulp:.4g}); s2d "
+        f"against space_to_depth(default) {s2d_err:.4g}; ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    if not (err <= ulp and s2d_err <= ulp):
+        raise AssertionError(f"14f: csplit error {err}, s2d error {s2d_err}"
+                             f" > {ulp}")
+
+
+def phase_bottleneck_diff():
+    """14g: fused_bottleneck_diff at layer 1's head block (B = 32): the
+    forward is K1's bit for bit, the gradients of x and of every folded
+    weight per-tensor cosine >= COS_TOL to plain autograd through
+    bottleneck_reference; the forward and backward timed against plain
+    autograd's."""
+    name, H, cin, width, cout, stride, ds = WRAPPER_BLOCK
+    gen = torch.Generator().manual_seed(140)
+    x, fw = random_block(gen, H, cin, width, cout, stride, ds, CHECK_BATCH * 4)
+    leaves = [x.requires_grad_()] + [w.requires_grad_() for w in fw.values()]
+    before = fused_bottleneck.launches
+    y = fused_bottleneck_diff(x, fw, stride)
+    torch.cuda.synchronize()
+    launched = fused_bottleneck.launches - before
+    with torch.no_grad():
+        same = torch.equal(y, fused_bottleneck(x, fw, stride))
+    g = torch.randn(y.shape, generator=gen).to("cuda", y.dtype)
+    got = torch.autograd.grad(y, leaves, g)
+    want = torch.autograd.grad(bottleneck_reference(x, fw, stride=stride),
+                               leaves, g)
+    cos = {n: cosine(a, b) for n, a, b in zip(["x", *fw], got, want)}
+
+    def run(fn):
+        return lambda: torch.autograd.grad(fn(x, fw, stride), leaves, g)
+    t_k = time_ms(run(fused_bottleneck_diff), 5)
+    t_p = time_ms(run(lambda x_, fw_, s: bottleneck_reference(
+        x_, fw_, stride=s)), 5)
+    log(f"  fused_bottleneck_diff at {name} (B = {x.shape[0]}): {launched} "
+        f"K1 launch, forward equal to fused_bottleneck bit for bit: {same}; "
+        f"gradient cosines to plain autograd min {min(cos.values()):.7f} "
+        f"({', '.join(f'{k} {v:.7f}' for k, v in cos.items())}); forward + "
+        f"backward {t_k:.3f} ms, plain autograd {t_p:.3f} ms")
+    if not (same and launched == 1 and min(cos.values()) >= COS_TOL):
+        raise AssertionError(f"14g: equal {same}, launches {launched}, "
+                             f"cosines {cos}")
+
+
+def fit_counted(argv, counters, prepare=lambda trainer: None):
+    """Build the trainer of ``argv`` through cli/train, ``prepare`` it, fit
+    it, and return (trainer, launches of ``counters`` in each train
+    step)."""
+    from multimodal_baby_tpu_torch.cli.train import make_trainer
+    trainer = make_trainer(argv)
+    prepare(trainer)
+    per_step = []
+    step = trainer.train_step
+
+    def counted(*args):
+        before = [getattr(fn, attr) for fn, attr in counters]
+        out = step(*args)
+        per_step.append([getattr(fn, attr) - b for (fn, attr), b
+                         in zip(counters, before)])
+        return out
+    trainer.train_step = counted
+    trainer.fit()
+    return trainer, per_step
+
+
+def phase_cli_modes(root):
+    """14h: cli/train with the new flags, one epoch of synthetic pairs at
+    B = 128: the ViT flagship with --vit_int8 1 --vit_lnfold 1 (per train
+    step 12 K8b launches and no other ViT kernel), then the published
+    recipe with --split_stem 1 (per train step the plan's [4, 1, 2, 1],
+    the trunk fed the space-to-depth layout in training and validation)."""
+    common = ["--batch_size", str(BATCH), "--val_batch_size", str(BATCH),
+              "--device", "cuda", "--checkpoint_dir", str(root),
+              "--dataset", "synthetic", "--synthetic_size",
+              str(MODES_SYNTHETIC), "--max_epochs", "1"]
+    vit_counters = [(fn, "launches") for fn in VIT_KERNELS.values()]
+    t0 = time.perf_counter()
+    trainer, per_step = fit_counted(
+        VIT_ARGV + common + ["--exp_name", "vit_modes", "--vit_int8", "1",
+                             "--vit_lnfold", "1"], vit_counters)
+    want = [VIT_DEPTH if k == "K8b" else 0 for k in VIT_KERNELS]
+    losses = logged(root / "vit_modes", "train_loss")
+    log(f"  ViT --vit_int8 1 --vit_lnfold 1: {trainer.model.kernels.vit}; "
+        f"launches {list(VIT_KERNELS)} per train step {per_step}; train "
+        f"losses {losses} ({time.perf_counter() - t0:.1f} s)")
+    if not (per_step and all(n == want for n in per_step)
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"14h ViT: launches {per_step}, losses {losses}")
+
+    t0 = time.perf_counter()
+    seen = []
+
+    def spy_stem(trainer):
+        trunk = trainer.model.vision_encoder.model
+        real = trunk._stem_from_s2d
+        trunk._stem_from_s2d = lambda xs: seen.append(xs.shape[1]) or real(xs)
+
+    trainer, per_step = fit_counted(
+        RECIPE_ARGV + common + ["--exp_name", "split_stem", "--split_stem",
+                                "1"], RESNEXT_COUNTERS, spy_stem)
+    losses = logged(root / "split_stem", "train_loss")
+    log(f"  published recipe --split_stem 1: launches K1, K2, K3a, K3b per "
+        f"train step {per_step}; 4x4 stem calls {len(seen)} on "
+        f"{sorted(set(seen))} channels; train losses {losses} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (per_step and all(n == PLAN_INT8 for n in per_step)
+            and len(seen) > len(per_step) and set(seen) == {12}
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"14h split stem: launches {per_step}, stem "
+                             f"inputs {seen}, losses {losses}")
+
+
+def phase_opt_in_modes(root, published):
+    t0 = time.perf_counter()
+    phase_stems(published)
+    phase_augment_forms(published[2])
+    phase_bottleneck_diff()
+    phase_cli_modes(root)
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -4471,6 +4819,9 @@ def main() -> int:
             "the distributed step")
         phase_etl_coco_backbones_distributed(Path(tmp), published,
                                              phase5_step_s, card)
+        log("phase 14: the opt-in stems and augment forms, the "
+            "differentiable K1 and the kernel flags of cli/train")
+        phase_opt_in_modes(Path(tmp), published)
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"

@@ -10,7 +10,9 @@ multimodal_lit.py:130-190):
 
 Inputs may be numpy arrays or tensors; outputs are tensors on the model's
 device. The model is built on the card unless the caller passes
-``device="cpu"``. A reference checkpoint's trunk runs in bf16 on the card
+``device="cpu"``, in the kernel configuration ``kernels``
+(``models/kernel_config.py``; None: the JAX package's defaults), which no
+checkpoint records. A reference checkpoint's trunk runs in bf16 on the card
 (a ResNeXt through its kernel plan) and in f32 elsewhere; a trainer's
 checkpoint directory's in the compute dtype it trained in.
 
@@ -39,6 +41,7 @@ from multimodal_baby_tpu_torch.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD, IMAGE_H, IMAGE_W, SPECIAL_TOKENS)
 from multimodal_baby_tpu_torch.data.tokenizer import Tokenizer
 from multimodal_baby_tpu_torch.data.vocab import Vocab
+from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
 from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.multimodal import CVCL
 
@@ -107,7 +110,9 @@ class CVCLModel:
     @staticmethod
     def from_checkpoint_dir(ckpt_dir, which: str = "best",
                             allow_placeholder_vocab: bool = False, *,
-                            device="cuda") -> "CVCLModel":
+                            device="cuda",
+                            kernels: KernelConfig | None = None
+                            ) -> "CVCLModel":
         """Load a checkpoint directory of the port's trainer: its
         ``config.json`` makes the model (the trunk in the compute dtype it
         trained in, with its int8 plan and amax buffers), and the weights
@@ -159,13 +164,14 @@ class CVCLModel:
         state = mgr.restore(path, map_location=device)
         dtype = (torch.bfloat16 if cfg.parallel.compute_dtype == "bfloat16"
                  else None)
-        model = CVCL(cfg.model, dtype, device=device)
+        model = CVCL(cfg.model, dtype, device=device, kernels=kernels)
         model.load_state_dict(state["model"], strict=True)
         return CVCLModel(model, vocab, cfg)
 
     @staticmethod
     def from_torch_checkpoint(ckpt_path, text_encoder: str | None = None,
-                              vocab_path=None, *, device="cuda"
+                              vocab_path=None, *, device="cuda",
+                              kernels: KernelConfig | None = None
                               ) -> "CVCLModel":
         """Load a reference PyTorch Lightning checkpoint: its hparams make
         the ``ModelConfig`` (``multimodal_baby_tpu/api/model.py:177-205``),
@@ -207,7 +213,7 @@ class CVCLModel:
         vocab = Vocab.load(vocab_path or PACKAGED_VOCAB)
         cfg.vocab_size = len(vocab)
         dtype = torch.bfloat16 if device.type == "cuda" else None
-        model = CVCL(cfg, dtype, device=device)
+        model = CVCL(cfg, dtype, device=device, kernels=kernels)
         model.load_state_dict(
             {k: torch.as_tensor(v).float()
              for k, v in reference_state_dict(sd, cfg).items()},
@@ -215,17 +221,20 @@ class CVCLModel:
         return CVCLModel(model, vocab, ExperimentConfig(model=cfg))
 
 
-def load_model(model_name: str = "cvcl", device="cuda"):
+def load_model(model_name: str = "cvcl", device="cuda",
+               kernels: KernelConfig | None = None):
     """Returns (model, preprocess) like the reference
     (multimodal_lit.py:133-149), for a path to a local reference ``.ckpt``
-    or to a checkpoint directory of the port's trainer. Refuses the
-    published name "cvcl" (a download from the Hugging Face hub)."""
+    or to a checkpoint directory of the port's trainer, the model in the
+    kernel configuration ``kernels``. Refuses the published name "cvcl" (a
+    download from the Hugging Face hub)."""
     p = Path(model_name)
     if p.is_dir():
-        return (CVCLModel.from_checkpoint_dir(p, device=device),
-                preprocess)
+        return (CVCLModel.from_checkpoint_dir(p, device=device,
+                                              kernels=kernels), preprocess)
     if p.exists():
-        return CVCLModel.from_torch_checkpoint(p, device=device), preprocess
+        return (CVCLModel.from_torch_checkpoint(p, device=device,
+                                                kernels=kernels), preprocess)
     if model_name == "cvcl":
         raise RuntimeError(
             f'load_model("cvcl") downloads wkvong/{PUBLISHED} from the '

@@ -18,9 +18,11 @@ with the same file contracts:
         --out_dir results/figures [--metadata data/train.json]
 
 ``alignment`` and ``duplicates`` load the checkpoint with ``load_model``
-on ``--device`` (the card by default) and run the image embeddings
-through the trunk's kernel plan there. ``summaries`` and ``descriptives``
-run on the host with pandas; ``figures`` needs matplotlib.
+on ``--device`` (the card by default), in the kernel configuration of the
+kernel flags (``cli/args.py::add_kernel_args``), and run the image
+embeddings through the trunk's kernels there. ``summaries`` and
+``descriptives`` run on the host with pandas; ``figures`` needs
+matplotlib.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ import json
 from pathlib import Path
 
 import numpy as np
+
+from multimodal_baby_tpu_torch.cli.args import (
+    add_kernel_args, kernel_config_from_args)
 
 
 def _summaries(args):
@@ -54,7 +59,8 @@ def _alignment(args):
         write_joint_embeddings_with_eval_sims)
     from multimodal_baby_tpu_torch.api.model import load_model
 
-    model, _ = load_model(args.checkpoint, device=args.device)
+    model, _ = load_model(args.checkpoint, device=args.device,
+                          kernels=kernel_config_from_args(args))
     feats = category_feature_sets(
         model.model, args.eval_frames_dir, model.vocab, seed=args.seed)
     out = Path(args.out_dir)
@@ -114,7 +120,8 @@ def _duplicates(args):
     from multimodal_baby_tpu_torch.analysis.duplicates import run_leak_audit
     from multimodal_baby_tpu_torch.api.model import load_model
 
-    model, _ = load_model(args.checkpoint, device=args.device)
+    model, _ = load_model(args.checkpoint, device=args.device,
+                          kernels=kernel_config_from_args(args))
     train_md, eval_md = leak_audit_metadata(args.data_dir,
                                             args.eval_metadata)
     load = frame_loader(Path(args.data_dir) / "train_5fps")
@@ -175,6 +182,7 @@ def main(argv=None):
     p.add_argument("--model_name", default="cvc")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    add_kernel_args(p)
     p.set_defaults(fn=_alignment)
 
     p = sub.add_parser("duplicates")
@@ -183,6 +191,7 @@ def main(argv=None):
     p.add_argument("--eval_metadata", default="eval_filtered_test.json")
     p.add_argument("--out_dir", default="results/duplicates")
     p.add_argument("--device", default="cuda")
+    add_kernel_args(p)
     p.set_defaults(fn=_duplicates)
 
     p = sub.add_parser("descriptives")

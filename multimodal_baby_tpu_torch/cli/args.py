@@ -9,6 +9,13 @@ package's scaling flags. Parsing produces an ``ExperimentConfig``.
 shards by m vocab shards (``parallel/mesh.py``); without ``torchrun`` the
 world is one device, and ``--per_shard_negatives`` changes nothing on one
 data shard, as in the JAX package.
+
+``add_kernel_args`` adds the kernel configuration's flags, one for each
+environment knob of the JAX package (``--fused_attn`` for
+``MMB_FUSED_ATTN``, and so on; the same values), to every entry point that
+builds a model; ``kernel_config_from_args`` makes the
+``models/kernel_config.py::KernelConfig`` of them. Their defaults are the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -18,6 +25,14 @@ import argparse
 from multimodal_baby_tpu_torch.core.config import (
     DataConfig, ExperimentConfig, ModelConfig, ParallelConfig, TextConfig,
     TrainConfig, VisionConfig)
+from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
+from multimodal_baby_tpu_torch.models.vision_resnext import DEFAULT_PLAN
+from multimodal_baby_tpu_torch.models.vision_vit import (
+    ATTN_MODES, MLP_MODES, ViTKernels)
+from multimodal_baby_tpu_torch.ops.vit_common import GELU_MODES
+
+OFF_ON = ("0", "1")
+AUTO = {"auto": None, "0": False, "1": True}
 
 
 def _bool_expr(s: str) -> bool:
@@ -229,3 +244,62 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
             mesh_shape=mesh,
             global_batch_negatives=not args.per_shard_negatives,
             compute_dtype=args.compute_dtype))
+
+
+def add_kernel_args(parser: argparse.ArgumentParser
+                    ) -> argparse.ArgumentParser:
+    """The kernel configuration's flags, each named after the JAX package's
+    environment knob and taking its values (README, "Kernel
+    configuration")."""
+    g = parser.add_argument_group("kernels")
+    g.add_argument("--trunk_plan", type=str, default=",".join(DEFAULT_PLAN),
+                   help="MMB_TRUNK_PLAN: the ResNeXt stages' kernel modes")
+    g.add_argument("--fused_trunk", choices=sorted(AUTO), default="auto",
+                   help="MMB_FUSED_TRUNK: the folded ResNeXt path always "
+                   "(1), never (0), or on the card where it applies (auto)")
+    g.add_argument("--fused_attn", choices=sorted(ATTN_MODES),
+                   default="block", help="MMB_FUSED_ATTN: the ViT attention")
+    g.add_argument("--vit_mlp", choices=sorted(MLP_MODES), default="fused",
+                   help="MMB_VIT_MLP: the ViT MLP kernel (K6) or off")
+    g.add_argument("--vit_block", choices=OFF_ON, default="0",
+                   help="MMB_VIT_BLOCK: the whole ViT block in one kernel")
+    g.add_argument("--vit_gelu", choices=GELU_MODES, default="erf",
+                   help="MMB_VIT_GELU: the ViT MLP's GELU form")
+    g.add_argument("--vit_int8", choices=OFF_ON, default="0",
+                   help="MMB_VIT_INT8: the ViT block Denses in int8 "
+                   "(frozen trunk)")
+    g.add_argument("--vit_lnfold", choices=OFF_ON, default="0",
+                   help="MMB_VIT_LNFOLD: LayerNorm's affine folded into qkv "
+                   "and fc1 (frozen trunk)")
+    g.add_argument("--fused_lstm", choices=sorted(AUTO), default="auto",
+                   help="MMB_FUSED_LSTM: the LSTM recurrence kernel always "
+                   "(1), never (0), or by the length rule (auto)")
+    g.add_argument("--s2d_stem", choices=OFF_ON, default="0",
+                   help="MMB_S2D_STEM: the ResNeXt stem as a 4x4 "
+                   "space-to-depth convolution (bf16)")
+    g.add_argument("--stem_cpad", choices=OFF_ON, default="0",
+                   help="MMB_STEM_CPAD: the stem's input channels "
+                   "zero-padded (3 -> 8, 12 -> 16)")
+    g.add_argument("--split_stem", choices=OFF_ON, default="0",
+                   help="MMB_SPLIT_STEM: the augment emits the "
+                   "space-to-depth layout for the ResNeXt stem")
+    g.add_argument("--aug_csplit", choices=OFF_ON, default="0",
+                   help="MMB_AUG_CSPLIT: the augment resamples channel by "
+                   "channel")
+    return parser
+
+
+def kernel_config_from_args(args: argparse.Namespace) -> KernelConfig:
+    """The ``KernelConfig`` of ``add_kernel_args``'s flags."""
+    return KernelConfig(
+        trunk_plan=tuple(args.trunk_plan.split(",")),
+        fused_trunk=AUTO[args.fused_trunk],
+        vit=ViTKernels(attn=args.fused_attn, mlp=args.vit_mlp,
+                       whole_block=args.vit_block == "1",
+                       gelu=args.vit_gelu, int8=args.vit_int8 == "1",
+                       lnfold=args.vit_lnfold == "1"),
+        fused_lstm=AUTO[args.fused_lstm],
+        stem="s2d" if args.s2d_stem == "1" else "conv7",
+        stem_cpad=args.stem_cpad == "1",
+        split_stem=args.split_stem == "1",
+        aug_csplit=args.aug_csplit == "1")

@@ -6,8 +6,10 @@
         [--device cuda|cpu]
 
 Loads a reference Lightning checkpoint on ``--device`` (the card by
-default), runs the forced-choice harness over the eval-trial metadata,
-prints the per-class accuracy table and writes the predictions JSON
+default), in the kernel configuration of the kernel flags
+(``cli/args.py::add_kernel_args``, e.g. ``--vit_int8 1``), runs the
+forced-choice harness over the eval-trial metadata, prints the per-class
+accuracy table and writes the predictions JSON
 (schema of eval.py:248-266) to ``--output_dir``. With
 ``--dump_attention_maps N`` (image mode), the grad-CAM overlay of each
 image of the first N trials goes to
@@ -24,6 +26,8 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from multimodal_baby_tpu_torch.cli.args import (
+    add_kernel_args, kernel_config_from_args)
 from multimodal_baby_tpu_torch.data.datasets import (
     EvalTrialDataset, TextEvalTrialDataset, load_metadata)
 from multimodal_baby_tpu_torch.evaluation.forced_choice import (
@@ -54,6 +58,7 @@ def main(argv=None):
     parser.add_argument("--clip_eval", action="store_true",
                         help="not ported: the CLIP baseline needs the "
                              "Hugging Face CLIP weights")
+    add_kernel_args(parser)
     args = parser.parse_args(argv)
 
     if args.clip_eval:
@@ -62,7 +67,8 @@ def main(argv=None):
                      "CLIP weights; run it from the JAX package")
 
     from multimodal_baby_tpu_torch.api.model import load_model
-    model, _ = load_model(args.checkpoint, device=args.device)
+    model, _ = load_model(args.checkpoint, device=args.device,
+                          kernels=kernel_config_from_args(args))
 
     fname = args.eval_metadata_filename
     if args.stage == "test":

@@ -13,7 +13,8 @@ of the dev-stage trial images (Adam lr 5e-4, reference defaults), for each
 subset fraction, then scores the test-stage 4-way trials by the
 target-class logit (eval_linear_decoding.py:82-101). Saves probe weights
 (npz) and a results json. The trunk and the probe run on ``--device``
-(the card by default).
+(the card by default), the trunk in the kernel configuration of the kernel
+flags (``cli/args.py::add_kernel_args``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ import json
 from pathlib import Path
 
 import numpy as np
+
+from multimodal_baby_tpu_torch.cli.args import (
+    add_kernel_args, kernel_config_from_args)
 
 
 def _trial_images_and_labels(dataset):
@@ -55,6 +59,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--output_dir", type=str, default="results")
     parser.add_argument("--device", type=str, default="cuda")
+    add_kernel_args(parser)
     args = parser.parse_args(argv)
 
     from multimodal_baby_tpu_torch.api.model import load_model
@@ -64,7 +69,8 @@ def main(argv=None):
         extract_backbone_features, half_split, probe_accuracy,
         probe_forced_choice, train_linear_probe)
 
-    model, _ = load_model(args.checkpoint, device=args.device)
+    model, _ = load_model(args.checkpoint, device=args.device,
+                          kernels=kernel_config_from_args(args))
     data_dir = Path(args.data_dir)
     vocab = model.vocab
 

@@ -9,12 +9,13 @@ parity number (Labeled-S zero-shot within 0.5% absolute).
         [--device cuda|cpu]
 
 Steps: (a) load the reference Lightning checkpoint on ``--device`` (the
-card by default), (b) run the forced-choice trials with the reference's
-scoring semantics (eval.py:175-266: a softmax over logits_per_text,
-target index 0), (c) write our predictions JSON, and (d) when a
-reference predictions JSON or a reference per-trial summary CSV
-(analysis_cvcl/clean.py schema) is given, diff per-category and total
-accuracies against it and exit non-zero if |delta total| > gate.
+card by default, in the kernel configuration of the kernel flags,
+``cli/args.py::add_kernel_args``), (b) run the forced-choice trials with
+the reference's scoring semantics (eval.py:175-266: a softmax over
+logits_per_text, target index 0), (c) write our predictions JSON, and
+(d) when a reference predictions JSON or a reference per-trial summary
+CSV (analysis_cvcl/clean.py schema) is given, diff per-category and
+total accuracies against it and exit non-zero if |delta total| > gate.
 
 Not ported: ``--published`` (it downloads the published checkpoint from
 the Hugging Face hub); it refuses with a message.
@@ -28,6 +29,9 @@ import sys
 from collections import defaultdict
 from pathlib import Path
 from typing import Dict, Tuple
+
+from multimodal_baby_tpu_torch.cli.args import (
+    add_kernel_args, kernel_config_from_args)
 
 
 def accuracy_from_predictions(path) -> Tuple[Dict[str, float], float]:
@@ -122,6 +126,7 @@ def main(argv=None) -> int:
     parser.add_argument("--output", default=None,
                         help="where to write our predictions JSON")
     parser.add_argument("--device", default="cuda")
+    add_kernel_args(parser)
     args = parser.parse_args(argv)
 
     if args.published:
@@ -138,7 +143,8 @@ def main(argv=None) -> int:
     from multimodal_baby_tpu_torch.evaluation.forced_choice import (
         print_accuracy_table, run_forced_choice, save_predictions)
 
-    model, _ = load_model(args.checkpoint, device=args.device)
+    model, _ = load_model(args.checkpoint, device=args.device,
+                          kernels=kernel_config_from_args(args))
     trials = load_metadata(Path(args.data_dir) / args.eval_metadata)
     cls = (EvalTrialDataset if args.eval_type == "image"
            else TextEvalTrialDataset)

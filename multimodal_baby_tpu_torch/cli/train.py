@@ -7,7 +7,11 @@ reference: train.py).
 
 The reference's flag set (``cli/args.py``), seeding, the ``--fast_dev_run``
 smoke mode and resume (``--resume_ckpt last`` or a checkpoint directory).
-It trains on ``--device``, the card by default. ``--frozen_bn running``
+It trains on ``--device``, the card by default, in the kernel
+configuration of the kernel flags (``cli/args.py::add_kernel_args``: one
+per environment knob of the JAX package, e.g. ``--vit_int8 1`` for
+``MMB_VIT_INT8=1``); a resumed run takes the flags it is given, not the
+ones it was started with. ``--frozen_bn running``
 with an int8 plan (``--trunk_int8 0,0,1,1``) and a batch that is a
 multiple of 32 runs the train step's trunk through the published plan's
 kernels; the default ``--frozen_bn batch`` runs it on batch statistics
@@ -24,12 +28,14 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from multimodal_baby_tpu_torch.cli.args import add_all_args, args_to_config
+from multimodal_baby_tpu_torch.cli.args import (
+    add_all_args, add_kernel_args, args_to_config, kernel_config_from_args)
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     add_all_args(parser)
+    add_kernel_args(parser)
     parser.add_argument("--fast_dev_run", action="store_true",
                         help="one tiny epoch as a smoke test "
                              "(reference: run.sh:13)")
@@ -45,6 +51,7 @@ def make_trainer(argv=None, step_timer=None):
     (``train/profiler.py::StepTimer``)."""
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
+    kernels = kernel_config_from_args(args)
 
     if args.fast_dev_run:
         cfg.train.max_epochs = 1
@@ -62,7 +69,8 @@ def make_trainer(argv=None, step_timer=None):
         return None
 
     from multimodal_baby_tpu_torch.train.trainer import Trainer
-    trainer = Trainer(cfg, device=args.device, step_timer=step_timer)
+    trainer = Trainer(cfg, device=args.device, step_timer=step_timer,
+                      kernels=kernels)
     print(f"experiment {cfg.exp_name}: "
           f"{len(trainer.data.datasets['train'])} train examples, "
           f"vocab {trainer.data.vocab_size}, device {trainer.device}, "

@@ -1,10 +1,16 @@
 """On-device image augmentation and normalization (counterpart of
-``multimodal_baby_tpu/data/augment.py``, without the space-to-depth path).
+``multimodal_baby_tpu/data/augment.py``).
 
 RandomResizedCrop(scale=(0.2, 1)) + GaussianBlur(sigma U(0.1, 2), p=0.5) +
 RandomHorizontalFlip + ImageNet normalize, as two batched resampling
 products per image: crop, resize, flip and blur are linear, so they compose
 into a row matrix and a column matrix.
+
+Two opt-in forms of the same products: ``s2d`` emits the space-to-depth
+layout ``[B, out/2, out/2, 12]`` that the ResNeXt's 4x4 stem takes (the
+split stem), by slicing the resampling matrices into their even and odd
+output rows, so no transpose touches the image; ``csplit`` (the JAX
+package's ``MMB_AUG_CSPLIT``) resamples one channel at a time.
 
 The randomness is split from the arithmetic: ``sample_augment`` draws the
 crop boxes, flips and blur from a ``torch.Generator``, and
@@ -93,9 +99,22 @@ def _blur_matrices(do_blur: torch.Tensor, sigmas: torch.Tensor, size: int
     return torch.where(do_blur[:, None, None], g, eye).to(torch.bfloat16)
 
 
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H/2, W/2, 4C] in (i, j, c) channel order: the
+    layout the ResNeXt's 4x4 stem takes."""
+    b, h, w, c = x.shape
+    xs = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return xs.reshape(b, h // 2, w // 2, 4 * c)
+
+
 def apply_augment(images: torch.Tensor, draws: AugmentDraws,
-                  out_size: int = 224, dtype=torch.float32) -> torch.Tensor:
-    """[B, H, W, 3] uint8 (or float) -> [B, out, out, 3] in ``dtype``.
+                  out_size: int = 224, dtype=torch.float32,
+                  s2d: bool = False, csplit: bool = False) -> torch.Tensor:
+    """[B, H, W, 3] uint8 (or float) -> [B, out, out, 3] in ``dtype``, or
+    with ``s2d`` its space-to-depth layout [B, out/2, out/2, 12] (the row
+    and column products on the even and odd output taps, concatenated in
+    (i, j, c) order). ``csplit`` runs the two products one channel at a
+    time (``s2d`` takes precedence, as in the JAX package).
 
     Coordinates and weights are computed in f32; the resampling matrices
     and pixels are bf16 and the products run in bf16, at the same places as
@@ -120,29 +139,49 @@ def apply_augment(images: torch.Tensor, draws: AugmentDraws,
     if images.dtype == torch.uint8:
         f = f / 255.0
     f = f.to(bf16)
-    x = torch.einsum("bph,bhwc->bpwc", a_row, f)
-    x = torch.einsum("bsw,bpwc->bpsc", a_col, x)
     mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=images.device)
     std = torch.tensor(IMAGENET_STD, dtype=dtype, device=images.device)
+    if s2d:
+        rows = [torch.einsum("bph,bhwc->bpwc", a_row[:, i::2], f)
+                for i in range(2)]
+        slots = [(torch.einsum("bsw,bpwc->bpsc", a_col[:, j::2], rows[i])
+                  .to(dtype) - mean) / std
+                 for i in range(2) for j in range(2)]
+        return torch.cat(slots, dim=-1)
+    if csplit:
+        outs = []
+        for ch in range(f.shape[-1]):
+            t = torch.bmm(a_row, f[..., ch])                  # [B, out, W]
+            o = torch.bmm(t, a_col.transpose(1, 2))           # [B, out, out]
+            outs.append((o.to(dtype) - mean[ch]) / std[ch])
+        return torch.stack(outs, dim=-1)
+    x = torch.einsum("bph,bhwc->bpwc", a_row, f)
+    x = torch.einsum("bsw,bpwc->bpsc", a_col, x)
     return (x.to(dtype) - mean) / std
 
 
 def augment_batch(images: torch.Tensor, out_size: int = 224,
                   augment: bool = True, dtype=torch.float32,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  s2d: bool = False, csplit: bool = False) -> torch.Tensor:
     """Train-time pipeline on [B, H, W, 3] uint8 frames; ``augment=False``
     only normalizes (and resizes bilinearly, with antialiasing, when the
-    frames are not ``out_size`` square)."""
+    frames are not ``out_size`` square). ``s2d`` and ``csplit`` as in
+    ``apply_augment``; without the augment ``s2d`` rearranges the
+    normalized frames with ``space_to_depth``."""
     B, H, W, _ = images.shape
     if not augment:
         if (H, W) == (out_size, out_size):
-            return normalize_image(images).to(dtype)
-        x = images.float()
-        if images.dtype == torch.uint8:
-            x = x / 255.0
-        x = F.interpolate(x.permute(0, 3, 1, 2), size=(out_size, out_size),
-                          mode="bilinear", align_corners=False,
-                          antialias=True).permute(0, 2, 3, 1)
-        return normalize_image(x).to(dtype)
+            x = normalize_image(images).to(dtype)
+        else:
+            x = images.float()
+            if images.dtype == torch.uint8:
+                x = x / 255.0
+            x = F.interpolate(x.permute(0, 3, 1, 2),
+                              size=(out_size, out_size), mode="bilinear",
+                              align_corners=False,
+                              antialias=True).permute(0, 2, 3, 1)
+            x = normalize_image(x).to(dtype)
+        return space_to_depth(x) if s2d else x
     draws = sample_augment(B, (H, W), generator, images.device)
-    return apply_augment(images, draws, out_size, dtype)
+    return apply_augment(images, draws, out_size, dtype, s2d, csplit)

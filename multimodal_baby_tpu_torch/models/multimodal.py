@@ -34,10 +34,10 @@ from multimodal_baby_tpu_torch.core.config import ModelConfig
 from multimodal_baby_tpu_torch.core.constants import (
     EOS_TOKEN_ID, SOS_TOKEN_ID)
 from multimodal_baby_tpu_torch.models.beam_search import beam_search
+from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
 from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision import VisionEncoder
-from multimodal_baby_tpu_torch.models.vision_vit import ViTKernels
 from multimodal_baby_tpu_torch.parallel.collectives import (
     model_copy, model_gather)
 
@@ -91,27 +91,24 @@ class CVCL(nn.Module):
     heads, logits and losses stay f32. The model is built on the card
     unless ``device`` says otherwise (``device="cpu"``); asking for the card
     where there is none raises. ``generator`` is a CPU generator for the
-    seeded init. ``fused_plan`` is the ResNeXt trunk's kernel plan (None:
-    the JAX package's default), ``vit_kernels`` the ViT trunk's kernel
-    configuration (None: ``ViTKernels()``), ``fused_lstm`` the LSTM text
-    encoders' recurrence kernel rule (None, True or False; see
-    ``models/layers.py::use_fused_lstm``)."""
+    seeded init. ``kernels`` is the kernel configuration
+    (``models/kernel_config.py``; None: the JAX package's defaults): the
+    trunks' and the LSTM's kernel modes, and the augment's form that the
+    train and eval steps read from ``self.kernels``."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
                  device="cuda", generator: torch.Generator | None = None,
-                 fused_plan: Tuple[str, ...] | None = None,
-                 vit_kernels: ViTKernels | None = None,
-                 fused_lstm: bool | None = None):
+                 kernels: KernelConfig | None = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.kernels = kernels or KernelConfig()
         self.vision_encoder = VisionEncoder(cfg, dtype, device=device,
                                             generator=generator,
-                                            fused_plan=fused_plan,
-                                            vit_kernels=vit_kernels)
+                                            kernels=self.kernels)
         self.text_encoder = TextEncoder(
             cfg, cfg.vision.last_out_dim, device=device, generator=generator,
-            fused_lstm=fused_lstm)
+            fused_lstm=self.kernels.fused_lstm)
         init_val = -math.log(cfg.temperature)
         if cfg.fix_temperature:
             self.register_buffer(

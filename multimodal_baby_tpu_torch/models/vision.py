@@ -1,10 +1,12 @@
 """VisionEncoder: trunk + projection head (counterpart of
 ``multimodal_baby_tpu/models/vision.py``).
 
-The trunk is ResNeXt-50 (with the config's ``trunk_int8`` plan and the
-kernel plan ``fused_plan``, by default the JAX package's), DINO ViT-B/14
-(with the kernel configuration ``vit_kernels``, by default K5 + K6 with
-the erf GELU) or the test trunk ``TinyConvNet`` (``cnn_model="toy"``).
+The trunk is ResNeXt-50 (with the config's ``trunk_int8`` plan, and the
+kernel plan, folded-path rule and stem of the ``KernelConfig``, by default
+the JAX package's), DINO ViT-B/14 (with the ``KernelConfig``'s
+``ViTKernels``, by default K5 + K6 with the erf GELU; its int8 and LN-fold
+modes are refused when the trunk is fine-tuned, as in the JAX package) or
+the test trunk ``TinyConvNet`` (``cnn_model="toy"``).
 The head replaces the trunk's classifier with the projection, as in the
 reference: ``model.fc`` on the ResNeXt and the toy trunk (2048 or 32 ->
 E), ``model.head`` on the ViT (768 -> E). For spatial embeddings (CNN
@@ -25,11 +27,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.core.config import ModelConfig
+from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
 from multimodal_baby_tpu_torch.models.layers import (
     TorchLinear, resolve_device)
-from multimodal_baby_tpu_torch.models.vision_resnext import (
-    DEFAULT_PLAN, ResNeXt50)
-from multimodal_baby_tpu_torch.models.vision_vit import ViTKernels, vit_base
+from multimodal_baby_tpu_torch.models.vision_resnext import ResNeXt50
+from multimodal_baby_tpu_torch.models.vision_vit import vit_base
 
 
 class TinyConvNet(nn.Module):
@@ -75,10 +77,10 @@ class TinyConvNet(nn.Module):
 class VisionEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype | None = None, *,
                  device="cuda", generator: torch.Generator | None = None,
-                 fused_plan: Tuple[str, ...] | None = None,
-                 vit_kernels: ViTKernels | None = None):
+                 kernels: KernelConfig | None = None):
         super().__init__()
         v = cfg.vision
+        kernels = kernels or KernelConfig()
         if cfg.embedding_type not in ("flat", "spatial"):
             raise ValueError(f"embedding_type must be flat|spatial, got "
                              f"{cfg.embedding_type!r}")
@@ -94,12 +96,14 @@ class VisionEncoder(nn.Module):
         elif v.vit_dino:  # trunk_int8 is the ResNeXt's, as in the JAX package
             self.model = vit_base(dtype=dtype, frozen=not v.finetune_cnn,
                                   device=device, generator=generator,
-                                  vit_kernels=vit_kernels)
+                                  vit_kernels=kernels.vit)
         else:
             self.model = ResNeXt50(
                 dtype=dtype, frozen=not v.finetune_cnn, device=device,
                 generator=generator, trunk_int8=v.trunk_int8,
-                fused_plan=fused_plan or DEFAULT_PLAN)
+                fused_plan=kernels.trunk_plan,
+                fused_trunk=kernels.fused_trunk, stem=kernels.stem,
+                stem_cpad=kernels.stem_cpad)
         head = TorchLinear(v.last_out_dim, cfg.embedding_dim, device=device,
                            generator=generator)
         if v.backbone == "vit_b14":

@@ -33,9 +33,20 @@ Two paths compute the same function:
   The kernels run on CUDA, their plain versions on the CPU.
 
 ``forward`` takes the folded path exactly when the trunk is frozen, BN runs
-on running statistics, the compute dtype is bf16 and the input is on CUDA.
-No setting is read from the environment: the plans are constructor
-arguments, checked when the trunk is built.
+on running statistics, the compute dtype is bf16 and the input is on CUDA;
+``fused_trunk`` (the JAX package's ``MMB_FUSED_TRUNK``) forces it on or
+off.
+
+The stem (both paths) is the 7x7 stride-2 convolution, or with ``stem=
+"s2d"`` (``MMB_S2D_STEM``, bf16 and even H and W only) the same sums as a
+4x4 stride-1 convolution over the space-to-depth input's 12 channels; an
+input that already has 12 channels (``data/augment.py::augment_batch(s2d=
+True)``, the split stem) always takes the 4x4 form. ``stem_cpad``
+(``MMB_STEM_CPAD``) zero-pads the input channels, 3 -> 8 or 12 -> 16, which
+changes no sum. The parameter stays the ``[64, 3, 7, 7]`` ``conv1.weight``.
+
+No setting is read from the environment: the plans and modes are
+constructor arguments, checked when the trunk is built.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from multimodal_baby_tpu_torch.data.augment import space_to_depth
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     BN_EPS, GROUPS, fold_block_params, fused_bottleneck)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
@@ -70,6 +82,13 @@ BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
 DEFAULT_PLAN = ("banded28", "blocks", "split", "full")
 _PLAN_ENTRY = re.compile(r"(blocks|full|split|banded(\d*)|splitband(\d*))")
 INT8_BATCH = 32  # int8 plans run in bf16 unless the batch is a multiple
+STEMS = ("conv7", "s2d")
+
+
+def check_stem(stem: Any) -> None:
+    """``stem`` is "conv7" or "s2d"."""
+    if stem not in STEMS:
+        raise ValueError(f"stem must be one of {STEMS}, got {stem!r}")
 
 
 def parse_int8_plan(raw: Any) -> Tuple[Any, ...]:
@@ -189,10 +208,8 @@ class _Conv(nn.Module):
         self.weight = _conv_weight(out_ch, in_ch, k, device)
 
     def forward(self, x, stride=1, padding=0, groups=1):
-        w = self.weight.to(x.dtype)
-        if x.is_contiguous(memory_format=torch.channels_last):
-            w = w.contiguous(memory_format=torch.channels_last)
-        return F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+        return F.conv2d(x, _like(self.weight.to(x.dtype), x), stride=stride,
+                        padding=padding, groups=groups)
 
 
 class BottleneckX(nn.Module):
@@ -261,6 +278,14 @@ class BottleneckX(nn.Module):
         return out.reshape(B, Ho, Wo, -1).permute(0, 3, 1, 2)
 
 
+def _like(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The weight in x's memory format (channels-last x: channels-last w,
+    so the convolution runs NHWC with no layout conversion)."""
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return w.contiguous(memory_format=torch.channels_last)
+    return w
+
+
 def _nchw_view(x: torch.Tensor) -> torch.Tensor:
     """NHWC [B, H, W, C] -> an NCHW view of contiguous NHWC data, so that
     the convolutions, BN and pooling run channels-last."""
@@ -280,17 +305,32 @@ class ResNeXt50(nn.Module):
     ``out_amax`` and ("q" blocks) ``h1_amax`` and ``h2_amax``, where the
     JAX package declares its "quant_scales" variables; 0 = uncalibrated.
     ``fused_plan``: the kernel mode of each stage (``parse_fused_plan``).
+    ``fused_trunk``: None (the folded path on CUDA where it applies), True
+    (wherever it applies; a call where it does not raises) or False (the
+    conv path always). ``stem``: "conv7" or "s2d"; ``stem_cpad``: the
+    stem's input channels zero-padded (the module's docstring).
     """
 
     def __init__(self, dtype: torch.dtype | None = None, frozen: bool = True,
                  *, device=None, generator: torch.Generator | None = None,
                  trunk_int8: Any = False,
-                 fused_plan: Tuple[str, ...] = DEFAULT_PLAN):
+                 fused_plan: Tuple[str, ...] = DEFAULT_PLAN,
+                 fused_trunk: bool | None = None, stem: str = "conv7",
+                 stem_cpad: bool = False):
         super().__init__()
         self.dtype = dtype or torch.float32
         self.frozen = frozen
         self.int8_plan = parse_int8_plan(trunk_int8)
         self.fused_plan = parse_fused_plan(fused_plan)
+        check_stem(stem)
+        if fused_trunk and (not frozen or self.dtype != torch.bfloat16):
+            raise ValueError(
+                "fused_trunk=True (the JAX package's MMB_FUSED_TRUNK=1) needs "
+                "a frozen trunk computing in bf16: the folded path runs BN on "
+                "running statistics and without gradients")
+        self.fused_trunk = fused_trunk
+        self.stem_mode = stem
+        self.stem_cpad = stem_cpad
         self.conv1 = _Conv(64, 3, 7, device=device)
         self.bn1 = InferenceBN(64, device=device)
         in_ch = 64
@@ -342,16 +382,61 @@ class ResNeXt50(nn.Module):
 
     def stem(self, x: torch.Tensor, batch_stats: bool = False
              ) -> torch.Tensor:
-        """NCHW x -> conv 7x7/2 + BN + ReLU + maxpool 3/2 (pad 1), NCHW."""
-        y = torch.relu(self.bn1(self.conv1(x, stride=2, padding=3),
-                                batch_stats))
+        """NCHW x (3 or 12 channels) -> the stem convolution + BN + ReLU +
+        maxpool 3/2 (pad 1), NCHW; the convolution's form as the JAX
+        package picks it: the 4x4 form for a 12-channel input, or with
+        ``stem="s2d"`` at bf16 and even H and W; else the 7x7, its input
+        channels padded with ``stem_cpad``."""
+        H, W = x.shape[2:]
+        if x.shape[1] == 12:
+            y = self._stem_from_s2d(x)
+        elif (self.stem_mode == "s2d" and x.dtype == torch.bfloat16
+              and H % 2 == 0 and W % 2 == 0):
+            y = self._stem_from_s2d(
+                space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2))
+        elif self.stem_cpad and x.shape[1] == 3:
+            x = F.pad(x, (0, 0, 0, 0, 0, 5))
+            w = F.pad(self.conv1.weight.to(x.dtype), (0, 0, 0, 0, 0, 5))
+            y = F.conv2d(x, _like(w, x), stride=2, padding=3)
+        else:
+            y = self.conv1(x, stride=2, padding=3)
+        y = torch.relu(self.bn1(y, batch_stats))
         return F.max_pool2d(y, 3, stride=2, padding=1)
+
+    def _stem_from_s2d(self, xs: torch.Tensor) -> torch.Tensor:
+        """The 7x7 stride-2 convolution as a 4x4 stride-1 one on the
+        space-to-depth NCHW ``xs`` [B, 12, H/2, W/2] ((i, j, c) channel
+        order; the JAX package's ``_stem_from_s2d``). The weight, padded to
+        8x8 at the top and left (tap d = 2k + i - 1; d = -1 is the zero
+        row or column), becomes [64, 12, 4, 4] in (i, j, c) order; 12 -> 16
+        channels with ``stem_cpad``. The JAX package pads the input
+        asymmetrically, ((2, 1), (2, 1)), which ``F.conv2d`` cannot say:
+        it pads 2 on every side here and drops the output's last row and
+        column, the only outputs that read the extra pad. That costs 1.8%
+        more products and no copy of the input, where ``F.pad`` would
+        copy it."""
+        w = F.pad(self.conv1.weight.to(xs.dtype), (1, 0, 1, 0))
+        w = w.reshape(64, 3, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+        w = w.reshape(64, 12, 4, 4)
+        if self.stem_cpad:
+            xs = F.pad(xs, (0, 0, 0, 0, 0, 4))
+            w = F.pad(w, (0, 0, 0, 0, 0, 4))
+        return F.conv2d(xs, _like(w, xs), padding=2)[:, :, :-1, :-1]
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Dict[str, torch.Tensor]:
         x = x.to(self.dtype)
-        if (self.frozen and not train and self.dtype == torch.bfloat16
-                and x.is_cuda):
+        applies = (not train and self.dtype == torch.bfloat16)
+        if self.fused_trunk is None:
+            folded = applies and self.frozen and x.is_cuda
+        elif self.fused_trunk and not applies:
+            raise ValueError(
+                "fused_trunk=True (MMB_FUSED_TRUNK=1) needs BN on running "
+                "statistics: the folded path cannot run a train-mode "
+                "BatchNorm")
+        else:
+            folded = self.fused_trunk
+        if folded:
             return self.forward_folded(x)
         return self.forward_conv(x, train)
 

@@ -25,17 +25,26 @@ Two paths compute each block:
   ``forward`` casts the input to the compute dtype and takes this path
   exactly when that is bf16, as the JAX package dispatches its kernels.
 
+Two opt-in modes of a frozen trunk change the function itself, so both
+paths take them (the JAX package's ``MMB_VIT_INT8`` and ``MMB_VIT_LNFOLD``,
+``ViTKernels.int8`` and ``.lnfold``): the 48 block Denses through int8
+products (``ops.quant.int8_dense``), and LayerNorm's gamma and beta folded
+into the qkv and fc1 weights (the LayerNorms then only normalize). Either
+skips K5, K6 and K7, as the JAX package does; the attention between the
+Dense layers is K8b, K8a, or (LN-fold without int8) K8c on the folded qkv
+weight, as ``attn`` says. The parameters do not change.
+
 The GELU form is part of the function: both paths use it. The JAX package
 pads the 257 tokens to 272 for the TPU's sublane tile and masks the pad
 keys; the port runs at 257 tokens, which gives the same real-token
-result. Not ported: the int8 Denses and the LN fold.
+result.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterator, List
+from typing import Dict, Iterator, List, NamedTuple
 
 import torch
 import torch.nn as nn
@@ -46,6 +55,8 @@ from multimodal_baby_tpu_torch.ops.attention import (
     fused_qkv_attention_pairs, should_fuse_attention,
     should_fuse_attention_pairs, should_fuse_block_attention,
     should_fuse_qkv_attention_pairs)
+from multimodal_baby_tpu_torch.ops.quant import (
+    dense_weight_codes, int8_dense)
 from multimodal_baby_tpu_torch.ops.vit_block import (
     fused_vit_block, should_fuse_vit_block)
 from multimodal_baby_tpu_torch.ops.vit_common import (
@@ -72,12 +83,20 @@ class ViTKernels:
     whole block (the JAX package's ``MMB_VIT_BLOCK=1``), before any other
     mode. ``gelu``: ``erf``, ``tanh`` or ``sigmoid``. Unknown values raise
     ValueError; spellings are stored in their port form (``pairs``,
-    ``qkv``, ``off``)."""
+    ``qkv``, ``off``).
+
+    ``int8`` (``MMB_VIT_INT8``): the block Denses through int8 products;
+    ``lnfold`` (``MMB_VIT_LNFOLD``): LayerNorm's affine folded into the
+    qkv and fc1 weights. Both are for a frozen trunk only, and either turns
+    off ``whole_block`` and the ``block`` and ``fused`` kernels (``attn``
+    ``block`` then runs K8b); K8c runs with ``lnfold`` but not ``int8``."""
 
     attn: str = "block"
     mlp: str = "fused"
     whole_block: bool = False
     gelu: str = "erf"
+    int8: bool = False
+    lnfold: bool = False
 
     def __post_init__(self):
         for name, table in (("attn", ATTN_MODES), ("mlp", MLP_MODES)):
@@ -86,9 +105,10 @@ class ViTKernels:
                 raise ValueError(f"ViTKernels.{name} must be one of "
                                  f"{sorted(table)}, got {value!r}")
             object.__setattr__(self, name, table[value])
-        if not isinstance(self.whole_block, bool):
-            raise ValueError(f"ViTKernels.whole_block must be a bool, got "
-                             f"{self.whole_block!r}")
+        for name in ("whole_block", "int8", "lnfold"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"ViTKernels.{name} must be a bool, got "
+                                 f"{getattr(self, name)!r}")
         if self.gelu not in GELU_MODES:
             raise ValueError(f"ViTKernels.gelu must be one of {GELU_MODES}, "
                              f"got {self.gelu!r}")
@@ -105,6 +125,30 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, LN_EPS)
+
+
+def _norm_only(x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm's normalize without its affine (the LN-fold's; f32
+    statistics, var = E[x^2] - mean^2, the result in x's dtype)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 * x32).mean(-1, keepdim=True) - mu * mu
+    return ((x32 - mu) * torch.rsqrt(var + LN_EPS)).to(x.dtype)
+
+
+class Dense(NamedTuple):
+    """A Dense's operands for one weight state: ``weight [in, out]`` and
+    ``bias`` in the compute dtype; or, in int8, ``weight`` the codes ``[out,
+    in]`` with their per-channel ``scale`` and an f32 ``bias``."""
+
+    weight: torch.Tensor
+    bias: torch.Tensor
+    scale: torch.Tensor | None = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.scale is not None:
+            return int8_dense(x, self.weight, self.scale, self.bias, x.dtype)
+        return F.linear(x, self.weight.t(), self.bias)
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -149,27 +193,29 @@ class ViTAttention(nn.Module):
         q, k, _ = _dense(x, self.qkv).reshape(B, N, 3, H, C // H).unbind(2)
         return _attention_probs(q, k, (C // H) ** -0.5)
 
-    def forward_kernels(self, x: torch.Tensor, w: List[torch.Tensor],
-                        mode: str) -> torch.Tensor:
-        """Attention of the LayerNormed x in attention mode ``mode``, on
-        ``w = [wqkv [C, 3C], bqkv, wproj [C, C], bproj]`` in x's dtype: K8c
-        on (x, wqkv, bqkv); or the qkv Dense, then K8b on its column
-        slices, K8a on heads-first views, or plain softmax attention; then
-        the proj Dense. Each kernel needs its mode and its shape gate."""
+    def forward_kernels(self, x: torch.Tensor, qkv_dense: Dense,
+                        proj: Dense, mode: str) -> torch.Tensor:
+        """Attention of the LayerNormed x in attention mode ``mode``
+        between the ``qkv_dense`` and ``proj`` Denses: K8c on (x, wqkv,
+        bqkv) of a float qkv Dense; or the qkv Dense, then K8b on its column
+        slices, K8a on heads-first views, or plain softmax attention (mode
+        ``off``); then the proj Dense. Each kernel needs its mode and its
+        shape gate."""
         B, N, C = x.shape
         H = self.num_heads
         d = C // H
         scale = d ** -0.5
-        wqkv, bqkv, wproj, bproj = w
-        if mode == "qkv" and should_fuse_qkv_attention_pairs(N, H, d):
-            y = fused_qkv_attention_pairs(x, wqkv, bqkv, H, scale)
-            return F.linear(y, wproj.t(), bproj)
-        qkv = F.linear(x, wqkv.t(), bqkv)
+        if (mode == "qkv" and qkv_dense.scale is None
+                and should_fuse_qkv_attention_pairs(N, H, d)):
+            y = fused_qkv_attention_pairs(x, qkv_dense.weight, qkv_dense.bias,
+                                          H, scale)
+            return proj(y)
+        qkv = qkv_dense(x)
         if (mode in ("pairs", "qkv", "block")
                 and should_fuse_attention_pairs(N, H, d)):
             y = fused_attention_pairs(qkv[..., :C], qkv[..., C:2 * C],
                                       qkv[..., 2 * C:], H, scale)
-            return F.linear(y, wproj.t(), bproj)
+            return proj(y)
         q, k, v = qkv.reshape(B, N, 3, H, d).unbind(2)       # [B, N, H, d]
         if mode == "1" and should_fuse_attention(N, d):
             def heads_first(t):
@@ -180,7 +226,7 @@ class ViTAttention(nn.Module):
             y = y.reshape(B, H, N, d).permute(0, 2, 1, 3)
         else:
             y = _softmax_attention(q, k, v, scale)
-        return F.linear(y.reshape(B, N, C), wproj.t(), bproj)
+        return proj(y.reshape(B, N, C))
 
 
 class ViTBlock(nn.Module):
@@ -218,6 +264,44 @@ class ViTBlock(nn.Module):
             t(a.proj.weight), a.proj.bias, self.norm2.weight, self.norm2.bias,
             t(m.fc1.weight), m.fc1.bias, t(m.fc2.weight), m.fc2.bias)]
 
+    def dense_operands(self, dtype: torch.dtype, int8: bool, lnfold: bool
+                       ) -> Dict[str, Dense]:
+        """The four Denses' operands of the int8 and LN-fold modes
+        (``ViTKernels.int8``, ``.lnfold``), for a frozen trunk: with
+        ``lnfold``, norm1's and norm2's gamma and beta folded into qkv and
+        fc1 in f32 (``gamma * W`` and ``W beta + b``, the JAX package's
+        ``QuantizableDense(ln_scale=...)``); then each weight quantized
+        (``int8``) or cast to ``dtype``."""
+        def fold(layer, norm):
+            w, b = layer.weight.float(), layer.bias.float()
+            if not lnfold or norm is None:
+                return w, b
+            return w * norm.weight.float(), b + w @ norm.bias.float()
+
+        def operands(w, b):
+            if int8:
+                codes, scale = dense_weight_codes(w)
+                return Dense(codes, b, scale)
+            return Dense(w.t().to(dtype).contiguous(), b.to(dtype))
+
+        a, m = self.attn, self.mlp
+        return {name: operands(*fold(layer, norm)) for name, layer, norm
+                in (("qkv", a.qkv, self.norm1), ("proj", a.proj, None),
+                    ("fc1", m.fc1, self.norm2), ("fc2", m.fc2, None))}
+
+    def forward_modes(self, x: torch.Tensor, d: Dict[str, Dense],
+                      kernels: ViTKernels, attn: str) -> torch.Tensor:
+        """The block in the int8 and LN-fold modes on ``dense_operands``
+        (the JAX package's ``ViTBlock`` with ``int8`` or ``lnfold``): the
+        LayerNorms (only their normalize with ``lnfold``), the attention of
+        mode ``attn`` between the qkv and proj Denses (``off`` on the plain
+        path), then fc1, the GELU and fc2."""
+        norm1, norm2 = ((_norm_only, _norm_only) if kernels.lnfold
+                        else (self.norm1, self.norm2))
+        x = x + self.attn.forward_kernels(norm1(x), d["qkv"], d["proj"],
+                                          attn)
+        return x + d["fc2"](gelu(d["fc1"](norm2(x)), kernels.gelu))
+
     def forward_kernels(self, x: torch.Tensor, w: List[torch.Tensor],
                         kernels: ViTKernels) -> torch.Tensor:
         """The kernel path on ``kernel_weights(x.dtype)`` in the
@@ -236,8 +320,9 @@ class ViTBlock(nn.Module):
         if kernels.attn == "block" and should_fuse_block_attention(N, H, d):
             x = fused_block_attention(x, *w[:6], H, scale, None, LN_EPS)
         else:
-            x = x + self.attn.forward_kernels(self.norm1(x), w[2:6],
-                                              kernels.attn)
+            x = x + self.attn.forward_kernels(
+                self.norm1(x), Dense(w[2], w[3]), Dense(w[4], w[5]),
+                kernels.attn)
         if kernels.mlp == "fused" and should_fuse_mlp(N, C, hidden):
             return fused_mlp(x, *w[6:], LN_EPS, kernels.gelu)
         return self._mlp(x, kernels.gelu)
@@ -277,7 +362,8 @@ class VisionTransformerDino(nn.Module):
     casts the kernels' weights once per weight state.
     ``vit_kernels``: the kernel configuration (None = ``ViTKernels()``,
     K5 + K6 with the erf GELU); it may be reassigned on a live model,
-    through a setter that takes only a ``ViTKernels``.
+    through a setter that takes only a ``ViTKernels`` and refuses the int8
+    and LN-fold modes on a trunk that is not frozen.
     ``generator``: a CPU generator for the seeded init
     (``reset_parameters``)."""
 
@@ -288,10 +374,10 @@ class VisionTransformerDino(nn.Module):
                  generator: torch.Generator | None = None,
                  vit_kernels: ViTKernels | None = None):
         super().__init__()
+        self.frozen = frozen
         self.vit_kernels = vit_kernels
         self.patch_size = patch_size
         self.dtype = dtype or torch.float32
-        self.frozen = frozen
         n = (base_img_size // patch_size) ** 2
         self.patch_embed = nn.Module()
         self.patch_embed.proj = nn.Conv2d(3, embed_dim, patch_size,
@@ -304,8 +390,7 @@ class VisionTransformerDino(nn.Module):
             ViTBlock(embed_dim, num_heads, mlp_ratio, device=device)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, device=device)
-        self._kernel_key: tuple | None = None
-        self._kernel_weights: List[List[torch.Tensor]] = []
+        self._operands: Dict[tuple, tuple] = {}
         self.reset_parameters(generator)
 
     @property
@@ -319,6 +404,14 @@ class VisionTransformerDino(nn.Module):
         if not isinstance(value, ViTKernels):
             raise TypeError(f"vit_kernels must be a ViTKernels, got "
                             f"{value!r}")
+        for mode, knob in (("int8", "MMB_VIT_INT8"),
+                           ("lnfold", "MMB_VIT_LNFOLD")):
+            if getattr(value, mode) and not self.frozen:
+                raise ValueError(
+                    f"ViTKernels({mode}=True) (the JAX package's {knob}=1) "
+                    f"needs a frozen ViT trunk (finetune_cnn=False): the "
+                    f"int8 products have no gradient and the LN fold stops "
+                    f"it")
         self._vit_kernels = value
 
     @torch.no_grad()
@@ -381,7 +474,8 @@ class VisionTransformerDino(nn.Module):
         return self._run(x, kernels=self.dtype == torch.bfloat16)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
-        """Every block on the plain path, in x's dtype."""
+        """Every block on the plain path, in x's dtype (the int8 and LN-fold
+        modes, where set, are part of it: the JAX package's XLA path)."""
         return self._run(x, kernels=False)
 
     def _grad_mode(self):
@@ -392,9 +486,16 @@ class VisionTransformerDino(nn.Module):
                 depth: int | None = None) -> Iterator[torch.Tensor]:
         """The tokens after each of the first ``depth`` blocks (all by
         default), on the kernel path of ``vit_kernels`` or the plain
-        path."""
-        weights = self.kernel_weights(tokens.dtype) if kernels else None
+        path, each in the int8 and LN-fold modes where they are set."""
         k = self.vit_kernels
+        if k.int8 or k.lnfold:
+            ops = self.dense_operands(tokens.dtype)
+            for blk, d in zip(self.blocks[:depth], ops):
+                tokens = blk.forward_modes(tokens, d, k,
+                                           k.attn if kernels else "off")
+                yield tokens
+            return
+        weights = self.kernel_weights(tokens.dtype) if kernels else None
         for i, blk in enumerate(self.blocks[:depth]):
             tokens = (blk.forward_kernels(tokens, weights[i], k) if kernels
                       else blk(tokens, k.gelu))
@@ -435,20 +536,36 @@ class VisionTransformerDino(nn.Module):
 
     def kernel_weights(self, dtype: torch.dtype
                        ) -> List[List[torch.Tensor]]:
-        """Every block's kernel operands in ``dtype``. A frozen trunk casts
-        them once per weight state: the cache key holds each parameter's
-        storage and version counter, so an in-place update (a loaded state
-        dict) recasts."""
+        """Every block's kernel operands in ``dtype``
+        (``ViTBlock.kernel_weights``), through ``_per_weight_state``."""
+        return self._per_weight_state(
+            ("kernels", dtype), lambda b: b.kernel_weights(dtype))
+
+    def dense_operands(self, dtype: torch.dtype) -> List[Dict[str, Dense]]:
+        """Every block's Dense operands in the int8 and LN-fold modes of
+        ``vit_kernels`` (``ViTBlock.dense_operands``): the folds and the
+        weight codes, through ``_per_weight_state``."""
+        k = self.vit_kernels
+        return self._per_weight_state(
+            ("modes", dtype, k.int8, k.lnfold),
+            lambda b: b.dense_operands(dtype, k.int8, k.lnfold))
+
+    def _per_weight_state(self, what: tuple, make) -> list:
+        """``make(block)`` for every block. A frozen trunk computes it once
+        per weight state and keeps it under ``what`` (the dtype and the
+        modes, so a switch between configurations computes nothing anew):
+        its key holds each parameter's storage and version counter, so an
+        in-place update (a loaded state dict) computes it anew."""
         if not self.frozen:
-            return [b.kernel_weights(dtype) for b in self.blocks]
-        params = list(self.blocks.parameters())
-        key = (dtype, *((p.data_ptr(), p._version) for p in params))
-        if key != self._kernel_key:
+            return [make(b) for b in self.blocks]
+        key = tuple((p.data_ptr(), p._version)
+                    for p in self.blocks.parameters())
+        cached = self._operands.get(what)
+        if cached is None or cached[0] != key:
             with torch.no_grad():
-                self._kernel_weights = [b.kernel_weights(dtype)
-                                        for b in self.blocks]
-            self._kernel_key = key
-        return self._kernel_weights
+                cached = self._operands[what] = (
+                    key, [make(b) for b in self.blocks])
+        return cached[1]
 
 
 def vit_base(patch_size: int = 14, dtype: torch.dtype | None = None,

@@ -10,8 +10,9 @@ convolutions on the TMA-fed wgmma tile of ``csrc/conv_gemm.cuh``, whose
 launch geometry ``conv_geometry`` states, K2's on its int8 sibling
 ``csrc/conv_gemm_s8.cuh``, ``conv_geometry_s8``), and
 ``fused_bottleneck_tiles`` (the TPU package's tile mode; its kernel is
-``csrc/bottleneck_fused.cu``). The int8 folds
-and plain versions are in ``ops/quant.py``.
+``csrc/bottleneck_fused.cu``), and ``fused_bottleneck_diff``, which
+differentiates ``fused_bottleneck`` through the plain reference. The int8
+folds and plain versions are in ``ops/quant.py``.
 
 Layout is NHWC ``[B, H, W, C]`` at the public functions. The TPU's
 ``[H, B/16, W, 16, C]`` layout and the block-diagonal packing of the
@@ -29,10 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.ops import _build
+from multimodal_baby_tpu_torch.ops.vit_common import PlainVJP
 
 __all__ = ["fold_block_params", "unpack_grouped_kernel", "bottleneck_reference",
            "block_reference", "tiles_reference", "fused_bottleneck",
-           "fused_bottleneck_tiles", "block_mode", "default_band",
+           "fused_bottleneck_tiles", "fused_bottleneck_diff", "block_mode",
+           "default_band",
            "tiles_geometry", "TilesGeometry", "conv_geometry",
            "block_geometry", "ConvGeometry", "conv_geometry_s8",
            "block_geometry_s8", "stage_geometry_s8", "ConvGeometryS8",
@@ -521,6 +524,31 @@ _T_ORDER = ("w1", "b1", "w2", "b2", "w3", "a3", "b3", "wd", "ad", "bd", "ai")
 fused_bottleneck.launches = 0
 fused_bottleneck.launches_q = 0
 fused_bottleneck.launches_t = 0
+
+
+def _by_name(block):
+    """``block(x, fw, stride=...)`` called as ``PlainVJP`` calls it: the
+    weights as tensors, then their names and the stride."""
+    def call(x, *args):
+        *weights, names, stride = args
+        return block(x, dict(zip(names, weights)), stride=stride)
+    return call
+
+
+def fused_bottleneck_diff(x: torch.Tensor, fw: Folded, stride: int = 1
+                          ) -> torch.Tensor:
+    """``fused_bottleneck`` with gradients for x and every folded weight
+    (the JAX package's ``fused_bottleneck_hwbc_diff``): the forward is
+    ``fused_bottleneck`` (K1 on a CUDA tensor, equal to it bit for bit),
+    the backward the VJP of ``bottleneck_reference`` recomputed from the
+    saved inputs. bf16 or f32 activations only: the int8 modes round, and
+    have no gradient."""
+    if x.dtype == torch.int8:
+        raise ValueError("fused_bottleneck_diff: int8 codes have no gradient")
+    names = tuple(fw)
+    return PlainVJP.apply(_by_name(fused_bottleneck),
+                          _by_name(bottleneck_reference), (names, stride), x,
+                          *fw.values())
 
 
 def default_band(W: int, cin: int, Ho: int, stride: int, Bc: int) -> int:

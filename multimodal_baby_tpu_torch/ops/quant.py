@@ -24,6 +24,12 @@ The int8-transport mode ("t", K10a) passes int8 codes between blocks but
 multiplies in bf16: ``fold_block_params_t`` folds the input scale into w1
 and wd and the output scale into the conv3 and downsample epilogues, and
 ``bottleneck_reference_t`` is its plain version.
+
+``int8_dense`` is the ViT's int8 Dense (the JAX package's
+``int8_dense``, its ``MMB_VIT_INT8`` mode): weights per output channel and
+activations per tensor, both symmetric, the activation's range taken from
+the tensor itself on every call. It is a library product on the card
+(``torch._int_mm``), as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -39,16 +45,25 @@ from multimodal_baby_tpu_torch.ops.bottleneck import (
 __all__ = ["K_SIGMA", "activation_scale", "quantize_weight",
            "quantize_activation", "bn_amax_bound", "resolve_amax",
            "fold_block_params_q", "bottleneck_reference_q",
-           "fold_block_params_t", "bottleneck_reference_t"]
+           "fold_block_params_t", "bottleneck_reference_t",
+           "dense_weight_codes", "quantize_dynamic", "int8_dense"]
 
 K_SIGMA = 4.0  # uncalibrated fallback: amax = max|beta| + K_SIGMA*|gamma|
 
 Folded = Dict[str, torch.Tensor]
 
 
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127, correctly rounded on every device: CUDA divides by a
+    host-side Python number as a multiply by its reciprocal, which can be
+    an ulp off the quotient that the CPU and the JAX package compute, and
+    so move a code; a divisor on x's device is divided by."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
 def activation_scale(amax) -> torch.Tensor:
     """Per-tensor activation scale max(amax, 1e-12) / 127, in f32."""
-    return torch.as_tensor(amax, dtype=torch.float32).clamp_min(1e-12) / 127.0
+    return _div127(torch.as_tensor(amax, dtype=torch.float32).clamp_min(1e-12))
 
 
 def quantize_weight(w: torch.Tensor, axis: int = -1):
@@ -57,7 +72,7 @@ def quantize_weight(w: torch.Tensor, axis: int = -1):
     w = w.float()
     axis %= w.dim()
     red = [i for i in range(w.dim()) if i != axis]
-    scale = w.abs().amax(dim=red).clamp_min(1e-12) / 127.0
+    scale = _div127(w.abs().amax(dim=red).clamp_min(1e-12))
     shape = [1] * w.dim()
     shape[axis] = -1
     w_q = torch.round(w / scale.reshape(shape)).clamp(-127, 127)
@@ -251,3 +266,66 @@ def bottleneck_reference_t(x_q: torch.Tensor, fw: Folded, *,
         ident = x_id * fw["ai"]
     out = torch.round(y + ident).clamp(0, 127).to(torch.int8)
     return out.reshape(B, Ho, Wo, -1)
+
+
+# ---------------------------------------------------------------------------
+# int8 Dense for the frozen ViT trunk
+# ---------------------------------------------------------------------------
+
+INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA takes M > 16 rows
+
+
+def dense_weight_codes(weight: torch.Tensor):
+    """A Dense weight in torch's layout ``[out, in]`` -> (int8 codes
+    ``[out, in]``, f32 scale ``[out]``): per output channel, symmetric, from
+    the f32 values (the JAX package quantizes its ``[in, out]`` kernel over
+    axis 0: the same codes, transposed)."""
+    return quantize_weight(weight, axis=0)
+
+
+def quantize_dynamic(x: torch.Tensor):
+    """x -> (int8 codes, f32 scale): per tensor, symmetric, the scale
+    max(amax |x|, 1e-12) / 127 of this x, the codes round half to even,
+    clipped to +-127."""
+    xf = x.float()
+    scale = _div127(xf.abs().amax().clamp_min(1e-12))
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def int8_dense(x: torch.Tensor, w_codes: torch.Tensor, w_scale: torch.Tensor,
+               bias: torch.Tensor | None = None,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """y = x W^T (+ bias) through int8 products (the JAX package's
+    ``int8_dense``): x ``[..., K]`` float, quantized here per tensor
+    (``quantize_dynamic``); ``w_codes [N, K]`` and ``w_scale [N]`` from
+    ``dense_weight_codes`` (a frozen trunk computes them once per weight
+    state). The int32 sums are dequantized as ``acc * (w_scale * a_scale)
+    + bias`` in f32, then cast to ``out_dtype`` (x's by default). The
+    rounding has no gradient: frozen weights only.
+
+    On a CUDA tensor the product is ``torch._int_mm`` (K and N multiples of
+    8; fewer than 17 rows are padded with zero rows); on a CPU tensor the
+    same arithmetic with the int8 products summed exactly in float64. The
+    JAX package's ``amax_rows`` restricts the activation range to the real
+    tokens of a tile-padded token stream (``MMB_VIT_PADSEQ``), which the
+    port does not carry over: the port has no pad tokens."""
+    K = x.shape[-1]
+    N = w_codes.shape[0]
+    x_q, a_scale = quantize_dynamic(x)
+    rows = x_q.reshape(-1, K)
+    if x.device.type == "cuda":
+        if K % 8 or N % 8:
+            raise ValueError(f"int8_dense: torch._int_mm needs K and N "
+                             f"multiples of 8, got K={K}, N={N}")
+        m = rows.shape[0]
+        if m < INT_MM_MIN_ROWS:
+            rows = F.pad(rows, (0, 0, 0, INT_MM_MIN_ROWS - m))
+        acc = torch._int_mm(rows, w_codes.t())[:m].float()
+    elif x.device.type == "cpu":
+        acc = _exact_dot(rows, w_codes).float()
+    else:
+        raise ValueError(f"int8_dense: no int8 product for device {x.device}")
+    y = acc * (w_scale * a_scale)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)

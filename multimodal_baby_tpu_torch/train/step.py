@@ -169,7 +169,11 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig,
     (raw frames, augmented and normalized here on the device). The
     contrastive half runs when ``lambda_mm`` is nonzero or unused terms are
     not skipped (``optimize_unused`` False), the LM half likewise with
-    ``lambda_lm``; the frames are read only when a half needs them. On a
+    ``lambda_lm``; the frames are read only when a half needs them. The
+    augment's form is the model's kernel configuration's (``model.kernels``):
+    with ``split_stem`` a ResNeXt trunk gets the space-to-depth layout in
+    training and evaluation alike (the JAX package's ``MMB_SPLIT_STEM``),
+    and ``aug_csplit`` resamples channel by channel. On a
     ``mesh`` with a process group, ``batch`` is this rank's rows and the
     loss and metrics are the global batch's (the module's docstring)."""
     t = cfg.train
@@ -181,6 +185,9 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig,
     compute_dtype = (torch.bfloat16
                      if cfg.parallel.compute_dtype == "bfloat16"
                      else torch.float32)
+    s2d = (model.kernels.split_stem
+           and cfg.model.vision.backbone == "resnext50")
+    csplit = model.kernels.aug_csplit
     group = None if mesh is None else mesh.group(DATA_AXIS)
     per_shard = (not cfg.parallel.global_batch_negatives
                  and mesh is not None and mesh.shape[DATA_AXIS] > 1)
@@ -200,7 +207,8 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig,
         elif needs_image:
             image = augment_batch(
                 batch["image_u8"], augment=cfg.data.augment_frames and train,
-                dtype=compute_dtype, generator=generator)
+                dtype=compute_dtype, generator=generator, s2d=s2d,
+                csplit=csplit)
         out = model.joint_forward(
             image, batch["text"], batch["text_len"], train=train,
             generator=generator, use_mm=use_mm, use_lm=use_lm,

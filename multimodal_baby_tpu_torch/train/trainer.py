@@ -50,6 +50,7 @@ from multimodal_baby_tpu_torch.data.modules import DataModule
 from multimodal_baby_tpu_torch.evaluation.forced_choice import (
     run_forced_choice)
 from multimodal_baby_tpu_torch.evaluation.textgen import run_textgen_eval
+from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
 from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.multimodal import CVCL
 from multimodal_baby_tpu_torch.parallel.collectives import broadcast_object
@@ -74,11 +75,15 @@ class Trainer:
     """``device``: where the model trains (the card unless the caller asks
     for another one; "cuda" is ``cuda:{LOCAL_RANK}`` under a process
     group). ``step_timer``: when given, each train step is timed to the end
-    of its device work (a synchronization per step)."""
+    of its device work (a synchronization per step). ``kernels``: the
+    model's kernel configuration (``models/kernel_config.py``; None: the
+    JAX package's defaults). A checkpoint does not record it: a resumed run
+    takes the one it is given."""
 
     def __init__(self, cfg: ExperimentConfig,
                  data: Optional[DataModule] = None, device="cuda",
-                 step_timer: Optional[StepTimer] = None):
+                 step_timer: Optional[StepTimer] = None,
+                 kernels: Optional[KernelConfig] = None):
         self.cfg = cfg
         self.mesh = create_mesh(cfg.parallel.mesh_shape)
         self.rank = self.mesh.rank
@@ -92,7 +97,7 @@ class Trainer:
             cfg.parallel.compute_dtype]
         self.model = CVCL(cfg.model, dtype, device=self.device,
                           generator=torch.Generator().manual_seed(
-                              cfg.train.seed))
+                              cfg.train.seed), kernels=kernels)
         shard_vocab(self.model, self.mesh)
 
         self.ckpt = CheckpointManager(

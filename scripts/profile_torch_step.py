@@ -8,9 +8,11 @@ phase-6 configurations, e.g. ``whole_block``), the ResNeXt flagship in bf16 with
 every stage block by block (``resnext``, phase 3), the published ResNeXt
 recipe, int8 layers 3-4 in the default kernel plan, calibrated first
 (``int8``, phase 5; with ``--trunk-int8 t`` or ``t,t,1,1`` that model under
-an int8-transport plan instead, phase 8), or that trunk with the LSTM text encoder in the LSTM
-contrastive recipe (``lstm``, phase 7a) with ``--fused-lstm none`` (the
-JAX length rule: the plain scan at L = 25) or ``true`` (K9). It runs a few
+an int8-transport plan instead, phase 8; ``--stem`` switches its stem to
+one of chip_smoke.py's phase-14e forms), or that trunk with the LSTM
+text encoder in the LSTM contrastive recipe (``lstm``, phase 7a) with
+``--fused-lstm none`` (the JAX length rule: the plain scan at L = 25) or
+``true`` (K9). It runs a few
 warm-up steps, times steps on the host clock without the profiler, then
 traces steps with ``torch.profiler`` and prints the device time per step
 by kernel name, the kernel time per step, the device's busy share (kernel
@@ -23,8 +25,9 @@ an NVIDIA GPU:
 
     python3 scripts/profile_torch_step.py [--slice vit|resnext|int8|lstm]
         [--vit-kernels default|attn=1|attn=pairs|attn=qkv|whole_block|
-        gelu=tanh] [--fused-lstm none|true] [--trunk-int8 0,0,1,1|t|t,t,1,1]
-        [--steps 5] [--distributed]
+        gelu=tanh|int8|lnfold|int8+lnfold|lnfold attn=qkv]
+        [--fused-lstm none|true] [--trunk-int8 0,0,1,1|t|t,t,1,1]
+        [--stem conv7|s2d|split|cpad|s2d+cpad] [--steps 5] [--distributed]
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from multimodal_baby_tpu_torch.train.step import (  # noqa: E402
     calibrate_trunk, init_train_state, make_train_step)
 
 
-def build(which: str, vit_kernels: str, fused_lstm: str, trunk_int8: str):
+def build(which: str, vit_kernels: str, fused_lstm: str, trunk_int8: str,
+          stem: str):
     if which == "vit":
         cfg, model, batch = chip_smoke.build_vit_slice()
         if vit_kernels != "default":
@@ -62,6 +66,7 @@ def build(which: str, vit_kernels: str, fused_lstm: str, trunk_int8: str):
     plan = chip_smoke.MIXED if trunk_int8 == "0,0,1,1" else trunk_int8
     cfg, model, batch = chip_smoke.build_resnext_slice(plan, None)
     calibrate_trunk(model, batch)
+    chip_smoke.set_stem(model, *chip_smoke.STEM_CONFIGS[stem])
     return cfg, model, batch
 
 
@@ -74,6 +79,8 @@ def main() -> int:
                     choices=("default", *chip_smoke.VIT_CONFIGS))
     ap.add_argument("--trunk-int8", choices=("0,0,1,1", "t", "t,t,1,1"),
                     default="0,0,1,1")
+    ap.add_argument("--stem", choices=tuple(chip_smoke.STEM_CONFIGS),
+                    default="conv7")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--distributed", action="store_true")
     args = ap.parse_args()
@@ -82,7 +89,7 @@ def main() -> int:
         return 1
     print(chip_smoke.card_line(), flush=True)
     cfg, model, batch = build(args.slice, args.vit_kernels, args.fused_lstm,
-                              args.trunk_int8)
+                              args.trunk_int8, args.stem)
     mesh = None
     if args.distributed:
         import tempfile
@@ -123,7 +130,8 @@ def main() -> int:
     what = ("distributed (1, 1) " if mesh else "") + args.slice + {
         "vit": f" ({args.vit_kernels})",
                          "lstm": f" (fused_lstm={args.fused_lstm})",
-                         "int8": f" (trunk_int8={args.trunk_int8})"}.get(
+                         "int8": f" (trunk_int8={args.trunk_int8}, stem "
+                                 f"{args.stem})"}.get(
                              args.slice, "")
     print(f"{what} train step B={chip_smoke.BATCH}: {step_ms:.3f} ms "
           f"without the profiler; device time {kernel_ms:.3f} ms per step; "

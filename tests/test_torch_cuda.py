@@ -1448,3 +1448,63 @@ def test_world_one_nccl_step_equals_plain_step(cuda, tmp_path,
             assert torch.equal(v, out[1][1][k]), k
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("M,K,N", [(514, 768, 2304), (514, 768, 768),
+                                   (514, 768, 3072), (514, 3072, 768),
+                                   (10, 768, 2304)])
+def test_int8_dense_on_the_card_matches_plain(cuda, M, K, N):
+    """The ViT's int8 Dense (torch._int_mm on the card; 10 rows are padded
+    to the 17 it takes) against its plain version on the CPU: the same
+    scales (the card divides by 127 as the CPU does), activation and
+    weight codes, and outputs within 1e-6 of the largest (both sum the
+    codes exactly and dequantize with the same f32 ops)."""
+    from multimodal_baby_tpu_torch.ops.quant import (
+        activation_scale, dense_weight_codes, int8_dense, quantize_dynamic)
+    g = torch.Generator().manual_seed(M + K + N)
+    amax = torch.rand(64, generator=g) * 100
+    assert torch.equal(torch.stack([activation_scale(a.to(cuda))
+                                    for a in amax]).cpu(),
+                       torch.stack([activation_scale(a) for a in amax]))
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16)
+    w = torch.randn(N, K, generator=g) * K ** -0.5
+    bias = torch.randn(N, generator=g) * 0.1
+    codes, scale = dense_weight_codes(w.to(cuda))
+    want_codes, want_scale = dense_weight_codes(w)
+    assert torch.equal(codes.cpu(), want_codes)
+    assert torch.equal(scale.cpu(), want_scale)
+    assert torch.equal(quantize_dynamic(x.to(cuda))[0].cpu(),
+                       quantize_dynamic(x)[0])
+    got = int8_dense(x.to(cuda), codes, scale, bias.to(cuda), torch.float32)
+    want = int8_dense(x, want_codes, want_scale, bias, torch.float32)
+    assert got.shape == want.shape == (M, N)
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert float(err) <= 1e-6
+
+
+@pytest.mark.parametrize("stride,has_ds,H,cin,width,cout", [
+    (1, False, 8, 256, 128, 256), (2, True, 16, 64, 128, 256)])
+def test_bottleneck_diff_forward_is_k1_and_its_gradients_plain(
+        cuda, stride, has_ds, H, cin, width, cout):
+    """fused_bottleneck_diff: the forward is K1's output bit for bit (one
+    launch), and the gradients of x and of every folded weight are plain
+    autograd's through bottleneck_reference (cosine >= 0.9999)."""
+    from multimodal_baby_tpu_torch.ops.bottleneck import (
+        fused_bottleneck_diff)
+    x, fw = make_block(cin, width, cout, has_ds, H, 32, cuda)
+    leaves = {"x": x.requires_grad_(),
+              **{k: v.requires_grad_() for k, v in fw.items()}}
+    before = fused_bottleneck.launches
+    y = fused_bottleneck_diff(x, fw, stride)
+    assert fused_bottleneck.launches == before + 1
+    with torch.no_grad():
+        assert torch.equal(y, fused_bottleneck(x, fw, stride))
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda, y.dtype)
+    got = torch.autograd.grad(y, list(leaves.values()), g)
+    want = torch.autograd.grad(bottleneck_reference(x, fw, stride=stride),
+                               list(leaves.values()), g)
+    for name, a, b in zip(leaves, got, want):
+        cos = torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().flatten(), dim=0)
+        assert a.shape == b.shape and float(cos) >= COS_TOL, name

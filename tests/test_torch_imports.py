@@ -89,6 +89,7 @@ MODULES = [
     "multimodal_baby_tpu_torch.parallel.mesh",
     "multimodal_baby_tpu_torch.parallel.collectives",
     "multimodal_baby_tpu_torch.parallel.vocab",
+    "multimodal_baby_tpu_torch.models.kernel_config",
 ]
 
 PROBE = """
@@ -128,6 +129,18 @@ def test_real_io_script_imports_no_jax():
                           "importlib.import_module(name)\n"
                           "import runpy; runpy.run_path("
                           "'scripts/real_io_torch.py')")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe.format(modules=MODULES)], cwd=REPO,
+        capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_phase14_script_imports_no_jax():
+    """scripts/chip_phase14.py's module scope and its imports."""
+    probe = PROBE.replace("importlib.import_module(name)",
+                          "importlib.import_module(name)\n"
+                          "import runpy; runpy.run_path("
+                          "'scripts/chip_phase14.py')")
     proc = subprocess.run(
         [sys.executable, "-c", probe.format(modules=MODULES)], cwd=REPO,
         capture_output=True, text=True, timeout=120, check=False)

@@ -18,13 +18,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    its launch geometry at the ViT slice's shape and any ptxas warning
    about its wgmma; K10b's ``bottleneck_fused`` in its four group widths,
    and its band geometry at layer 2's head; the 1x1 convolutions' tile of
-   K1 and the bf16 stage kernel, ``conv_gemm`` in its three epilogues and
-   ``stage_tile_kernel`` in bf16 and int8 (K3a's int8 stages and the
-   banded int8 stage) in its four group widths each, K2's and K3a's int8
-   1x1 tile, ``conv_gemm_s8`` in its three epilogues, and K1's and K2's
-   grouped 3x3 on their halo tiles, ``gconv_halo`` and ``gconv_halo_s8``,
-   in their four: the phase fails if ptxas reports spills or a serialized
-   wgmma there).
+   K1, K11 and the bf16 stage kernel, ``conv_gemm`` in its three epilogues
+   and K11's, ``stage_tile_kernel`` in bf16, int8 (K3a's int8 stages and
+   the banded int8 stage) and int8 transport (K10a's stages) in its four
+   group widths each, K2's and K3a's int8 1x1 tile, ``conv_gemm_s8`` in its
+   three epilogues, K10a's three 1x1 launches, ``conv_gemm_t`` (conv1 on
+   the codes, conv3 with the residual or the downsample), and K1's and
+   K2's grouped 3x3 on their halo tiles, ``gconv_halo`` and
+   ``gconv_halo_s8``, in their four: the phase fails if ptxas reports
+   spills or a serialized wgmma there).
 2. K1 (``fused_bottleneck``) against its plain PyTorch version on the
    same bf16 inputs with the same rounding points, for four small and
    odd-sized cases at B = 8 and the 8 distinct ResNeXt-50 block shapes at
@@ -189,7 +191,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    equal to the plain version's autograd. Each timed beside its plain
    version, its library chain (the codes in bf16 through cuDNN, then the
    output scale and rounding; cuDNN's block; bf16 matmul and the f32
-   epilogue) and its bound (K10a's activations at one byte).
+   epilogue) and its bound (K10a's activations at one byte); each K10a
+   block beside K1 at the same block shape, each K10a stage beside the
+   bf16 body at the same stage (K3a, or K3b at the same band).
 8. The int8-transport plans: phase 5's model with ``trunk_int8="t"`` and
    ``("t", "t", "q", "q")``, calibrated once, 3 AdamW train steps and 1
    eval step each at B = 128. Checks: finite losses; per forward "t": 5
@@ -463,10 +467,11 @@ BLOCKS_EDGE = [
     ("odd 5x5 stride 1", 5, 256, 128, 256, 1, False, 0),
 ]
 # K1's 1x1 tile (csrc/conv_gemm.cuh) in its three epilogues (the mangled
-# ConvEpilogue<b2, residual>)
+# ConvEpilogue<b2, residual>) and K11's
 CONV_TILE_FORMS = {"ConvEpilogueILb0ELb0E": "conv1",
                    "ConvEpilogueILb1ELb0E": "conv3 with the downsample",
-                   "ConvEpilogueILb0ELb1E": "conv3 with the residual"}
+                   "ConvEpilogueILb0ELb1E": "conv3 with the residual",
+                   "15ConvEpilogueMul": "K11"}
 # (B, N, C, heads, F, kv_valid); the last is ViT-B/14 at the slice's batch
 VIT_CASES = [(2, 10, 256, 4, 1024, 7), (2, 17, 256, 4, 1024, None),
              (BATCH, 257, 768, 12, 3072, None)]
@@ -2238,6 +2243,7 @@ def phase_transport_kernels():
     versions, then timed beside the plain versions, the library calls and
     the bounds. Returns the kernel rows (launches filled in by phase 8)."""
     gen = torch.Generator().manual_seed(6)
+    gen_bf16 = torch.Generator().manual_seed(60)  # K1's and K3a/K3b's inputs
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
             for k in ("K10a block", "K10a stage", "K10a banded")}
     for name, H, cin, width, cout, s, ds, count in T_BLOCKS_224:
@@ -2253,9 +2259,13 @@ def phase_transport_kernels():
             lambda: transport_chain(fw, s)(x), 20)
         ops, act = block_cost(H, cin, width, cout, s, ds, BATCH)
         b_ms, b_by = launch_bound(r, ops, act + weight_bytes([fw]), count)
+        xb, fwb = random_block(gen_bf16, H, cin, width, cout, s, ds, BATCH)
+        k1 = time_ms(lambda: fused_bottleneck(xb, fwb, stride=s), 20)
         log(f"  K10a {name} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
             f"library chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
-            f"kernel {ops / k / 1e9:.1f} TFLOP/s")
+            f"kernel {ops / k / 1e9:.1f} TFLOP/s; K1 at this block shape "
+            f"{k1:.3f} ms")
+        del xb, fwb
         for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li)):
             r[key] += count * v
         del x, fw
@@ -2293,9 +2303,17 @@ def phase_transport_kernels():
         nbytes -= BATCH * (H * H * cin + (H // strides[0]) ** 2 * cout)
         r = rows[row]  # int8 activations: 1 byte each
         b_ms, b_by = launch_bound(r, ops, nbytes)
+        # the bf16 body at the same stage (K3a's, or K3b at the same band)
+        xb, fwb = stage_inputs(gen_bf16, H, cin, width, cout, strides, False,
+                               BATCH)
+        bf16 = time_ms(lambda: fused_stage(xb, fwb, strides) if band is None
+                       else fused_stage_banded(xb, fwb, strides, band), 10)
         log(f"  {desc} B={BATCH}: kernel {k:.3f} ms, plain {p:.3f} ms, "
             f"library chain {li:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
-            f"kernel {ops / k / 1e9:.1f} TFLOP/s")
+            f"kernel {ops / k / 1e9:.1f} TFLOP/s; the bf16 body ("
+            f"{'K3a' if band is None else 'K3b'}) at this stage {bf16:.3f} "
+            f"ms")
+        del xb, fwb
         for key, v in (("ms", k), ("plain_ms", p), ("library_ms", li)):
             r[key] += v
         del x, fws, chains
@@ -4722,6 +4740,9 @@ def main() -> int:
             ("K2/K3a int8 1x1 tile", "12conv_gemm_s8I", {
                 "ILi0E": "conv1", "ILi1E": "conv3, residual",
                 "ILi2E": "conv3, downsample"}),
+            ("K10a 1x1 launches", "11conv_gemm_tI", {
+                "ILi0E": "conv1 on the codes", "ILi1E": "conv3, residual",
+                "ILi2E": "conv3, downsample"}),
             ("K1 grouped 3x3", "10gconv_haloI", {
                 f"ILi{cg}EEEv": f"cg {cg}" for cg in (4, 8, 16, 32)}),
             ("K2 grouped 3x3", "13gconv_halo_s8I", {
@@ -4730,6 +4751,8 @@ def main() -> int:
                 **{f"9StageStepELi{cg}E": f"bf16, cg {cg}"
                    for cg in (4, 8, 16, 32)},
                 **{f"11StageStepS8ELi{cg}E": f"int8, cg {cg}"
+                   for cg in (4, 8, 16, 32)},
+                **{f"10StageStepTELi{cg}E": f"transport, cg {cg}"
                    for cg in (4, 8, 16, 32)}})):
         found = [i for i, line in enumerate(lines)
                  if "Function properties for" in line and kernel in line]
@@ -4746,18 +4769,20 @@ def main() -> int:
     for line in lines:  # a serialized or rescheduled wgmma in K6's tile
         if "vit_pingpong" in line and ("C75" in line or "wgmma" in line):
             log(f"  ptxas K6 ping-pong tile: {line.strip()}")
-    # the kernels of K1, K2 and the stage bodies on the wgmma tiles: no
-    # spills, no wgmma serialized or waited on by the compiler
+    # the kernels of K1, K2, K10a, K11 and the stage bodies on the wgmma
+    # tiles: no spills, no wgmma serialized or waited on by the compiler
     for i, line in enumerate(lines):
         new = any(k in line for k in ("9conv_gemmI", "12conv_gemm_s8I",
+                                      "11conv_gemm_tI",
                                       "17stage_tile_kernelI",
                                       "10gconv_haloI", "13gconv_halo_s8I"))
         if new and ("C75" in line or "wgmma" in line):
-            raise AssertionError(f"ptxas on K1, K2 or K3a/b: {line.strip()}")
+            raise AssertionError(f"ptxas on K1, K2, K3a/b, K10a or K11: "
+                                 f"{line.strip()}")
         if (new and "Function properties for" in line
                 and "0 bytes spill stores, 0 bytes spill loads"
                 not in lines[i + 1]):
-            raise AssertionError(f"ptxas on K1, K2 or K3a/b: "
+            raise AssertionError(f"ptxas on K1, K2, K3a/b, K10a or K11: "
                                  f"{line.strip()}: {lines[i + 1].strip()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     geo = mlp_geometry(BATCH * 257, 768, 3072, sms)

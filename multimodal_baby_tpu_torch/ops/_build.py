@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "vit_attention.cu",
            "attention.cu", "vit_block.cu", "lstm.cu", "infonce.cu",
            "conv_epilogue.cu", "bottleneck_fused.cu")
-HEADERS = ("gemm.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
+HEADERS = ("common.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
            "attn_mma.cuh", "wgmma.cuh", "vit_gemm.cuh",
            "vit_pingpong.cuh", "conv_gemm.cuh", "conv_gemm_s8.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -124,6 +124,8 @@ def library() -> ctypes.CDLL:
             lib.mmb_bottleneck_s8_part.argtypes = (
                 [i32] + [ptr] * 17 + [i32] * 7 + [ptr])
             lib.mmb_bottleneck_t.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
+            lib.mmb_bottleneck_t_part.argtypes = (
+                [i32] + [ptr] * 15 + [i32] * 7 + [ptr])
             lib.mmb_bottleneck_fused_bf16.argtypes = (
                 [ptr] * 10 + [i32] * 14 + [ptr])
             lib.mmb_conv1x1_bn_residual_relu_bf16.argtypes = (
@@ -137,7 +139,8 @@ def library() -> ctypes.CDLL:
             lib.mmb_infonce_bwd_f32.argtypes = [ptr] * 12 + [i32] * 2 + [ptr]
             for fn in (lib.mmb_bottleneck_bf16, lib.mmb_bottleneck_bf16_part,
                        lib.mmb_bottleneck_s8, lib.mmb_bottleneck_s8_part,
-                       lib.mmb_bottleneck_t, lib.mmb_bottleneck_fused_bf16,
+                       lib.mmb_bottleneck_t, lib.mmb_bottleneck_t_part,
+                       lib.mmb_bottleneck_fused_bf16,
                        lib.mmb_conv1x1_bn_residual_relu_bf16,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
                        lib.mmb_vit_dense_bf16,

@@ -8,7 +8,9 @@ which runs the hand-written Hopper kernels in ``csrc/bottleneck.cu`` on a
 CUDA tensor and the plain reference on a CPU tensor (K1's 1x1
 convolutions on the TMA-fed wgmma tile of ``csrc/conv_gemm.cuh``, whose
 launch geometry ``conv_geometry`` states, K2's on its int8 sibling
-``csrc/conv_gemm_s8.cuh``, ``conv_geometry_s8``), and
+``csrc/conv_gemm_s8.cuh``, ``conv_geometry_s8``, K10a's on the first with
+the int8 codes as an A operand and the second's conv3 walk and epilogue,
+``conv_geometry_t``), and
 ``fused_bottleneck_tiles`` (the TPU package's tile mode; its kernel is
 ``csrc/bottleneck_fused.cu``), and ``fused_bottleneck_diff``, which
 differentiates ``fused_bottleneck`` through the plain reference. The int8
@@ -39,6 +41,7 @@ __all__ = ["fold_block_params", "unpack_grouped_kernel", "bottleneck_reference",
            "tiles_geometry", "TilesGeometry", "conv_geometry",
            "block_geometry", "ConvGeometry", "conv_geometry_s8",
            "block_geometry_s8", "stage_geometry_s8", "ConvGeometryS8",
+           "conv_geometry_t", "block_geometry_t", "stage_geometry_t",
            "band_rows", "BN_EPS", "GROUPS"]
 
 BN_EPS = 1e-5
@@ -331,13 +334,14 @@ CONV8_K_UNIT = 64  # the int8 block's Cin % 64 (_check_args)
 
 
 class ConvGeometryS8(NamedTuple):
-    """One int8 GEMM on the int8 tile: its output rows in ``parts`` store
-    parts of ``part`` rows each (one part of M rows for K2 and K3a, one an
-    image for a banded stage), cut into ``bands`` row bands of ``rows``
-    rows within each part, and ``columns`` column tiles of 128: ``tiles``
-    tiles (band-major within a part, then parts), each walked in ``slices``
-    128-deep K slices, by ``grid`` persistent blocks, one an SM (the kernel
-    computes the same grid from the card's SM count)."""
+    """One int8 or transport GEMM on its tile: its output rows in ``parts``
+    store parts of ``part`` rows each (one part of M rows for a block and
+    K3a, one an image for a banded stage), cut into ``bands`` row bands of
+    ``rows`` rows within each part, and ``columns`` column tiles of 128:
+    ``tiles`` tiles (band-major within a part, then parts), each walked in
+    ``slices`` K slices (128 deep on the int8 tile, 64 on the transport
+    one), by ``grid`` persistent blocks, one an SM (the kernel computes the
+    same grid from the card's SM count)."""
     rows: int
     part: int
     parts: int
@@ -346,6 +350,39 @@ class ConvGeometryS8(NamedTuple):
     tiles: int
     slices: int
     grid: int
+
+
+def _banded_geometry(name, part, K1, N, K2, blocks, parts, rows, bk,
+                     k_unit) -> ConvGeometryS8:
+    """conv_geometry_s8's and conv_geometry_t's checks and walk: tiles of
+    ``rows`` rows (None: 64 with a second segment, else 128), K slices of
+    ``bk``, K1 and K2 multiples of ``k_unit``."""
+    if rows is None:
+        rows = CONV8_TILE_M_TWO if K2 else CONV8_TILE_M
+    if rows not in (CONV8_TILE_M_TWO, CONV8_TILE_M) or (
+            K2 and rows != CONV8_TILE_M_TWO):
+        raise ValueError(f"{name}: needs tiles of 64 rows, or of 128 "
+                         f"without a second segment; got rows={rows}, "
+                         f"K2={K2}")
+    if parts < 1 or not 1 <= part <= (2**31 - rows) // parts:
+        raise ValueError(f"{name}: needs parts >= 1 and 1 <= part x parts "
+                         f"<= 2**31 - {rows} (TMA rows are int32); got "
+                         f"part={part}, parts={parts}")
+    if N < CONV_TILE_N or N % CONV_TILE_N:
+        raise ValueError(f"{name}: needs N a positive multiple of "
+                         f"{CONV_TILE_N}; got N={N}")
+    if K1 < k_unit or K1 % k_unit or K2 < 0 or K2 % k_unit:
+        raise ValueError(f"{name}: needs K1 and K2 multiples of {k_unit}, "
+                         f"K1 positive; got K1={K1}, K2={K2}")
+    if blocks < 1:
+        raise ValueError(f"{name}: needs at least one SM; got "
+                         f"blocks={blocks}")
+    bands = -(-part // rows)
+    columns = N // CONV_TILE_N
+    tiles = bands * parts * columns
+    slices = -(-K1 // bk) + -(-K2 // bk)
+    return ConvGeometryS8(rows, part, parts, bands, columns, tiles, slices,
+                          min(tiles, blocks))
 
 
 def conv_geometry_s8(part: int, K1: int, N: int, K2: int = 0,
@@ -357,32 +394,8 @@ def conv_geometry_s8(part: int, K1: int, N: int, K2: int = 0,
     ``blocks`` SMs, on tiles of ``rows`` rows (None: K2's, 64 with a second
     segment, else 128). Raises ValueError on a shape the tile cannot serve;
     never clamps."""
-    if rows is None:
-        rows = CONV8_TILE_M_TWO if K2 else CONV8_TILE_M
-    if rows not in (CONV8_TILE_M_TWO, CONV8_TILE_M) or (
-            K2 and rows != CONV8_TILE_M_TWO):
-        raise ValueError(f"conv_geometry_s8: needs tiles of 64 rows, or of "
-                         f"128 without a second segment; got rows={rows}, "
-                         f"K2={K2}")
-    if parts < 1 or not 1 <= part <= (2**31 - rows) // parts:
-        raise ValueError(f"conv_geometry_s8: needs parts >= 1 and 1 <= part "
-                         f"x parts <= 2**31 - {rows} (TMA rows are int32); "
-                         f"got part={part}, parts={parts}")
-    if N < CONV_TILE_N or N % CONV_TILE_N:
-        raise ValueError(f"conv_geometry_s8: needs N a positive multiple of "
-                         f"{CONV_TILE_N}; got N={N}")
-    if K1 < CONV8_K_UNIT or K1 % CONV8_K_UNIT or K2 < 0 or K2 % CONV8_K_UNIT:
-        raise ValueError(f"conv_geometry_s8: needs K1 and K2 multiples of "
-                         f"{CONV8_K_UNIT}, K1 positive; got K1={K1}, K2={K2}")
-    if blocks < 1:
-        raise ValueError(f"conv_geometry_s8: needs at least one SM; got "
-                         f"blocks={blocks}")
-    bands = -(-part // rows)
-    columns = N // CONV_TILE_N
-    tiles = bands * parts * columns
-    slices = -(-K1 // CONV8_BK) + -(-K2 // CONV8_BK)
-    return ConvGeometryS8(rows, part, parts, bands, columns, tiles, slices,
-                          min(tiles, blocks))
+    return _banded_geometry("conv_geometry_s8", part, K1, N, K2, blocks,
+                            parts, rows, CONV8_BK, CONV8_K_UNIT)
 
 
 def block_geometry_s8(B: int, H: int, W: int, cin: int, width: int,
@@ -394,6 +407,37 @@ def block_geometry_s8(B: int, H: int, W: int, cin: int, width: int,
     return (conv_geometry_s8(B * H * W, cin, width, 0, blocks),
             conv_geometry_s8(B * Ho * Wo, width, cout,
                              cin if has_ds else 0, blocks))
+
+
+# the transport tile (K10a: csrc/conv_gemm.cuh's slices, 64 deep, with the
+# int8 codes as conv1's and the downsample's A; conv3's walk and epilogue of
+# csrc/conv_gemm_s8.cuh): K2's rows (128, 64 with the downsample's own
+# sums, 64 everywhere in the stage kernel); K a multiple of 32, the
+# wrapper's Cin % 32 (a 64-deep slice reads its tail as zeros; the codes'
+# rows must be whole 16-byte units for the TMA)
+CONVT_BK, CONVT_K_UNIT = CONV_BK, 32
+
+
+def conv_geometry_t(part: int, K1: int, N: int, K2: int = 0,
+                    blocks: int = 132, parts: int = 1,
+                    rows: int | None = None) -> ConvGeometryS8:
+    """The launch geometry of one of K10a's 1x1 convolutions on the
+    transport tile: as ``conv_geometry_s8`` (its fields and refusals), in
+    64-deep K slices with K1 and K2 multiples of 32."""
+    return _banded_geometry("conv_geometry_t", part, K1, N, K2, blocks,
+                            parts, rows, CONVT_BK, CONVT_K_UNIT)
+
+
+def block_geometry_t(B: int, H: int, W: int, cin: int, width: int,
+                     cout: int, stride: int, has_ds: bool,
+                     blocks: int = 132):
+    """(conv1, conv3): K10a's two launches on the transport tile for a
+    block on [B, H, W, cin] codes (conv3 with the downsample's own sums as
+    its second segment)."""
+    Ho, Wo = _out_size(H, stride), _out_size(W, stride)
+    return (conv_geometry_t(B * H * W, cin, width, 0, blocks),
+            conv_geometry_t(B * Ho * Wo, width, cout, cin if has_ds else 0,
+                            blocks))
 
 
 def band_rows(H: int, strides, band: int, i: int, j: int):
@@ -416,11 +460,13 @@ def band_rows(H: int, strides, band: int, i: int, j: int):
 
 
 def stage_geometry_s8(B: int, H: int, W: int, cin: int, width: int,
-                      cout: int, strides, band: int, blocks: int = 132):
+                      cout: int, strides, band: int, blocks: int = 132,
+                      conv=conv_geometry_s8):
     """[(conv1, conv3)] of every band and block of an int8 stage on the
     int8 tile's 64-row tiles (band = the output height: K3a, one band):
     each GEMM's rows one store part when its band is the whole image, else
-    one part an image (csrc/conv_gemm.cuh::band_store_map)."""
+    one part an image (csrc/conv_gemm.cuh::band_store_map). ``conv``: the
+    tile's geometry (``conv_geometry_t`` for a transport stage)."""
     Ho = H
     for s in strides:
         Ho = _out_size(Ho, s)
@@ -434,12 +480,21 @@ def stage_geometry_s8(B: int, H: int, W: int, cin: int, width: int,
             p1 = (B * h * w, 1) if ext1 == h else (ext1 * w, B)
             p3 = (B * ho * wo, 1) if ext3 == ho else (ext3 * wo, B)
             ds = j == 0 and (c != cout or s != 1)
-            out.append((conv_geometry_s8(p1[0], c, width, 0, blocks, p1[1],
-                                         CONV8_STAGE_M),
-                        conv_geometry_s8(p3[0], width, cout, c if ds else 0,
-                                         blocks, p3[1], CONV8_STAGE_M)))
+            out.append((conv(p1[0], c, width, 0, blocks, p1[1],
+                             CONV8_STAGE_M),
+                        conv(p3[0], width, cout, c if ds else 0, blocks,
+                             p3[1], CONV8_STAGE_M)))
             h, w, c = ho, wo, cout
     return out
+
+
+def stage_geometry_t(B: int, H: int, W: int, cin: int, width: int,
+                     cout: int, strides, band: int, blocks: int = 132):
+    """``stage_geometry_s8`` for a transport stage: every GEMM on the
+    transport tile's 64-row tiles (the downsample's identity parked in
+    shared memory)."""
+    return stage_geometry_s8(B, H, W, cin, width, cout, strides, band,
+                             blocks, conv_geometry_t)
 
 
 def block_reference(x: torch.Tensor, fw: Folded, *,
@@ -482,11 +537,10 @@ def fused_bottleneck(x: torch.Tensor, fw: Folded, stride: int = 1
     lib = _build.library()
     B, H, W, cin = x.shape
     width, cout = block_dims(fw)
-    # K1's and K2's tiles refuse what they cannot serve
-    if mode == "bf16":
-        block_geometry(B, H, W, cin, width, cout, stride, "wd" in fw)
-    elif mode == "q":
-        block_geometry_s8(B, H, W, cin, width, cout, stride, "wd" in fw)
+    # the tiles refuse what they cannot serve
+    geometry = {"bf16": block_geometry, "q": block_geometry_s8,
+                "t": block_geometry_t}[mode]
+    geometry(B, H, W, cin, width, cout, stride, "wd" in fw)
     Ho, Wo = _out_size(H, stride), _out_size(W, stride)
     mid = fw["w1"].dtype  # h1, h2: int8 in K2, bf16 in K1 and K10a
     h1 = torch.empty((B, H, W, width), dtype=mid, device=x.device)

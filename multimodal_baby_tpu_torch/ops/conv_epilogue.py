@@ -9,8 +9,10 @@ applies the rest before the single write:
     out = relu((x @ w) * mul + add + residual)
 
 ``conv1x1_bn_residual_relu`` runs the hand-written Hopper kernel
-(``csrc/conv_epilogue.cu``) on CUDA tensors and ``epilogue_reference`` on
-CPU tensors. Its gradient is the autograd of the plain version, as the JAX
+(``csrc/conv_epilogue.cu``: K1's TMA-fed wgmma tile of
+``csrc/conv_gemm.cuh`` with a multiply in its epilogue, launch geometry
+``epilogue_geometry``) on CUDA tensors and ``epilogue_reference`` on CPU
+tensors. Its gradient is the autograd of the plain version, as the JAX
 package's custom VJP recomputes with XLA ops. The JAX package tiles M by its
 largest power-of-two divisor and leaves M below 8 to XLA, a TPU layout
 rule; the kernel takes any M, so on CUDA every call launches it.
@@ -21,8 +23,11 @@ from __future__ import annotations
 import torch
 
 from multimodal_baby_tpu_torch.ops import _build
+from multimodal_baby_tpu_torch.ops.bottleneck import (
+    ConvGeometry, conv_geometry)
 
-__all__ = ["epilogue_reference", "conv1x1_bn_residual_relu"]
+__all__ = ["epilogue_reference", "conv1x1_bn_residual_relu",
+           "epilogue_geometry"]
 
 
 def epilogue_reference(x: torch.Tensor, w: torch.Tensor, mul: torch.Tensor,
@@ -34,6 +39,20 @@ def epilogue_reference(x: torch.Tensor, w: torch.Tensor, mul: torch.Tensor,
     f32 = torch.float32
     y = (x.to(f32) @ w.to(f32)) * mul + add + residual.to(f32)
     return torch.relu(y).to(residual.dtype)
+
+
+def epilogue_geometry(M: int, cin: int, cout: int,
+                      blocks: int = 132) -> ConvGeometry:
+    """K11's launch on the 1x1 tile: the M rows (the pixels of one image
+    row to the TMA: rows past M read as zeros and are not stored) in row
+    bands of 128, Cout / 128 column tiles, ceil(Cin / 64) K slices (a Cin
+    of 32 or 96 reads its tail as zeros). Raises ValueError on what the
+    kernel cannot take: M < 1, Cin % 32 != 0, Cout % 128 != 0."""
+    if M < 1 or cin < 32 or cin % 32 or cout < 128 or cout % 128:
+        raise ValueError(f"epilogue_geometry: needs M >= 1, Cin % 32 == 0, "
+                         f"Cout % 128 == 0; got M={M}, Cin={cin}, "
+                         f"Cout={cout}")
+    return conv_geometry(M, cin, cout, 0, blocks)
 
 
 def _check(x, w, mul, add, residual) -> None:
@@ -58,10 +77,8 @@ def _check(x, w, mul, add, residual) -> None:
         need(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         need(t.is_contiguous(), f"{name} must be contiguous")
         need(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    need(M >= 1 and cin % 32 == 0 and cout % 128 == 0,
-         f"needs M >= 1, Cin % 32 == 0, Cout % 128 == 0; got M={M}, "
-         f"Cin={cin}, Cout={cout}")
     need(M * max(cin, cout) < 2**31, "x is too large for 32-bit indexing")
+    epilogue_geometry(M, cin, cout)  # the shapes the tile takes
 
 
 def _launch(x, w, mul, add, residual) -> torch.Tensor:

@@ -45,7 +45,7 @@
 
 #pragma once
 
-#include "gemm.cuh"
+#include "common.cuh"
 
 namespace {
 

@@ -42,19 +42,20 @@
 //     the same schedule's int8 sibling, conv_gemm_s8.cuh (wgmma m64n128k32
 //     .s8 with both operands K-major: the NHWC codes and the output-major
 //     [N, K] weights), the downsample in its own int32 accumulators (its
-//     scale differs) on 64-row tiles. Transport (K10a) runs
-//     gemm.cuh's bf16 wmma tile: the int8 input is read into registers and
-//     converted to bf16 on its way into shared memory (conv1, the
-//     downsample), and the downsample's f32 sums are kept apart (held in
-//     shared memory while conv3's accumulate), so the epilogue applies ad
-//     and a3 as the plain version does.
+//     scale differs) on 64-row tiles. Transport (K10a) runs K1's tile with
+//     the int8 codes as conv1's A (the TMA's 64-byte boxes, rewritten in
+//     place as the bf16 slice by the consumer) and conv3 as K2's walk on
+//     f32 sums: h2 . w3 on K1's bf16 slices, the downsample over
+//     the codes in its own accumulators on 64-row tiles, K2's epilogue (ad
+//     and a3 applied apart, as the plain version does), the codes stored
+//     and the residual codes read by TMA (conv_gemm_s8.cuh).
 //   - the grouped 3x3 as an implicit GEMM on the tensor cores over the 9
 //     taps, with the 32 groups as 16-wide block-diagonal tiles (the TPU
-//     kernel packs them 128 wide for its matrix unit): K1 and K2 on halo
-//     tiles (bottleneck.cuh::gconv_halo_walk, gconv_halo_walk_s8: a tile's
-//     input rows copied to shared memory once, mma.sync from there, the
-//     weights' fragments built once a worker), K10a on the wmma tile that
-//     reads each tap's pixels afresh (the same order of sums as K1's).
+//     kernel packs them 128 wide for its matrix unit) on halo tiles
+//     (bottleneck.cuh::gconv_halo_walk, gconv_halo_walk_s8: a tile's input
+//     rows copied to shared memory once, mma.sync from there, the weights'
+//     fragments built once a worker); K10a's h1 and h2 are bf16, so it
+//     runs K1's launch as it is.
 // h1 and h2 round-trip through device memory here; K10b
 // (bottleneck_fused.cu) keeps them in shared memory in one launch, and
 // lost to the weights' L2 stream that costs (PERF.md).
@@ -68,16 +69,6 @@
 #include "conv_gemm_s8.cuh"
 
 namespace {
-
-constexpr int GC_BM = 128;  // output pixels per grouped-conv block
-
-template <int CG>
-__global__ void __launch_bounds__(GC_BM)
-    gconv_bf16(const ConvArgs c) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  gconv_bf16_tile<CG, GC_BM>(c, blockIdx.y * GC_BM, blockIdx.x * GC_BN,
-                             smem);
-}
 
 // K1's and K2's grouped 3x3: a worker a block, as many on each SM as fit
 // (gconv_halo_walk, gconv_halo_walk_s8); at 128 threads ptxas would stop
@@ -157,33 +148,25 @@ cudaError_t launch_gconv_halo(const ConvArgsT<T>& c, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <class Kernel, class Args>
-cudaError_t launch_conv(Kernel kernel, int smem, const Args& c,
-                        cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(c.C / GC_BN, (c.M + GC_BM - 1) / GC_BM);
-  kernel<<<grid, GC_BM, smem, stream>>>(c);
-  return cudaGetLastError();
-}
-
-// K10a's grouped 3x3 (bf16) on the wmma tile
-cudaError_t launch_grouped_conv(const ConvArgs& c, int cg,
-                                cudaStream_t stream) {
-  constexpr int smem = gconv_bf16_smem<GC_BM>();
-  switch (cg) {
-    case 4:
-      return launch_conv(gconv_bf16<4>, smem, c, stream);
-    case 8:
-      return launch_conv(gconv_bf16<8>, smem, c, stream);
-    case 16:
-      return launch_conv(gconv_bf16<16>, smem, c, stream);
-    case 32:
-      return launch_conv(gconv_bf16<32>, smem, c, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// K1's and K10a's grouped 3x3 (bf16 h1 and h2) on the output rows of a
+// whole block
+cudaError_t grouped_bf16(const void* h1, const void* w2, const void* b2,
+                         void* h2, int B, int H, int W, int width,
+                         int stride, cudaStream_t s) {
+  const int Ho = (H - 1) / stride + 1;
+  const int Wo = (W - 1) / stride + 1;
+  ConvArgs c{};
+  c.h = static_cast<const __nv_bfloat16*>(h1);
+  c.w = static_cast<const __nv_bfloat16*>(w2);
+  c.bias = static_cast<const float*>(b2);
+  c.out = static_cast<__nv_bfloat16*>(h2);
+  c.H = H;
+  c.W = W;
+  c.C = width;
+  c.stride = stride;
+  c.rows = RowMap{Ho, Wo, 0, 0};
+  c.M = B * Ho * Wo;
+  return launch_gconv_halo(c, s);
 }
 
 // K1: the block's three launches, or one of them (part 1: conv1, 2: the
@@ -195,7 +178,6 @@ cudaError_t bottleneck_bf16(const void* x, const void* w1, const void* b1,
                             int W, int cin, int width, int cout, int stride,
                             int part, cudaStream_t s) {
   const int Ho = (H - 1) / stride + 1;
-  const int Wo = (W - 1) / stride + 1;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaError_t err = cudaSuccess;
   if (part == 0 || part == 1) {
@@ -207,18 +189,7 @@ cudaError_t bottleneck_bf16(const void* x, const void* w1, const void* b1,
   }
 
   if (part == 0 || part == 2) {
-    ConvArgs c{};
-    c.h = static_cast<const __nv_bfloat16*>(h1);
-    c.w = static_cast<const __nv_bfloat16*>(w2);
-    c.bias = f(b2);
-    c.out = static_cast<__nv_bfloat16*>(h2);
-    c.H = H;
-    c.W = W;
-    c.C = width;
-    c.stride = stride;
-    c.rows = RowMap{Ho, Wo, 0, 0};
-    c.M = B * Ho * Wo;
-    err = launch_gconv_halo(c, s);
+    err = grouped_bf16(h1, w2, b2, h2, B, H, W, width, stride, s);
     if (err != cudaSuccess) return err;
   }
 
@@ -284,6 +255,41 @@ cudaError_t bottleneck_s8(const void* x, const void* w1, const void* a1,
   return cudaSuccess;
 }
 
+// K10a: the block's three launches, or one of them (part 1: conv1, 2: the
+// grouped 3x3, 3: conv3; 0: all three)
+cudaError_t bottleneck_t(const void* x, const void* w1, const void* b1,
+                         const void* w2, const void* b2, const void* w3,
+                         const void* a3, const void* b3, const void* wd,
+                         const void* ad, const void* bd, const void* ai,
+                         void* h1, void* h2, void* out, int B, int H, int W,
+                         int cin, int width, int cout, int stride, int part,
+                         cudaStream_t s) {
+  const int Ho = (H - 1) / stride + 1;
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  cudaError_t err = cudaSuccess;
+  if (part == 0 || part == 1) {
+    ConvGemmS8 g1;
+    err = conv1_gemm_t(&g1, x, w1, f(b1), h1, B, H, W, cin, width, 0, H);
+    if (err == cudaSuccess) err = launch_conv_gemm_t<S8_CONV1>(g1, s);
+    if (err != cudaSuccess) return err;
+  }
+
+  if (part == 0 || part == 2) {
+    err = grouped_bf16(h1, w2, b2, h2, B, H, W, width, stride, s);
+    if (err != cudaSuccess) return err;
+  }
+
+  if (part == 0 || part == 3) {
+    ConvGemmS8 g3;
+    err = conv3_gemm_t(&g3, h2, w3, f(a3), f(b3), x, wd, f(ad), f(bd),
+                       f(ai), out, B, H, W, cin, width, cout, stride, 0, Ho);
+    if (err != cudaSuccess) return err;
+    if (wd != nullptr) return launch_conv_gemm_t<S8_DOWNSAMPLE>(g3, s);
+    return launch_conv_gemm_t<S8_RESIDUAL>(g3, s);
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Shapes and alignment are checked by the Python wrapper
@@ -321,70 +327,36 @@ extern "C" int mmb_bottleneck_bf16_part(
       cout, stride, part, static_cast<cudaStream_t>(stream)));
 }
 
-// K10a: the int8-transport block. x and out int8 codes; w1 [cin, width],
-// w2 [3, 3, cg, width], w3 [width, cout], wd [cin, cout] bf16 (the input
-// scale folded into w1 and wd); b1, b2 [width], a3, b3 [cout] f32; ad, bd
-// [cout] f32 with a downsample, else ai [cout]. h1, h2 bf16 scratch. cin %
-// 32 == 0, the rest as mmb_bottleneck_bf16.
+// K10a: the int8-transport block. x and out int8 codes in [0, 127]; w1
+// [cin, width], w2 [3, 3, cg, width], w3 [width, cout], wd [cin, cout]
+// bf16 (the input scale folded into w1 and wd); b1, b2 [width], a3, b3
+// [cout] f32; ad, bd [cout] f32 with a downsample, else ai [cout]. h1, h2
+// bf16 scratch. cin % 32 == 0, the rest as mmb_bottleneck_bf16.
 extern "C" int mmb_bottleneck_t(
     const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* w3, const void* a3, const void* b3,
     const void* wd, const void* ad, const void* bd, const void* ai,
     void* h1, void* h2, void* out, int B, int H, int W, int cin, int width,
     int cout, int stride, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Ho = (H - 1) / stride + 1;
-  const int Wo = (W - 1) / stride + 1;
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  // the int8 codes ride in GemmArgs' A pointers (Q1 / Q2 segments)
-  const auto* xq = static_cast<const __nv_bfloat16*>(x);
+  return static_cast<int>(bottleneck_t(
+      x, w1, b1, w2, b2, w3, a3, b3, wd, ad, bd, ai, h1, h2, out, B, H, W,
+      cin, width, cout, stride, 0, static_cast<cudaStream_t>(stream)));
+}
 
-  GemmArgs g1{};
-  g1.a1 = xq;
-  g1.b1 = static_cast<const __nv_bfloat16*>(w1);
-  g1.k1 = cin;
-  g1.M = B * H * W;
-  g1.N = width;
-  cudaError_t err = launch_gemm_x<true, false, false>(
-      g1,
-      BiasResidualRelu{f(b1), nullptr, nullptr,
-                       static_cast<__nv_bfloat16*>(h1), width},
-      s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  ConvArgs c{};
-  c.h = static_cast<const __nv_bfloat16*>(h1);
-  c.w = static_cast<const __nv_bfloat16*>(w2);
-  c.bias = f(b2);
-  c.out = static_cast<__nv_bfloat16*>(h2);
-  c.H = H;
-  c.W = W;
-  c.C = width;
-  c.stride = stride;
-  c.rows = RowMap{Ho, Wo, 0, 0};
-  c.M = B * Ho * Wo;
-  err = launch_grouped_conv(c, width / 32, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  GemmArgs g3{};
-  g3.a1 = static_cast<const __nv_bfloat16*>(h2);
-  g3.b1 = static_cast<const __nv_bfloat16*>(w3);
-  g3.k1 = width;
-  g3.rows = RowMap{Ho, Wo, 0, 0};
-  g3.M = B * Ho * Wo;
-  g3.N = cout;
-  const TransportOut e3{f(a3), f(b3), f(ad), f(bd), f(ai),
-                        static_cast<const int8_t*>(x),
-                        static_cast<int8_t*>(out), cout};
-  if (wd == nullptr)
-    return static_cast<int>(launch_gemm(g3, e3, s));
-  g3.a2 = xq;
-  g3.b2 = static_cast<const __nv_bfloat16*>(wd);
-  g3.k2 = cin;
-  g3.H = H;
-  g3.W = W;
-  g3.stride = stride;
-  return static_cast<int>(launch_gemm_x<false, true, true>(g3, e3, s));
+// One of K10a's three launches alone (part 1 conv1, 2 the grouped 3x3, 3
+// conv3), with mmb_bottleneck_t's arguments, for scripts/
+// probe_conv_tile.py --transport and the card tests: conv1 reads x and
+// writes h1, the grouped 3x3 h1 and h2, conv3 h2 (and x) and out.
+extern "C" int mmb_bottleneck_t_part(
+    int part, const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* w3, const void* a3, const void* b3,
+    const void* wd, const void* ad, const void* bd, const void* ai,
+    void* h1, void* h2, void* out, int B, int H, int W, int cin, int width,
+    int cout, int stride, void* stream) {
+  if (part < 1 || part > 3) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bottleneck_t(
+      x, w1, b1, w2, b2, w3, a3, b3, wd, ad, bd, ai, h1, h2, out, B, H, W,
+      cin, width, cout, stride, part, static_cast<cudaStream_t>(stream)));
 }
 
 // K2: the int8 block. w1 [width, cin], w3 [cout, width], wd [cout, cin]

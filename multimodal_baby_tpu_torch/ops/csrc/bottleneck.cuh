@@ -1,103 +1,25 @@
-// The pieces of one ResNeXt-50 bottleneck block on Hopper (sm_90a), shared
-// by the per-block kernels (bottleneck.cu: K1 in bf16, K2 in int8, K10a in
-// int8 transport) and the whole-stage kernel (stage.cu: K3a, K3b, and their
-// transport mode):
+// The grouped 3x3 of one ResNeXt-50 bottleneck block on Hopper (sm_90a),
+// shared by the per-block kernels (bottleneck.cu: K1 in bf16, K2 in int8,
+// K10a in int8 transport, whose h1 and h2 are bf16) and the whole-stage
+// kernel (stage.cu: K3a, K3b, and their transport mode): 32 groups, pad 1,
+// stride 1 or 2, as an implicit GEMM on the tensor cores over halo tiles
+// (gconv_halo_walk in bf16, gconv_halo_walk_s8 in int8, below).
 //
-//   - the epilogue functors of gemm.cuh's 1x1 GEMMs (K10a);
-//   - the grouped 3x3 (32 groups, pad 1, stride 1 or 2) as an implicit GEMM
-//     on the tensor cores: tile routines for bf16 (K10a) and int8 (K2 and
-//     the int8 stage), and the halo walk of K1 and the bf16 stage
-//     (gconv_halo_walk, below).
-//
-// The grouped 3x3: for one tap, the tile's CBM output pixels read a
-// [CBM, 64] tile of h (the tap-shifted input pixels, zero outside the
-// image) and the tap's weights form a [64, 64] block-diagonal matrix (input
-// channel x output channel, zero across groups). Only its diagonal 16x16
-// tiles (32x32 when CG = 32) are filled and multiplied: a group of 4
-// channels costs a 16-wide product (4x the useful multiplies at CG = 4, 2x
-// at CG = 8, none wasted at CG >= 16). h: [*, H, W, C] NHWC;
-// w: [3, 3, CG, C] (tap, input channel within the group, output channel);
-// out: the output grid of `rows`, [*, Ho, Wo, C]. Output pixel (ho, wo)
-// reads input rows ho*stride-1 .. ho*stride+1. CBM threads, one warp per 32
-// pixels x 64 channels; two tap stages in flight with cp.async.
+// For one tap, a tile's output pixels read a [pixels, 64] tile of h (the
+// tap-shifted input pixels, zero outside the image) and the tap's weights
+// form a [64, 64] block-diagonal matrix (input channel x output channel,
+// zero across groups). Only its diagonal 16x16 tiles (32x32 when CG = 32)
+// are filled and multiplied: a group of 4 channels costs a 16-wide product
+// (4x the useful multiplies at CG = 4, 2x at CG = 8, none wasted at CG >=
+// 16). h: [*, H, W, C] NHWC; w: [3, 3, CG, C] (tap, input channel within
+// the group, output channel); out: the output grid of `rows`, [*, Ho, Wo,
+// C]. Output pixel (ho, wo) reads input rows ho*stride-1 .. ho*stride+1.
 
 #pragma once
 
-#include "gemm.cuh"
+#include "common.cuh"
 
 namespace {
-
-// ------------------------------------------------------ GEMM epilogues
-
-// bf16 conv1 and conv3: out = bf16(relu(acc + bias1 [+ bias2] [+ residual]))
-struct BiasResidualRelu {
-  const float* bias1;              // [N]
-  const float* bias2;              // [N] or null (the downsample's)
-  const __nv_bfloat16* residual;   // [pixels, N] or null
-  __nv_bfloat16* out;              // [pixels, N]
-  int N;
-
-  __device__ void operator()(int p, int n, float (&v)[8]) const {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] += bias1[n + e];
-    if (bias2 != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += bias2[n + e];
-    }
-    const size_t off = static_cast<size_t>(p) * N + n;
-    if (residual != nullptr) {
-      // L2, not L1: in the stage kernel another block wrote it
-      float f[8];
-      unpack8(__ldcg(reinterpret_cast<const uint4*>(residual + off)), f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += f[e];
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.0f);
-    *reinterpret_cast<uint4*>(out + off) = pack8(v);
-  }
-};
-
-// int8-transport conv3 (f32 sums of bf16 products, int8 codes out):
-// out = clip(rint((acc3 * a3 + b3) + identity), 0, 127) with
-// identity = accd * ad + bd (downsample: the split GEMM's second segment)
-// or x * ai (the block's int8 input codes)
-struct TransportOut {
-  const float* a3;
-  const float* b3;
-  const float* ad;  // null without a downsample
-  const float* bd;
-  const float* ai;  // with no downsample
-  const int8_t* x;  // block input [pixels, N], with no downsample
-  int8_t* out;
-  int N;
-
-  __device__ void operator()(int p, int n, float (&v)[8]) const {
-    const size_t off = static_cast<size_t>(p) * N + n;
-    float id[8];
-    unpack8_s8(__ldcg(reinterpret_cast<const uint2*>(x + off)), id);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) id[e] = __fmul_rn(id[e], ai[n + e]);
-    store(off, n, v, id);
-  }
-
-  __device__ void operator()(int p, int n, const float (&v)[8],
-                             const float (&vd)[8]) const {
-    float id[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) id[e] = madd_rn(vd[e], ad[n + e], bd[n + e]);
-    store(static_cast<size_t>(p) * N + n, n, v, id);
-  }
-
-  __device__ void store(size_t off, int n, const float (&v)[8],
-                        const float (&id)[8]) const {
-    int8_t c[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      c[e] = clip_code(__fadd_rn(madd_rn(v[e], a3[n + e], b3[n + e]), id[e]));
-    *reinterpret_cast<uint2*>(out + off) = pack8_s8(c);
-  }
-};
 
 // ------------------------------------------------------------ grouped 3x3
 
@@ -114,157 +36,6 @@ struct ConvArgsT {
 };
 using ConvArgs = ConvArgsT<__nv_bfloat16>;
 using ConvArgsS8 = ConvArgsT<int8_t>;
-
-constexpr int GC_BN = 64;        // channels per tile (a multiple of CG)
-constexpr int GC_LD = GC_BN + 8;  // bf16 pitch
-
-template <int CBM>
-constexpr int gconv_bf16_smem() {
-  return (2 * CBM * GC_LD + 2 * GC_BN * GC_LD) * 2 + (CBM / 32) * 256 * 4;
-}
-
-// output row m of the tile -> (image, top-left input row and column of its
-// window); image -1 past M
-template <class T>
-__device__ __forceinline__ void conv_window(const ConvArgsT<T>& c, int m,
-                                            int& b, int& hi, int& wi) {
-  b = -1;
-  hi = 0;
-  wi = 0;
-  if (m < c.M) {
-    const int Wo = c.rows.W;
-    const int per = (c.rows.ext ? c.rows.ext : c.rows.H) * Wo;
-    b = m / per;
-    const int rem = m - b * per;
-    const int r = rem / Wo;
-    hi = (c.rows.lo + r) * c.stride - 1;
-    wi = (rem - r * Wo) * c.stride - 1;
-  }
-}
-
-template <int CG, int CBM>
-__device__ __forceinline__ void gconv_bf16_tile(const ConvArgs& c, int m0,
-                                                int c0,
-                                                unsigned char* smem) {
-  using namespace nvcuda;
-  constexpr int SPAN = CG > 16 ? CG : 16;  // width of a filled diagonal tile
-  constexpr int TPR = CBM / GC_BN;         // threads per weight row
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + 2 * CBM * GC_LD;
-  float* scratch = reinterpret_cast<float*>(Bs + 2 * GC_BN * GC_LD);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  // the 8 A vectors this thread loads at every tap
-  int a_b[8], a_h[8], a_w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    conv_window(c, m0 + ((tid + i * CBM) >> 3), a_b[i], a_h[i], a_w[i]);
-
-  auto load_tap = [&](int t, int stage) {
-    const int ky = t / 3;
-    const int kx = t - 3 * ky;
-    __nv_bfloat16* as = As + stage * CBM * GC_LD;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int v = tid + i * CBM;
-      const int row = v >> 3;
-      const int col = (v & 7) * 8;
-      const int hi = a_h[i] + ky;
-      const int wi = a_w[i] + kx;
-      const bool ok =
-          a_b[i] >= 0 && hi >= 0 && hi < c.H && wi >= 0 && wi < c.W;
-      const __nv_bfloat16* src =
-          ok ? c.h + ((static_cast<size_t>(a_b[i]) * c.H + hi) * c.W + wi) *
-                         c.C +
-                   c0 + col
-             : c.h;
-      cp_async16(as + row * GC_LD + col, src, ok);
-    }
-    // B: row k (input channel c0 + k) over the columns of its diagonal
-    // tile, TPR threads per row; w[t][k % CG][c0 + n] for the columns of
-    // k's own group, zero for the others
-    __nv_bfloat16* bs = Bs + stage * GC_BN * GC_LD;
-    const int k = tid / TPR;
-    const int g = k / CG;
-    const int col0 = (k / SPAN) * SPAN + (tid % TPR) * (SPAN / TPR);
-    const __nv_bfloat16* wrow =
-        c.w + static_cast<size_t>(t * CG + (k - g * CG)) * c.C + c0;
-#pragma unroll
-    for (int e = 0; e < SPAN / TPR; ++e) {
-      const int n = col0 + e;
-      bs[k * GC_LD + n] = n / CG == g ? wrow[n] : __float2bfloat16(0.0f);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  load_tap(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < 9; ++t) {
-    if (t + 1 < 9) load_tap(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* as = As + (t & 1) * CBM * GC_LD;
-    const __nv_bfloat16* bs = Bs + (t & 1) * GC_BN * GC_LD;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int kk = 0; kk < SPAN / 16; ++kk) {
-        const int ks = (j * 16 / SPAN) * (SPAN / 16) + kk;  // k-subtile
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            bf;
-        wmma::load_matrix_sync(bf, bs + ks * 16 * GC_LD + j * 16, GC_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              af;
-          wmma::load_matrix_sync(af, as + (warp * 32 + i * 16) * GC_LD +
-                                         ks * 16,
-                                 GC_LD);
-          wmma::mma_sync(acc[i][j], af, bf, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration overwrites this stage
-  }
-
-  float* sc = scratch + warp * 256;
-  const int r = lane >> 1;
-  const int c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + warp * 32 + i * 16 + r;
-      const int n = c0 + j * 16 + c8;
-      if (m < c.M) {
-        uint4 packed;
-        __nv_bfloat162* pp = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pp[e] = __floats2bfloat162_rn(
-              fmaxf(sc[r * 16 + c8 + 2 * e] + c.bias[n + 2 * e], 0.0f),
-              fmaxf(sc[r * 16 + c8 + 2 * e + 1] + c.bias[n + 2 * e + 1],
-                    0.0f));
-        *reinterpret_cast<uint4*>(
-            c.out + static_cast<size_t>(map_row(c.rows, m)) * c.C + n) =
-            packed;
-      }
-      __syncwarp();
-    }
-  }
-}
 
 // ------------------------------------------- grouped 3x3 on a halo tile
 
@@ -291,23 +62,21 @@ __device__ __forceinline__ void mma_16816_gh(float (&d)[4],
 }
 
 
-// K1's and the bf16 stage kernel's grouped 3x3 (K10a keeps the tile above,
-// which reads each tap's pixels afresh). A worker of 128 threads (4 warps,
-// 16 output channels each) keeps one 64-channel tile: it builds the
-// block-diagonal B fragments of its channels for all 9 taps once, into
-// shared memory, then walks its images' row tiles. A row tile is R output
-// rows x cols output columns of one image: the worker copies its input
-// window (rows_in x cols_in pixels, zeros outside the image: the halo) into
-// shared memory once, and each warp walks the tile's 16-pixel slabs tap by
-// tap, the A fragments read from the halo with ldmatrix (chunk c of pixel p
-// at chunk c ^ (p % 8): no bank conflicts at stride 1), its B fragments
-// from shared memory (a lane's own words, no conflicts). Every output's
-// sum runs over the taps in order, each tap's k16 step(s) over its group's
-// input channels with the others' weights zero (mma.sync m16n8k16):
-// gconv_bf16_tile's (wmma 16x16x16) and K10b's phase 2's sums, so the
-// values are theirs bit for bit. h1 is read once a row tile (plus its halo
-// rows) instead of once a tap, and w2 once a worker instead of once a
-// tile.
+// The grouped 3x3 of K1, K10a and the bf16 and transport stages. A worker of
+// 128 threads (4 warps, 16 output channels each) keeps one 64-channel tile: it
+// builds the block-diagonal B fragments of its channels for all 9 taps once,
+// into shared memory, then walks its images' row tiles. A row tile is R output
+// rows x cols output columns of one image: the worker copies its input window
+// (rows_in x cols_in pixels, zeros outside the image: the halo) into shared
+// memory once, and each warp walks the tile's 16-pixel slabs tap by tap, the A
+// fragments read from the halo with ldmatrix (chunk c of pixel p at chunk c ^
+// (p % 8): no bank conflicts at stride 1), its B fragments from shared memory
+// (a lane's own words, no conflicts). Every output's sum runs over the taps in
+// order, each tap's k16 step(s) over its group's input channels with the
+// others' weights zero (mma.sync m16n8k16): the sums of the earlier wmma tile
+// and of K10b's phase 2, so the values are theirs bit for bit. h1 is read once
+// a row tile (plus its halo rows) instead of once a tap, and w2 once a worker
+// instead of once a tile.
 constexpr int GH_THREADS = 128;
 constexpr int GH_BN = 64;            // channels of a tile
 constexpr int GH_MAX_PIXELS = 128;   // output pixels of a row tile: 8 slabs

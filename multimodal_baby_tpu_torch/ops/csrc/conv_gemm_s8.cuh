@@ -1,7 +1,10 @@
 // The int8 bottleneck block's 1x1 convolutions on Hopper (sm_90a): the
 // int8 sibling of conv_gemm.cuh's tile, shared by K2 (bottleneck.cu: conv1
 // and conv3 of the int8 block) and the int8 mode of the stage kernel
-// (stage.cu: K3a, and the banded int8 stage).
+// (stage.cu: K3a, and the banded int8 stage); and the int8-transport
+// block's GEMMs (K10a, bottleneck.cu and stage.cu's transport mode), which
+// run conv_gemm.cuh's bf16 slices (conv1 with int8 codes as its A) and
+// this file's conv3 walk and epilogue on f32 sums (below).
 //
 //   conv1: h1  = clip(rint(float(A . W1) * a1 + b1), 0, 127)
 //   conv3: out = clip(rint((float(A . W3) * a3 + b3) + identity), 0, 127)
@@ -48,6 +51,20 @@
 // a scratch in the ring's unwritten bytes, and conv3's sums reuse its
 // registers (ID_SMEM; the values are the same).
 //
+// The transport GEMMs (K10a: int8 codes in and out, bf16 products; the plain
+// version is ops/quant.py::bottleneck_reference_t). conv1 is conv_gemm.cuh's
+// bf16 GEMM with the codes as A (converted into the bf16 slice in shared
+// memory) and K1's epilogue (+ b1, ReLU, bf16 h1). conv3 is the walk below on
+// f32 sums: segment 1, h2 . w3, over bf16 slices as K1's, segment 2, the
+// downsample x[:, ::s, ::s] . wd, over code slices into its own sums, and the
+// epilogue above, clip(rint((acc3 a3 + b3) + identity), 0, 127) with identity
+// = accd ad + bd or x ai: the plain version's arithmetic, the two scales
+// applied apart. Its tiles are K2's: 128 rows with the residual, 64 with the
+// downsample (two sets of 64 accumulators), 64 everywhere in the stage kernel
+// (the downsample first, its identity parked, ID_SMEM). Slices are 64 channels
+// deep (a bf16 A [BM][64] or codes [BM][64 bytes], the bf16 weights' two
+// atoms), so a Cin % 64 reads its tail as zeros.
+//
 // What bounds it on an H100: at B = 128 tensor-core throughput (1979 TOP/s
 // int8; conv3 of layer 4's tail: 2 x 6272 x 1024 x 2048 = 26 GOP on 21 MB,
 // 0.013 ms against 0.006 ms of bytes). By count, a 128 x 128 tile's
@@ -55,6 +72,8 @@
 // full rate, as the bf16 tile's do at its full rate.
 
 #pragma once
+
+#include <type_traits>
 
 #include "conv_gemm.cuh"
 
@@ -189,6 +208,82 @@ inline cudaError_t conv3_gemm_s8(ConvGemmS8* g, const void* h2,
   return err;
 }
 
+// K10a's conv1 on its input rows [lo, hi): the codes x [B, H, W, cin] .
+// w1 [cin, width] (bf16) -> the same rows of h1 [B, H, W, width] (bf16), on
+// tiles of `rows` rows
+inline cudaError_t conv1_gemm_t(ConvGemmS8* g, const void* x, const void* w1,
+                                const float* b1, void* h1, int B, int H,
+                                int W, int cin, int width, int lo, int hi,
+                                int rows = PP_BM) {
+  *g = ConvGemmS8{};
+  g->b1 = b1;
+  g->M = B * (hi - lo) * W;
+  g->N = width;
+  g->nk1 = (cin + CV_BK - 1) / CV_BK;
+  g->codes1 = 1;
+  g->per = (hi - lo) * W;
+  g->wo = W;
+  g->lo1 = lo;
+  g->s1 = 1;
+  cudaError_t err =
+      im2col_map(&g->a1, x, B, H, W, cin, lo, hi, 1, rows, 1, 64);
+  if (err == cudaSuccess) err = bf16_map(&g->w1, w1, cin, width, CV_BK);
+  if (err == cudaSuccess)
+    err = band_store_map(g, h1, B, H, W, width, lo, hi - lo);
+  return err;
+}
+
+// K10a's conv3 on its output rows [lo, hi): h2 [B, Ho, Wo, width] . w3
+// [width, cout] (bf16) and, with a downsample (wd [cin, cout] bf16 not
+// null), the codes x [B, H, W, cin] at stride s . wd in their own sums,
+// else the residual codes x (cin == cout, stride 1) -> the same rows of
+// the codes out [B, Ho, Wo, cout], on tiles of `rows` rows (0: K2's,
+// s8_tile_rows)
+inline cudaError_t conv3_gemm_t(ConvGemmS8* g, const void* h2,
+                                const void* w3, const float* a3,
+                                const float* b3, const void* x,
+                                const void* wd, const float* ad,
+                                const float* bd, const float* ai, void* out,
+                                int B, int H, int W, int cin, int width,
+                                int cout, int s, int lo, int hi,
+                                int rows = 0) {
+  const int Ho = (H - 1) / s + 1;
+  const int Wo = (W - 1) / s + 1;
+  const bool ds = wd != nullptr;
+  if (rows == 0) rows = s8_tile_rows(ds ? S8_DOWNSAMPLE : S8_RESIDUAL);
+  *g = ConvGemmS8{};
+  g->scale1 = a3;
+  g->b1 = b3;
+  g->M = B * (hi - lo) * Wo;
+  g->N = cout;
+  g->nk1 = (width + CV_BK - 1) / CV_BK;
+  g->per = (hi - lo) * Wo;
+  g->wo = Wo;
+  g->lo1 = lo;
+  g->s1 = 1;
+  cudaError_t err =
+      im2col_map(&g->a1, h2, B, Ho, Wo, width, lo, hi, 1, rows);
+  if (err == cudaSuccess) err = bf16_map(&g->w1, w3, width, cout, CV_BK);
+  if (err == cudaSuccess && ds) {
+    g->scale2 = ad;
+    g->b2 = bd;
+    g->nk2 = (cin + CV_BK - 1) / CV_BK;
+    g->codes2 = 1;
+    g->lo2 = lo * s;
+    g->s2 = s;
+    err = im2col_map(&g->a2, x, B, H, W, cin, lo * s, (hi - 1) * s + 1, s,
+                     rows, 1, 64);
+    if (err == cudaSuccess) err = bf16_map(&g->w2, wd, cin, cout, CV_BK);
+  } else if (err == cudaSuccess) {
+    g->scale_id = ai;
+    g->lo_res = lo;
+    err = im2col_map(&g->res, x, B, H, W, cout, lo, hi, 1, 64, 1);
+  }
+  if (err == cudaSuccess)
+    err = band_store_map(g, out, B, Ho, Wo, cout, lo, hi - lo, 1);
+  return err;
+}
+
 // ---------------------------------------------------------- device side
 
 // d (+)= A . B on a 64 x 128 x 32 tile by the warpgroup, int8 in, int32
@@ -242,6 +337,11 @@ __device__ __forceinline__ void st_shared_u16(void* p, uint32_t v) {
                : "memory");
 }
 
+// an accumulator as a float: K2's int32 sums (rounded as the plain
+// version converts them), K10a's f32 sums as they are
+__device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
 // the code pair of columns n, n + 1 as one 16-bit word
 __device__ __forceinline__ uint32_t code_pair(float v0, float v1) {
   return static_cast<uint32_t>(static_cast<uint8_t>(clip_code(v0))) |
@@ -283,22 +383,24 @@ struct ConvEpilogueS8 {
   }
 
   // the identity of the pair: vd ad + bd, or x ai
-  __device__ __forceinline__ static float2 identity(int vd0, int vd1,
+  template <class Acc>
+  __device__ __forceinline__ static float2 identity(Acc vd0, Acc vd1,
                                                     const Cols& c,
                                                     uint32_t r) {
     if (MODE == S8_DOWNSAMPLE)
-      return make_float2(madd_rn(__int2float_rn(vd0), c.ad.x, c.bd.x),
-                         madd_rn(__int2float_rn(vd1), c.ad.y, c.bd.y));
+      return make_float2(madd_rn(to_f32(vd0), c.ad.x, c.bd.x),
+                         madd_rn(to_f32(vd1), c.ad.y, c.bd.y));
     return make_float2(
         __fmul_rn(static_cast<float>(static_cast<int8_t>(r & 0xff)), c.ad.x),
         __fmul_rn(static_cast<float>(static_cast<int8_t>(r >> 8)), c.ad.y));
   }
 
-  __device__ __forceinline__ static uint32_t apply(int v0, int v1,
+  template <class Acc>
+  __device__ __forceinline__ static uint32_t apply(Acc v0, Acc v1,
                                                    float2 id,
                                                    const Cols& c) {
-    const float y0 = madd_rn(__int2float_rn(v0), c.a.x, c.b.x);
-    const float y1 = madd_rn(__int2float_rn(v1), c.a.y, c.b.y);
+    const float y0 = madd_rn(to_f32(v0), c.a.x, c.b.x);
+    const float y1 = madd_rn(to_f32(v1), c.a.y, c.b.y);
     if (MODE == S8_CONV1) return code_pair(y0, y1);
     return code_pair(__fadd_rn(y0, id.x), __fadd_rn(y1, id.y));
   }
@@ -306,9 +408,9 @@ struct ConvEpilogueS8 {
 
 // the producer: every slice of the block's tiles of g, in order, from ring
 // slice q: segment 1's, then segment 2's (SEG2_FIRST: segment 2's, then
-// segment 1's). The whole producer warpgroup walks the ring and its thread
-// `issuer` issues the copies (predicated in PTX), so that its warps keep
-// one path up to a block barrier after it.
+// segment 1's). The whole producer warpgroup walks the ring, so that its
+// warps keep one path up to a block barrier after it, and its thread
+// `issuer` issues the copies in a branch of its own, as conv_produce does.
 template <int MODE, int BM = s8_tile_rows(MODE), bool SEG2_FIRST = false>
 __device__ __forceinline__ void conv_produce_s8(const ConvGemmS8& g,
                                                 unsigned char* stages,
@@ -322,16 +424,18 @@ __device__ __forceinline__ void conv_produce_s8(const ConvGemmS8& g,
     for (int kt = 0; kt < w.nk; ++kt, ++i) {
       const int s = i % PP_STAGES;
       mbar_wait(&ring.empty[s], ((i / PP_STAGES) & 1) ^ 1);
-      mbar_expect_if(issuer, &ring.full[s], (BM + PP_BN) * C8_BK);
-      unsigned char* st = stages + s * PP_STAGE_BYTES;
       const bool first = SEG2_FIRST ? kt >= g.nk2 : kt < g.nk1;
       const int k =
           (SEG2_FIRST ? (first ? kt - g.nk2 : kt) : (first ? kt : kt - g.nk1))
           * C8_BK;
-      im2col_load_if(issuer, st, first ? &g.a1 : &g.a2, &ring.full[s], g, k,
-                     m0, first ? g.lo1 : g.lo2, first ? g.s1 : g.s2);
-      tma_load_if(issuer, st + C8_A_BYTES, first ? &g.w1 : &g.w2,
-                  &ring.full[s], k, n0);
+      if (issuer) {
+        mbar_expect(&ring.full[s], (BM + PP_BN) * C8_BK);
+        unsigned char* st = stages + s * PP_STAGE_BYTES;
+        im2col_load_if(true, st, first ? &g.a1 : &g.a2, &ring.full[s], g, k,
+                       m0, first ? g.lo1 : g.lo2, first ? g.s1 : g.s2);
+        tma_load(st + C8_A_BYTES, first ? &g.w1 : &g.w2, &ring.full[s], k,
+                 n0);
+      }
     }
   }
 }
@@ -392,14 +496,40 @@ __device__ __forceinline__ void s8_slice(PingPongRing& ring,
   if (i > first) pingpong_release(ring, (i - 1) % PP_STAGES);
 }
 
+// a slice of conv3's segment 1 (h2: int8 codes in K2, bf16 in K10a) and
+// of its segment 2 (the downsample over the block input's int8 codes: K2's
+// int8 products, or K10a's codes converted to bf16)
+template <bool T, int HALVES, class Acc>
+__device__ __forceinline__ void seg1_slice(PingPongRing& ring,
+                                           const unsigned char* stages,
+                                           int i, int first,
+                                           Acc (&d)[HALVES][64], bool acc) {
+  if constexpr (T)
+    bf16_slice(ring, stages, i, first, d, acc);
+  else
+    s8_slice(ring, stages, i, first, d, acc);
+}
+
+template <bool T, int HALVES, class Acc>
+__device__ __forceinline__ void seg2_slice(PingPongRing& ring,
+                                           unsigned char* stages,
+                                           int i, int first,
+                                           Acc (&d)[HALVES][64], bool acc) {
+  if constexpr (T)
+    codes_slice(ring, stages, i, first, d, acc);
+  else
+    s8_slice(ring, stages, i, first, d, acc);
+}
+
 // warpgroup wg's tiles j = wg, wg + CONSUMERS, ... of g from ring slice
 // q: the products of each (with two consumers, after the other warpgroup
 // has issued those of tile j - 1), then its epilogue (with two, while the
 // other's products run). `parity`: the phase parity of the warpgroup's
 // residual barrier, one phase a residual tile, carried across the GEMMs of
-// a launch.
+// a launch. T: K10a's conv3 (f32 sums of bf16 products, 64-deep slices of
+// conv_gemm.cuh's kind), else K2's.
 template <int MODE, int CONSUMERS = 2, int BM = s8_tile_rows(MODE),
-          bool ID_SMEM = false>
+          bool ID_SMEM = false, bool T = false>
 __device__ __forceinline__ void conv_consume_s8(const ConvGemmS8& g,
                                                 unsigned char* stages,
                                                 PingPongRing& ring, int wg,
@@ -410,8 +540,11 @@ __device__ __forceinline__ void conv_consume_s8(const ConvGemmS8& g,
                              CONSUMERS == 1),
                 "the identity's scratch is the one consumer's, beside "
                 "64-row A slices");
+  static_assert(!T || MODE != S8_CONV1,
+                "K10a's conv1 is conv_gemm.cuh's bf16 GEMM");
   constexpr int HALVES = BM / 64;
   using Epi = ConvEpilogueS8<MODE, ID_SMEM>;
+  using Acc = std::conditional_t<T, float, int>;
   const TileWalk<BM> w(g);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -421,8 +554,8 @@ __device__ __forceinline__ void conv_consume_s8(const ConvGemmS8& g,
   // this lane's rows of a 64-row half, and its column in each n8 tile
   const int row = 16 * (warp & 3) + (lane >> 2);
   const int col = 2 * (lane & 3);
-  int acc[HALVES][64];
-  int accd[1][64];  // the downsample's sums (S8_DOWNSAMPLE only)
+  Acc acc[HALVES][64];
+  Acc accd[1][64];  // the downsample's sums (S8_DOWNSAMPLE only)
   for (int j = wg; j < w.tiles; j += CONSUMERS) {
     if (CONSUMERS == 2 && j > 0) named_sync(1 + wg, 2 * PP_WG);
     const int m0 = w.row(g, j);
@@ -443,7 +576,7 @@ __device__ __forceinline__ void conv_consume_s8(const ConvGemmS8& g,
       // the downsample's sums first, their identity (ad, bd applied) into
       // the scratch, then conv3's sums in the same registers
       for (int kt = 0; kt < g.nk2; ++kt)
-        s8_slice(ring, stages, first + kt, first, acc, kt > 0);
+        seg2_slice<T>(ring, stages, first + kt, first, acc, kt > 0);
       wg_wait<0>();
 #pragma unroll
       for (int t = 0; t < 16; ++t) {
@@ -453,18 +586,18 @@ __device__ __forceinline__ void conv_consume_s8(const ConvGemmS8& g,
         for (int e = 0; e < 2; ++e) {
           const int v = 4 * t + 2 * e;
           st_shared_f2(id_scratch(stages, row + 8 * e, t, lane),
-                       madd_rn(__int2float_rn(acc[0][v]), ad.x, bd.x),
-                       madd_rn(__int2float_rn(acc[0][v + 1]), ad.y, bd.y));
+                       madd_rn(to_f32(acc[0][v]), ad.x, bd.x),
+                       madd_rn(to_f32(acc[0][v + 1]), ad.y, bd.y));
         }
       }
       for (int kt = 0; kt < g.nk1; ++kt)
-        s8_slice(ring, stages, first + g.nk2 + kt, first, acc, kt > 0);
+        seg1_slice<T>(ring, stages, first + g.nk2 + kt, first, acc, kt > 0);
     } else {
       for (int kt = 0; kt < g.nk1; ++kt)
-        s8_slice(ring, stages, first + kt, first, acc, kt > 0);
+        seg1_slice<T>(ring, stages, first + kt, first, acc, kt > 0);
       if constexpr (MODE == S8_DOWNSAMPLE) {
         for (int kt = g.nk1; kt < w.nk; ++kt)
-          s8_slice(ring, stages, first + kt, first, accd, kt > g.nk1);
+          seg2_slice<T>(ring, stages, first + kt, first, accd, kt > g.nk1);
       }
     }
     // the other warpgroup may issue its next tile's products
@@ -546,6 +679,60 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
     tensormap_acquire_if(issuer && MODE == S8_DOWNSAMPLE, &g.w2);
     conv_produce_s8<MODE>(g, stages, ring, 0, issuer);
   }
+}
+
+// K10a's three GEMMs in their own launches (MODE: S8_CONV1, the codes in
+// and bf16 h1 out on conv_gemm.cuh's tile; S8_RESIDUAL, S8_DOWNSAMPLE,
+// conv3 with the residual codes or the downsample's own sums), the
+// schedule and map acquisition of conv_gemm_s8
+template <int MODE>
+__global__ void __launch_bounds__(PP_THREADS, 1)
+    conv_gemm_t(const __grid_constant__ ConvGemmS8 g) {
+  extern __shared__ __align__(128) unsigned char conv_gemm_t_smem[];
+  __shared__ PingPongRing ring;
+  unsigned char* stages = align_atoms(conv_gemm_t_smem);
+  if (threadIdx.x == 0) conv_ring_init(ring);
+  __syncthreads();
+  constexpr int BM = s8_tile_rows(MODE);
+  const int wg = warpgroup();
+  if (wg < 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const bool issuer = threadIdx.x % PP_WG == 0;
+    tensormap_acquire_if(issuer, &g.out);
+    tensormap_acquire_if(issuer && MODE == S8_RESIDUAL, &g.res);
+    if constexpr (MODE == S8_CONV1) {
+      conv_consume<ConvEpilogue<false, false>, 2, true>(
+          g, reinterpret_cast<__nv_bfloat16*>(stages), ring, wg, 0);
+    } else {
+      int parity = 0;
+      conv_consume_s8<MODE, 2, BM, false, true>(g, stages, ring, wg, 0,
+                                                parity);
+    }
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const bool issuer = threadIdx.x == 2 * PP_WG;
+    tensormap_acquire_if(issuer, &g.a1);
+    tensormap_acquire_if(issuer, &g.w1);
+    tensormap_acquire_if(issuer && MODE == S8_DOWNSAMPLE, &g.a2);
+    tensormap_acquire_if(issuer && MODE == S8_DOWNSAMPLE, &g.w2);
+    conv_produce<BM>(g, stages, ring, 0, issuer);
+  }
+}
+
+template <int MODE>
+cudaError_t launch_conv_gemm_t(const ConvGemmS8& g, cudaStream_t stream) {
+  if (g.M < 1 || g.N % PP_BN || g.nk1 < 1 ||
+      (MODE == S8_DOWNSAMPLE) != (g.nk2 > 0))
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = conv_grid(g, &grid, s8_tile_rows(MODE));
+  if (err != cudaSuccess) return err;
+  const auto kernel = conv_gemm_t<MODE>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PP_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, PP_THREADS, PP_SMEM, stream>>>(g);
+  return cudaGetLastError();
 }
 
 template <int MODE>

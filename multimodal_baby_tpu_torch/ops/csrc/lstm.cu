@@ -28,7 +28,7 @@
 // blocks, one per SM, plus a barrier and an L2 read of h (8 MB over all
 // blocks) per step; the 25 or 64 steps are dependent.
 
-#include "gemm.cuh"
+#include "common.cuh"
 #include "grid.cuh"
 
 namespace {

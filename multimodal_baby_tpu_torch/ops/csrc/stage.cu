@@ -36,24 +36,27 @@
 // The grid is as many blocks as fit on the card at once (the cooperative
 // launch guarantees they are resident together, which the barrier needs).
 //
-// The bf16 and int8 bodies (stage_tile_kernel, one template on the
-// element type: K3a's and K3b's bf16 stages, K3a's int8 stages and the
-// banded int8 stage) run their GEMM phases on the TMA-fed wgmma tiles of
-// K1 and K2 (conv_gemm.cuh, conv_gemm_s8.cuh) with one consumer warpgroup
-// (not two in turns) and a producer warpgroup, one mbarrier ring across
-// the phases (its slice counter runs on), and the grouped 3x3 on both
-// warpgroups, each a worker of K1's or K2's halo tiles. 256 threads, one block an SM. The TMA maps of every
-// band, block and GEMM (the rows each operand reads, in im2col mode, and
-// the output band's store map), with the grouped 3x3's arguments, are
-// built on the host once per launch and copied to device memory beside
-// the launch (mmb_stage's `plan`). Its values are K1's and K2's chains'
-// bit for bit. The transport body (stage_kernel) runs gemm.cuh's bf16
-// tiles, K10a's, at 256 threads.
+// The three bodies (stage_tile_kernel, one template on the step type:
+// StageStep for K3a's and K3b's bf16 stages, StageStepS8 for K3a's int8
+// stages and the banded int8 stage, StageStepT for the transport stages)
+// run their GEMM phases on the TMA-fed wgmma tiles of K1, K2 and K10a
+// (conv_gemm.cuh, conv_gemm_s8.cuh) with one consumer warpgroup (not two
+// in turns) and a producer warpgroup, one mbarrier ring across the phases
+// (its slice counter runs on), and the grouped 3x3 on both warpgroups,
+// each a worker of K1's or K2's halo tiles. 256 threads, one block an SM.
+// The TMA maps of every band, block and GEMM (the rows each operand reads,
+// in im2col mode, and the output band's store map), with the grouped 3x3's
+// arguments, are built on the host once per launch and copied to device
+// memory beside the launch (mmb_stage's `plan`). Its values are K1's,
+// K2's and K10a's chains' bit for bit (the transport body on 64-row tiles
+// where K10a's conv1 and residual conv3 take 128: a pixel's sums are the
+// same whatever tile computes it).
 //
 // What bounds it on an H100: as K1/K2, tensor-core throughput on the 1x1
 // GEMMs (layer 1's bf16 band by device memory); the launch saves the
 // per-block launch gaps and keeps the smaller stages' intermediates in L2.
 
+#include <algorithm>
 #include <type_traits>
 #include <vector>
 
@@ -63,8 +66,6 @@
 
 namespace {
 
-constexpr int STAGE_THREADS = 256;
-constexpr int STAGE_CBM = 256;  // grouped-conv tile: one pixel per thread
 constexpr int MAX_STAGE_BLOCKS = 6;
 
 struct StageBlock {
@@ -117,115 +118,11 @@ __host__ __device__ inline BandRows band_rows(const StageArgs& p, int band,
   }
 }
 
-// The three modes: bf16 (K1's chain) and int8 (K2's), both
-// stage_tile_kernel, and int8 transport (K10a's: int8 codes between the
-// blocks, K1's bf16 chain inside each; stage_kernel).
+// The three modes: bf16 (K1's chain), int8 (K2's) and int8 transport
+// (K10a's: int8 codes between the blocks, K1's bf16 chain inside each).
 constexpr int BF16 = 0;
 constexpr int S8 = 1;
 constexpr int TRANSPORT = 2;
-
-// The transport body: gemm.cuh's bf16 tiles at two blocks per SM (the
-// downsample keeps its sums in shared memory, not registers).
-template <int CG>
-__global__ void __launch_bounds__(STAGE_THREADS, 2)
-    stage_kernel(const StageArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n = p.n_blocks;
-  const StageBlock& last = p.blk[n - 1];
-  const int n_bands = ((last.H - 1) / last.stride + 1) / p.band;
-  __nv_bfloat16* h1 = static_cast<__nv_bfloat16*>(p.h1);
-  __nv_bfloat16* h2 = static_cast<__nv_bfloat16*>(p.h2);
-
-  for (int band = 0; band < n_bands; ++band) {
-    for (int j = 0; j < n; ++j) {
-      const StageBlock& b = p.blk[j];
-      const BandRows r = band_rows(p, band, j);
-      const int8_t* in = static_cast<const int8_t*>(
-          j == 0 ? p.x : ((j - 1) & 1 ? p.t1 : p.t0));
-      int8_t* out =
-          static_cast<int8_t*>(j == n - 1 ? p.out : (j & 1 ? p.t1 : p.t0));
-      // the GEMMs' A operand: the int8 codes ride in a bf16 pointer
-      const __nv_bfloat16* in_a = reinterpret_cast<const __nv_bfloat16*>(in);
-      const int Ho = (b.H - 1) / b.stride + 1;
-      const int Wo = (b.W - 1) / b.stride + 1;
-      const RowMap rin{b.H, b.W, r.in_lo, r.in_hi - r.in_lo};
-      const RowMap rout{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
-
-      {  // conv1 on the input rows
-        GemmArgs g{};
-        g.a1 = in_a;
-        g.b1 = static_cast<const __nv_bfloat16*>(b.w1);
-        g.k1 = b.cin;
-        g.rows = rin;
-        g.M = p.B * rin.ext * b.W;
-        g.N = p.width;
-        const int nt = p.width / BN;
-        const int tiles = nt * ((g.M + BM - 1) / BM);
-        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          const BiasResidualRelu e{b.b1, nullptr, nullptr, h1, p.width};
-          gemm_bf16_tile<true>(g, e, (t / nt) * BM, (t % nt) * BN, smem);
-        }
-      }
-      grid_sync(p.bar);
-
-      {  // the grouped 3x3 on the output rows
-        ConvArgs c{};
-        c.h = h1;
-        c.w = static_cast<const __nv_bfloat16*>(b.w2);
-        c.bias = b.b2;
-        c.out = h2;
-        c.H = b.H;
-        c.W = b.W;
-        c.C = p.width;
-        c.stride = b.stride;
-        c.rows = rout;
-        c.M = p.B * rout.ext * Wo;
-        const int nt = p.width / GC_BN;
-        const int tiles = nt * ((c.M + STAGE_CBM - 1) / STAGE_CBM);
-        for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-          gconv_bf16_tile<CG, STAGE_CBM>(c, (t / nt) * STAGE_CBM,
-                                         (t % nt) * GC_BN, smem);
-      }
-      grid_sync(p.bar);
-
-      {  // conv3 + identity on the output rows
-        GemmArgs g{};
-        g.a1 = h2;
-        g.b1 = static_cast<const __nv_bfloat16*>(b.w3);
-        g.k1 = p.width;
-        g.rows = rout;
-        g.M = p.B * rout.ext * Wo;
-        g.N = p.cout;
-        if (b.wd != nullptr) {
-          g.a2 = in_a;
-          g.b2 = static_cast<const __nv_bfloat16*>(b.wd);
-          g.k2 = b.cin;
-          g.H = b.H;
-          g.W = b.W;
-          g.stride = b.stride;
-        }
-        const int nt = p.cout / BN;
-        const int tiles = nt * ((g.M + BM - 1) / BM);
-        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          const int m0 = (t / nt) * BM;
-          const int n0 = (t % nt) * BN;
-          if (b.wd != nullptr)
-            gemm_bf16_tile<false, true, true>(
-                g,
-                TransportOut{b.a3, b.b3, b.ad, b.bd, nullptr, nullptr, out,
-                             p.cout},
-                m0, n0, smem);
-          else
-            gemm_bf16_tile(g,
-                           TransportOut{b.a3, b.b3, nullptr, nullptr, b.ai,
-                                        in, out, p.cout},
-                           m0, n0, smem);
-        }
-      }
-      grid_sync(p.bar);
-    }
-  }
-}
 
 // the grid barrier between the tile bodies' phases, from each role's own
 // code path (the unaligned block barrier): TMA copies and stores (the async
@@ -246,7 +143,7 @@ constexpr int STAGE_TILE_THREADS = 2 * PP_WG;
 static_assert(2 * GH_SMEM <= PP_SMEM,
               "both warpgroups' grouped-3x3 workers fit the ring's memory");
 
-// One block of one band of the bf16 or int8 body, built on the host and
+// One block of one band of a body, built on the host and
 // read by the kernel from device memory (no argument is indexed at run
 // time in parameter space): conv1's and conv3's TMA maps, walks, biases
 // and scales, the grouped 3x3's arguments (and, bf16, its halo tiles).
@@ -262,6 +159,12 @@ struct StageStepS8 {
   HaloTiles halo;
 };
 
+struct StageStepT {  // transport: int8 codes in and out, bf16 h1 and h2
+  ConvGemmS8 conv1, conv3;
+  ConvArgs gconv;
+  HaloTiles halo;
+};
+
 template <class Step>
 struct StageTileArgs {
   const Step* steps;  // band-major, then block
@@ -269,7 +172,7 @@ struct StageTileArgs {
   unsigned* bar;  // two zeroed words: arrivals, generation
 };
 
-// A warpgroup's place in the walk of the bf16 or int8 body.
+// A warpgroup's place in the walk of a body.
 struct StageWalk {
   unsigned char* smem;  // the ring's stages (aligned)
   PingPongRing* ring;
@@ -295,7 +198,7 @@ __device__ __forceinline__ void stage_gemm(const ConvGemm& g, StageWalk& s) {
     tensormap_acquire_if(s.issuer, &g.w1);
     tensormap_acquire_if(s.issuer && g.nk2 > 0, &g.a2);
     tensormap_acquire_if(s.issuer && g.nk2 > 0, &g.w2);
-    conv_produce(g, stages, *s.ring, s.q, s.issuer);
+    conv_produce(g, s.smem, *s.ring, s.q, s.issuer);
   }
   s.q += ConvWalk(g).slices();
 }
@@ -320,6 +223,33 @@ __device__ __forceinline__ void stage_gemm(const ConvGemmS8& g,
     tensormap_acquire_if(s.issuer && MODE == S8_DOWNSAMPLE, &g.a2);
     tensormap_acquire_if(s.issuer && MODE == S8_DOWNSAMPLE, &g.w2);
     conv_produce_s8<MODE, BM, ID_SMEM>(g, s.smem, *s.ring, s.q, s.issuer);
+  }
+  s.q += TileWalk<BM>(g).slices();
+}
+
+// one GEMM of the transport body on 64-row tiles (MODE: conv1 on the
+// codes with K1's epilogue, or conv3 with the residual codes or the
+// downsample's identity through shared memory, as the int8 body's)
+template <bool CONSUMER, int MODE>
+__device__ __forceinline__ void stage_gemm_t(const ConvGemmS8& g,
+                                             StageWalk& s) {
+  constexpr int BM = S8_STAGE_ROWS;
+  constexpr bool ID_SMEM = MODE == S8_DOWNSAMPLE;
+  if constexpr (CONSUMER) {
+    tensormap_acquire_if(s.issuer, &g.out);
+    tensormap_acquire_if(s.issuer && MODE == S8_RESIDUAL, &g.res);
+    if constexpr (MODE == S8_CONV1)
+      conv_consume<ConvEpilogue<false, false>, 1, true, BM>(
+          g, reinterpret_cast<__nv_bfloat16*>(s.smem), *s.ring, s.wg, s.q);
+    else
+      conv_consume_s8<MODE, 1, BM, ID_SMEM, true>(g, s.smem, *s.ring, s.wg,
+                                                  s.q, s.parity);
+  } else {
+    tensormap_acquire_if(s.issuer, &g.a1);
+    tensormap_acquire_if(s.issuer, &g.w1);
+    tensormap_acquire_if(s.issuer && MODE == S8_DOWNSAMPLE, &g.a2);
+    tensormap_acquire_if(s.issuer && MODE == S8_DOWNSAMPLE, &g.w2);
+    conv_produce<BM, ID_SMEM>(g, s.smem, *s.ring, s.q, s.issuer);
   }
   s.q += TileWalk<BM>(g).slices();
 }
@@ -373,7 +303,31 @@ __device__ __forceinline__ void stage_conv3(const StageStepS8& st,
     stage_gemm<CONSUMER, S8_RESIDUAL>(st.conv3, s);
 }
 
-// One warpgroup's walk of the bf16 or int8 body (CONSUMER: warpgroup 0,
+// conv1, the grouped 3x3 (K1's halo tiles) and conv3 of a transport step
+template <bool CONSUMER>
+__device__ __forceinline__ void stage_conv1(const StageStepT& st,
+                                            StageWalk& s) {
+  stage_gemm_t<CONSUMER, S8_CONV1>(st.conv1, s);
+}
+
+template <int CG>
+__device__ __forceinline__ void stage_gconv(const StageStepT& st,
+                                            StageWalk& s) {
+  gconv_halo_walk<CG>(st.gconv, st.halo, 2 * blockIdx.x + s.wg,
+                      2 * gridDim.x, s.smem + s.wg * GH_SMEM,
+                      threadIdx.x % GH_THREADS, STAGE_GC_BAR + s.wg);
+}
+
+template <bool CONSUMER>
+__device__ __forceinline__ void stage_conv3(const StageStepT& st,
+                                            StageWalk& s) {
+  if (st.conv3.nk2 > 0)
+    stage_gemm_t<CONSUMER, S8_DOWNSAMPLE>(st.conv3, s);
+  else
+    stage_gemm_t<CONSUMER, S8_RESIDUAL>(st.conv3, s);
+}
+
+// One warpgroup's walk of a body (CONSUMER: warpgroup 0,
 // else the producer, warpgroup 1, whose first thread issues the copies):
 // per step, conv1 and conv3 on the 1x1 tile with the one consumer, between
 // them the grouped 3x3 with both warpgroups as its workers, each in its
@@ -394,7 +348,7 @@ __device__ __forceinline__ void stage_tile_walk(const StageTileArgs<Step>& p,
   }
 }
 
-// The bf16 and int8 body: 256 threads (a consumer and a producer
+// The bodies: 256 threads (a consumer and a producer
 // warpgroup), one block an SM, 255 registers a thread: one consumer, not
 // K1's two with setmaxnreg 232 / 40, which spill here because the plan's
 // values come from device memory and hold registers that K1's kernel
@@ -474,8 +428,39 @@ inline cudaError_t stage_step(StageStepS8* st, const StageArgs& p,
   return cudaSuccess;
 }
 
-// the plan of the bf16 or int8 body (one Step per band and block, built
-// here and copied to `plan` on the stream) and its launch
+// one band's block of the transport body: K10a's GEMMs on 64-row tiles,
+// K1's grouped 3x3
+inline cudaError_t stage_step(StageStepT* st, const StageArgs& p,
+                              const StageBlock& b, const BandRows& r,
+                              const void* in, void* out) {
+  cudaError_t err =
+      conv1_gemm_t(&st->conv1, in, b.w1, b.b1, p.h1, p.B, b.H, b.W, b.cin,
+                   p.width, r.in_lo, r.in_hi, S8_STAGE_ROWS);
+  if (err == cudaSuccess)
+    err = conv3_gemm_t(&st->conv3, p.h2, b.w3, b.a3, b.b3, in, b.wd, b.ad,
+                       b.bd, b.ai, out, p.B, b.H, b.W, b.cin, p.width,
+                       p.cout, b.stride, r.out_lo, r.out_hi, S8_STAGE_ROWS);
+  if (err != cudaSuccess) return err;
+  const int Ho = (b.H - 1) / b.stride + 1;
+  const int Wo = (b.W - 1) / b.stride + 1;
+  ConvArgs& c = st->gconv;
+  c = ConvArgs{};
+  c.h = static_cast<const __nv_bfloat16*>(p.h1);
+  c.w = static_cast<const __nv_bfloat16*>(b.w2);
+  c.bias = b.b2;
+  c.out = static_cast<__nv_bfloat16*>(p.h2);
+  c.H = b.H;
+  c.W = b.W;
+  c.C = p.width;
+  c.stride = b.stride;
+  c.rows = RowMap{Ho, Wo, r.out_lo, r.out_hi - r.out_lo};
+  c.M = p.B * c.rows.ext * Wo;
+  st->halo = halo_tiles(p.B, b.W, p.width, b.stride, c.rows.ext);
+  return cudaSuccess;
+}
+
+// the plan of a body (one Step per band and block, built here and copied
+// to `plan` on the stream) and its launch
 template <class Step, int CG>
 cudaError_t launch_stage_tile(const StageArgs& p, void* plan,
                               cudaStream_t stream) {
@@ -506,17 +491,12 @@ cudaError_t launch_stage_tile(const StageArgs& p, void* plan,
 template <int MODE, int CG>
 cudaError_t launch_stage(const StageArgs& p, void* plan,
                          cudaStream_t stream) {
-  if constexpr (MODE == BF16) {
+  if constexpr (MODE == BF16)
     return launch_stage_tile<StageStep, CG>(p, plan, stream);
-  } else if constexpr (MODE == S8) {
+  else if constexpr (MODE == S8)
     return launch_stage_tile<StageStepS8, CG>(p, plan, stream);
-  } else {
-    constexpr int smem = GEMM_HELD_SMEM > gconv_bf16_smem<STAGE_CBM>()
-                             ? GEMM_HELD_SMEM
-                             : gconv_bf16_smem<STAGE_CBM>();
-    return launch_persistent(stage_kernel<CG>, p, STAGE_THREADS, smem,
-                             stream);
-  }
+  else
+    return launch_stage_tile<StageStepT, CG>(p, plan, stream);
 }
 
 template <int MODE>
@@ -545,10 +525,10 @@ cudaError_t launch_stage_cg(const StageArgs& p, void* plan, int cg,
 // block's input cin0 and the rest's cout, the constraints of
 // mmb_bottleneck_*, and band dividing the stage's output rows. `ptrs` holds
 // 13 pointers per block, in the order of StageBlock (null where absent);
-// `strides` one stride per block. bf16 and int8: `plan` is device memory
-// for mmb_stage_plan_bytes(n_blocks, bands) bytes (64-byte aligned; null in
-// the transport mode), which takes the launch's plan: the TMA maps and
-// arguments of every band and block. Returns the first CUDA error, or 0.
+// `strides` one stride per block. `plan` is device memory for
+// mmb_stage_plan_bytes(n_blocks, bands) bytes (64-byte aligned), which
+// takes the launch's plan: the TMA maps and arguments of every band and
+// block. Returns the first CUDA error, or 0.
 extern "C" int mmb_stage(int mode, int n_blocks, const void* const* ptrs,
                          const int* strides, const void* x, void* h1,
                          void* h2, void* t0, void* t1, void* out, void* bar,
@@ -593,13 +573,12 @@ extern "C" int mmb_stage(int mode, int n_blocks, const void* const* ptrs,
   }
 }
 
-// The bytes of a bf16 or int8 stage's plan for n_blocks blocks and `bands`
-// bands: one StageStep or StageStepS8 (TMA maps and arguments) per band and
-// block.
+// The bytes of a stage's plan for n_blocks blocks and `bands` bands: one
+// StageStep, StageStepS8 or StageStepT (TMA maps and arguments) per band
+// and block.
 extern "C" long long mmb_stage_plan_bytes(int n_blocks, int bands) {
-  constexpr size_t step = sizeof(StageStep) > sizeof(StageStepS8)
-                              ? sizeof(StageStep)
-                              : sizeof(StageStepS8);
+  constexpr size_t step =
+      std::max({sizeof(StageStep), sizeof(StageStepS8), sizeof(StageStepT)});
   return static_cast<long long>(n_blocks) * bands *
          static_cast<long long>(step);
 }

@@ -18,7 +18,7 @@
 
 #include <math.h>
 
-#include "gemm.cuh"  // pack8, unpack8
+#include "common.cuh"  // pack8, unpack8
 
 namespace {
 

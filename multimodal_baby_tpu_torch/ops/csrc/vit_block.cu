@@ -25,7 +25,7 @@
 //   7 fc2 Dense, ResidualBias (+ y)    h   -> out
 // The Dense phases run vit_gemm.cuh's tile walk (K5's tile, one mbarrier
 // ring whose slice count runs on from phase to phase; its sums are
-// gemm.cuh's bits, which K6 runs) with warpgroup 0 also issuing the TMA
+// the wmma tile's bits, which K6 runs) with warpgroup 0 also issuing the TMA
 // copies, so that the block needs no producer warp and every thread may
 // hold 255 registers (the attention core wants them: a 288- or
 // 384-thread block with wgmma gets 168). The LayerNorm rows and

@@ -9,8 +9,8 @@
 //
 // Bits. Every output's sum runs over K in k16 steps in order, each step's
 // 16 products summed by the tensor core and added to the f32 accumulator,
-// as gemm.cuh's wmma tile (gemm_bf16_tile) sums them: the outputs equal
-// that tile's bit for bit (as K10b's wgmma equals K1's wmma), and K6's
+// as the port's earlier wmma tile summed them: the outputs equal that
+// tile's bit for bit (as K10b's wgmma equals K1's), and K6's
 // ping-pong tile (vit_pingpong.cuh) sums in the same order, which keeps K7
 // equal to K5 then K6.
 //

@@ -8,7 +8,7 @@
 // untouched.
 //
 // Bits. Every output's sum runs over K in k16 steps in order into one f32
-// accumulator, as vit_gemm.cuh's tile and gemm.cuh's wmma tile sum them,
+// accumulator, as vit_gemm.cuh's tile and the earlier wmma tile sum them,
 // and the epilogue's arithmetic is the functors': K6's outputs equal K7's
 // fc1 and fc2 phases bit for bit, so K7 still equals K5 then K6.
 //

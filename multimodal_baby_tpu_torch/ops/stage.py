@@ -10,10 +10,11 @@ runs it with one band, ``fused_stage_banded`` with bands of N rows. It takes
 bf16 blocks (``ops.bottleneck.fold_block_params``), int8 blocks
 (``ops.quant.fold_block_params_q``) or int8-transport blocks
 (``ops.quant.fold_block_params_t``: the TPU kernels' transport mode, K10a),
-NHWC at the public functions. Its bf16 and int8 bodies run K1's and K2's
-1x1 tiles (``csrc/conv_gemm.cuh``, ``csrc/conv_gemm_s8.cuh``) with the TMA
-maps of every band, block and GEMM built by the kernel's host code into a
-device buffer the wrapper allocates (``mmb_stage_plan_bytes``).
+NHWC at the public functions. Its bf16, int8 and transport bodies run K1's,
+K2's and K10a's 1x1 tiles (``csrc/conv_gemm.cuh``,
+``csrc/conv_gemm_s8.cuh``) and K1's or K2's grouped 3x3 with the TMA maps of
+every band, block and GEMM built by the kernel's host code into a device
+buffer the wrapper allocates (``mmb_stage_plan_bytes``).
 
 On a CUDA tensor the wrappers launch the kernel and raise on anything it
 cannot take; on a CPU tensor they run ``stage_reference``.
@@ -31,7 +32,7 @@ import torch
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     _Q_ORDER, _check_args, _out_size, _ptrs, block_dims, block_mode,
-    block_reference, stage_geometry_s8)
+    block_reference, stage_geometry_s8, stage_geometry_t)
 
 __all__ = ["stage_reference", "fused_stage", "fused_stage_banded",
            "MAX_STAGE_BLOCKS"]
@@ -69,19 +70,20 @@ def _check_stage(x: torch.Tensor, fws: Sequence[Folded],
     ho = _out_size(H, strides[0])
     need(band >= 1 and ho % band == 0,
          f"band {band} must divide the output rows {ho}")
-    # the bf16 and int8 bodies read a band's rows through TMA im2col maps,
-    # whose box corners (relative to the first and last rows) lie in
-    # [-128, 127]
+    # the bodies read a band's rows through TMA im2col maps, whose box
+    # corners (relative to the first and last rows) lie in [-128, 127]
     mode = block_mode(x, fws[0])
-    need(mode == "t" or band == ho or H <= 128,
+    need(band == ho or H <= 128,
          f"a banded {mode} stage needs H <= 128; got H={H}")
     # each block as the per-block kernels take it, at its input's shape
     shape = tuple(x.shape)
     for fw, s in zip(fws, strides):
         _check_args(x, fw, s, shape)
         shape = (B, _out_size(shape[1], s), _out_size(shape[2], s), cout)
-    if mode == "q":  # the int8 tile refuses what it cannot serve
-        stage_geometry_s8(B, H, W, x.shape[3], width, cout, strides, band)
+    # the int8 and transport tiles refuse what they cannot serve
+    if mode != "bf16":
+        geometry = stage_geometry_s8 if mode == "q" else stage_geometry_t
+        geometry(B, H, W, x.shape[3], width, cout, strides, band)
 
 
 _MODES = {"bf16": 0, "q": 1, "t": 2}  # mmb_stage's mode argument
@@ -105,10 +107,8 @@ def _launch(x: torch.Tensor, fws: Sequence[Folded], strides: Sequence[int],
     t0, t1, out = (empty(x.dtype, B, Ho, Wo, cout) for _ in range(3))
     bar = torch.zeros(2, dtype=torch.int32, device=x.device)
     mode = block_mode(x, fws[0])
-    plan = None  # the TMA maps and arguments of every band and block
-    if mode != "t":
-        plan = empty(torch.uint8, lib.mmb_stage_plan_bytes(
-            len(fws), Ho // band))
+    # the TMA maps and arguments of every band and block
+    plan = empty(torch.uint8, lib.mmb_stage_plan_bytes(len(fws), Ho // band))
     ptrs: List[int | None] = []
     for fw in fws:
         ptrs += _ptrs(fw, _Q_ORDER)
@@ -119,9 +119,8 @@ def _launch(x: torch.Tensor, fws: Sequence[Folded], strides: Sequence[int],
         code = lib.mmb_stage(
             _MODES[mode], len(fws), c_ptrs, c_strides, x.data_ptr(),
             h1.data_ptr(), h2.data_ptr(), t0.data_ptr(), t1.data_ptr(),
-            out.data_ptr(), bar.data_ptr(),
-            None if plan is None else plan.data_ptr(), B, H, W, cin, width,
-            cout, band, stream)
+            out.data_ptr(), bar.data_ptr(), plan.data_ptr(), B, H, W, cin,
+            width, cout, band, stream)
     _build.check(lib, code, "fused_stage")
     return out
 

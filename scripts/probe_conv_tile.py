@@ -22,19 +22,30 @@ skips some phases' work (``STAGE_PROBES``: only the grid barriers and the
 plan remain, or everything but the grouped 3x3), so that the stage's time
 splits into its 1x1 GEMMs, its grouped 3x3 and its barriers.
 
+``--transport`` does the same for K10a (``mmb_bottleneck_t_part``) at the 8
+block shapes: conv1 on the int8 codes (K1's tile, the codes as its A
+operand, rewritten in shared memory as bf16), the grouped 3x3 (K1's
+launch) and conv3
+(the downsample's own sums over the codes, K2's int8 epilogue), each beside
+``torch.matmul`` on the same GEMM in bf16 (TFLOP/s) and beside K1's launch
+at the same block shape on bf16 inputs. ``--epilogue`` times K11 at every
+conv3 shape of a forward beside ``torch.matmul`` and K1's conv3 launch.
+
 ``--check`` first holds each launch alone against its plain version at
 small shapes (B = 2 and 3, 7 -> 4 and 8 -> 4 px, stride 1 and 2, with and
-without the downsample; int8 also at Cin = 64) and prints, where they
-differ, which GEMM rows do: the pattern of the rows names a fault of the
-TMA's im2col traversal or the store's clipping. Needs an NVIDIA GPU and
-the CUDA toolkit:
+without the downsample; int8 also at Cin = 64, transport at Cin = 64 and
+96, K11 at M = 1, 7, 200) and prints, where they differ, which GEMM rows
+do: the pattern of the rows names a fault of the TMA's im2col traversal or
+the store's clipping. Needs an NVIDIA GPU and the CUDA toolkit:
 
-    python3 scripts/probe_conv_tile.py [--check] [--int8]
+    python3 scripts/probe_conv_tile.py [--check] [--int8 | --transport |
+                                        --epilogue]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import shutil
 import subprocess
@@ -49,6 +60,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from multimodal_baby_tpu_torch.ops import _build  # noqa: E402
 from multimodal_baby_tpu_torch.ops import bottleneck as TB  # noqa: E402
+from multimodal_baby_tpu_torch.ops import conv_epilogue as TE  # noqa: E402
 from multimodal_baby_tpu_torch.ops import quant as TQ  # noqa: E402
 from multimodal_baby_tpu_torch.ops import stage as TS  # noqa: E402
 
@@ -390,12 +402,202 @@ def time_shapes_s8():
         del x, fws
 
 
+# ------------------------------------------------------------- transport
+
+T_CHECKS = [  # (B, H, cin, width, cout, stride, downsample)
+    (2, 8, 64, 128, 256, 1, True),
+    (3, 7, 256, 128, 256, 1, False),
+    (2, 8, 256, 256, 512, 2, True),
+    (3, 7, 512, 512, 1024, 2, True),
+    (2, 5, 96, 128, 256, 1, True),    # a K tail: 96 codes, two slices
+    (2, 4, 1024, 1024, 2048, 2, True),
+]
+
+
+def run_part_t(part, x, fw, stride, h1, h2, out):
+    lib = _build.library()
+    B, H, W, cin = x.shape
+    width, cout = TB.block_dims(fw)
+    code = lib.mmb_bottleneck_t_part(
+        part, x.data_ptr(), *TB._ptrs(fw, TB._T_ORDER), h1.data_ptr(),
+        h2.data_ptr(), out.data_ptr(), B, H, W, cin, width, cout, stride,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, f"K10a {PARTS[part]}")
+
+
+def buffers_t(x, fw, stride):
+    h1, h2, out = buffers(x, fw, stride)
+    return h1, h2, out.to(torch.int8)
+
+
+def plain_parts_t(x, fw, s):
+    """K10a's plain version taken apart: h1, h2, and out from that h2."""
+    bf16 = torch.bfloat16
+    h1 = TB._conv1(x, fw, bf16)
+    h2 = TB._grouped(h1, fw, s, bf16)
+    B, Ho, Wo, width = h2.shape
+    y = (h2.reshape(-1, width).float() @ fw["w3"].float()) * fw["a3"] \
+        + fw["b3"]
+    xs = x[:, ::s, ::s].reshape(-1, x.shape[3]).float()
+    if "wd" in fw:
+        identity = (xs @ fw["wd"].float()) * fw["ad"] + fw["bd"]
+    else:
+        identity = xs * fw["ai"]
+    out = torch.round(y + identity).clamp(0, 127).to(torch.int8)
+    return h1, h2, out.reshape(B, Ho, Wo, -1)
+
+
+def codes_within(what, got, want):
+    """int8 codes at most 1 apart, fewer than 1e-3 differing (phase 2f's
+    gate); prints the count and the rows that differ by more."""
+    diff = (got.int() - want.int()).abs().flatten(0, -2)
+    bad = (diff > 1).any(1).nonzero().flatten()
+    frac = float((diff > 0).float().mean())
+    print(f"  {what}: {int((diff > 0).sum())} codes differ (max "
+          f"{int(diff.max())}); {bad.numel()} of {diff.shape[0]} rows off "
+          f"by more than 1" + (f", first {bad[:12].tolist()}"
+                               if bad.numel() else ""), flush=True)
+    return bad.numel() == 0 and frac < 1e-3
+
+
+def check_t():
+    gen = torch.Generator().manual_seed(15)
+    ok = True
+    for B, H, cin, width, cout, s, ds in T_CHECKS:
+        fw = chip_smoke.random_t_block(gen, cin, width, cout, ds)
+        x = chip_smoke.random_codes(gen, B, H, cin)
+        h1, h2, out = buffers_t(x, fw, s)
+        print(f"transport B={B} H={H} cin={cin} width={width} cout={cout} "
+              f"stride={s} downsample={ds}", flush=True)
+        want1, want2, want3 = plain_parts_t(x, fw, s)
+        run_part_t(1, x, fw, s, h1, h2, out)
+        torch.cuda.synchronize()
+        ok &= report_rows("conv1 (h1)", h1, want1)
+        h1.copy_(want1)
+        run_part_t(2, x, fw, s, h1, h2, out)
+        torch.cuda.synchronize()
+        ok &= report_rows("grouped 3x3 (h2)", h2, want2)
+        h2.copy_(want2)
+        run_part_t(3, x, fw, s, h1, h2, out)
+        torch.cuda.synchronize()
+        ok &= codes_within("conv3 (out)", out, want3)
+    for M, cin, cout in ((1, 64, 128), (7, 96, 256), (200, 128, 256)):
+        args = epilogue_args(gen, M, cin, cout)
+        ok &= report_rows(f"K11 M={M} Cin={cin} Cout={cout}",
+                          TE.conv1x1_bn_residual_relu(*args),
+                          TE.epilogue_reference(*args))
+    return ok
+
+
+def in_turns(fns, iters=20):
+    """Each function's time (ms), in turns: the list, then reversed."""
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(chip_smoke.time_ms(fns[k], iters))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def time_shapes_t():
+    gen = torch.Generator().manual_seed(16)
+    B = chip_smoke.BATCH
+    t_plan = {name: count for name, *_, count in chip_smoke.T_BLOCKS_224}
+    total = collections.Counter()
+    for name, H, cin, width, cout, s, ds, _ in chip_smoke.BLOCKS_224:
+        fw = chip_smoke.random_t_block(gen, cin, width, cout, ds)
+        x = chip_smoke.random_codes(gen, B, H, cin)
+        xb, fwb = chip_smoke.random_block(gen, H, cin, width, cout, s, ds, B)
+        h1, h2, out = buffers_t(x, fw, s)
+        k1h1, k1h2, k1out = buffers(xb, fwb, s)
+        for part in (1, 2, 3):
+            run_part_t(part, x, fw, s, h1, h2, out)
+        Ho = TB._out_size(H, s)
+        M1, M3 = B * H * H, B * Ho * Ho
+        a1 = x.reshape(M1, cin).to(torch.bfloat16)
+        a3, w3 = h2.reshape(M3, width), fw["w3"]
+        if ds:  # the downsample as a second K segment, gathered ahead
+            a3 = torch.cat([a3, x[:, ::s, ::s].reshape(M3, cin).to(
+                torch.bfloat16)], 1)
+            w3 = torch.cat([w3, fw["wd"]], 0)
+        flops = {1: 2 * M1 * cin * width, 2: 2 * M3 * 9 * width // 32 * width,
+                 3: 2 * M3 * (width + (cin if ds else 0)) * cout}
+        res = {}
+        for part, what in PARTS.items():
+            fns = {"K10a": lambda p=part: run_part_t(p, x, fw, s, h1, h2,
+                                                     out),
+                   "K1": lambda p=part: run_part(p, xb, fwb, s, k1h1, k1h2,
+                                                 k1out)}
+            if part != 2:
+                a, w = (a1, fw["w1"]) if part == 1 else (a3, w3)
+                fns["matmul"] = lambda a=a, w=w: torch.matmul(a, w)
+            for k, v in in_turns(fns).items():
+                res[f"{what} {k}"] = v
+        parts = []
+        for k, v in res.items():
+            part = next(p for p, w in PARTS.items() if k.startswith(w))
+            parts.append(f"{k} {v:.4f} ms ({flops[part] / v / 1e9:.0f} "
+                         f"TFLOP/s)")
+        print(f"K10a {name}: " + ", ".join(parts), flush=True)
+        if name in t_plan:
+            for k, v in res.items():
+                total[k] += t_plan[name] * v
+        del x, fw, xb, fwb, h1, h2, out, k1h1, k1h2, k1out, a1, a3, w3
+    print("K10a's blocks of the \"t\" plan per B=128 forward (layer2.0, 3 x "
+          "layer2.1, layer3.0): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in total.items()), flush=True)
+
+
+def epilogue_args(gen, M, cin, cout):
+    """K11's inputs on the card (chip_smoke.py phase 2f's distributions)."""
+    return ((torch.randn(M, cin, generator=gen).clamp_min(0)).to(
+                "cuda", torch.bfloat16),
+            (torch.randn(cin, cout, generator=gen) / cin ** 0.5).to(
+                "cuda", torch.bfloat16),
+            (0.5 + torch.rand(cout, generator=gen)).cuda(),
+            (0.1 * torch.randn(cout, generator=gen)).cuda(),
+            torch.randn(M, cout, generator=gen).to("cuda", torch.bfloat16))
+
+
+def time_epilogue():
+    gen = torch.Generator().manual_seed(17)
+    B = chip_smoke.BATCH
+    total = collections.Counter()
+    for name, H, cin, width, cout, s, ds, count in chip_smoke.BLOCKS_224:
+        Ho = TB._out_size(H, s)
+        M = B * Ho * Ho
+        args = epilogue_args(gen, M, width, cout)
+        xb, fwb = chip_smoke.random_block(gen, H, cin, width, cout, s, ds, B)
+        k1h1, k1h2, k1out = buffers(xb, fwb, s)
+        x, w = args[:2]
+        res = in_turns({
+            "K11": lambda: TE.conv1x1_bn_residual_relu(*args),
+            "matmul": lambda: torch.matmul(x, w),
+            "K1 conv3": lambda: run_part(3, xb, fwb, s, k1h1, k1h2, k1out)})
+        flops = 2 * M * width * cout
+        k1_flops = 2 * M * (width + (cin if ds else 0)) * cout
+        rates = {k: (k1_flops if k == "K1 conv3" else flops) / v / 1e9
+                 for k, v in res.items()}
+        print(f"K11 {name} conv3 M={M} Cin={width} Cout={cout}: " + ", ".join(
+            f"{k} {v:.4f} ms ({rates[k]:.0f} TFLOP/s)" for k, v in res.items())
+            + (" (K1's conv3 with the downsample's segment)" if ds else ""),
+            flush=True)
+        for k, v in res.items():
+            total[k] += count * v
+        del args, xb, fwb, k1h1, k1h2, k1out, x, w
+    print("K11 over the 16 conv3 of a B=128 forward: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in total.items()), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true",
                     help="hold each launch against its plain version first")
     ap.add_argument("--int8", action="store_true",
                     help="K2 and the int8 stage instead of K1")
+    ap.add_argument("--transport", action="store_true",
+                    help="K10a's launches and its probe builds instead")
+    ap.add_argument("--epilogue", action="store_true",
+                    help="K11 at every conv3 shape instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_conv_tile: no CUDA device", file=sys.stderr)
@@ -403,6 +605,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(chip_smoke.card_line(), flush=True)
+    if args.transport or args.epilogue:
+        if args.check and not check_t():
+            print("probe_conv_tile: a K10a or K11 launch disagrees with its "
+                  "plain version", file=sys.stderr)
+            return 1
+        if args.transport:
+            time_shapes_t()
+        if args.epilogue:
+            time_epilogue()
+        return 0
     if args.int8:
         if args.check and not check_s8():
             print("probe_conv_tile: an int8 launch disagrees with its plain "

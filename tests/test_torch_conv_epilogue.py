@@ -13,6 +13,17 @@ over M in other orders). The block: ``BottleneckX(fused_epilogue=True)``
 against ``BottleneckX()`` and against the flax block with the same flag and
 weights; K11 itself is held against this plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+K11's order on K1's 1x1 tile (csrc/conv_gemm.cuh, ``ConvEpilogueMul``) is
+emulated in plain PyTorch: in-order k16 partial sums of the bf16 x and w
+into one f32 accumulator (the K tail of the 64-deep slices as zeros), then
+* mul, + add, + the residual, each rounded once in f32, the ReLU and one
+rounding to bf16; held against JAX's ``_pallas_epilogue`` (its Pallas
+kernel in interpret mode where M has a power-of-two divisor of at least 8,
+else its XLA path) and ``epilogue_reference`` with phase 2f's gate (max
+error <= 1e-2 of the largest output, cosine >= 0.9999), at M = 1, an M
+below 8 and an M that is no multiple of 128; and its launch geometry
+(``epilogue_geometry``) at those row counts.
 """
 
 import numpy as np
@@ -25,14 +36,28 @@ import jax.numpy as jnp
 from multimodal_baby_tpu.models.vision_resnext import (
     BottleneckX as JBottleneckX)
 from multimodal_baby_tpu.ops.conv_epilogue import (
-    _xla_epilogue, conv1x1_bn_residual_relu as j_epilogue)
+    _pallas_epilogue, _xla_epilogue, conv1x1_bn_residual_relu as j_epilogue)
 from multimodal_baby_tpu_torch.models.vision_resnext import (
     BottleneckX, ResNeXt50)
 from multimodal_baby_tpu_torch.ops import conv_epilogue as TE
 
+from test_torch_conv_tile import gemm_k16
+
 ATOL = 1e-5          # tests/test_ops.py:105
 GRAD_TOL = 1e-5
 BF16_STEP = 2.0 ** -7
+REL_TOL = 1e-2       # chip_smoke.py phase 2f's gate for K11
+COS_TOL = 0.9999
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU work on one intra-op thread: beside the other test
+    workers, torch's default thread pool oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def inputs(M, cin, cout, seed=0):
@@ -106,6 +131,54 @@ def test_kernel_function_backward_is_the_plain_autograd(monkeypatch):
                     torch.autograd.grad(want, [t for t in plain
                                                if t.requires_grad], g)):
         assert torch.equal(a, b)
+
+
+def kernel_order_epilogue(x, w, mul, add, residual):
+    """K11 on bf16 rows in the tile's arithmetic order."""
+    acc = gemm_k16([(x, w)])
+    y = torch.relu(acc * mul + add + residual.float())
+    return y.to(torch.bfloat16)
+
+
+# M = 1, below 8 (JAX's XLA path), 200 (a Pallas tile of 8, and no multiple
+# of the kernel's 128-row tiles), 640; Cin 96 reads a zero tail
+@pytest.mark.parametrize("M,cin,cout", [(1, 64, 128), (7, 96, 256),
+                                        (200, 128, 256), (640, 256, 512)])
+def test_kernel_order_matches_pallas_and_plain(M, cin, cout):
+    args = list(inputs(M, cin, cout, seed=M + cin))
+    for i in (0, 1, 4):
+        args[i] = args[i].astype(jnp.bfloat16)
+    t_args = [torch.from_numpy(np.asarray(a, np.float32)) for a in args]
+    for i in (0, 1, 4):
+        t_args[i] = t_args[i].to(torch.bfloat16)
+    got = kernel_order_epilogue(*t_args).double().flatten()
+    pallas = np.asarray(_pallas_epilogue(*map(jnp.asarray, args)),
+                        np.float32)
+    for want in (torch.from_numpy(pallas),
+                 TE.epilogue_reference(*t_args).float()):
+        want = want.double().flatten()
+        rel = float((got - want).abs().max() / want.abs().max())
+        cos = float(got @ want / (got.norm() * want.norm()))
+        assert rel <= REL_TOL and cos >= COS_TOL, (rel, cos)
+
+
+@pytest.mark.parametrize("M", [1, 7, 200, 128 * 132 + 5, 401408])
+def test_geometry_takes_any_row_count(M):
+    """One row band of 128 per started 128 rows (the last ragged: its rows
+    past M read as zeros and are not stored), at most one block an SM."""
+    d = TE.epilogue_geometry(M, 128, 256)
+    assert d.bands == -(-M // 128) and d.columns == 2
+    assert d.tiles == 2 * d.bands and d.grid == min(132, d.tiles)
+    assert d.slices == 2
+    assert TE.epilogue_geometry(M, 96, 2048, blocks=114).slices == 2
+
+
+@pytest.mark.parametrize("M,cin,cout", [(0, 64, 128), (8, 48, 128),
+                                        (8, 0, 128), (8, 64, 200),
+                                        (8, 64, 0)])
+def test_geometry_refuses_what_the_kernel_cannot_take(M, cin, cout):
+    with pytest.raises(ValueError):
+        TE.epilogue_geometry(M, cin, cout)
 
 
 def test_cpu_wrapper_counts_nothing():

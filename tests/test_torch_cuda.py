@@ -8,8 +8,9 @@ form, K9 at small, odd and CVCL shapes, K4 forward and backward at
 B = 16, 72 and 128, K10a's block, stage and banded stage at
 tests/test_quant_trunk.py's transport shapes, K10b at
 tests/test_hwbc_kernels.py:74's and every ResNeXt-50 block shape and
-against K1 bit for bit, K11 forward
-and backward at odd M), K7 against K5 then K6 bit for bit, K1 on its 1x1
+against K1 bit for bit, K11 forward and backward at odd M and under one
+row tile, M = 1 and 7), K10a's grouped 3x3 launch against K1's bit for
+bit, K7 against K5 then K6 bit for bit, K1 on its 1x1
 tile at every ResNeXt-50 block shape (B = 2) and at ragged row counts,
 the bf16 stage kernel equal bit for bit across band counts and to its
 blocks' K1 launches, K2 on the int8 tile at every int8 block shape of the
@@ -48,9 +49,9 @@ from multimodal_baby_tpu_torch.ops.attention import (
     block_attention_reference, fused_attention, fused_attention_pairs,
     fused_block_attention, fused_qkv_attention_pairs,
     qkv_attention_pairs_reference)
-from multimodal_baby_tpu_torch.ops import infonce
+from multimodal_baby_tpu_torch.ops import _build, infonce
 from multimodal_baby_tpu_torch.ops.bottleneck import (
-    bottleneck_reference, fused_bottleneck, fused_bottleneck_tiles,
+    _grouped, bottleneck_reference, fused_bottleneck, fused_bottleneck_tiles,
     tiles_reference)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
     conv1x1_bn_residual_relu, epilogue_reference)
@@ -685,6 +686,59 @@ def test_conv_epilogue_kernel_matches_plain_version(cuda, M, cin, cout):
                           torch.autograd.grad(want, args, gout),
                           ("x", "w", "mul", "add", "residual")):
         assert torch.equal(a, b), name  # both the plain version's autograd
+
+
+@pytest.mark.parametrize("stride,H,width", [
+    (1, 8, 128), (2, 8, 256), (2, 7, 512), (1, 14, 512), (2, 14, 1024)])
+def test_transport_grouped_conv_is_k1s(cuda, stride, H, width):
+    """K10a's grouped 3x3 launch (``mmb_bottleneck_t_part`` 2) gives K1's
+    h2 (``mmb_bottleneck_bf16_part`` 2) bit for bit on the same bf16 h1:
+    both run bottleneck.cuh's halo tiles; and it is within the bf16 gate of
+    the plain grouped convolution."""
+    g = torch.Generator().manual_seed(H + width + stride)
+    B, Ho = 4, (H - 1) // stride + 1
+    h1 = torch.randn(B, H, H, width, generator=g).clamp_min(0).to(
+        cuda, torch.bfloat16)
+    fw = {"w2": (torch.randn(3, 3, width // 32, width, generator=g)
+                 * 0.05).to(cuda, torch.bfloat16),
+          "b2": (torch.randn(width, generator=g) * 0.1).to(cuda)}
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    w2, b2 = fw["w2"].data_ptr(), fw["b2"].data_ptr()
+    k10a = torch.full((B, Ho, Ho, width), 1.0, device=cuda,
+                      dtype=torch.bfloat16)
+    k1 = torch.full_like(k10a, -1.0)
+    dims = (B, H, H, width, width, 4 * width, stride, stream)
+    _build.check(lib, lib.mmb_bottleneck_t_part(
+        2, None, None, None, w2, b2, None, None, None, None, None, None,
+        None, h1.data_ptr(), k10a.data_ptr(), None, *dims), "K10a 3x3")
+    _build.check(lib, lib.mmb_bottleneck_bf16_part(
+        2, None, None, None, w2, b2, None, None, None, None, h1.data_ptr(),
+        k1.data_ptr(), None, *dims), "K1 3x3")
+    torch.cuda.synchronize()
+    assert torch.equal(k10a, k1)
+    assert_close_bf16(k10a, _grouped(h1, fw, stride, torch.bfloat16))
+
+
+@pytest.mark.parametrize("M,cin,cout", [(1, 32, 128), (1, 256, 512),
+                                        (7, 96, 256), (7, 1024, 2048)])
+def test_conv_epilogue_kernel_at_few_rows(cuda, M, cin, cout):
+    """K11 under one 128-row tile (M = 1 and 7: the TMA reads the rows past
+    M as zeros and clips their stores), also with a Cin whose last 64-deep
+    slice reads a tail of zeros (96)."""
+    g = torch.Generator().manual_seed(M + cin + cout)
+    args = ((torch.randn(M, cin, generator=g)).to(cuda, torch.bfloat16),
+            (torch.randn(cin, cout, generator=g) / cin ** 0.5).to(
+                cuda, torch.bfloat16),
+            (0.5 + torch.rand(cout, generator=g)).to(cuda),
+            (0.1 * torch.randn(cout, generator=g)).to(cuda),
+            torch.randn(M, cout, generator=g).to(cuda, torch.bfloat16))
+    before = conv1x1_bn_residual_relu.launches
+    got = conv1x1_bn_residual_relu(*args)
+    torch.cuda.synchronize()
+    assert conv1x1_bn_residual_relu.launches == before + 1
+    assert got.shape == (M, cout) and got.dtype == torch.bfloat16
+    assert_close_bf16(got, epilogue_reference(*args))
 
 
 @pytest.mark.parametrize("bad", ["transport_keys", "tiles_int8",

@@ -144,16 +144,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    weights.
 2e. K9 (``lstm_fused``) against the plain scan at (B, L, H) = (128, 25,
    512) and (128, 64, 512) with random lengths (max absolute error <= 1e-4
-   on out, h_last and c_last), and K4's forward and backward
-   (``fused_infonce_forward``, ``fused_infonce_backward``) against their
-   plain versions at B = 128 and 1024, E = 512, on unit-norm rows at
-   T = 0.07 (loss relative error <= 1e-5, LSEs absolute 1e-5, accuracies
-   exact, entropies relative 1e-4, gradients atol 1e-4 and rtol 1e-3 of
-   autograd through the plain loss; a repeated backward gives the same
-   bits). Each timed beside its plain version (f32, TF32 off), its library
-   call (cuDNN nn.LSTM over the packed embeddings, which also projects the
-   inputs; torch.matmul with two F.cross_entropy calls, forward and
-   autograd backward) and its f32 bound (67 TFLOP/s).
+   on out, h_last and c_last; a repeated call gives the same bits), and
+   K4's forward and backward (``fused_infonce_forward``,
+   ``fused_infonce_backward``) against their plain versions at B = 128 and
+   1024, E = 512, on unit-norm rows at T = 0.07 (loss relative error
+   <= 1e-5, LSEs absolute 1e-5, accuracies exact, entropies relative 1e-4,
+   gradients atol 1e-4 and rtol 1e-3 of autograd through the plain loss; a
+   repeated forward and backward give the same bits). Each timed beside
+   its plain version (f32, TF32 off) and its library call (cuDNN nn.LSTM
+   over the packed embeddings, which also projects the inputs: that GEMM is
+   timed alone and taken out of the row's library time; torch.matmul with
+   two F.cross_entropy calls, forward and autograd backward), every event
+   time printed beside the profiler's device time, and its bounds: f32 at
+   67 TFLOP/s (the row's) and, beside it, three TF32 tensor-core products
+   at 495 TFLOP/s, as the kernels run them.
 7. The LSTM text encoders on phase 5's calibrated published trunk, at
    B = 128, vocab 2350, E = H = 512, augment on. (a) The LSTM contrastive
    recipe (dropout_i 0.5, lambda_mm 1), 3 train steps and 1 eval step from
@@ -1024,17 +1028,50 @@ def phase_vit_more_kernels():
 # ---------------------------------------------------------------- phase 2e
 
 PEAK_FLOPS_F32 = 67e12  # H100 SXM f32 outside the tensor cores, at 700 W
+PEAK_FLOPS_TF32 = 495e12  # H100 SXM dense TF32 tensor cores, at 700 W
 LSTM_H = 512            # CVCL's hidden width (= the embedding width)
 LM_LEN = 64             # the JAX package's length rule: K9 from 64 steps
 INFONCE_E = 512
 INFONCE_BATCHES = (BATCH, 1024)  # the slice's batch; MAX_FUSED_BATCH
 
 
+def profiled_ms(fn, calls: int = 20):
+    """(device ms a call, {kernel name: device ms a call}): the profiler's
+    device events (kernels, fills, copies; not an autograd Function's
+    annotation) over ``calls`` calls (after one call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = collections.Counter()
+    for e in prof.events():  # the device's own events: kernels, fills, copies
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            kernels[e.name] += e.time_range.elapsed_us() / 1e3 / calls
+    return sum(kernels.values()), kernels
+
+
+def timed(what, kernel, plain, library, iters):
+    """time_in_turns, each time printed beside the profiler's device time;
+    returns the event times (kernel, plain, library)."""
+    times = time_in_turns(kernel, plain, library, iters)
+    dev = [profiled_ms(fn)[0] for fn in (kernel, plain, library)]
+    log(f"  {what}: event / profiler device ms a call: kernel "
+        f"{times[0]:.4f} / {dev[0]:.4f}, plain {times[1]:.4f} / "
+        f"{dev[1]:.4f}, library {times[2]:.4f} / {dev[2]:.4f}")
+    return times
+
+
 def lstm_case(gen, B, L, H):
     """K9's inputs at (B, L, H) with the lengths make_batch gives (1 to L),
-    the time-major input projection of N(0, 1) embeddings, and cuDNN's
-    nn.LSTM with the same weights over the packed embeddings (the library
-    call, which also does the input projection)."""
+    the time-major input projection of N(0, 1) embeddings; cuDNN's nn.LSTM
+    with the same weights over the packed embeddings (the library call,
+    which also does the input projection) and that projection alone (one
+    GEMM over the packed tokens, as nn.LSTM runs it)."""
     k = 1.0 / math.sqrt(H)
 
     def u(*shape):
@@ -1057,7 +1094,9 @@ def lstm_case(gen, B, L, H):
     x_proj = (emb @ w_ih.cuda().T + (b_ih + b_hh).cuda()).transpose(0, 1)
     mask = (torch.arange(L)[:, None] < lens[None, :]).float().cuda()
     args = (x_proj.contiguous(), mask, w_hh.T.contiguous().cuda(), h0, c0)
-    return args, (lambda: lib(packed, (h0[None], c0[None]))), lens
+    w_t, bias = w_ih.T.contiguous().cuda(), (b_ih + b_hh).cuda()
+    return (args, (lambda: lib(packed, (h0[None], c0[None]))), lens,
+            (lambda: torch.addmm(bias, packed.data, w_t)))
 
 
 def lstm_cost(L, B, H, lens):
@@ -1070,11 +1109,23 @@ def lstm_cost(L, B, H, lens):
     return flops, nbytes
 
 
+def bounds(what, flops, nbytes, kms):
+    """The f32-rate bound (the row's) and, beside it, the bound of the
+    same work as three TF32 tensor-core products, which the kernels run."""
+    b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_F32)
+    t_ms, t_by = bound(3 * flops, nbytes, PEAK_FLOPS_TF32)
+    log(f"  {what}: bound {b_ms:.4f} ms ({b_by}, f32 at 67 TFLOP/s); "
+        f"3xTF32 tensor-core bound {t_ms:.4f} ms ({t_by}, 3 x {flops / 1e6:.1f}"
+        f" MFLOP at 495 TFLOP/s); kernel {flops / kms / 1e9:.2f} f32-"
+        f"equivalent TFLOP/s")
+    return b_ms, b_by
+
+
 def phase_lstm_kernel():
     gen = torch.Generator().manual_seed(7)
     res = {"max_abs_err": 0.0}
     for L in (MAX_LEN_UTTERANCE, LM_LEN):
-        args, library, lens = lstm_case(gen, BATCH, L, LSTM_H)
+        args, library, lens, gemm = lstm_case(gen, BATCH, L, LSTM_H)
         with torch.no_grad():
             got = lstm_fused(*args)
             want = scan_reference(*args)
@@ -1087,24 +1138,30 @@ def phase_lstm_kernel():
                     raise AssertionError(f"K9 L={L} {name}: max abs err "
                                          f"{err:.3g} > 1e-4")
                 res["max_abs_err"] = max(res["max_abs_err"], err)
+            again = lstm_fused(*args)
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                raise AssertionError(f"K9 L={L}: a repeated call gave other "
+                                     f"bits")
             out_lib, _ = library()
             unpacked, _ = torch.nn.utils.rnn.pad_packed_sequence(
                 out_lib, batch_first=True, total_length=L)
             lib_err = float((unpacked.transpose(0, 1) - want[0]).abs().max())
             log(f"  cuDNN nn.LSTM against the plain scan: max abs err "
                 f"{lib_err:.3g}")
-            kms, pms, lms = time_in_turns(lambda: lstm_fused(*args),
-                                          lambda: scan_reference(*args),
-                                          library, 20)
+            what = f"K9 B={BATCH} L={L} H={LSTM_H} ({int(lens.sum())} valid " \
+                f"steps)"
+            kms, pms, lms = timed(what, lambda: lstm_fused(*args),
+                                  lambda: scan_reference(*args), library, 20)
+            gms = time_ms(gemm, 20)
+            gdev = profiled_ms(gemm)[0]
+        log(f"  {what}: nn.LSTM's input projection alone (addmm over the "
+            f"packed tokens) {gms:.4f} ms (device {gdev:.4f}); nn.LSTM "
+            f"without it {lms - gms:.4f} ms (the row's library time)")
         flops, nbytes = lstm_cost(L, BATCH, LSTM_H, lens)
-        b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_F32)
-        log(f"  K9 B={BATCH} L={L} H={LSTM_H} ({int(lens.sum())} valid "
-            f"steps): kernel {kms:.3f} ms, plain scan {pms:.3f} ms, cuDNN "
-            f"nn.LSTM {lms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); kernel "
-            f"{flops / kms / 1e9:.2f} TFLOP/s")
+        b_ms, b_by = bounds(what, flops, nbytes, kms)
         if L == MAX_LEN_UTTERANCE:  # the slice's window
-            res.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=b_ms,
-                       bound_by=b_by)
+            res.update(ms=kms, plain_ms=pms, library_ms=lms - gms,
+                       bound_ms=b_ms, bound_by=b_by)
     return res
 
 
@@ -1163,6 +1220,11 @@ def phase_infonce_kernels():
             if not torch.allclose(a, w, atol=1e-4, rtol=1e-3):
                 raise AssertionError(f"K4 backward B={B} {name}: outside "
                                      f"atol 1e-4, rtol 1e-3")
+        again = fused_infonce_forward(img, txt, nlt)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(again, (loss, lse_i, lse_t, metrics))):
+            raise AssertionError(f"K4 forward B={B}: a repeated call gave "
+                                 f"other bits")
         again = fused_infonce_backward(img, txt, nlt, lse_i, lse_t, g)
         if not all(torch.equal(a, b) for a, b in zip(again, grads)):
             raise AssertionError(f"K4 backward B={B}: a repeated call gave "
@@ -1174,10 +1236,12 @@ def phase_infonce_kernels():
 
         lib_fwd, lib_bwd = infonce_library(img, txt, nlt)
         with torch.no_grad():
-            fwd = time_in_turns(
+            fwd = timed(
+                f"K4 fwd B={B} E={E}",
                 lambda: fused_infonce_forward(img, txt, nlt),
                 lambda: infonce_reference(img, txt, nlt), lib_fwd, 20)
-            bwd = time_in_turns(
+            bwd = timed(
+                f"K4 bwd B={B} E={E}",
                 lambda: fused_infonce_backward(img, txt, nlt, lse_i, lse_t,
                                                g),
                 lambda: infonce_backward_reference(img, txt, nlt, lse_i,
@@ -1187,10 +1251,9 @@ def phase_infonce_kernels():
                  "bwd": (6 * B * B * E, 2 * act + 4 * (2 * B + 3))}
         for (key, (flops, nbytes)), (kms, pms, lms) in zip(costs.items(),
                                                            (fwd, bwd)):
-            b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_F32)
             log(f"  K4 {key} B={B} E={E}: kernel {kms:.4f} ms, plain "
-                f"{pms:.4f} ms, library {lms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}); kernel {flops / kms / 1e9:.2f} TFLOP/s")
+                f"{pms:.4f} ms, library {lms:.4f} ms")
+            b_ms, b_by = bounds(f"K4 {key} B={B} E={E}", flops, nbytes, kms)
             if B == BATCH:  # the slice's batch
                 out[key].update(ms=kms, plain_ms=pms, library_ms=lms,
                                 bound_ms=b_ms, bound_by=b_by)

@@ -11,6 +11,7 @@ source is rebuilt and an unchanged one is loaded as it is.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +26,8 @@ SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "vit_attention.cu",
            "conv_epilogue.cu", "bottleneck_fused.cu")
 HEADERS = ("common.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
            "attn_mma.cuh", "wgmma.cuh", "vit_gemm.cuh",
-           "vit_pingpong.cuh", "conv_gemm.cuh", "conv_gemm_s8.cuh")
+           "vit_pingpong.cuh", "conv_gemm.cuh", "conv_gemm_s8.cuh",
+           "mma_tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,6 +35,8 @@ LINK_FLAGS = ("-shared",)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# (kernel family, device index, raw stream handle) -> int32 words
+_sync: dict = {}
 # nvcc's output (ptxas: registers, shared memory, spills), kept beside the
 # library and read back when the library is reused
 build_log = ""
@@ -156,6 +160,37 @@ def library() -> ctypes.CDLL:
             lib.mmb_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def on_device(index: int):
+    """A context that makes CUDA device ``index`` the current one, or
+    nothing where it already is: the kernels launch on the current device
+    and its current stream."""
+    import torch
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def sync_words(kind: str, words: int, stream: int | None = None):
+    """(stream, buffer): the raw handle of the current device's current
+    stream (or ``stream``, a handle of that device) and ``words`` int32
+    words of synchronisation state for the kernels of ``kind`` ("lstm",
+    "infonce") on it: zero when made (one fill, at the first call on a
+    stream and when a call needs more words), kept, and left as they were
+    found by every kernel that uses them (K9's flags, K4's barrier counts).
+    One buffer per kind and stream, so two calls on two streams at once
+    never share one, and calls on one stream run one after another."""
+    import torch
+    device = torch.cuda.current_device()
+    if stream is None:
+        stream = torch._C._cuda_getCurrentRawStream(device)
+    key = (kind, device, stream)
+    buf = _sync.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 64), dtype=torch.int32, device="cuda")
+        _sync[key] = buf
+    return stream, buf
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -1,5 +1,6 @@
-// The masked LSTM recurrence (K9) on Hopper (sm_90a), f32 throughout (FMA,
-// no TF32): for t = 0 .. L-1, with gates in the order i, f, g, o,
+// The masked LSTM recurrence (K9) on Hopper (sm_90a): f32 in and out, the
+// products on the tensor cores as three TF32 products (mma_tf32.cuh). For
+// t = 0 .. L-1, with gates in the order i, f, g, o,
 //
 //   pre   = x_proj[t] + h . W_hh                      [B, 4H]
 //   c_new = sig(f) c + sig(i) tanh(g);  h_new = sig(o) tanh(c_new)
@@ -10,208 +11,318 @@
 // h, c and the whole W_hh in VMEM across a sequential grid over t.
 //
 // W_hh is [H, 4H] = 4 MB at H = 512 and one SM has 227 KB, so the step's
-// product is spread over the card: one persistent cooperative launch
-// (grid.cuh) per sequence, with a grid barrier between time steps. Each
-// block owns 16 hidden units: their four gate columns of W_hh stay in
-// shared memory for the whole sequence ([k][unit][gate], 64 H bytes), and
-// for each tile of 32 batch rows it copies h_{t-1} [32, H] from L2
-// (cp.async.cg: other blocks wrote it before the barrier), computes the
-// 32 x 64 gate sums, and applies the gates. Two halves of 128 threads split
-// the K = H sum and add their halves through shared memory; a thread owns
-// 4 batch rows (b, b + 8, b + 16, b + 24) x the 4 gates of one unit, so each
-// 16-byte load of h and of W_hh feeds 16 FMAs. h alternates between two
-// [B, H] buffers; c lives in c_last, each entry read and written by the
-// thread that owns it.
+// product is spread over the card in one persistent cooperative launch per
+// sequence. Block (unit tile u, row group g) owns 16 hidden units: their four
+// gate columns of W_hh stay in shared memory for the whole sequence, laid
+// out as the A fragments of m16n8k8 (one 16-byte load a fragment), and for
+// each tile of 32 batch rows of its group it takes h_{t-1} [32, H] from L2
+// into shared memory (cp.async.cg in four K chunks, the products starting on
+// the first), computes the 64 x 32 gate sums (16 warps: warp w takes gate
+// w % 4, all 32 rows (four n8 tiles: W's fragment read and split once for
+// four mma) and the k steps ks = w / 4 mod 4; four warps a sub-partition
+// and four accumulators a warp hide the mma's latency; each W and h element
+// split into TF32 hi and lo as it is read; the four phases' sums s added as
+// (s0 + s1) + (s2 + s3) in shared memory), and each of the 512 threads
+// applies the gates to one (row, unit) pair, c carried in c_last by the
+// thread that owns it and loaded, with x_proj and the mask, before the
+// step's wait. Single-pass TF32 would put out 6e-5 from the f32 scan at
+// CVCL's shape; the split keeps it near 1e-7.
 //
-// What bounds it on an H100: the FMA rate and the step latency. At CVCL's
-// B = 128, H = 512 a step is 268 MFLOP (4 us at 67 TFLOP/s) spread over 128
-// blocks, one per SM, plus a barrier and an L2 read of h (8 MB over all
-// blocks) per step; the 25 or 64 steps are dependent.
+// The rows of an LSTM do not mix, so a row tile needs only the 16-unit
+// slices of its own row tile from the H / 16 blocks that compute them: no
+// grid barrier. Each (row tile, unit tile) has a flag, set to t + 1 (a
+// release store, gpu scope, after a __syncthreads) once its h_t is stored,
+// before the thread that sets it loads the next step's inputs; a step waits,
+// one thread per unit tile, for its row tile's flags to reach t
+// (ld.acquire), after loading its own x_proj and mask. The flags live in a
+// buffer the caller keeps per stream (zeroed once); the last block to finish
+// sets them back to zero, so a call needs no fill launch and two calls on
+// two streams use two buffers. The launch's set-up (attribute, occupancy,
+// SM count) is queried once per device (grid.cuh::LaunchCache).
+//
+// What bounds it on an H100: the step latency. At CVCL's B = 128, H = 512 a
+// step is 268 MFLOP of f32 products (805 MFLOP as three TF32 products,
+// about 1.6 us at the 495 TFLOP/s TF32 peak) spread over 128 blocks, plus
+// the flags' round trip and an L2 read of h (8 MB over all blocks) per
+// step; the 25 or 64 steps are dependent.
 
 #include "common.cuh"
 #include "grid.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int LSTM_THREADS = 256;  // two halves of the K sum
-constexpr int LSTM_HALF = LSTM_THREADS / 2;
-constexpr int UNITS = 16;          // hidden units per block
-constexpr int ROWS = 32;           // batch rows per tile
+constexpr int K9_THREADS = 512;  // one (row, unit) pair a thread
+constexpr int UNITS = 16;  // hidden units per block: 64 gate columns
+constexpr int ROWS = 32;   // batch rows per tile
+constexpr int CHUNKS = 4;  // the h copy's K chunks
+constexpr int MAX_H = 576;
+constexpr int FLAGS0 = 32;  // sync words: [0] the exit count, flags from 32
+// a set of gate sums: [gate][row][unit] with rows CS_PITCH floats apart,
+// which puts an accumulator fragment's 32 stores on 32 banks
+constexpr int CS_PITCH = 20;
+constexpr int CS_FLOATS = 4 * ROWS * CS_PITCH;
+// polls of a flag before the kernel gives up with an error (seconds)
+constexpr unsigned SPIN_LIMIT = 1u << 26;
 
 struct LstmArgs {
   const float *xp, *mask, *whh, *h0, *c0;
   float *out, *h_last, *c_last, *hbuf;  // hbuf: two [B, H] buffers
-  unsigned* bar;                        // two zeroed words
+  unsigned* sync;  // zero on entry, left zero: exit count, then flags
   int L, B, H;
+  int groups;      // row groups (blocks per unit tile)
 };
 
-// W_hh's slice, the h tile and the halves' exchange, in floats
-size_t lstm_smem(int H) {
-  return (static_cast<size_t>(H) * UNITS * 4 + ROWS * (H + 4) +
-          LSTM_HALF * 16) * 4;
+// W_hh's fragments, the h tile (at least the room of one set of gate
+// sums, which it holds after the products), a set of gate sums: floats
+__host__ __device__ constexpr size_t k9_smem_floats(int H) {
+  return static_cast<size_t>(H) * UNITS * 4 +
+         (ROWS * (H + 4) > CS_FLOATS ? ROWS * (H + 4) : CS_FLOATS) +
+         CS_FLOATS;
 }
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__device__ __forceinline__ float comp(const float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// the named barrier of one half's 128 threads
-__device__ __forceinline__ void half_sync(int half) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(half + 1), "r"(LSTM_HALF));
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(LSTM_THREADS, 1)
+// Issue the cp.async copies of chunk c of h_prev's rows [r0, r0 + 32) into
+// Hs (rows past B are zero-filled) and commit them as one group.
+__device__ __forceinline__ void copy_h_chunk(float* Hs, const float* h_prev,
+                                             int r0, int B, int H, int c) {
+  const int KS = H / 8;
+  const int col0 = 8 * (c * KS / CHUNKS);
+  const int n4 = (8 * ((c + 1) * KS / CHUNKS) - col0) / 4;
+  const int S = H + 4;
+  for (int e = threadIdx.x; e < ROWS * n4; e += K9_THREADS) {
+    const int row = e / n4;
+    const int k = col0 + 4 * (e % n4);
+    const int b = r0 + row;
+    cp_async16(Hs + row * S + k,
+               h_prev + static_cast<size_t>(b < B ? b : 0) * H + k, b < B);
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(K9_THREADS, 1)
     lstm_kernel(const LstmArgs p) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ int last_block;
   const int H = p.H;
   const int B = p.B;
-  const int S = H + 4;  // the h tile's pitch: 4 row groups on 4 bank groups
-  float* Ws = smem;                                  // [H][UNITS][4]
+  const int S = H + 4;  // the h tile's pitch: the B fragments' 32 lanes on
+                        // 32 banks (S % 32 is 4 or 20)
+  const int KS = H / 8;
+  float* Ws = smem;                                     // [4][KS][32][4]
   float* Hs = Ws + static_cast<size_t>(H) * UNITS * 4;  // [ROWS][S]
-  float* red = Hs + ROWS * S;                        // [16][LSTM_HALF]
+  float* Cs = Hs + (ROWS * S > CS_FLOATS ? ROWS * S : CS_FLOATS);
 
   const int tiles_u = H / UNITS;
-  const int groups = gridDim.x / tiles_u;  // blocks per unit tile
   const int tiles_r = (B + ROWS - 1) / ROWS;
-  const bool active = static_cast<int>(blockIdx.x) < tiles_u * groups;
   const int ut = blockIdx.x % tiles_u;
+  const int group = blockIdx.x / tiles_u;
   const int j0 = ut * UNITS;
+  unsigned* flags = p.sync + FLAGS0;
 
   const int tid = threadIdx.x;
-  const int half = tid / LSTM_HALF;
-  const int lt = tid % LSTM_HALF;
-  const int warp = lt >> 5;
-  const int lane = lt & 31;
-  const int rg = (warp & 1) * 4 + (lane >> 3);  // rows rg + 8 i
-  const int ju = (warp >> 1) * 8 + (lane & 7);  // unit j0 + ju
-  const int j = j0 + ju;
-  const int kh = H / 2;
-  const int k_lo = half * kh;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int fg = lane / 4;  // fragment row group
+  const int fq = lane % 4;  // fragment thread in group
+  const int gate = warp % 4;  // this warp's m16 tile: one gate
+  const int kq = warp / 4;    // its k steps: ks % 4 == kq
+  // the gates' pair: unit gu of row gr
+  const int gu = tid % UNITS;
+  const int gr = tid / UNITS;
+  const int j = j0 + gu;
 
-  if (active) {
-    // this block's gate columns, once: Ws[k][u][g] = W_hh[k, g H + j0 + u]
-    for (int e = tid; e < H * 4 * (UNITS / 4); e += LSTM_THREADS) {
-      const int q = e % (UNITS / 4);
-      const int g = (e / (UNITS / 4)) % 4;
-      const int k = e / (UNITS / 4) / 4;
-      const float4 w = __ldg(reinterpret_cast<const float4*>(
-          p.whh + static_cast<size_t>(k) * 4 * H + g * H + j0 + q * 4));
-      float* dst = Ws + (static_cast<size_t>(k) * UNITS + q * 4) * 4 + g;
-      dst[0] = w.x;
-      dst[4] = w.y;
-      dst[8] = w.z;
-      dst[12] = w.w;
+  // this block's gate columns, once, as A fragments: for gate g and k
+  // step ks, lane l holds W(k0 + q, u), W(k0 + q, u + 8), W(k0 + q + 4, u),
+  // W(k0 + q + 4, u + 8) with u = l / 4, q = l % 4, W(k, u) = W_hh[k,
+  // g H + j0 + u]
+  for (int e = tid; e < H * 16; e += K9_THREADS) {
+    const int k = e / 16;
+    const int g = (e / 4) % 4;
+    const int u4 = 4 * (e % 4);
+    const float4 w = __ldg(reinterpret_cast<const float4*>(
+        p.whh + static_cast<size_t>(k) * 4 * H + g * H + j0 + u4));
+    const float wv[4] = {w.x, w.y, w.z, w.w};
+    const int ks = k / 8;
+    const int kk = k % 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = u4 + i;
+      const int slot = 2 * (kk / 4) + u / 8;
+      const int l = 4 * (u % 8) + kk % 4;
+      Ws[((static_cast<size_t>(g) * KS + ks) * 32 + l) * 4 + slot] = wv[i];
     }
+  }
+
+  // the (t, row tile) pairs of this block, in order: row tiles group,
+  // group + groups, ... of each step
+  const int my_tiles =
+      group < tiles_r ? (tiles_r - group + p.groups - 1) / p.groups : 0;
+  const int iters = p.L * my_tiles;
+
+  // x_proj, mask and c of pair `it` for this thread's row, loaded before
+  // the pair's wait (c: after the previous pair's gates, which may have
+  // written it)
+  float xp[4], m = 0.0f, cv = 0.0f;
+  auto row_of = [&](int it) {
+    const int b = (group + (it % my_tiles) * p.groups) * ROWS + gr;
+    return b < B ? b : 0;
+  };
+  auto prefetch = [&](int it) {
+    const size_t row = static_cast<size_t>(it / my_tiles) * B + row_of(it);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      xp[g] = __ldg(p.xp + row * 4 * H + g * H + j);
+    m = __ldg(p.mask + row);
+  };
+  auto load_c = [&](int it) {
+    const size_t o = static_cast<size_t>(row_of(it)) * H + j;
+    cv = it < my_tiles ? __ldg(p.c0 + o) : p.c_last[o];
+  };
+  if (iters > 0) {
+    prefetch(0);
+    load_c(0);
   }
   __syncthreads();
 
-  for (int t = 0; t < p.L; ++t) {
+  for (int it = 0; it < iters; ++it) {
+    const int t = it / my_tiles;
+    const int rt = group + (it % my_tiles) * p.groups;
+    const int r0 = rt * ROWS;
     const float* h_prev =
         t == 0 ? p.h0 : p.hbuf + static_cast<size_t>((t - 1) & 1) * B * H;
-    const float* c_prev = t == 0 ? p.c0 : p.c_last;
     float* h_next = t == p.L - 1 ? p.h_last
                                  : p.hbuf + static_cast<size_t>(t & 1) * B * H;
-    for (int rt = active ? static_cast<int>(blockIdx.x) / tiles_u : tiles_r;
-         rt < tiles_r; rt += groups) {
-      const int r0 = rt * ROWS;
-      // this half's columns of h_{t-1} for the tile's rows, in two chunks
-      const int per_row = kh / 4;  // 16-byte pieces of a half row
-      for (int c = 0; c < 2; ++c) {
-        for (int e = lt; e < ROWS * per_row / 2; e += LSTM_HALF) {
-          const int row = e / (per_row / 2);
-          const int k = k_lo + (c * (per_row / 2) + e % (per_row / 2)) * 4;
-          const int b = r0 + row;
-          cp_async16(Hs + row * S + k,
-                     h_prev + static_cast<size_t>(b < B ? b : 0) * H + k,
-                     b < B);
-        }
-        cp_async_commit();
+
+    // step t: wait for h_{t-1}
+    if (t > 0 && tid < tiles_u) {
+      const unsigned* f = flags + rt * tiles_u + tid;
+      for (unsigned spin = 0; static_cast<int>(ld_acquire(f)) < t; ++spin)
+        if (spin == SPIN_LIMIT) __trap();  // a flag that never comes
+    }
+    __syncthreads();
+    // the wait is over
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) copy_h_chunk(Hs, h_prev, r0, B, H, c);
+
+    float acc[4][4], cor[4][4];  // the tile's four n8 tiles
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = cor[n][i] = 0.0f;
+    float h_old = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      if (c == 0) cp_async_wait<CHUNKS - 1>();
+      if (c == 1) cp_async_wait<CHUNKS - 2>();
+      if (c == 2) cp_async_wait<CHUNKS - 3>();
+      if (c == 3) cp_async_wait<0>();
+      __syncthreads();
+      if (c == 0) {
+        // the first chunk of h_{t-1} is in
       }
-      // the step's inputs for the gates, loaded while h arrives
-      float xp[4][4];
-      float m[4];
-      if (half == 0) {
+      if (c == CHUNKS - 1) h_old = Hs[gr * S + j];  // Hs is reused below
+      const int lo = c * KS / CHUNKS;
+      const int ks_end = (c + 1) * KS / CHUNKS;
+      for (int ks = lo + (kq - lo % 4 + 4) % 4; ks < ks_end; ks += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            Ws + ((static_cast<size_t>(gate) * KS + ks) * 32 + lane) * 4);
+        uint32_t ahi[4], alo[4];
+        split_tf32(a.x, ahi[0], alo[0]);
+        split_tf32(a.y, ahi[1], alo[1]);
+        split_tf32(a.z, ahi[2], alo[2]);
+        split_tf32(a.w, ahi[3], alo[3]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int b = r0 + rg + 8 * i;
-          const size_t row = (static_cast<size_t>(t) * B + (b < B ? b : 0));
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            xp[i][g] = __ldg(p.xp + row * 4 * H + g * H + j);
-          m[i] = __ldg(p.mask + row);
+        for (int n = 0; n < 4; ++n) {
+          const float* hrow = Hs + (8 * n + fg) * S + 8 * ks + fq;
+          uint32_t bhi[2], blo[2];
+          split_tf32(hrow[0], bhi[0], blo[0]);
+          split_tf32(hrow[4], bhi[1], blo[1]);
+          mma_3xtf32(acc[n], cor[n], ahi, alo, bhi, blo);
         }
       }
-      float acc[4][4];
+    }
+    // the products are in
+    // the gate sums to shared memory as (s0 + s1) + (s2 + s3) for the k
+    // phases' sums s: phases 1 and 3 store theirs (in Hs's room and in
+    // Cs), then phases 0 and 2 add theirs in front
+    __syncthreads();  // every warp is done with Hs
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int round = 0; round < 2; ++round) {
+      if (kq % 2 == 1 - round) {
+        float* sums = kq < 2 ? Hs : Cs;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
-      for (int c = 0; c < 2; ++c) {
-        if (c == 0)
-          cp_async_wait<1>();
-        else
-          cp_async_wait<0>();
-        half_sync(half);
-        const int k_end = k_lo + (c + 1) * (kh / 2);
-#pragma unroll 2
-        for (int k = k_lo + c * (kh / 2); k < k_end; k += 4) {
-          float4 hv[4];
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            hv[i] = *reinterpret_cast<const float4*>(Hs + (rg + 8 * i) * S +
-                                                     k);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float4 w = *reinterpret_cast<const float4*>(
-                Ws + (static_cast<size_t>(k + kk) * UNITS + ju) * 4);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float hk = comp(hv[i], kk);
-              acc[i][0] = fmaf(hk, w.x, acc[i][0]);
-              acc[i][1] = fmaf(hk, w.y, acc[i][1]);
-              acc[i][2] = fmaf(hk, w.z, acc[i][2]);
-              acc[i][3] = fmaf(hk, w.w, acc[i][3]);
-            }
+          for (int i = 0; i < 4; ++i) {
+            float* at = sums + (gate * ROWS + 8 * n + 2 * fq + i % 2) *
+                                   CS_PITCH + fg + 8 * (i / 2);
+            const float v = acc[n][i] + cor[n][i];
+            *at = round == 0 ? v : v + *at;
           }
-        }
-      }
-      if (half == 1) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            red[(i * 4 + g) * LSTM_HALF + lt] = acc[i][g];
       }
       __syncthreads();
-      if (half == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int b = r0 + rg + 8 * i;
-          if (b >= B) continue;
-          float pre[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            pre[g] =
-                xp[i][g] + (acc[i][g] + red[(i * 4 + g) * LSTM_HALF + lt]);
-          const size_t o = static_cast<size_t>(b) * H + j;
-          const float h_old = __ldcg(h_prev + o);
-          const float c_old = __ldcg(c_prev + o);
-          const float c_new =
-              sigmoidf(pre[1]) * c_old + sigmoidf(pre[0]) * tanhf(pre[2]);
-          const float h_new = sigmoidf(pre[3]) * tanhf(c_new);
-          const float mi = m[i];
-          h_next[o] = mi * h_new + (1.0f - mi) * h_old;
-          p.c_last[o] = mi * c_new + (1.0f - mi) * c_old;
-          p.out[static_cast<size_t>(t) * B * H + o] = mi * h_new;
-        }
-      }
-      __syncthreads();  // the next tile overwrites Hs and red
     }
-    if (t < p.L - 1) grid_sync(p.bar);
+    // the gate sums are in shared memory
+    const int b = r0 + gr;
+    if (b < B) {
+      float pre[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int at = (g * ROWS + gr) * CS_PITCH + gu;
+        pre[g] = xp[g] + (Hs[at] + Cs[at]);
+      }
+      const size_t o = static_cast<size_t>(b) * H + j;
+      const float c_new =
+          sigmoidf(pre[1]) * cv + sigmoidf(pre[0]) * tanhf(pre[2]);
+      const float h_new = sigmoidf(pre[3]) * tanhf(c_new);
+      // this thread's h, c and out
+      h_next[o] = m * h_new + (1.0f - m) * h_old;
+      p.c_last[o] = m * c_new + (1.0f - m) * cv;
+      p.out[static_cast<size_t>(t) * B * H + o] = m * h_new;
+    }
+    __syncthreads();  // every h_t of the tile stored; Hs and Cs free
+    // this step's h is out
+    if (tid == 0 && t < p.L - 1)  // release: after the block's stores
+      st_release(flags + rt * tiles_u + ut, static_cast<unsigned>(t + 1));
+    if (it + 1 < iters) {  // the next pair's inputs, before its wait
+      prefetch(it + 1);
+      load_c(it + 1);
+    }
+  }
+
+  // the last block out sets the flags and the count back to zero
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last_block = atomicAdd(p.sync, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (last_block) {
+    for (int e = tid; e < tiles_r * tiles_u; e += K9_THREADS) flags[e] = 0u;
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      atomicExch(p.sync, 0u);
+    }
   }
 }
 
@@ -220,12 +331,28 @@ __global__ void __launch_bounds__(LSTM_THREADS, 1)
 // Shapes are checked by the Python wrapper (multimodal_baby_tpu_torch/ops/
 // lstm.py): f32 everywhere, contiguous, 16-byte aligned; x_proj [L, B, 4H],
 // mask [L, B], w_hh [H, 4H], h0, c0, h_last, c_last [B, H], out [L, B, H],
-// hbuf [2, B, H] scratch, bar two zeroed 32-bit words; L >= 1, H % 16 == 0,
-// 16 <= H <= 576. Returns the first CUDA error, or 0.
+// hbuf [2, B, H] scratch, sync 32 + ceil(B / 32) H / 16 32-bit words, zero
+// (and left zero), not used by another call at the same time; L >= 1,
+// H % 16 == 0, 16 <= H <= 576. Returns the first CUDA error, or 0.
 extern "C" int mmb_lstm_f32(const void* xp, const void* mask, const void* whh,
                             const void* h0, const void* c0, void* out,
-                            void* h_last, void* c_last, void* hbuf, void* bar,
+                            void* h_last, void* c_last, void* hbuf, void* sync,
                             int L, int B, int H, void* stream) {
+  static LaunchCache cache;
+  const int smem = static_cast<int>(k9_smem_floats(H) * sizeof(float));
+  const int max_smem =
+      static_cast<int>(k9_smem_floats(MAX_H) * sizeof(float));
+  int on_card = 0;
+  cudaError_t err = cache.blocks(lstm_kernel, K9_THREADS, smem, max_smem,
+                                 false, &on_card);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // every unit tile needs a block; the row tiles are shared among the
+  // blocks of a unit tile
+  const int tiles_u = H / UNITS;
+  const int tiles_r = (B + ROWS - 1) / ROWS;
+  int groups = on_card / tiles_u;
+  if (groups < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  if (groups > tiles_r) groups = tiles_r;
   const LstmArgs p{static_cast<const float*>(xp),
                    static_cast<const float*>(mask),
                    static_cast<const float*>(whh),
@@ -235,29 +362,12 @@ extern "C" int mmb_lstm_f32(const void* xp, const void* mask, const void* whh,
                    static_cast<float*>(h_last),
                    static_cast<float*>(c_last),
                    static_cast<float*>(hbuf),
-                   static_cast<unsigned*>(bar),
+                   static_cast<unsigned*>(sync),
                    L,
                    B,
-                   H};
-  const int tiles_u = H / UNITS;
-  const int tiles_r = (B + ROWS - 1) / ROWS;
-  int per_sm = 0, device = 0, sms = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lstm_smem(H)));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lstm_kernel, LSTM_THREADS, lstm_smem(H));
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // every unit tile needs a block; the row tiles are shared among the
-  // blocks of a unit tile
-  const int groups = per_sm * sms / tiles_u;
-  if (groups < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int blocks = tiles_u * (groups < tiles_r ? groups : tiles_r);
-  return static_cast<int>(launch_persistent(
-      lstm_kernel, p, LSTM_THREADS, static_cast<int>(lstm_smem(H)),
-      static_cast<cudaStream_t>(stream), blocks));
+                   H,
+                   groups};
+  return static_cast<int>(launch_cooperative(
+      lstm_kernel, p, tiles_u * groups, K9_THREADS, smem,
+      static_cast<cudaStream_t>(stream)));
 }

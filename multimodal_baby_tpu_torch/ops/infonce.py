@@ -3,8 +3,9 @@
 Counterpart of ``multimodal_baby_tpu/ops/infonce.py``: the similarity
 product times exp(-log T) and both cross-entropies of the B x B logits,
 with the metrics, as one forward kernel and one backward kernel
-(``csrc/infonce.cu``, one cooperative launch each) on a CUDA tensor, and
-their plain versions (``infonce_reference``,
+(``csrc/infonce.cu``: one launch each, a thread-block cluster up to
+B = 256 and a cooperative grid above; products as three TF32 tensor-core
+products) on a CUDA tensor, and their plain versions (``infonce_reference``,
 ``infonce_backward_reference``) on a CPU tensor. The metrics are the
 kernel's: an accuracy counts the diagonal where it is >= its row's (or
 column's) max, so ties count; an entropy is ``sum p (lse - logit)``.
@@ -28,7 +29,9 @@ __all__ = ["MAX_FUSED_BATCH", "fused_infonce", "fused_infonce_backward",
 
 MAX_FUSED_BATCH = 1024
 METRICS = ("image_accuracy", "text_accuracy", "image_entropy", "text_entropy")
-TILE = 64
+SMALL_BATCH = 256  # up to here one cluster, which needs no scratch
+TILE = 64          # the cooperative grid's tile above it
+PART_BLOCKS = 256  # the most blocks of the grid's forward
 
 
 def infonce_reference(img: torch.Tensor, txt: torch.Tensor,
@@ -70,16 +73,18 @@ def infonce_backward_reference(img, txt, neg_log_temp, lse_i, lse_t, g
     return scale * (d @ txt), scale * (d.T @ img), (d * logits).sum()
 
 
-def _check(what: str, tensors: Dict[str, Tuple[torch.Tensor, tuple]]
-           ) -> None:
-    device = next(iter(tensors.values()))[0].device
-    for name, (t, shape) in tensors.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
+def _check(what: str, *tensors: Tuple[str, torch.Tensor, tuple]) -> None:
+    """Each (name, tensor, shape): f32, that shape, contiguous, 16-byte
+    aligned, on the first one's device."""
+    index = tensors[0][1].get_device()
+    for name, t, shape in tensors:
+        if t.shape != shape or t.dtype != torch.float32:
             raise ValueError(f"{what}: {name} must be float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+        if (t.get_device() != index or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(f"{what}: {name} must be contiguous, 16-byte "
-                             f"aligned and on {device}")
+                             f"aligned and on {tensors[0][1].device}")
 
 
 def _shape(what: str, img: torch.Tensor) -> Tuple[int, int]:
@@ -96,28 +101,30 @@ def fused_infonce_forward(img: torch.Tensor, txt: torch.Tensor,
                                      torch.Tensor]:
     """K4's forward kernel on f32 CUDA tensors (``infonce_reference`` on CPU
     tensors): (loss, lse_i, lse_t, metrics), no autograd."""
-    if img.device.type == "cpu":
-        with torch.no_grad():
-            return infonce_reference(img, txt, nlt)
-    if img.device.type != "cuda":
+    if not img.is_cuda:
+        if img.device.type == "cpu":
+            with torch.no_grad():
+                return infonce_reference(img, txt, nlt)
         raise ValueError(f"fused_infonce: no kernel for device {img.device}")
     B, E = _shape("fused_infonce", img)
-    _check("fused_infonce", {"img": (img, (B, E)), "txt": (txt, (B, E)),
-                             "neg_log_temp": (nlt, ())})
+    _check("fused_infonce", ("img", img, (B, E)), ("txt", txt, (B, E)),
+           ("neg_log_temp", nlt, ()))
     lib = _build.library()
     tiles = (B + TILE - 1) // TILE
-
-    def new(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=img.device)
-
-    part, loss, lse_i, lse_t, metrics = (new(6 * tiles * B + B), new(),
-                                         new(B), new(B), new(4))
-    bar = torch.zeros(2, dtype=torch.int32, device=img.device)
-    with torch.cuda.device(img.device):
+    # lse_i, lse_t, the loss (and 3 words of padding), the metrics: one
+    # allocation, each piece 16-byte aligned
+    out = torch.empty(2 * B + 8, dtype=torch.float32, device=img.device)
+    lse_i, lse_t, loss4, metrics = out.split((B, B, 4, 4))
+    loss = loss4[0]
+    part = (torch.empty(6 * tiles * B + B + 6 * PART_BLOCKS,
+                        dtype=torch.float32, device=img.device)
+            if B > SMALL_BATCH else out)
+    with _build.on_device(img.get_device()):
+        stream, bar = _build.sync_words("infonce", 4)
         code = lib.mmb_infonce_fwd_f32(
             *(t.data_ptr() for t in (img, txt, nlt, part, loss, lse_i, lse_t,
                                      metrics, bar)),
-            B, E, torch.cuda.current_stream().cuda_stream)
+            B, E, stream)
     _build.check(lib, code, "fused_infonce")
     fused_infonce_with_metrics.launches += 1
     return loss, lse_i, lse_t, metrics
@@ -131,29 +138,32 @@ def fused_infonce_backward(img: torch.Tensor, txt: torch.Tensor,
     """K4's backward kernel on f32 CUDA tensors
     (``infonce_backward_reference`` on CPU tensors): (d_img, d_txt,
     d_neg_log_temp) for the loss's cotangent ``g``."""
-    if img.device.type == "cpu":
-        return infonce_backward_reference(img, txt, nlt, lse_i, lse_t, g)
-    if img.device.type != "cuda":
+    if not img.is_cuda:
+        if img.device.type == "cpu":
+            return infonce_backward_reference(img, txt, nlt, lse_i, lse_t, g)
         raise ValueError(f"fused_infonce backward: no kernel for device "
                          f"{img.device}")
     B, E = _shape("fused_infonce backward", img)
-    g = g.to(torch.float32).contiguous()
-    _check("fused_infonce backward", {
-        "img": (img, (B, E)), "txt": (txt, (B, E)),
-        "neg_log_temp": (nlt, ()), "lse_i": (lse_i, (B,)),
-        "lse_t": (lse_t, (B,)), "g": (g, ())})
+    if g.dtype != torch.float32:
+        g = g.float()
+    _check("fused_infonce backward", ("img", img, (B, E)),
+           ("txt", txt, (B, E)), ("neg_log_temp", nlt, ()),
+           ("lse_i", lse_i, (B,)), ("lse_t", lse_t, (B,)), ("g", g, ()))
     lib = _build.library()
     tiles = (B + TILE - 1) // TILE
-    D = torch.empty((B, B), dtype=torch.float32, device=img.device)
-    part = torch.empty(tiles * tiles, dtype=torch.float32, device=img.device)
-    dimg, dtxt = torch.empty_like(img), torch.empty_like(txt)
-    dnlt = torch.empty((), dtype=torch.float32, device=img.device)
-    bar = torch.zeros(2, dtype=torch.int32, device=img.device)
-    with torch.cuda.device(img.device):
+    grads = torch.empty(2 * B * E + 4, dtype=torch.float32, device=img.device)
+    dimg, dtxt, dnlt = grads.split((B * E, B * E, 4))
+    dimg, dtxt, dnlt = dimg.view(B, E), dtxt.view(B, E), dnlt[0]
+    # D [B, B] and the tiles' sums: the grid's scratch
+    scratch = (torch.empty(B * B + tiles * tiles, dtype=torch.float32,
+                           device=img.device) if B > SMALL_BATCH else grads)
+    D, part = scratch, (scratch[B * B:] if B > SMALL_BATCH else scratch)
+    with _build.on_device(img.get_device()):
+        stream, bar = _build.sync_words("infonce", 4)
         code = lib.mmb_infonce_bwd_f32(
             *(t.data_ptr() for t in (img, txt, nlt, lse_i, lse_t, g, D, part,
                                      dimg, dtxt, dnlt, bar)),
-            B, E, torch.cuda.current_stream().cuda_stream)
+            B, E, stream)
     _build.check(lib, code, "fused_infonce backward")
     fused_infonce_with_metrics.launches_bwd += 1
     return dimg, dtxt, dnlt

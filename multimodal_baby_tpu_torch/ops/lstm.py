@@ -3,9 +3,10 @@
 Counterpart of ``multimodal_baby_tpu/ops/lstm.py``: the sequential part of
 an LSTM over precomputed input projections, time-major. ``lstm_fused`` runs
 the hand-written Hopper kernel in ``csrc/lstm.cu`` (one cooperative launch
-per sequence) on a CUDA tensor and ``scan_reference`` on a CPU tensor; its
-backward replays ``scan_reference`` under autograd, as the JAX VJP replays
-the XLA scan. Everything is f32.
+per sequence, its products as three TF32 tensor-core products) on a CUDA
+tensor and ``scan_reference`` on a CPU tensor; its backward replays
+``scan_reference`` under autograd, as the JAX VJP replays the XLA scan.
+Everything is f32 at the interface.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ __all__ = ["MAX_HIDDEN", "kernel_takes", "lstm_fused", "scan_reference"]
 # W_hh's 16 gate columns x H and a 32-row h tile in one SM's shared memory
 MAX_HIDDEN = 576
 UNITS = 16
+ROWS = 32        # batch rows per tile: a flag per (row tile, unit tile)
+FLAGS0 = 32      # the sync words before the flags
 
 
 def kernel_takes(batch: int, hidden: int) -> bool:
@@ -75,15 +78,17 @@ def _run(x_proj, mask, w_hh, h0, c0):
     if x_proj.numel() >= 2**31:
         raise ValueError("lstm_fused: x_proj is too large for 32-bit indexing")
     lib = _build.library()
-    out = torch.empty((L, B, H), dtype=torch.float32, device=x_proj.device)
-    h_last, c_last = torch.empty_like(h0), torch.empty_like(c0)
-    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=x_proj.device)
-    bar = torch.zeros(2, dtype=torch.int32, device=x_proj.device)
-    with torch.cuda.device(x_proj.device):
+    # out, h_last, c_last and the two h buffers in one allocation
+    buf = torch.empty((L + 4, B, H), dtype=torch.float32,
+                      device=x_proj.device)
+    out, h_last, c_last, hbuf = buf[:L], buf[L], buf[L + 1], buf[L + 2:]
+    with _build.on_device(x_proj.get_device()):
+        stream, sync = _build.sync_words(
+            "lstm", FLAGS0 + -(-B // ROWS) * (H // UNITS))
         code = lib.mmb_lstm_f32(
             *(t.data_ptr() for t in (x_proj, mask, w_hh, h0, c0, out, h_last,
-                                     c_last, hbuf, bar)),
-            L, B, H, torch.cuda.current_stream().cuda_stream)
+                                     c_last, hbuf, sync)),
+            L, B, H, stream)
     _build.check(lib, code, "lstm_fused")
     lstm_fused.launches += 1
     return out, h_last, c_last

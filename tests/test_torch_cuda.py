@@ -4,8 +4,11 @@ tests/test_hwbc_kernels.py, K2 and the stage kernel at those of
 tests/test_quant_trunk.py and tests/test_hwbc_kernels.py, the ViT kernels
 at small, odd and ViT-B shapes, with kv_valid, K5 and K7 also at a ragged
 row count and at two-pass lengths up to 752, K6 and K7 in every GELU
-form, K9 at small, odd and CVCL shapes, K4 forward and backward at
-B = 16, 72 and 128, K10a's block, stage and banded stage at
+form, K9 at small, odd and CVCL shapes and at the edges of its row and
+unit tiles (B 1 to 300, H 16 to 576, L 1 to 128), K4 forward and backward at
+B = 16, 72 and 128 and on both sides of its cluster (B 4 to 256) and
+grid (260, 1024) paths, K9 and K4 on two streams at once bit for bit
+against lone calls, K10a's block, stage and banded stage at
 tests/test_quant_trunk.py's transport shapes, K10b at
 tests/test_hwbc_kernels.py:74's and every ResNeXt-50 block shape and
 against K1 bit for bit, K11 forward and backward at odd M and under one
@@ -34,7 +37,8 @@ versions bf16 with the same rounding points; f32 sums in other orders can
 move a bf16 rounding of h1 or h2 by one ulp). int8: at most 1 code apart
 and fewer than 1e-3 of the codes differing (tests/test_quant_trunk.py's
 envelope; both versions sum exactly and round alike, so 0 is expected).
-K9 and K4 are f32 FMA kernels against f32 plain versions (TF32 off):
+K9 and K4 are f32 kernels whose products run as three TF32 products
+(about f32's precision), against f32 plain versions (TF32 off):
 K9 max absolute error <= 1e-4 on out, h_last and c_last; K4 loss
 relative error <= 1e-5, LSEs absolute 1e-5, accuracies exact, entropies
 relative 1e-4, gradients atol 1e-4 and rtol 1e-3 (chip_smoke.py's gates),
@@ -498,6 +502,103 @@ def test_lstm_kernel_matches_plain_version(cuda, L, B, H):
         assert g.shape == w.shape, name
         assert float((g - w).abs().max()) <= 1e-4, name
         assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("L", [1, 25, 64, 128])
+@pytest.mark.parametrize("H", [16, 512, 576])
+@pytest.mark.parametrize("B", [1, 33, 128, 256, 300])
+def test_lstm_kernel_at_the_edges_of_its_tiles(cuda, B, H, L):
+    """Row tiles of 32 (one short, several a block: B = 256, 300), every
+    width's unit tiles, and sequences from one step to 128."""
+    a = lstm_inputs(L, B, H, cuda, seed=B + H + L)
+    args = (a["xp"], a["mask"], a["whh"], a["h0"], a["c0"])
+    with torch.no_grad():
+        got = lstm_fused(*args)
+        want = scan_reference(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "h_last", "c_last"), got, want):
+        assert float((g - w).abs().max()) <= 1e-4, name
+    _, flags = _build.sync_words("lstm", 1)
+    assert int(flags.abs().sum()) == 0  # left as found
+
+
+def infonce_case(B, E, device):
+    img, txt = unit_rows(B, E, device, B + E)
+    nlt = torch.tensor(float(torch.log(torch.tensor(1 / 0.07))),
+                       device=device)
+    g = torch.tensor(0.7, device=device)
+    return img, txt, nlt, g
+
+
+def run_infonce(img, txt, nlt, g):
+    fwd = infonce.fused_infonce_forward(img, txt, nlt)
+    bwd = infonce.fused_infonce_backward(img, txt, nlt, fwd[1], fwd[2], g)
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("B,E", [(4, 512), (4, 36), (128, 512), (132, 512),
+                                 (256, 512), (260, 512), (260, 68),
+                                 (1024, 512)])
+def test_infonce_kernels_on_both_sides_of_the_cluster(cuda, B, E):
+    """One cluster (T = 32 to B = 128, 64 to 256) and the cooperative grid
+    above, against the plain versions, and a repeated call bit for bit."""
+    img, txt, nlt, g = infonce_case(B, E, cuda)
+    (loss, lse_i, lse_t, metrics), grads = run_infonce(img, txt, nlt, g)
+    loss_w, lse_i_w, lse_t_w, m_w = infonce.infonce_reference(img, txt, nlt)
+    ref = [t.clone().requires_grad_() for t in (img, txt, nlt)]
+    grads_w = torch.autograd.grad(
+        g * infonce.infonce_reference(*ref)[0], ref)
+    again = run_infonce(img, txt, nlt, g)
+    torch.cuda.synchronize()
+    loss_w = loss_w.detach()
+    assert abs(float(loss) - float(loss_w)) <= 1e-5 * abs(float(loss_w))
+    assert float((lse_i - lse_i_w.detach()).abs().max()) <= 1e-5
+    assert float((lse_t - lse_t_w.detach()).abs().max()) <= 1e-5
+    assert torch.equal(metrics[:2], m_w[:2])
+    torch.testing.assert_close(metrics[2:], m_w[2:], rtol=1e-4, atol=0)
+    for a, w in zip(grads, grads_w):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-3)
+    for a, b in zip((*again[0], *again[1]), (loss, lse_i, lse_t, metrics,
+                                             *grads)):
+        assert torch.equal(a, b)
+
+
+def test_calls_on_two_streams_at_once_equal_lone_calls(cuda):
+    """K9 and K4 (the cluster and the grid) on two streams at once: each
+    call equal bit for bit to the same call alone, and the per-stream
+    synchronisation words left as found."""
+    a = lstm_inputs(25, 128, 512, cuda, seed=3)
+    args = (a["xp"], a["mask"], a["whh"], a["h0"], a["c0"])
+    cases = [infonce_case(B, 512, cuda) for B in (128, 1024)]
+
+    def work():
+        with torch.no_grad():
+            return [lstm_fused(*args), lstm_fused(*args)] + [
+                run_infonce(*c) for c in cases]
+
+    lone = work()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(work())
+    torch.cuda.synchronize()
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for y in x for t in flat(y)]
+
+    for got in outs:
+        for x, y in zip(flat(got), flat(lone)):
+            assert torch.equal(x, y)
+    for st in streams:
+        handle = st.cuda_stream
+        assert int(_build.sync_words("lstm", 1, handle)[1].abs().sum()) == 0
+        words = _build.sync_words("infonce", 4, handle)[1]
+        assert int(words[0]) == 0 and int(words[2]) == 0
 
 
 @pytest.mark.parametrize("bad", ["float64", "hidden", "non_contiguous"])

@@ -356,6 +356,30 @@ Phases (each raises on failure, and the script then exits non-zero):
    --vit_lnfold 1`` (12 K8b launches and no other ViT kernel a train step),
    and the published recipe with ``--split_stem 1`` (the plan's launches a
    step, the trunk fed 12 channels in training and validation).
+15. The CLIP baseline (``evaluation/clip_baseline.py``) on the port's CLIP
+   towers (``models/clip.py``), with random weights at the published
+   widths written by the port's own writer in the Hugging Face layout
+   (config.json, f16 model.safetensors, a byte-level vocab.json and
+   merges.txt): ViT-L/14 (vision 24 x 1024, patch 14 at 224 px; text 12 x
+   768, 77 positions, vocab 49408; projection 768) and ViT-B/16 (vision 12
+   x 768, patch 16; text 12 x 512; projection 512). Both projections are
+   first fitted by least squares on f32 features so that decisions are
+   not near-ties. K5 and K6 (eps 1e-5, K6 in the sigmoid GELU form, CLIP's
+   quick_gelu) against their plain versions with phase 2b's gates at the
+   batches the path gives them (ViT-L/14: B = 64, N = 257, C = 1024, F =
+   4096; ViT-B/16: B = 5 and 64, N = 197, C = 768, F = 3072), each timed
+   per tower forward beside the plain versions, the library chain and the
+   bound. 15a: ``load_clip`` of the ViT-L/14 directory onto the card,
+   then ``run_clip_forced_choice`` over 64 four-way trials of 16
+   textures (B = 64 images a batch): 24 K5 and 24 K6 launches per vision
+   forward, image and text features at per-row cosine >= 0.999 to the f32
+   plain path, decisions equal wherever the f32 top-two gap exceeds 0.05;
+   trials/s and the encode split between images and text. 15b: the ETL's
+   ``filter_eval_frames`` with its default scorer, the ViT-B/16 baseline
+   read from the Hugging Face cache layout under a temporary HF_HOME, on
+   22 categories of 5 JPEG frames (one of them another category's): 12 K5
+   and 12 K6 launches per forward, and the same frames kept as by the f32
+   plain scorer.
 
 Prints one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -724,7 +748,7 @@ def vit_half_inputs(gen, kind, B, N, C, F_):
     return x, params
 
 
-def attention_library(x, params, heads):
+def attention_library(x, params, heads, eps=1e-6):
     """The library call for K5, in bf16: LayerNorm, Linear,
     scaled_dot_product_attention, Linear and the residual."""
     g, b, wqkv, bqkv, wproj, bproj = params
@@ -732,7 +756,7 @@ def attention_library(x, params, heads):
     B, N, C = x.shape
 
     def run():
-        xn = F.layer_norm(x, (C,), g, b, 1e-6)
+        xn = F.layer_norm(x, (C,), g, b, eps)
         q, k, v = (F.linear(xn, wq, bqkv).reshape(B, N, 3, heads, C // heads)
                    .permute(2, 0, 3, 1, 4))
         y = F.scaled_dot_product_attention(q, k, v)
@@ -741,22 +765,25 @@ def attention_library(x, params, heads):
     return run
 
 
-def mlp_chain(params):
+def mlp_chain(params, eps=1e-6, gelu="erf"):
     """The library call for K6 as a function of x, in bf16: LayerNorm,
-    Linear, GELU, Linear and the residual."""
+    Linear, GELU (erf; or CLIP's quick_gelu, h * sigmoid(1.702 h), for
+    "sigmoid"), Linear and the residual."""
     g, b, w1, b1, w2, b2 = params
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    act = {"erf": F.gelu,
+           "sigmoid": lambda h: h * torch.sigmoid(1.702 * h)}[gelu]
 
     def run(x):
-        h = F.gelu(F.linear(F.layer_norm(x, (x.shape[-1],), g, b, 1e-6), w1t,
-                            b1))
+        h = act(F.linear(F.layer_norm(x, (x.shape[-1],), g, b, eps), w1t,
+                         b1))
         return x + F.linear(h, w2t, b2)
 
     return run
 
 
-def mlp_library(x, params):
-    chain = mlp_chain(params)
+def mlp_library(x, params, eps=1e-6, gelu="erf"):
+    chain = mlp_chain(params, eps, gelu)
     return lambda: chain(x)
 
 
@@ -4757,6 +4784,483 @@ def phase_opt_in_modes(root, published):
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 15
+
+# CLIP at the published widths (the config.json of openai/clip-vit-large-
+# patch14 and clip-vit-base-patch16: quick_gelu, LayerNorm eps 1e-5, 224
+# px, 77 positions, vocab 49408), with random weights from a seed
+CLIP_SPECS = {
+    "ViT-L/14": {"projection_dim": 768,
+                 "vision": dict(hidden_size=1024, intermediate_size=4096,
+                                num_hidden_layers=24, num_attention_heads=16,
+                                patch_size=14),
+                 "text": dict(hidden_size=768, intermediate_size=3072,
+                              num_hidden_layers=12, num_attention_heads=12)},
+    "ViT-B/16": {"projection_dim": 512,
+                 "vision": dict(hidden_size=768, intermediate_size=3072,
+                                num_hidden_layers=12, num_attention_heads=12,
+                                patch_size=16),
+                 "text": dict(hidden_size=512, intermediate_size=2048,
+                              num_hidden_layers=12, num_attention_heads=8)},
+}
+CLIP_IMAGE = 224
+CLIP_TRIALS = 64          # 15a: four batches of 16 trials, B = 64 images
+CLIP_BATCH = 16           # run_clip_forced_choice's default
+CLIP_GAP = 0.05           # 15a: decisions equal where the f32 gap exceeds it
+CLIP_PER_CATEGORY = 4     # 15b: frames of a category's own texture (and
+                          # one of the next category's, which it drops)
+CLIP_TIMED = 3            # 15a: timed runs of the forced choice
+CLIP_FIT_SPREAD = 0.5     # the fitted projections' targets: top-two gap 0.2
+# the batches the main path gives K5 and K6: 16 trials of 4 images; one
+# filter chunk of a category (here 5 frames; 64 at most)
+CLIP_KERNEL_BATCHES = {"ViT-L/14": (CLIP_BATCH * 4,),
+                       "ViT-B/16": (CLIP_PER_CATEGORY + 1, 64)}
+CLIP_SPECIALS = {"<|startoftext|>": 49406, "<|endoftext|>": 49407}
+
+
+def clip_config_json(spec):
+    """A CLIPModel config.json in the published files' form (old-style
+    eos_token_id 2: the text tower pools at the row's largest id)."""
+    common = dict(hidden_act="quick_gelu", layer_norm_eps=1e-5,
+                  initializer_range=0.02, initializer_factor=1.0)
+    return {"architectures": ["CLIPModel"], "model_type": "clip",
+            "projection_dim": spec["projection_dim"],
+            "logit_scale_init_value": 2.6592,
+            "text_config": {**common, **spec["text"], "vocab_size": 49408,
+                            "max_position_embeddings": 77,
+                            "bos_token_id": 0, "eos_token_id": 2,
+                            "pad_token_id": 1},
+            "vision_config": {**common, **spec["vision"],
+                              "image_size": CLIP_IMAGE, "num_channels": 3}}
+
+
+def clip_vocab(words):
+    """A byte-level vocabulary (the 256 byte symbols, each also with
+    ``</w>``), merges that build each of ``words`` whole, left to right,
+    and the two special tokens at the published ids."""
+    from multimodal_baby_tpu_torch.data.clip_tokenizer import (
+        bytes_to_unicode)
+    base = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(base + [b + "</w>" for b in base])}
+    merges = []
+    for word in words:
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            pair = (parts[0], parts[1])
+            if pair not in merges:
+                merges.append(pair)
+                vocab[pair[0] + pair[1]] = len(vocab)
+            parts = [pair[0] + pair[1]] + parts[2:]
+    return {**vocab, **CLIP_SPECIALS}, merges
+
+
+def random_clip_state(config, seed):
+    """A CLIPModel state dict (numpy f32, transformers' names) drawn on the
+    card as transformers initializes CLIP, with LayerNorm scales 1 + 0.1 N
+    and biases 0.1 N."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = {}
+
+    def put(name, shape, std, mean=0.0):
+        state[name] = (torch.randn(shape, generator=gen, device="cuda") * std
+                       + mean).cpu().numpy()
+
+    for tower in ("text", "vision"):
+        cfg = config[f"{tower}_config"]
+        C, F_, L = (cfg["hidden_size"], cfg["intermediate_size"],
+                    cfg["num_hidden_layers"])
+        pre = f"{tower}_model"
+        if tower == "text":
+            put(f"{pre}.embeddings.token_embedding.weight",
+                (cfg["vocab_size"], C), 0.02)
+            put(f"{pre}.embeddings.position_embedding.weight",
+                (cfg["max_position_embeddings"], C), 0.02)
+            norms = ["final_layer_norm"]
+        else:
+            p = cfg["patch_size"]
+            put(f"{pre}.embeddings.class_embedding", (C,), C ** -0.5)
+            put(f"{pre}.embeddings.patch_embedding.weight", (C, 3, p, p),
+                0.02)
+            put(f"{pre}.embeddings.position_embedding.weight",
+                ((CLIP_IMAGE // p) ** 2 + 1, C), 0.02)
+            norms = ["pre_layrnorm", "post_layernorm"]
+        in_std = C ** -0.5 * (2 * L) ** -0.5
+        for i in range(L):
+            layer = f"{pre}.encoder.layers.{i}"
+            for x in "qkv":
+                put(f"{layer}.self_attn.{x}_proj.weight", (C, C), in_std)
+                put(f"{layer}.self_attn.{x}_proj.bias", (C,), 0.02)
+            put(f"{layer}.self_attn.out_proj.weight", (C, C), C ** -0.5)
+            put(f"{layer}.self_attn.out_proj.bias", (C,), 0.02)
+            put(f"{layer}.mlp.fc1.weight", (F_, C), (2 * C) ** -0.5)
+            put(f"{layer}.mlp.fc1.bias", (F_,), 0.02)
+            put(f"{layer}.mlp.fc2.weight", (C, F_), in_std)
+            put(f"{layer}.mlp.fc2.bias", (C,), 0.02)
+            norms += [f"encoder.layers.{i}.layer_norm1",
+                      f"encoder.layers.{i}.layer_norm2"]
+        for norm in norms:
+            put(f"{pre}.{norm}.weight", (C,), 0.1, 1.0)
+            put(f"{pre}.{norm}.bias", (C,), 0.1)
+    P = config["projection_dim"]
+    for tower, name in (("vision", "visual_projection.weight"),
+                        ("text", "text_projection.weight")):
+        C = config[f"{tower}_config"]["hidden_size"]
+        put(name, (P, C), C ** -0.5)
+    state["logit_scale"] = np.array(2.6592, np.float32)
+    return state
+
+
+def textures(rng, n, per, size=CLIP_IMAGE):
+    """uint8 frames [n * per, size, size, 3] of n coarse random textures (8
+    px cells), each frame with its own noise, and each frame's texture."""
+    bases = rng.randint(0, 256, (n, size // 8, size // 8, 3)).astype(
+        np.int16).repeat(8, 1).repeat(8, 2)
+    labels = np.repeat(np.arange(n), per)
+    noise = rng.randint(-24, 25, (labels.size, size, size, 3)).astype(
+        np.int16)
+    return np.clip(bases[labels] + noise, 0, 255).astype(np.uint8), labels
+
+
+def fit_clip_projections(config, state, model_dir, frames, labels,
+                         categories, prompt, seed):
+    """Set ``state``'s two projections by least squares, as training would
+    place them: each category's label (``prompt`` of it) and the mean f32
+    pooled feature of its frames map to the category's unit target, a
+    direction shared by all plus ``CLIP_FIT_SPREAD`` times one of
+    ``len(categories)`` orthonormal ones (a matching label and image then
+    score 1, others 1 / (1 + spread^2)). A random tower's pooled features
+    of different images lie close together, so with random projections
+    every decision is a near-tie; the fit gives the directions that tell
+    the category means apart a gain that grows with the spread, and the
+    bf16 path's error along them with it (the least pairwise cosine of the
+    category means is printed)."""
+    from multimodal_baby_tpu_torch.evaluation.clip_baseline import (
+        CLIPBaseline)
+    from multimodal_baby_tpu_torch.models.clip import clip_from_state
+    model = clip_from_state(config, state, dtype=torch.float32,
+                            device="cuda")
+    clip = CLIPBaseline(model=model, processor_name=model_dir)
+    n, P = len(categories), config["projection_dim"]
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.linalg.qr(torch.randn(P, n + 1, generator=gen,
+                                    dtype=torch.float64))[0].T
+    targets = (q[0] + CLIP_FIT_SPREAD * q[1:]) / math.hypot(
+        1.0, CLIP_FIT_SPREAD)
+    with torch.no_grad():
+        text = model.text_model(**clip.tokenizer(
+            [prompt.format(c) for c in categories])).double().cpu()
+        pooled = torch.cat([
+            model.vision_model(clip.preprocess(frames[i:i + 64])).double()
+            for i in range(0, len(frames), 64)]).cpu()
+    means = torch.stack([pooled[torch.from_numpy(labels == c)].mean(0)
+                         for c in range(n)])
+    unit = F.normalize(means, dim=1)
+    log(f"  fitted the projections to {n} categories: their mean pooled "
+        f"f32 features at pairwise cosine >= "
+        f"{float((unit @ unit.T).min()):.7f}")
+    state["text_projection.weight"] = (
+        targets.T @ torch.linalg.pinv(text.T)).float().numpy()
+    state["visual_projection.weight"] = (
+        targets.T @ torch.linalg.pinv(means.T, rtol=1e-4)).float().numpy()
+    del model, clip
+    torch.cuda.empty_cache()
+
+
+def write_clip_dir(model_dir, config, state, words):
+    """The HF layout, by the port's own writer: config.json, the weights
+    as f16 model.safetensors, vocab.json and merges.txt."""
+    from multimodal_baby_tpu_torch.api.hf_dir import write_safetensors
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.json").write_text(json.dumps(config, indent=2))
+    vocab, merges = clip_vocab(words)
+    (model_dir / "vocab.json").write_text(json.dumps(vocab))
+    (model_dir / "merges.txt").write_text("#version: 0.2\n" + "".join(
+        f"{a} {b}\n" for a, b in merges))
+    if state is not None:
+        write_safetensors(model_dir / "model.safetensors", {
+            k: v.astype(np.float16) for k, v in state.items()})
+
+
+def clip_kernels(name, spec, card):
+    """K5 and K6 at a CLIP vision tower's shapes (eps 1e-5, K6 in the
+    sigmoid form), against their plain versions with phase 2b's gates,
+    then timed at the main path's largest batch beside the plain versions
+    and the library chain, per tower forward, with the bound."""
+    gen = torch.Generator().manual_seed(15)
+    v = spec["vision"]
+    C, F_, heads, depth = (v["hidden_size"], v["intermediate_size"],
+                           v["num_attention_heads"], v["num_hidden_layers"])
+    N = (CLIP_IMAGE // v["patch_size"]) ** 2 + 1
+    scale = (C // heads) ** -0.5
+    for B in CLIP_KERNEL_BATCHES[name]:
+        xa, pa = vit_half_inputs(gen, "attention", B, N, C, F_)
+        xm, pm = vit_half_inputs(gen, "mlp", B, N, C, F_)
+        runs = {
+            "K5": (lambda: fused_block_attention(xa, *pa, heads, scale, None,
+                                                 1e-5),
+                   lambda: block_attention_reference(xa, *pa, heads, scale,
+                                                     None, 1e-5),
+                   attention_library(xa, pa, heads, 1e-5),
+                   2 * B * N * C * 4 * C + 4 * B * N * N * C,
+                   2 * (2 * B * N * C) + 2 * 4 * C * C),
+            "K6": (lambda: fused_mlp(xm, *pm, 1e-5, "sigmoid"),
+                   lambda: mlp_reference(xm, *pm, 1e-5, "sigmoid"),
+                   mlp_library(xm, pm, 1e-5, "sigmoid"), 4 * B * N * C * F_,
+                   2 * (2 * B * N * C) + 2 * 2 * C * F_)}
+        for kname, (kernel, plain, library, flops, nbytes) in runs.items():
+            with torch.no_grad():
+                check(f"{kname} {name} B={B} N={N} C={C}", kernel(), plain())
+            if B != max(CLIP_KERNEL_BATCHES[name]):
+                continue
+            with torch.no_grad():
+                k, p, li = time_in_turns(kernel, plain, library, 20)
+            total = {}
+            launch_bound(total, flops, nbytes, depth)
+            log(f"  {kname} {name} per vision forward at B={B} ({depth} "
+                f"launches; {card}): kernel {depth * k:.3f} ms, plain "
+                f"{depth * p:.3f} ms, library bf16 {depth * li:.3f} ms, "
+                f"bound {total['bound_ms']:.3f} ms ({total['bound_by']}); "
+                f"kernel {flops / k / 1e9:.1f} TFLOP/s")
+
+
+@contextlib.contextmanager
+def counted_calls(baseline):
+    """Each ``score_image_trials`` call's logits, and the seconds spent in
+    ``encode_image`` and ``encode_text`` (synchronized)."""
+    logits, seconds = [], {"image": 0.0, "text": 0.0}
+
+    def timed(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds[kind] += time.perf_counter() - t0
+            return out
+        return run
+
+    score = baseline.score_image_trials
+    baseline.encode_image = timed("image", baseline.encode_image)
+    baseline.encode_text = timed("text", baseline.encode_text)
+    def score_image_trials(*args):
+        logits.append(score(*args))
+        return logits[-1]
+
+    baseline.score_image_trials = score_image_trials
+    try:
+        yield logits, seconds
+    finally:
+        for attr in ("encode_image", "encode_text", "score_image_trials"):
+            del baseline.__dict__[attr]
+
+
+def zero_vit_counts():
+    for fn, attr in VIT_COUNTERS:
+        setattr(fn, attr, 0)
+
+
+def vit_counts():
+    return [getattr(fn, attr) for fn, attr in VIT_COUNTERS]
+
+
+def phase_clip_forced_choice(root, card):
+    """15a: the ViT-L/14 baseline's forced choice."""
+    from multimodal_baby_tpu_torch.evaluation.clip_baseline import (
+        CLIPBaseline, run_clip_forced_choice)
+    from multimodal_baby_tpu_torch.models.clip import load_clip
+    name, spec = "ViT-L/14", CLIP_SPECS["ViT-L/14"]
+    depth = spec["vision"]["num_hidden_layers"]
+    rng = np.random.RandomState(15)
+    frames, labels = textures(rng, len(EVAL_CATS), 4)
+    model_dir = root / "clip-vit-large-patch14"
+    config = clip_config_json(spec)
+    words = ["a", "photo", "of", *EVAL_CATS]
+    t0 = time.perf_counter()
+    write_clip_dir(model_dir, config, None, words)
+    state = random_clip_state(config, 15)
+    fit_clip_projections(config, state, model_dir, frames, labels,
+                         EVAL_CATS, "a photo of a {}", 15)
+    write_clip_dir(model_dir, config, state, words)
+    del state
+    log(f"  wrote {name} (f16 safetensors, "
+        f"{(model_dir / 'model.safetensors').stat().st_size / 2**20:.0f} "
+        f"MiB) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kern = CLIPBaseline(model_name=str(model_dir))
+    torch.cuda.synchronize()
+    log(f"  load_clip + tokenizer on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    plain = CLIPBaseline(model=load_clip(model_dir, dtype=torch.float32),
+                         processor_name=str(model_dir))
+    # one vision forward: K5 and K6 once per block
+    x = kern.preprocess(frames[:CLIP_BATCH * 4])
+    zero_vit_counts()
+    img = kern.model.get_image_features(x)
+    counts = vit_counts()
+    log(f"  {name} vision forward at B={x.shape[0]}: K5, K6 launches "
+        f"{counts}")
+    if counts != [depth, depth]:
+        raise AssertionError(f"{name}: launches {counts} per forward, want "
+                             f"{[depth, depth]}")
+    pooled = (kern.model.vision_model(x), plain.model.vision_model(x))
+    cos_pooled = row_cosines(*pooled)
+    cos_img = row_cosines(img, plain.model.get_image_features(x))
+    prompts = [f"a photo of a {c}" for c in EVAL_CATS]
+    cos_txt = row_cosines(torch.from_numpy(kern.encode_text(prompts)),
+                          torch.from_numpy(plain.encode_text(prompts)))
+    log(f"  {name} kernel path vs f32 plain: pooled cos min "
+        f"{float(cos_pooled.min()):.7f}, image features min "
+        f"{float(cos_img.min()):.7f} mean {float(cos_img.mean()):.7f}, "
+        f"text features min {float(cos_txt.min()):.7f}")
+    for what, cos in (("image", cos_img), ("text", cos_txt)):
+        if not float(cos.min()) >= SLICE_COS_TOL:
+            raise AssertionError(f"{name} {what} features: cosine "
+                                 f"{float(cos.min()):.7f} < {SLICE_COS_TOL}")
+    (root / "clip_eval").mkdir()
+    path, _ = write_eval_set(root / "clip_eval", rng, frames, labels,
+                             n_trials=CLIP_TRIALS)
+    data = load_metadata(path)
+    vocab = Vocab({t["target_category"]: i for i, t in enumerate(data)})
+    dataset = Decoded(EvalTrialDataset(data, vocab))
+    forwards = -(-len(dataset) // CLIP_BATCH)
+    runs = {}
+    for what, baseline in (("kernels", kern), ("f32 plain", plain)):
+        with counted_calls(baseline) as (logits, seconds):
+            zero_vit_counts()
+            acc, records = run_clip_forced_choice(baseline, dataset)
+            counts = vit_counts()
+        runs[what] = (acc, records, np.concatenate(logits), counts)
+        log(f"  {name} forced choice, {what}: accuracy {acc:.4f} over "
+            f"{len(records)} trials; K5, K6 launches {counts}")
+    acc, records, logits, counts = runs["kernels"]
+    if counts != [depth * forwards] * 2:
+        raise AssertionError(f"{name} forced choice: launches {counts}, want "
+                             f"{[depth * forwards] * 2} ({forwards} vision "
+                             f"forwards)")
+    _, records_f32, logits_f32, _ = runs["f32 plain"]
+    top2 = np.sort(logits_f32, -1)
+    clear = top2[:, -1] - top2[:, -2] > CLIP_GAP
+    same = np.array([a["pred"] == b["pred"]
+                     for a, b in zip(records, records_f32)])
+    log(f"  {name} decisions: equal on {int(same.sum())} of {same.size} "
+        f"trials, on {int(same[clear].sum())} of {int(clear.sum())} with an "
+        f"f32 top-two gap > {CLIP_GAP}; max logit difference "
+        f"{float(np.abs(logits - logits_f32).max()):.3e}")
+    if not same[clear].all():
+        raise AssertionError(f"{name}: decisions differ where the f32 gap "
+                             f"exceeds {CLIP_GAP}")
+    times = {}
+    for what, baseline in (("kernels", kern), ("f32 plain", plain)):
+        with counted_calls(baseline) as (_, seconds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CLIP_TIMED):
+                run_clip_forced_choice(baseline, dataset)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        times[what] = elapsed
+        log(f"  {name} forced choice, {what} ({card}): "
+            f"{CLIP_TIMED * len(dataset) / elapsed:.1f} trials/s on decoded "
+            f"frames; encode_image {seconds['image'] / CLIP_TIMED * 1e3:.1f}"
+            f" ms, encode_text {seconds['text'] / CLIP_TIMED * 1e3:.1f} ms "
+            f"of {elapsed / CLIP_TIMED * 1e3:.1f} ms a pass of "
+            f"{len(dataset)} trials")
+    del kern, plain
+    torch.cuda.empty_cache()
+
+
+def phase_clip_filter(root, card):
+    """15b: the ETL's eval-frame filter with its default scorer, the
+    ViT-B/16 baseline, from the Hugging Face cache layout."""
+    import os
+    from PIL import Image
+    from multimodal_baby_tpu_torch.data import etl
+    from multimodal_baby_tpu_torch.evaluation.clip_baseline import (
+        CLIPBaseline)
+    from multimodal_baby_tpu_torch.models.clip import load_clip
+    name, spec = "ViT-B/16", CLIP_SPECS["ViT-B/16"]
+    depth = spec["vision"]["num_hidden_layers"]
+    rng = np.random.RandomState(16)
+    cats = LABELED_S_CATS
+    n, per = len(cats), CLIP_PER_CATEGORY
+    frames, labels = textures(rng, n, per + 1)
+    labeled = root / "clip_labeled_s"
+    for c, cat in enumerate(cats + EXCLUDED_CATS):
+        (labeled / cat).mkdir(parents=True)
+        # the category's own frames, and the next category's last frame,
+        # which the filter drops (an excluded category gets one frame)
+        chosen = ([*frames[c * (per + 1):c * (per + 1) + per],
+                   frames[((c + 1) % n) * (per + 1) + per]] if c < n
+                  else [frames[0]])
+        for k, img in enumerate(chosen):
+            Image.fromarray(img).save(labeled / cat / f"{k:03d}.jpeg",
+                                      quality=90)
+    hub = root / "clip_hf" / "hub" / "models--openai--clip-vit-base-patch16"
+    model_dir = hub / "snapshots" / "0123456789abcdef"
+    (hub / "refs").mkdir(parents=True)
+    (hub / "refs" / "main").write_text("0123456789abcdef")
+    config = clip_config_json(spec)
+    words = ["a", "photo", "of", *cats]
+    write_clip_dir(model_dir, config, None, words)
+    state = random_clip_state(config, 16)
+    keep = np.arange(len(labels)) % (per + 1) != per
+    fit_clip_projections(config, state, model_dir, frames[keep],
+                         labels[keep], cats, "{}", 16)
+    write_clip_dir(model_dir, config, state, words)
+    del state
+    saved = {k: os.environ.pop(k, None) for k in ("HF_HOME", "HF_HUB_CACHE")}
+    os.environ["HF_HOME"] = str(root / "clip_hf")
+    try:
+        zero_vit_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = etl.filter_eval_frames(labeled, root / "clip_filtered")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = vit_counts()
+    finally:
+        os.environ.pop("HF_HOME")
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    forwards = n   # one chunk a category
+    log(f"  {name} filter_eval_frames, default scorer from the cache "
+        f"layout: kept {kept} of {n * (per + 1)} frames (the fit: "
+        f"{n * per}) in {seconds:.2f} s ({card}, model load included); K5, K6 "
+        f"launches {counts}")
+    if counts != [depth * forwards] * 2:
+        raise AssertionError(f"{name} filter: launches {counts}, want "
+                             f"{[depth * forwards] * 2}")
+    clip = CLIPBaseline(model=load_clip(model_dir, dtype=torch.float32),
+                        processor_name=str(model_dir))
+    text_features = clip.encode_text(list(cats))
+
+    def plain_scorer(images_u8, _):
+        return (clip.encode_image(images_u8) @ text_features.T).argmax(-1)
+
+    kept_plain = etl.filter_eval_frames(labeled, root / "clip_plain",
+                                        scorer=plain_scorer)
+    listing = [sorted(str(p.relative_to(d)) for p in d.rglob("*.jpeg"))
+               for d in (root / "clip_filtered", root / "clip_plain")]
+    log(f"  {name} f32 plain scorer: kept {kept_plain}; the same frames: "
+        f"{listing[0] == listing[1]}")
+    if listing[0] != listing[1] or kept == 0:
+        raise AssertionError(f"{name} filter: the kernel path kept {kept} "
+                             f"frames, the f32 plain scorer {kept_plain}, "
+                             f"not the same set")
+    del clip
+    torch.cuda.empty_cache()
+
+
+def phase_clip(root, card):
+    """Phase 15: the CLIP baseline on its towers."""
+    t0 = time.perf_counter()
+    for name, spec in CLIP_SPECS.items():
+        clip_kernels(name, spec, card)
+    phase_clip_forced_choice(root, card)
+    phase_clip_filter(root, card)
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -4910,6 +5414,9 @@ def main() -> int:
         log("phase 14: the opt-in stems and augment forms, the "
             "differentiable K1 and the kernel flags of cli/train")
         phase_opt_in_modes(Path(tmp), published)
+        log("phase 15: the CLIP baseline, ViT-L/14 forced choice and the "
+            "ViT-B/16 eval-frame filter, on K5 and K6")
+        phase_clip(Path(tmp), card)
 
     csrc = "multimodal_baby_tpu_torch/ops/csrc/"
     hwbc = "multimodal_baby_tpu/ops/bottleneck_hwbc.py"

@@ -17,8 +17,12 @@ image of the first N trials goes to
 eval_shuffled.py:196-228); a trial's K images go through the trunk in one
 call.
 
-Not ported: ``--clip_eval`` (the CLIP baseline needs the Hugging Face
-CLIP weights), which refuses with a message.
+With ``--clip_eval`` it evaluates the CLIP baseline instead of the
+checkpoint (reference: eval.py:29-47): ``--clip_model`` names a local
+directory or a model in the Hugging Face cache (``api/hf_dir.py``; the
+JAX package's default, ``openai/clip-vit-large-patch14``), which the port
+reads itself and never downloads; its vision tower runs on K5 and K6 on
+the card. It prints the total accuracy, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -56,15 +60,17 @@ def main(argv=None):
                         help="save grad-CAM overlays for the first N "
                              "trials (reference: eval_shuffled.py:196-228)")
     parser.add_argument("--clip_eval", action="store_true",
-                        help="not ported: the CLIP baseline needs the "
-                             "Hugging Face CLIP weights")
+                        help="evaluate the CLIP baseline instead of a CVCL "
+                             "checkpoint (reference: eval.py:29-47; the "
+                             "weights in a local directory or the Hugging "
+                             "Face cache)")
+    parser.add_argument("--clip_model", type=str,
+                        default="openai/clip-vit-large-patch14")
     add_kernel_args(parser)
     args = parser.parse_args(argv)
 
     if args.clip_eval:
-        parser.error("--clip_eval is not ported: the CLIP baseline "
-                     "(evaluation/clip_baseline.py) needs the Hugging Face "
-                     "CLIP weights; run it from the JAX package")
+        return clip_eval(args)
 
     from multimodal_baby_tpu_torch.api.model import load_model
     model, _ = load_model(args.checkpoint, device=args.device,
@@ -104,6 +110,28 @@ def main(argv=None):
                             map_dir)
         print(f"saved attention maps to {map_dir}")
     return accs
+
+
+def clip_eval(args) -> dict:
+    """The CLIP baseline's forced-choice accuracy over the eval trials
+    (the JAX package's ``--clip_eval`` branch)."""
+    from multimodal_baby_tpu_torch.data.vocab import Vocab
+    from multimodal_baby_tpu_torch.evaluation.clip_baseline import (
+        CLIPBaseline, run_clip_forced_choice)
+
+    fname = args.eval_metadata_filename
+    if args.stage == "test":
+        fname = fname.replace("dev", "test")
+    data = load_metadata(Path(args.data_dir) / fname)
+    # labels come from trial categories; the vocab only keys the dataset
+    vocab = Vocab({t["target_category"]: i for i, t in enumerate(data)})
+    dataset = EvalTrialDataset(data, vocab)
+    baseline = CLIPBaseline(model_name=args.clip_model, device=args.device,
+                            kernels=kernel_config_from_args(args))
+    acc, _ = run_clip_forced_choice(baseline, dataset,
+                                    batch_size=args.batch_size)
+    print(f"CLIP baseline total accuracy: {acc:.1%}")
+    return {"total": acc}
 
 
 def dump_attention_maps(model, dataset, n_trials: int, map_dir) -> None:

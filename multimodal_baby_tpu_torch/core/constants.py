@@ -22,6 +22,15 @@ IMAGE_W = 224
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+# CLIP normalization (the CLIP baseline's preprocess,
+# evaluation/clip_baseline.py)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+# the val loader of each split is a pair: [val-split loader, eval-trial
+# loader]
+N_VAL_DATALOADERS_PER_SPLIT = 2
+
 # mesh axis names (parallel/mesh.py)
 DATA_AXIS = "data"    # batch / data-parallel axis
 MODEL_AXIS = "model"  # vocab-sharded token embedding and tied LM head

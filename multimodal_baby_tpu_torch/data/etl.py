@@ -1,8 +1,11 @@
 """A copy of ``multimodal_baby_tpu/data/etl.py`` (tests hold the outputs
 of the two byte for byte equal on the same raw tree), kept so that the port
-imports nothing of the JAX package. One change: ``filter_eval_frames``
-without a ``scorer`` refuses, since its default scorer is the CLIP
-ViT-B/16 baseline, whose weights are a download the port does not make.
+imports nothing of the JAX package. One change: ``filter_eval_frames``'
+default scorer, the CLIP ViT-B/16 baseline (``openai/clip-vit-base-patch16``),
+is the port's (``evaluation/clip_baseline.py``), on the card unless
+``device`` says otherwise; it reads the weights from a local directory or
+the Hugging Face cache and refuses where neither holds them, as the port
+never downloads.
 
 Offline ETL: SAYCam transcripts + videos -> training-ready metadata.
 
@@ -486,16 +489,16 @@ def download_transcripts(links_csv, out_dir, fetch=None,
 def filter_eval_frames(labeled_s_dir, filtered_dir, scorer=None,
                        excluded_categories: Sequence[str] =
                        EXCLUDED_EVAL_CATEGORIES,
-                       batch_size: int = 64) -> int:
+                       batch_size: int = 64, device="cuda") -> int:
     """CLIP self-filtering of the Labeled-S eval frames (reference:
     multimodal_saycam_data_module.py:545-606): keep a frame only if a
     zero-shot classifier's top category over all eval categories matches
     the frame's own category.
 
-    ``scorer(images_u8 [N,H,W,3], categories) -> pred indices [N]``;
-    without one this refuses (the JAX package's default, the CLIP ViT-B/16
-    baseline, needs weights the port does not download). Idempotent: skips
-    when ``filtered_dir`` exists. Returns number of frames kept.
+    ``scorer(images_u8 [N,H,W,3], categories) -> pred indices [N]``; the
+    default builds the CLIP ViT-B/16 baseline (evaluation.clip_baseline, on
+    ``device``; needs the weights locally). Idempotent: skips when
+    ``filtered_dir`` exists. Returns number of frames kept.
     """
     import shutil
 
@@ -512,11 +515,15 @@ def filter_eval_frames(labeled_s_dir, filtered_dir, scorer=None,
     categories = [c for c in categories if c not in excluded_categories]
 
     if scorer is None:
-        raise RuntimeError(
-            "filter_eval_frames needs a scorer: the default one is the CLIP "
-            "ViT-B/16 baseline (openai/clip-vit-base-patch16), whose "
-            "weights are a download the port does not make; pass "
-            "scorer(images_u8, categories) -> predicted indices")
+        from multimodal_baby_tpu_torch.evaluation.clip_baseline import (
+            CLIPBaseline)
+        clip = CLIPBaseline(model_name="openai/clip-vit-base-patch16",
+                            device=device)
+        text_features = clip.encode_text(categories)
+
+        def scorer(images_u8, cats):
+            img_features = clip.encode_image(images_u8)
+            return (img_features @ text_features.T).argmax(-1)
 
     filtered_dir.mkdir(parents=True)
     kept = 0

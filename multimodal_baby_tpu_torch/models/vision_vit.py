@@ -116,24 +116,26 @@ class ViTKernels:
 
 class LayerNorm(nn.Module):
     """LayerNorm with torch's names and the JAX package's arithmetic
-    (f32 statistics, var = E[x^2] - mean^2, output in x's dtype)."""
+    (f32 statistics, var = E[x^2] - mean^2, output in x's dtype); ``eps``
+    is DINO's 1e-6 unless given (CLIP's is 1e-5)."""
 
-    def __init__(self, dim: int, *, device=None):
+    def __init__(self, dim: int, eps: float = LN_EPS, *, device=None):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, LN_EPS)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
-def _norm_only(x: torch.Tensor) -> torch.Tensor:
+def _norm_only(x: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm's normalize without its affine (the LN-fold's; f32
     statistics, var = E[x^2] - mean^2, the result in x's dtype)."""
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
     var = (x32 * x32).mean(-1, keepdim=True) - mu * mu
-    return ((x32 - mu) * torch.rsqrt(var + LN_EPS)).to(x.dtype)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class Dense(NamedTuple):
@@ -230,13 +232,19 @@ class ViTAttention(nn.Module):
 
 
 class ViTBlock(nn.Module):
+    """A pre-norm block. ``hidden``: the MLP's width (``dim * mlp_ratio``
+    when not given); ``eps``: both LayerNorms' (DINO's 1e-6 by default,
+    CLIP's 1e-5), on the plain path and in the kernels alike."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
+                 hidden: int | None = None, eps: float = LN_EPS,
                  device=None):
         super().__init__()
-        hidden = int(dim * mlp_ratio)
-        self.norm1 = LayerNorm(dim, device=device)
+        hidden = int(dim * mlp_ratio) if hidden is None else hidden
+        self.eps = eps
+        self.norm1 = LayerNorm(dim, eps, device=device)
         self.attn = ViTAttention(dim, num_heads, device=device)
-        self.norm2 = LayerNorm(dim, device=device)
+        self.norm2 = LayerNorm(dim, eps, device=device)
         self.mlp = nn.Module()
         self.mlp.fc1 = nn.Linear(dim, hidden, device=device)
         self.mlp.fc2 = nn.Linear(hidden, dim, device=device)
@@ -296,7 +304,10 @@ class ViTBlock(nn.Module):
         LayerNorms (only their normalize with ``lnfold``), the attention of
         mode ``attn`` between the qkv and proj Denses (``off`` on the plain
         path), then fc1, the GELU and fc2."""
-        norm1, norm2 = ((_norm_only, _norm_only) if kernels.lnfold
+        def norm_only(x):
+            return _norm_only(x, self.eps)
+
+        norm1, norm2 = ((norm_only, norm_only) if kernels.lnfold
                         else (self.norm1, self.norm2))
         x = x + self.attn.forward_kernels(norm1(x), d["qkv"], d["proj"],
                                           attn)
@@ -315,16 +326,16 @@ class ViTBlock(nn.Module):
         hidden = self.mlp.fc1.out_features
         scale = d ** -0.5
         if kernels.whole_block and should_fuse_vit_block(N, H, d, hidden):
-            return fused_vit_block(x, *w, H, scale, None, LN_EPS,
+            return fused_vit_block(x, *w, H, scale, None, self.eps,
                                    kernels.gelu)
         if kernels.attn == "block" and should_fuse_block_attention(N, H, d):
-            x = fused_block_attention(x, *w[:6], H, scale, None, LN_EPS)
+            x = fused_block_attention(x, *w[:6], H, scale, None, self.eps)
         else:
             x = x + self.attn.forward_kernels(
                 self.norm1(x), Dense(w[2], w[3]), Dense(w[4], w[5]),
                 kernels.attn)
         if kernels.mlp == "fused" and should_fuse_mlp(N, C, hidden):
-            return fused_mlp(x, *w[6:], LN_EPS, kernels.gelu)
+            return fused_mlp(x, *w[6:], self.eps, kernels.gelu)
         return self._mlp(x, kernels.gelu)
 
 
@@ -551,21 +562,26 @@ class VisionTransformerDino(nn.Module):
             lambda b: b.dense_operands(dtype, k.int8, k.lnfold))
 
     def _per_weight_state(self, what: tuple, make) -> list:
-        """``make(block)`` for every block. A frozen trunk computes it once
-        per weight state and keeps it under ``what`` (the dtype and the
-        modes, so a switch between configurations computes nothing anew):
-        its key holds each parameter's storage and version counter, so an
-        in-place update (a loaded state dict) computes it anew."""
+        """``make(block)`` for every block; a frozen trunk keeps it
+        (``per_weight_state``)."""
         if not self.frozen:
             return [make(b) for b in self.blocks]
-        key = tuple((p.data_ptr(), p._version)
-                    for p in self.blocks.parameters())
-        cached = self._operands.get(what)
-        if cached is None or cached[0] != key:
-            with torch.no_grad():
-                cached = self._operands[what] = (
-                    key, [make(b) for b in self.blocks])
-        return cached[1]
+        return per_weight_state(self._operands, self.blocks, what, make)
+
+
+def per_weight_state(cache: dict, blocks: nn.ModuleList, what: tuple,
+                     make) -> list:
+    """``make(block)`` for every block of a frozen trunk, computed once per
+    weight state and kept in ``cache`` under ``what`` (the dtype and the
+    modes, so a switch between configurations computes nothing anew): its
+    key holds each parameter's storage and version counter, so an in-place
+    update (a loaded state dict) computes it anew."""
+    key = tuple((p.data_ptr(), p._version) for p in blocks.parameters())
+    cached = cache.get(what)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = cache[what] = (key, [make(b) for b in blocks])
+    return cached[1]
 
 
 def vit_base(patch_size: int = 14, dtype: torch.dtype | None = None,

@@ -20,6 +20,7 @@ from multimodal_baby_tpu_torch.data import coco as tcoco
 from multimodal_baby_tpu_torch.data import loader as tloader
 from multimodal_baby_tpu_torch.data import modules as tmodules
 from tests.test_torch_train_data import assert_items_equal
+from tests.torch_jax_decoder import same_decoder
 
 WORDS = ["a", "man", "dog", "rides", "runs", "park", "red", "ball", "on"]
 SPLITS = ["train", "train", "val", "test", "restval", "train"]
@@ -77,9 +78,11 @@ def test_vocab_threshold_matches_jax(coco, threshold):
 
 
 @pytest.mark.parametrize("multiple", [False, True])
-def test_dataset_items_match_jax(coco, multiple):
+def test_dataset_items_match_jax(coco, multiple, monkeypatch):
     """(image, ids, length, raw captions) item by item, twice over (the
-    random caption draws go on alike)."""
+    random caption draws go on alike), both sides on one decoder
+    (``tests/torch_jax_decoder.py``)."""
+    same_decoder(monkeypatch)
     root, _ = coco
     data = json.loads((root / "port" / "train.json").read_text())
     t = tcoco.COCOCaptionsDataset(data, root, multiple_captions=multiple,

@@ -27,7 +27,10 @@ and 16 (bf16), and ``category_feature_sets`` with a 36-frame tail. The
 host input path: ``device_batch``'s pinned staging ring against a
 consumer that lags on the device (every device batch equal to its host
 batch), and the trainer's first step on JPEG frames against the plain
-versions.
+versions. K5 and K6 at the CLIP towers' shapes (LayerNorm eps 1e-5, K6
+in the sigmoid form: ViT-L/14 and ViT-B/16), and the CLIP model's bf16
+kernel path (depth cut to 2) against its f32 plain path (per-row cosine
+>= 0.999, one K5 and one K6 launch a block).
 
 Marked ``gpu``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false. chip_smoke.py runs the same
@@ -1663,3 +1666,60 @@ def test_bottleneck_diff_forward_is_k1_and_its_gradients_plain(
         cos = torch.nn.functional.cosine_similarity(
             a.float().flatten(), b.float().flatten(), dim=0)
         assert a.shape == b.shape and float(cos) >= COS_TOL, name
+
+
+# the CLIP towers' shapes (evaluation/clip_baseline.py): ViT-L/14 (N = 257,
+# C = 1024, 16 heads, F = 4096) and ViT-B/16 (N = 197, C = 768, F = 3072),
+# with CLIP's LayerNorm eps and, in K6, its quick_gelu ("sigmoid")
+@pytest.mark.parametrize("B,N,C,F", [(4, 257, 1024, 4096), (2, 197, 768, 3072),
+                                     (5, 197, 768, 3072)])
+def test_vit_kernels_at_the_clip_shapes(cuda, B, N, C, F):
+    heads, scale = C // 64, 64 ** -0.5
+    x, p = vit_inputs("attention", B, N, C, F, cuda)
+    got = fused_block_attention(x, *p, heads, scale, None, 1e-5)
+    assert_close_bf16(got, block_attention_reference(x, *p, heads, scale,
+                                                     None, 1e-5))
+    x, p = vit_inputs("mlp", B, N, C, F, cuda)
+    got = fused_mlp(x, *p, 1e-5, "sigmoid")
+    assert_close_bf16(got, mlp_reference(x, *p, 1e-5, "sigmoid"))
+
+
+@pytest.mark.parametrize("vision", [
+    dict(hidden_size=1024, intermediate_size=4096, num_attention_heads=16,
+         patch_size=14),
+    dict(hidden_size=768, intermediate_size=3072, num_attention_heads=12,
+         patch_size=16)], ids=["L14", "B16"])
+def test_clip_towers_on_the_card(cuda, vision):
+    """A CLIP model at a published vision width (depth cut to 2 blocks a
+    tower), random weights: the bf16 kernel path launches K5 and K6 once a
+    block, and its image features reach per-row cosine >= 0.999 to the f32
+    plain path; the text tower (f32 on both) gives equal features."""
+    from multimodal_baby_tpu_torch.models.clip import CLIPModel
+    config = {"projection_dim": 512,
+              "vision_config": {**vision, "num_hidden_layers": 2},
+              "text_config": {"hidden_size": 512, "intermediate_size": 2048,
+                              "num_hidden_layers": 2, "eos_token_id": 2}}
+    plain = CLIPModel(config, dtype=torch.float32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            std = 0.1 if p.dim() == 1 else p.shape[-1] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=g, device=cuda) * std
+                    + (1.0 if "norm" in name and "weight" in name else 0.0))
+    kern = CLIPModel(config, device=cuda)
+    kern.load_state_dict(plain.state_dict())
+    assert kern.dtype == torch.bfloat16
+    x = torch.randn(6, 3, 224, 224, generator=g, device=cuda)
+    before = fused_block_attention.launches, fused_mlp.launches
+    got = kern.get_image_features(x)
+    torch.cuda.synchronize()
+    assert (fused_block_attention.launches - before[0],
+            fused_mlp.launches - before[1]) == (2, 2)
+    cos = torch.nn.functional.cosine_similarity(
+        got, plain.get_image_features(x), dim=1)
+    assert torch.isfinite(got).all() and float(cos.min()) >= 0.999
+    ids = torch.randint(0, 49406, (3, 9), generator=g, device=cuda)
+    ids[:, -1] = 49407
+    mask = torch.ones_like(ids)
+    assert torch.equal(kern.get_text_features(ids, mask),
+                       plain.get_text_features(ids, mask))

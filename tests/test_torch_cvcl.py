@@ -107,7 +107,8 @@ def pair():
 
 def test_config_and_constants_match_the_jax_package():
     """The port's copies of the config dataclasses and constants hold the
-    same fields, defaults and values (the port imports nothing of JAX)."""
+    same fields, defaults and values, and the copy of the constants every
+    name of the original (the port imports nothing of JAX)."""
     for name in ("VisionConfig", "TextConfig", "ModelConfig", "TrainConfig",
                  "DataConfig", "ParallelConfig", "ExperimentConfig"):
         j, t = getattr(jcfg, name), getattr(tcfg, name)
@@ -120,6 +121,8 @@ def test_config_and_constants_match_the_jax_package():
     for name in dir(tconst):
         if name.isupper():
             assert getattr(tconst, name) == getattr(jconst, name), name
+    # and every constant of the original has its copy
+    assert {n for n in dir(jconst) if n.isupper()} <= set(dir(tconst))
 
 
 def test_logits_and_features_match_jax(pair):

@@ -32,6 +32,7 @@ from multimodal_baby_tpu_torch.data import loader as tloader
 from multimodal_baby_tpu_torch.data import modules as tmodules
 from tests.test_torch_train_data import (
     assert_batches_equal, assert_items_equal)
+from tests.torch_jax_decoder import same_decoder
 
 import chip_smoke
 
@@ -235,12 +236,14 @@ def test_filter_and_split_match_jax(prepared, tmp_path):
 
 
 @pytest.mark.parametrize("eval_type", ["image", "text"])
-def test_data_module_matches_jax(prepared, eval_type):
+def test_data_module_matches_jax(prepared, eval_type, monkeypatch):
     """setup() on the prepared directory: the same vocab, datasets and
     eval trials item by item, and the same loader batches (random frame
-    draws included)."""
+    draws included), both sides on one decoder
+    (``tests/torch_jax_decoder.py``)."""
     if not prepared["video"]:
         pytest.skip("no extracted frames without cv2's video")
+    same_decoder(monkeypatch)
     kw = dict(dataset="saycam", data_dir=str(prepared["data"]),
               multiple_frames=True, eval_type=eval_type,
               eval_metadata_filename="eval_filtered_dev.json")

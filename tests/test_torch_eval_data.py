@@ -25,6 +25,7 @@ from multimodal_baby_tpu_torch.data import datasets as tds
 from multimodal_baby_tpu_torch.data import object_categories as toc
 from multimodal_baby_tpu_torch.data import tokenizer as ttok
 from multimodal_baby_tpu_torch.data.vocab import Vocab
+from tests.torch_jax_decoder import same_decoder
 
 SENTENCES = [
     "ball", "a cat", "the kitty's ball!", "don't do that", "you're gonna "
@@ -130,10 +131,12 @@ def test_image_loader_resizes_with_pil_bicubic(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
-def test_image_loader_matches_the_jax_loader(tmp_path):
+def test_image_loader_matches_the_jax_loader(tmp_path, monkeypatch):
     """A frame that needs a resize: the port's loader decodes it as the
     JAX package's ``_load_image_uint8`` does (its native decoder, bilinear
-    resize), byte for byte."""
+    resize; PIL's bicubic on both sides where the JAX decoder cannot be
+    built), byte for byte."""
+    same_decoder(monkeypatch)
     arr = np.random.RandomState(1).randint(0, 256, (300, 200, 3), np.uint8)
     p = tmp_path / "big.png"
     Image.fromarray(arr).save(p)

@@ -1,4 +1,6 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor the Hugging Face
+libraries that the JAX package's CLIP baseline uses (``transformers``,
+``tokenizers``, ``safetensors``, ``huggingface_hub``).
 
 Checked in a fresh interpreter: this test process has JAX loaded already
 (tests/conftest.py).
@@ -90,6 +92,10 @@ MODULES = [
     "multimodal_baby_tpu_torch.parallel.collectives",
     "multimodal_baby_tpu_torch.parallel.vocab",
     "multimodal_baby_tpu_torch.models.kernel_config",
+    "multimodal_baby_tpu_torch.api.hf_dir",
+    "multimodal_baby_tpu_torch.data.clip_tokenizer",
+    "multimodal_baby_tpu_torch.models.clip",
+    "multimodal_baby_tpu_torch.evaluation.clip_baseline",
 ]
 
 PROBE = """
@@ -99,7 +105,9 @@ for name in {modules!r}:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax"))
              or m == "multimodal_baby_tpu"
-             or m.startswith("multimodal_baby_tpu."))
+             or m.startswith("multimodal_baby_tpu.")
+             or m.split(".")[0] in ("transformers", "tokenizers",
+                                    "safetensors", "huggingface_hub"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -141,6 +149,18 @@ def test_chip_phase14_script_imports_no_jax():
                           "importlib.import_module(name)\n"
                           "import runpy; runpy.run_path("
                           "'scripts/chip_phase14.py')")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe.format(modules=MODULES)], cwd=REPO,
+        capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_phase15_script_imports_no_jax():
+    """scripts/chip_phase15.py's module scope and its imports."""
+    probe = PROBE.replace("importlib.import_module(name)",
+                          "importlib.import_module(name)\n"
+                          "import runpy; runpy.run_path("
+                          "'scripts/chip_phase15.py')")
     proc = subprocess.run(
         [sys.executable, "-c", probe.format(modules=MODULES)], cwd=REPO,
         capture_output=True, text=True, timeout=120, check=False)

@@ -200,12 +200,16 @@ def test_synthetic_module_matches_jax():
     assert t.eval_datasets == j.eval_datasets == {}
 
 
-def test_prepare_data_refusals(tmp_path):
+def test_prepare_data_refusals(tmp_path, monkeypatch):
     """Nothing to do without raw inputs; raw inputs run the ETL (an empty
     transcript directory gives empty splits) and COCO prepares nothing
     without its dataset_coco.json. The one refusal left is the ETL's
-    default eval-frame scorer, the CLIP baseline (a download)."""
+    default eval-frame scorer, the CLIP ViT-B/16 baseline, where neither a
+    local directory nor the Hugging Face cache holds its weights (the port
+    does not download)."""
     from multimodal_baby_tpu_torch.data import etl as tetl
+    monkeypatch.delenv("HF_HUB_CACHE", raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
     cfg = tcfg.DataConfig(dataset="saycam", data_dir=str(tmp_path / "d"))
     assert tmodules.DataModule(cfg).prepare_data() is not None
     assert not (tmp_path / "d").exists()
@@ -218,5 +222,7 @@ def test_prepare_data_refusals(tmp_path):
     tmodules.DataModule(coco).prepare_data()
     assert not (tmp_path / "c").exists()
     (tmp_path / "labeled" / "ball").mkdir(parents=True)
-    with pytest.raises(RuntimeError, match="CLIP"):
-        tetl.filter_eval_frames(tmp_path / "labeled", tmp_path / "f")
+    with pytest.raises(FileNotFoundError,
+                       match="clip-vit-base-patch16.*does not download"):
+        tetl.filter_eval_frames(tmp_path / "labeled", tmp_path / "f",
+                                device="cpu")

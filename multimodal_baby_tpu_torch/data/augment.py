@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD)
+from multimodal_baby_tpu_torch.train.profiler import wait
 
 _BLUR_RADIUS = 6  # 13-tap band
 _CROP_SCALE = (0.2, 1.0)      # area fraction, uniform
@@ -44,8 +45,13 @@ class AugmentDraws(NamedTuple):
 def normalize_image(x: torch.Tensor) -> torch.Tensor:
     """uint8 or float [..., H, W, 3] -> ImageNet-normalized float32."""
     x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    # a list to the card: a pageable copy that waits for the stream
+    with wait("imagenet_mean"):
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                            device=x.device)
+    with wait("imagenet_std"):
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                           device=x.device)
     return (x - mean) / std
 
 
@@ -139,8 +145,10 @@ def apply_augment(images: torch.Tensor, draws: AugmentDraws,
     if images.dtype == torch.uint8:
         f = f / 255.0
     f = f.to(bf16)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=images.device)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=images.device)
+    with wait("imagenet_mean"):
+        mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=images.device)
+    with wait("imagenet_std"):
+        std = torch.tensor(IMAGENET_STD, dtype=dtype, device=images.device)
     if s2d:
         rows = [torch.einsum("bph,bhwc->bpwc", a_row[:, i::2], f)
                 for i in range(2)]

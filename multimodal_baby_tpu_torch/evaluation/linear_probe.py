@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from multimodal_baby_tpu_torch.data.augment import normalize_image
 from multimodal_baby_tpu_torch.models.layers import resolve_device
 from multimodal_baby_tpu_torch.models.multimodal import CVCL
+from multimodal_baby_tpu_torch.train.profiler import span, wait
 
 
 @torch.no_grad()
@@ -30,9 +31,16 @@ def _in_chunks(fn, images_u8: np.ndarray, device: torch.device,
                batch_size: int) -> np.ndarray:
     chunks = []
     for s in range(0, images_u8.shape[0], batch_size):
-        x = normalize_image(torch.from_numpy(
-            np.ascontiguousarray(images_u8[s:s + batch_size])).to(device))
-        chunks.append(fn(x).float().cpu().numpy())
+        with span("embed_chunk"):
+            with span("h2d"):
+                host = torch.from_numpy(
+                    np.ascontiguousarray(images_u8[s:s + batch_size]))
+                # pageable: the copy waits for the stream
+                with wait("pageable_h2d"):
+                    x = host.to(device)
+            y = fn(normalize_image(x))
+            with span("d2h"), wait("d2h"):
+                chunks.append(y.float().cpu().numpy())
     return np.concatenate(chunks, axis=0)
 
 

@@ -40,6 +40,7 @@ from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision import VisionEncoder
 from multimodal_baby_tpu_torch.parallel.collectives import (
     model_copy, model_gather)
+from multimodal_baby_tpu_torch.train.profiler import span
 
 Tensor = torch.Tensor
 
@@ -130,19 +131,22 @@ class CVCL(nn.Module):
         return self.model.logit_neg_log_temperature
 
     def encode_image(self, image: torch.Tensor, train: bool = False):
-        features, feature_map = self.vision_encoder(image, train=train)
-        if self.cfg.normalize_features:
-            features = l2_normalize(features, dim=-1)
-        return features, feature_map
+        with span("vision"):
+            features, feature_map = self.vision_encoder(image, train=train)
+            if self.cfg.normalize_features:
+                features = l2_normalize(features, dim=-1)
+            return features, feature_map
 
     def encode_text(self, text: torch.Tensor, text_length: torch.Tensor,
                     generator: torch.Generator | None = None):
         """``generator`` draws the text encoder's dropout (None:
         deterministic)."""
-        features, outputs = self.text_encoder(text, text_length, generator)
-        if self.cfg.normalize_features:
-            features = l2_normalize(features, dim=-1)
-        return features, outputs
+        with span("text"):
+            features, outputs = self.text_encoder(text, text_length,
+                                                  generator)
+            if self.cfg.normalize_features:
+                features = l2_normalize(features, dim=-1)
+            return features, outputs
 
     def similarity(self, image_features: torch.Tensor,
                    text_features: torch.Tensor,
@@ -192,18 +196,19 @@ class CVCL(nn.Module):
                 image, train=train)
             text_features, text_outputs = self.encode_text(
                 text, text_length, gen)
-            fi, ft, lengths = image_features, text_features, text_length
-            if gather is not None:
-                fi, ft = gather(fi), gather(ft)
-                if self.cfg.embedding_type == "spatial":
-                    lengths = gather(lengths)
-            match = self.similarity(fi, ft, lengths)
-            scale = self.logit_scale()
-            out.update(logits_per_image=match * scale,
-                       logits_per_text=match.T * scale,
-                       image_features=image_features,
-                       image_feature_map=image_feature_map,
-                       text_outputs=text_outputs)
+            with span("loss"):
+                fi, ft, lengths = image_features, text_features, text_length
+                if gather is not None:
+                    fi, ft = gather(fi), gather(ft)
+                    if self.cfg.embedding_type == "spatial":
+                        lengths = gather(lengths)
+                match = self.similarity(fi, ft, lengths)
+                scale = self.logit_scale()
+                out.update(logits_per_image=match * scale,
+                           logits_per_text=match.T * scale,
+                           image_features=image_features,
+                           image_feature_map=image_feature_map,
+                           text_outputs=text_outputs)
         if use_lm:
             conditioned = t.captioning or t.attention
             if conditioned and image_features is None:
@@ -251,11 +256,12 @@ class CVCL(nn.Module):
                    ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
         """(outputs [B, L, H], logits [B, L, V], attns); encodes ``y`` unless
         ``outputs`` are given."""
-        attns = None
-        if outputs is None:
-            _, outputs, attns = self.text_encoder.encode(
-                y, y_len, generator, image_features, image_feature_map)
-        return outputs, self.lm_output_layer(outputs), attns
+        with span("lm"):
+            attns = None
+            if outputs is None:
+                _, outputs, attns = self.text_encoder.encode(
+                    y, y_len, generator, image_features, image_feature_map)
+            return outputs, self.lm_output_layer(outputs), attns
 
     def lm_labels_and_logits(self, y: Tensor, logits: Tensor
                              ) -> Tuple[Tensor, Tensor]:

@@ -32,6 +32,7 @@ from multimodal_baby_tpu_torch.models.layers import (
     TorchLinear, resolve_device)
 from multimodal_baby_tpu_torch.models.vision_resnext import ResNeXt50
 from multimodal_baby_tpu_torch.models.vision_vit import vit_base
+from multimodal_baby_tpu_torch.train.profiler import span
 
 
 class TinyConvNet(nn.Module):
@@ -119,13 +120,15 @@ class VisionEncoder(nn.Module):
         reference."""
         v = self.cfg.vision
         if v.backbone == "vit_b14":
-            cls = self.model(x)
+            with span("trunk"):
+                cls = self.model(x)
             if not v.finetune_cnn:
                 cls = cls.detach()
             return self.model.head(cls), None
         # a frozen trunk may run BN on running averages (frozen_bn="running")
         bn_train = train and (v.finetune_cnn or v.frozen_bn == "batch")
-        out = self.model(x, train=bn_train)
+        with span("trunk"):
+            out = self.model(x, train=bn_train)
         pooled, feature_map = out["pooled"], out["feature_map"]
         if not v.finetune_cnn:
             pooled = pooled.detach()

@@ -42,6 +42,7 @@ from multimodal_baby_tpu_torch.parallel.collectives import (
     all_gather, all_reduce, reduce_gradients)
 from multimodal_baby_tpu_torch.parallel.mesh import Mesh
 from multimodal_baby_tpu_torch.train.optimizer import build_optimizer
+from multimodal_baby_tpu_torch.train.profiler import span, wait
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -101,7 +102,8 @@ class HostStaging:
         i = self._next
         self._next = (i + 1) % self.depth
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            with wait("staging_slot"):
+                self._events[i].synchronize()
         slot, out = self._slots[i], {}
         for k, v in arrays.items():
             src = torch.from_numpy(v)
@@ -133,16 +135,18 @@ def device_batch(batch: Mapping[str, np.ndarray], device,
     slot for this call) and is copied without blocking the host; int32
     arrays are copied as int32 and widened on the device. On the CPU each
     array is converted and copied as it is."""
-    device = torch.device(device)
-    arrays = {k: np.ascontiguousarray(v) for k, v in batch.items()
-              if k != "raw"}
-    if device.type != "cuda":
-        return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32
-                                    else v).to(device)
-                for k, v in arrays.items()}
-    out = (staging or HostStaging(1)).to_device(arrays, device)
-    return {k: v.long() if v.dtype == torch.int32 else v
-            for k, v in out.items()}
+    with span("device_batch"):
+        device = torch.device(device)
+        arrays = {k: np.ascontiguousarray(v) for k, v in batch.items()
+                  if k != "raw"}
+        if device.type != "cuda":
+            return {k: torch.from_numpy(v.astype(np.int64)
+                                        if v.dtype == np.int32 else v
+                                        ).to(device)
+                    for k, v in arrays.items()}
+        out = (staging or HostStaging(1)).to_device(arrays, device)
+        return {k: v.long() if v.dtype == torch.int32 else v
+                for k, v in out.items()}
 
 
 def calibrate_trunk(model: CVCL, batch: Batch, n: int = 32):
@@ -205,56 +209,59 @@ def make_loss_fn(model: CVCL, cfg: ExperimentConfig,
         if needs_image and "image" in batch:
             image = batch["image"]
         elif needs_image:
-            image = augment_batch(
-                batch["image_u8"], augment=cfg.data.augment_frames and train,
-                dtype=compute_dtype, generator=generator, s2d=s2d,
-                csplit=csplit)
+            with span("augment"):
+                image = augment_batch(
+                    batch["image_u8"],
+                    augment=cfg.data.augment_frames and train,
+                    dtype=compute_dtype, generator=generator, s2d=s2d,
+                    csplit=csplit)
         out = model.joint_forward(
             image, batch["text"], batch["text_len"], train=train,
             generator=generator, use_mm=use_mm, use_lm=use_lm,
             gather=gather if group is not None and not per_shard else None)
-        # a padded tail batch marks its real rows: they alone count
-        valid = batch.get("valid")
-        rows = (valid.sum().float() if valid is not None
-                else batch["text"].new_full((), batch["text"].shape[0],
-                                            dtype=torch.float32))
-        metrics: Metrics = {
-            "batch_size": reduce(rows),
-            "temperature": torch.exp(-out["logit_neg_log_temperature"]),
-        }
-        infonce = lm_ce = attn_reg = 0.0
-        if use_mm:
-            lpi, lpt = out["logits_per_image"], out["logits_per_text"]
-            if per_shard:
-                infonce, m = L.contrastive_loss_from_logits(lpi, lpt,
-                                                            valid=valid)
-                # pooled by valid count: the unsharded computation's
-                infonce = reduce(infonce * rows) / metrics["batch_size"]
-                m = {k: reduce(v.detach() * rows) / metrics["batch_size"]
-                     for k, v in m.items()}
-            else:  # the gathered rows' mask on a mesh
-                infonce, m = L.contrastive_loss_from_logits(
-                    lpi, lpt, valid=(gather(valid) if valid is not None
-                                     else None))
-            metrics.update(m)
-            metrics["infonce_loss"] = infonce
-        if use_lm:
-            labels = out["lm_labels"]
-            if valid is not None:  # padded rows add no tokens
-                labels = torch.where(valid[:, None], labels, PAD_TOKEN_ID)
-            ce, _ = L.lm_cross_entropy(out["lm_logits"], labels)
-            breakdown = (L.lm_loss_breakdown(ce, labels) if group is None
-                         else L.lm_loss_breakdown(ce, labels, reduce))
-            metrics.update(breakdown)
-            lm_ce = breakdown["ce_loss"]
-            if text_cfg.attention and out.get("attns") is not None:
-                attn_reg = (L.attn_reg_loss(out["attns"]) if group is None
-                            else L.attn_reg_loss(out["attns"], reduce))
-                metrics["attn_reg_loss"] = attn_reg
-        loss = torch.as_tensor(t.lambda_mm * infonce + t.lambda_lm * lm_ce
-                               + t.lambda_ar * attn_reg)
-        metrics["loss"] = loss
-        return loss, metrics
+        with span("loss"):
+            # a padded tail batch marks its real rows: they alone count
+            valid = batch.get("valid")
+            rows = (valid.sum().float() if valid is not None
+                    else batch["text"].new_full((), batch["text"].shape[0],
+                                                dtype=torch.float32))
+            metrics: Metrics = {
+                "batch_size": reduce(rows),
+                "temperature": torch.exp(-out["logit_neg_log_temperature"]),
+            }
+            infonce = lm_ce = attn_reg = 0.0
+            if use_mm:
+                lpi, lpt = out["logits_per_image"], out["logits_per_text"]
+                if per_shard:
+                    infonce, m = L.contrastive_loss_from_logits(lpi, lpt,
+                                                                valid=valid)
+                    # pooled by valid count: the unsharded computation's
+                    infonce = reduce(infonce * rows) / metrics["batch_size"]
+                    m = {k: reduce(v.detach() * rows) / metrics["batch_size"]
+                         for k, v in m.items()}
+                else:  # the gathered rows' mask on a mesh
+                    infonce, m = L.contrastive_loss_from_logits(
+                        lpi, lpt, valid=(gather(valid) if valid is not None
+                                         else None))
+                metrics.update(m)
+                metrics["infonce_loss"] = infonce
+            if use_lm:
+                labels = out["lm_labels"]
+                if valid is not None:  # padded rows add no tokens
+                    labels = torch.where(valid[:, None], labels, PAD_TOKEN_ID)
+                ce, _ = L.lm_cross_entropy(out["lm_logits"], labels)
+                breakdown = (L.lm_loss_breakdown(ce, labels) if group is None
+                             else L.lm_loss_breakdown(ce, labels, reduce))
+                metrics.update(breakdown)
+                lm_ce = breakdown["ce_loss"]
+                if text_cfg.attention and out.get("attns") is not None:
+                    attn_reg = (L.attn_reg_loss(out["attns"]) if group is None
+                                else L.attn_reg_loss(out["attns"], reduce))
+                    metrics["attn_reg_loss"] = attn_reg
+            loss = torch.as_tensor(t.lambda_mm * infonce + t.lambda_lm * lm_ce
+                                   + t.lambda_ar * attn_reg)
+            metrics["loss"] = loss
+            return loss, metrics
 
     return loss_fn
 
@@ -269,25 +276,30 @@ def make_train_step(model: CVCL, cfg: ExperimentConfig,
     group = None if mesh is None else mesh.group(DATA_AXIS)
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
-        state.step += 1
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, True, state.generator)
-        loss.backward()
-        # optax's masked AdamW updates every trainable leaf, a zero gradient
-        # included (its weight decay still applies); torch's AdamW skips a
-        # parameter whose .grad is None. Zero-filling keeps the two equal.
-        # It matters for parameters outside the graph of the terms in use:
-        # e.g. the vision head in the LM-only recipe, or the LM bias, which
-        # decay shrinks when a checkpoint made it nonzero.
-        params = [p for group_ in opt.param_groups for p in group_["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if group is not None:
-            reduce_gradients(params, group, mesh.shape[DATA_AXIS])
-        opt.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("train_step"):
+            state.step += 1
+            opt = state.optimizer
+            opt.zero_grad(set_to_none=True)
+            loss, metrics = loss_fn(batch, True, state.generator)
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                # optax's masked AdamW updates every trainable leaf, a zero
+                # gradient included (its weight decay still applies);
+                # torch's AdamW skips a parameter whose .grad is None.
+                # Zero-filling keeps the two equal. It matters for
+                # parameters outside the graph of the terms in use: e.g.
+                # the vision head in the LM-only recipe, or the LM bias,
+                # which decay shrinks when a checkpoint made it nonzero.
+                params = [p for group_ in opt.param_groups
+                          for p in group_["params"]]
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if group is not None:
+                    reduce_gradients(params, group, mesh.shape[DATA_AXIS])
+                opt.step()
+            return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
 

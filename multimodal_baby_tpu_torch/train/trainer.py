@@ -63,7 +63,7 @@ from multimodal_baby_tpu_torch.train.metrics import (
     MetricsLogger, aggregate_epoch, to_host)
 from multimodal_baby_tpu_torch.train.optimizer import (
     ReduceLROnPlateau, get_learning_rate, set_learning_rate)
-from multimodal_baby_tpu_torch.train.profiler import StepTimer
+from multimodal_baby_tpu_torch.train.profiler import StepTimer, span
 from multimodal_baby_tpu_torch.train.step import (
     DATA_SEED_STRIDE, HostStaging, calibrate_trunk, device_batch,
     init_train_state, make_eval_step, make_train_step)
@@ -210,7 +210,8 @@ class Trainer:
         batches = iter(loader)
         while True:
             t0 = time.perf_counter()
-            batch = next(batches, None)
+            with span("loader"):
+                batch = next(batches, None)
             self.loader_wait_s += time.perf_counter() - t0
             if batch is None:
                 break

@@ -198,6 +198,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    epilogue) and its bound (K10a's activations at one byte); each K10a
    block beside K1 at the same block shape, each K10a stage beside the
    bf16 body at the same stage (K3a, or K3b at the same band).
+2g. K12 (``ops/batch_norm.py``: BatchNorm on batch statistics as a
+   statistics launch and an apply launch) at the 16 shape classes of the
+   53 batch-statistics BatchNorms of a B = 512 train-mode forward (the
+   stem, bn1 and bn2 with ReLU, bn3 with the identity or the downsample's
+   BatchNorm fused in): through ``InferenceBN.forward_relu`` against the
+   plain path (``InferenceBN``'s body, the residual add and ReLU; phase
+   2's gates), its fold within 1e-5 of the plain version's, two calls
+   equal bit for bit, one apply launch a call; timed in turns beside the
+   plain path and ``F.batch_norm`` (the library yardstick only), each
+   K12's also as CUDA-graph replays (device time without the host's
+   launch path), against the bytes bound. Then one train-mode (batch
+   statistics) forward of a frozen bf16 ResNeXt-50 at B = 512 and 224 px,
+   the conv path K12 serves, with the launch counters set to 0 before it:
+   53 statistics and 49 apply launches, as counted there. Alone (it
+   builds the kernels at its first launch): ``python3 -c "import
+   chip_smoke; chip_smoke.phase_batch_norm()"``.
 8. The int8-transport plans: phase 5's model with ``trunk_int8="t"`` and
    ``("t", "t", "q", "q")``, calibrated once, 3 AdamW train steps and 1
    eval step each at B = 128. Checks: finite losses; per forward "t": 5
@@ -429,7 +445,7 @@ from multimodal_baby_tpu_torch.models.losses import (
 from multimodal_baby_tpu_torch.models.multimodal import CVCL, l2_normalize
 from multimodal_baby_tpu_torch.models.text import TextEncoder
 from multimodal_baby_tpu_torch.models.vision_resnext import (
-    DEFAULT_PLAN, InferenceBN)
+    DEFAULT_PLAN, RESNEXT50_STAGES, InferenceBN, ResNeXt50)
 from multimodal_baby_tpu_torch.models.vision_vit import LayerNorm, ViTKernels
 from multimodal_baby_tpu_torch.ops import _build
 from multimodal_baby_tpu_torch.ops.attention import (
@@ -438,10 +454,12 @@ from multimodal_baby_tpu_torch.ops.attention import (
     fused_attention_pairs, fused_block_attention, fused_qkv_attention_pairs,
     qkv_attention_pairs_reference)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
-    block_geometry, block_geometry_s8, block_reference,
+    BN_EPS, block_geometry, block_geometry_s8, block_reference,
     bottleneck_reference, default_band,
     fused_bottleneck, fused_bottleneck_diff, fused_bottleneck_tiles,
     tiles_geometry, tiles_reference)
+from multimodal_baby_tpu_torch.ops.batch_norm import (
+    batch_norm_apply, batch_norm_stats, batch_norm_stats_reference)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
     conv1x1_bn_residual_relu, epilogue_reference)
 from multimodal_baby_tpu_torch.ops.infonce import (
@@ -5260,6 +5278,216 @@ def phase_clip(root, card):
     phase_clip_filter(root, card)
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
 
+# ----------------------------------------------------------------- phase 2g
+K12_BATCH = 512  # the train cell's batch: K12 serves BN on batch statistics
+
+
+def bn_shapes(batch: int = K12_BATCH, size: int = 224):
+    """The batch-statistics BatchNorms of one ResNeXt-50 forward, grouped:
+    ((M, C, residual) -> (count, names)), residual "none" (the stem, bn1,
+    bn2), "identity" or "downsample" (bn3, the downsample's BatchNorm
+    fused into its apply): 49 apply launches and 53 statistics passes."""
+    shapes = collections.OrderedDict()
+
+    def add(name, H, C, residual="none"):
+        entry = shapes.setdefault((batch * H * H, C, residual), [0, []])
+        entry[0] += 1
+        entry[1].append(name)
+
+    add("stem", size // 2, 64)
+    H = size // 4
+    for i, (planes, blocks, stride) in enumerate(RESNEXT50_STAGES):
+        for b in range(blocks):
+            s = stride if b == 0 else 1
+            Ho = (H - 1) // s + 1
+            add(f"layer{i + 1}.{b}.bn1", H, planes * 2)
+            add(f"layer{i + 1}.{b}.bn2", Ho, planes * 2)
+            add(f"layer{i + 1}.{b}.bn3", Ho, planes * 4,
+                "downsample" if b == 0 else "identity")
+            H = Ho
+    return shapes
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed and timed with events, so the host's launch path is
+    left out (around eager calls the events time the host wherever it is
+    slower than the card)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # per-stream state (K12's tickets) made before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def phase_batch_norm():
+    """K12 (``ops/batch_norm.py``) at every batch-statistics BatchNorm
+    shape of a B = 512 forward: the kernel pair (through
+    ``InferenceBN.forward_relu``) against the plain path (``InferenceBN``'s
+    body, ReLU and the residual add, as the conv path ran before K12) and
+    ``F.batch_norm`` (training mode, the library yardstick only); outputs
+    within phase 2's gate, mul and add within 1e-5 of the plain version's,
+    two calls equal bit for bit. Times each in turns (events), the
+    statistics and apply launches alone too, and K12's calls also as
+    replays of a CUDA graph (``graph_ms``: at the small shapes the events
+    time the host's calls), against the bytes bound (x, the residual and
+    the output once each at 3.35 TB/s)."""
+    gen = torch.Generator().manual_seed(25)
+    total = collections.Counter()
+    err = 0.0
+    for (M, C, residual), (count, names) in bn_shapes().items():
+        H = int(round(math.sqrt(M / K12_BATCH)))
+        x = (torch.randn(K12_BATCH, H, H, C, generator=gen) + 0.3).to(
+            "cuda", torch.bfloat16).permute(0, 3, 1, 2)
+        r = (None if residual == "none" else
+             torch.relu(torch.randn(K12_BATCH, H, H, C, generator=gen)).to(
+                 "cuda", torch.bfloat16).permute(0, 3, 1, 2))
+        bns = []
+        for _ in range(2):
+            bn = InferenceBN(C, device="cuda").requires_grad_(False)
+            with torch.no_grad():
+                bn.weight.copy_(1 + 0.1 * torch.randn(C, generator=gen))
+                bn.bias.copy_(0.1 * torch.randn(C, generator=gen))
+            bns.append(bn)
+        bn, ds = bns[0], (bns[1] if residual == "downsample" else None)
+
+        def kernel():
+            return bn.forward_relu(x, True, r, ds)
+
+        def plain():
+            y = bn(x, True)
+            if r is not None:
+                y = y + (r if ds is None else ds(r, True))
+            return torch.relu(y)
+
+        def library():
+            def fbn(t, m):
+                return F.batch_norm(t, m.running_mean, m.running_var,
+                                    m.weight, m.bias, True, 0.1, BN_EPS)
+            y = fbn(x, bn)
+            if r is not None:
+                y = y + (r if ds is None else fbn(r, ds))
+            return torch.relu(y)
+
+        rows = x.permute(0, 2, 3, 1).view(M, C)
+        buf = (bn.running_mean.clone(), bn.running_var.clone())
+
+        def stats():
+            return batch_norm_stats(rows, bn.weight, bn.bias, *buf)
+
+        fold = stats()
+
+        def apply():
+            return batch_norm_apply(rows, fold)
+
+        with torch.no_grad():
+            before = batch_norm_apply.launches
+            got = kernel()
+            if batch_norm_apply.launches - before != 1:
+                raise AssertionError(f"K12 M={M} C={C}: "
+                                     f"{batch_norm_apply.launches - before} "
+                                     f"apply launches in one call")
+            again = kernel()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K12 M={M} C={C}: two calls differ")
+            tag = f"K12 M={M} C={C} {residual}"
+            err = max(err, check(tag, got, plain()))
+            want = batch_norm_stats_reference(rows, bn.weight, bn.bias,
+                                              *(t.clone() for t in buf))
+            for what, a, b in zip(("mul", "add"), fold, want):
+                rel = float((a - b).double().norm() / b.double().norm())
+                if not rel <= 1e-5:
+                    raise AssertionError(f"{tag}: {what} rel {rel:.3e}")
+            del got, again, want
+            iters = max(3, min(50, int(4e9 / (M * C * 2))))
+            kms, pms, lms = time_in_turns(kernel, plain, library, iters)
+            sms = time_ms(stats, iters)
+            ams = time_ms(apply, iters)
+            gk, gs, ga = (graph_ms(fn) for fn in (kernel, stats, apply))
+        moved = M * C * 2 * (3 if r is not None else 2)
+        bms = moved / PEAK_BYTES * 1e3
+        log(f"  K12 M={M:>8d} C={C:>4d} {residual:10s} x{count:<2d}, eager "
+            f"/ graph ms: kernel pair {kms:.4f} / {gk:.4f} (stats "
+            f"{sms:.4f} / {gs:.4f}, residual-free apply {ams:.4f} / "
+            f"{ga:.4f}; bound {bms:.4f}, {100 * bms / gk:.1f}% of the "
+            f"graph's time), plain {pms:.4f}, F.batch_norm {lms:.4f} "
+            f"({', '.join(names[:2])}{', ...' if count > 2 else ''})")
+        for key, v in (("ms", kms), ("plain_ms", pms), ("library_ms", lms),
+                       ("stats_ms", sms), ("apply_ms", ams),
+                       ("graph_ms", gk), ("stats_graph_ms", gs),
+                       ("apply_graph_ms", ga)):
+            total[key] += count * v
+        launch_bound(total, 0.0, moved, count)
+        del x, r, rows
+        torch.cuda.empty_cache()
+    t = total
+    log(f"  K12 over the 53 BatchNorms of one B={K12_BATCH} forward (the "
+        f"shape classes by count), eager / graph ms: kernel pair "
+        f"{t['ms']:.3f} / {t['graph_ms']:.3f} (statistics "
+        f"{t['stats_ms']:.3f} / {t['stats_graph_ms']:.3f}, the applies "
+        f"without residual {t['apply_ms']:.3f} / {t['apply_graph_ms']:.3f}"
+        f"), bound "
+        f"{t['bound_ms']:.3f} ms ({100 * t['bound_ms'] / t['graph_ms']:.1f}%"
+        f" of the graph's time), plain {t['plain_ms']:.3f}, F.batch_norm "
+        f"{t['library_ms']:.3f}")
+    stats_n, apply_n, trunk_ms = trunk_train_launches()
+    return {"launches": stats_n + apply_n, "max_abs_err": err, **total,
+            "stats_launches": stats_n, "apply_launches": apply_n,
+            "trunk_train_ms": trunk_ms}
+
+
+def trunk_train_launches(batch: int = K12_BATCH, size: int = 224):
+    """K12's launches in one train-mode (batch statistics) forward of a
+    frozen bf16 ResNeXt-50 on the card at the train cell's batch, the
+    conv path that K12 serves, counted from zero: (statistics launches,
+    apply launches, the forward's ms). Raises unless they are 53 and 49
+    and the pooled output is finite. Each block's bn3 gain is 0.2, as the
+    benchmark's configuration assumes."""
+    gen = torch.Generator().manual_seed(25)
+    trunk = ResNeXt50(torch.bfloat16, frozen=True, device="cuda",
+                      generator=gen).requires_grad_(False)
+    with torch.no_grad():
+        for block in trunk.blocks():
+            block.bn3.weight.mul_(0.2)
+        x = torch.randn(batch, size, size, 3, device="cuda",
+                        dtype=torch.bfloat16,
+                        generator=torch.Generator("cuda").manual_seed(25))
+        trunk(x, train=True)  # warm: cuDNN's plans
+        torch.cuda.synchronize()
+        batch_norm_stats.launches = batch_norm_apply.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pooled = trunk(x, train=True)["pooled"]
+        end.record()
+        torch.cuda.synchronize()
+    counts = (batch_norm_stats.launches, batch_norm_apply.launches)
+    ms = start.elapsed_time(end)
+    log(f"  K12 in one B={batch} {size} px train-mode trunk forward (bf16, "
+        f"the conv path): {counts[0]} statistics launches, {counts[1]} "
+        f"apply launches, {ms:.3f} ms")
+    if counts != (53, 49) or not bool(torch.isfinite(pooled).all()):
+        raise AssertionError(f"K12 in the train-mode trunk: launches "
+                             f"{counts} (want (53, 49)), pooled finite "
+                             f"{bool(torch.isfinite(pooled).all())}")
+    del trunk, x, pooled
+    torch.cuda.empty_cache()
+    return (*counts, ms)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5304,6 +5532,10 @@ def main() -> int:
             ("K10b", "16bottleneck_fusedI", {f"Li{cg}EEEv": f"cg {cg}"
                                            for cg in (4, 8, 16, 32)}),
             ("K1 1x1 tile", "9conv_gemmI", CONV_TILE_FORMS),
+            ("K12 statistics", "15bn_stats_kernel", {"bn_stats": "f32"}),
+            ("K12 apply", "15bn_apply_kernelI", {
+                "ILi0E": "no residual", "ILi1E": "identity",
+                "ILi2E": "downsample"}),
             ("K2/K3a int8 1x1 tile", "12conv_gemm_s8I", {
                 "ILi0E": "conv1", "ILi1E": "conv3, residual",
                 "ILi2E": "conv3, downsample"}),
@@ -5393,6 +5625,9 @@ def main() -> int:
      k4["bwd"]["launches"]), joint = phase_lstm_slice()
     log("phase 2f: K10a, K10b and K11 against their plain versions")
     t = phase_transport_kernels()
+    log("phase 2g: K12 against its plain version at the 53 BatchNorms of a "
+        "B = 512 train-mode forward")
+    t["K12"] = phase_batch_norm()
     log("phase 8: the int8-transport trunk plans, K10b and K11 entry points")
     for name, n in phase_transport_slice(published).items():
         t[name]["launches"] = n
@@ -5453,7 +5688,9 @@ def main() -> int:
             ("fused_bottleneck_tiles", "bottleneck_fused.cu", f"{hwbc}:531",
              t["K10b"]),
             ("conv1x1_bn_residual_relu", "conv_epilogue.cu",
-             "multimodal_baby_tpu/ops/conv_epilogue.py:78", t["K11"])]
+             "multimodal_baby_tpu/ops/conv_epilogue.py:78", t["K11"]),
+            ("batch_norm_stats + batch_norm_apply", "batch_norm.cu",
+             "none (XLA fuses the JAX package's BatchNorm)", t["K12"])]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [

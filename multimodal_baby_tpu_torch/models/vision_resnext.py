@@ -11,7 +11,9 @@ Two paths compute the same function:
 
 - the conv path (``forward_conv``): plain convolutions with BatchNorm on
   running statistics, or on batch statistics when ``train`` is set (the
-  reference's frozen-CNN quirk, ``frozen_bn="batch"``);
+  reference's frozen-CNN quirk, ``frozen_bn="batch"``); on CUDA in bf16,
+  where no gradient is needed, each batch-statistics BatchNorm with its
+  ReLU and residual runs as the kernel pair K12 (``ops.batch_norm``);
 - the folded path (``forward_folded``): running BatchNorm folded into the
   weights once per weight state, then the 16 bottleneck blocks run stage
   by stage as the plan says (the JAX package's fused trunk):
@@ -60,6 +62,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.data.augment import space_to_depth
+from multimodal_baby_tpu_torch.ops.batch_norm import (
+    batch_moments, batch_norm_apply, batch_norm_stats, update_running)
 from multimodal_baby_tpu_torch.ops.bottleneck import (
     BN_EPS, GROUPS, fold_block_params, fused_bottleneck)
 from multimodal_baby_tpu_torch.ops.conv_epilogue import (
@@ -75,7 +79,6 @@ RESNEXT50_STAGES: Tuple[Tuple[int, int, int], ...] = (
     (64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2),
 )
 EXPANSION = 4
-BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
 # the JAX package's default kernel plan (multimodal_baby_tpu/models/
 # vision_resnext.py:617): layer 1 in bands of 28 rows, layer 2 block by
 # block, layer 3 as its head block then the tail, layer 4 whole
@@ -159,7 +162,11 @@ class InferenceBN(nn.Module):
     E[x^2] - E[x]^2, the output rounded to the input dtype, and the running
     buffers updated in place with momentum 0.9 and the biased batch
     variance, as flax's ``nn.BatchNorm`` does (torch's own BatchNorm would
-    update with the unbiased variance)."""
+    update with the unbiased variance).
+
+    ``forward_relu`` adds the ReLU and a block's residual; on batch
+    statistics it runs K12 (``ops/batch_norm.py``) where ``takes_k12``
+    holds, and this module's plain body elsewhere."""
 
     def __init__(self, features: int, *, device=None):
         super().__init__()
@@ -182,15 +189,66 @@ class InferenceBN(nn.Module):
             return (x * mul.to(x.dtype)[:, None, None]
                     + add.to(x.dtype)[:, None, None])
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(BN_MOMENTUM).add_(
-                (1 - BN_MOMENTUM) * mean)
-            self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+        mean, var = batch_moments(xf, (0, 2, 3))
+        update_running(self.running_mean, self.running_var, mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight.to(xf.dtype)
         y = (xf - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias.to(xf.dtype)[:, None, None]).to(x.dtype)
+
+    def forward_relu(self, x: torch.Tensor, batch_stats: bool = False,
+                     residual: torch.Tensor | None = None,
+                     downsample: "InferenceBN | None" = None
+                     ) -> torch.Tensor:
+        """relu(self(x) + r) in x's dtype: r = downsample(residual) where a
+        downsample BatchNorm is given, else residual (or nothing). Where
+        ``takes_k12`` holds, one K12 statistics launch per BatchNorm and
+        one apply launch for the whole (the downsample's normalised tensor
+        is never written); elsewhere the plain modules, as before K12."""
+        bns = (self,) if downsample is None else (self, downsample)
+        tensors = (x,) if residual is None else (x, residual)
+        if takes_k12(batch_stats, tensors, bns):
+            rows = _rows(x)
+            res = fold_r = None
+            if residual is not None:
+                res = _rows(residual)
+                if downsample is not None:
+                    fold_r = downsample._batch_fold(res)
+            out = batch_norm_apply(rows, self._batch_fold(rows), res, fold_r)
+            B, C, H, W = x.shape
+            return out.view(B, H, W, C).permute(0, 3, 1, 2)
+        y = self(x, batch_stats)
+        if downsample is not None:
+            residual = downsample(residual, batch_stats)
+        return torch.relu(y if residual is None else y + residual)
+
+    def _batch_fold(self, rows: torch.Tensor) -> torch.Tensor:
+        """K12's statistics pass over rows [pixels, C]: the fold [mul, add]
+        [2, C], running buffers updated."""
+        return batch_norm_stats(rows, self.weight, self.bias,
+                                self.running_mean, self.running_var)
+
+
+def takes_k12(batch_stats: bool, tensors, bns) -> bool:
+    """Whether BatchNorm goes through K12: batch statistics, every tensor
+    an NCHW view of channels-last bf16 data on CUDA with C % 8 == 0, and
+    no gradient needed (the frozen trunk in training; fine-tuning takes
+    the plain path, whose autograd gives BN's gradient)."""
+    if not batch_stats:
+        return False
+    for t in tensors:
+        if not (t.is_cuda and t.dtype == torch.bfloat16 and t.dim() == 4
+                and t.shape[1] % 8 == 0
+                and t.is_contiguous(memory_format=torch.channels_last)):
+            return False
+    return not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*tensors, *(p for bn in bns
+                                              for p in (bn.weight, bn.bias)))))
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """NCHW view of channels-last data -> [pixels, C], a view."""
+    B, C, H, W = t.shape
+    return t.permute(0, 2, 3, 1).view(B * H * W, C)
 
 
 def _conv_weight(out_ch: int, in_ch: int, k: int, device) -> nn.Parameter:
@@ -243,17 +301,19 @@ class BottleneckX(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False
                 ) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x), batch_stats))
+        y = self.bn1.forward_relu(self.conv1(x), batch_stats)
         y = self.conv2(y, stride=self.stride, padding=1, groups=GROUPS)
-        y = torch.relu(self.bn2(y, batch_stats))
-        identity = x
+        y = self.bn2.forward_relu(y, batch_stats)
+        identity, ds_bn = x, None
         if self.downsample is not None:
-            conv, bn = self.downsample
-            identity = bn(conv(x, stride=self.stride), batch_stats)
+            conv, ds_bn = self.downsample
+            identity = conv(x, stride=self.stride)
         if self.use_epilogue(y, batch_stats):
+            if ds_bn is not None:
+                identity = ds_bn(identity)
             return self._conv3_epilogue(y, identity)
-        y = self.bn3(self.conv3(y), batch_stats)
-        return torch.relu(y + identity)
+        return self.bn3.forward_relu(self.conv3(y), batch_stats, identity,
+                                     ds_bn)
 
     def use_epilogue(self, y: torch.Tensor, batch_stats: bool) -> bool:
         """Whether conv3 and what follows go through K11 (the JAX package's
@@ -400,7 +460,7 @@ class ResNeXt50(nn.Module):
             y = F.conv2d(x, _like(w, x), stride=2, padding=3)
         else:
             y = self.conv1(x, stride=2, padding=3)
-        y = torch.relu(self.bn1(y, batch_stats))
+        y = self.bn1.forward_relu(y, batch_stats)
         return F.max_pool2d(y, 3, stride=2, padding=1)
 
     def _stem_from_s2d(self, xs: torch.Tensor) -> torch.Tensor:

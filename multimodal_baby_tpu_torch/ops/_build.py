@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bottleneck.cu", "stage.cu", "vit.cu", "vit_attention.cu",
            "attention.cu", "vit_block.cu", "lstm.cu", "infonce.cu",
-           "conv_epilogue.cu", "bottleneck_fused.cu")
+           "conv_epilogue.cu", "bottleneck_fused.cu", "batch_norm.cu")
 HEADERS = ("common.cuh", "bottleneck.cuh", "grid.cuh", "vit.cuh",
            "attn_mma.cuh", "wgmma.cuh", "vit_gemm.cuh",
            "vit_pingpong.cuh", "conv_gemm.cuh", "conv_gemm_s8.cuh",
@@ -134,6 +134,11 @@ def library() -> ctypes.CDLL:
                 [ptr] * 10 + [i32] * 14 + [ptr])
             lib.mmb_conv1x1_bn_residual_relu_bf16.argtypes = (
                 [ptr] * 6 + [i32] * 3 + [ptr])
+            lib.mmb_batch_norm_stats_bf16.argtypes = (
+                [ptr, i64, i32, i32, i32, i64] + [ptr] * 7 + [f32] * 3
+                + [ptr])
+            lib.mmb_batch_norm_apply_bf16.argtypes = (
+                [ptr] * 5 + [i64] + [i32] * 4 + [ptr])
             lib.mmb_stage.argtypes = (
                 [i32, i32, ptr, ptr] + [ptr] * 8 + [i32] * 7 + [ptr])
             lib.mmb_stage_plan_bytes.argtypes = [i32, i32]
@@ -146,6 +151,8 @@ def library() -> ctypes.CDLL:
                        lib.mmb_bottleneck_t, lib.mmb_bottleneck_t_part,
                        lib.mmb_bottleneck_fused_bf16,
                        lib.mmb_conv1x1_bn_residual_relu_bf16,
+                       lib.mmb_batch_norm_stats_bf16,
+                       lib.mmb_batch_norm_apply_bf16,
                        lib.mmb_stage, lib.mmb_vit_attention_bf16,
                        lib.mmb_vit_dense_bf16,
                        lib.mmb_vit_attention_core_bf16,
@@ -176,11 +183,12 @@ def sync_words(kind: str, words: int, stream: int | None = None):
     """(stream, buffer): the raw handle of the current device's current
     stream (or ``stream``, a handle of that device) and ``words`` int32
     words of synchronisation state for the kernels of ``kind`` ("lstm",
-    "infonce") on it: zero when made (one fill, at the first call on a
-    stream and when a call needs more words), kept, and left as they were
-    found by every kernel that uses them (K9's flags, K4's barrier counts).
-    One buffer per kind and stream, so two calls on two streams at once
-    never share one, and calls on one stream run one after another."""
+    "infonce", "batch_norm") on it: zero when made (one fill, at the first
+    call on a stream and when a call needs more words), kept, and left as
+    they were found by every kernel that uses them (K9's flags, K4's
+    barrier counts, K12's tickets). One buffer per kind and stream, so two
+    calls on two streams at once never share one, and calls on one stream
+    run one after another."""
     import torch
     device = torch.cuda.current_device()
     if stream is None:

@@ -3,6 +3,11 @@
 config serialised by one package loads in the other. The port keeps its
 own copy so that it imports nothing of the JAX package; the field comments
 there are the documentation of each option.
+
+The port reads two values the JAX package does not know: ``cnn_model``
+"clip_vit_l14" (CLIP ViT-L/14's vision tower as the trunk, ``models/
+clip.py``) with the text encoder "clip", and an ``optimizer`` with
+options (``train/optimizer.py::parse_optimizer``).
 """
 
 from __future__ import annotations
@@ -27,20 +32,24 @@ class VisionConfig:
 
     @property
     def backbone(self) -> str:
-        if self.cnn_model == "toy":
-            return "toy"
+        if self.cnn_model in ("toy", "clip_vit_l14"):
+            return self.cnn_model
         return "vit_b14" if self.vit_dino else "resnext50"
 
     @property
     def last_out_dim(self) -> int:
-        if self.cnn_model == "toy":
-            return 32
-        return 768 if self.vit_dino else 2048
+        return _OUT_DIMS[self.backbone]
+
+
+# each trunk's feature width
+_OUT_DIMS = {"toy": 32, "clip_vit_l14": 1024, "vit_b14": 768,
+             "resnext50": 2048}
 
 
 @dataclass
 class TextConfig:
     text_encoder: str = "embedding"  # embedding|cbow|lstm|bilstm|transformer
+    # (the port also: clip)
     captioning: bool = False
     attention: bool = False
     attention_activation: str = "relu"

@@ -14,19 +14,30 @@ directory's ``config.json`` and weights by the port itself:
   forward_kernels``): K5 and K6 by default, the JAX package's shape gates
   deciding, in the kernel configuration ``kernels`` with the GELU form the
   model's ``hidden_act`` names (``quick_gelu``: ``h * sigmoid(1.702 h)``,
-  the kernels' "sigmoid" form). In f32 they run the plain path.
+  the kernels' "sigmoid" form). In f32 they run the plain path. A frozen
+  tower runs without autograd and casts the kernels' weights once per
+  weight state; a trained one (``frozen=False``) casts them every call and
+  takes its gradient through K5's and K6's ``PlainVJP``.
 - The text tower: token and position embeddings, causal pre-norm blocks
   in torch's own ops (no Pallas kernel of the JAX package computes them),
   ``final_layer_norm``, the state at the end-of-text token (where the
   config's ``eos_token_id`` is 2, the old rule: the largest id of the row;
-  else the first ``eos_token_id``), then ``text_projection``. It runs in
-  f32, as the JAX baseline does.
+  else the first ``eos_token_id``), then ``text_projection``. Its Dense
+  layers and attention compute in the tower's ``dtype``, the residual
+  stream and the LayerNorms in f32; the baseline's tower is f32, as the
+  JAX baseline is.
 
 The model is built on the card unless the caller passes ``device="cpu"``;
 the vision tower computes in bf16 on the card and in f32 elsewhere unless
 ``dtype`` says otherwise. ``state_dict_from_hf`` maps a ``CLIPModel`` state
 dict (numpy arrays, as ``api/hf_dir.py`` reads it) onto these towers,
 q, k and v concatenated into each block's qkv Dense in K5's order.
+
+CVCL trains CLIP ViT-L/14 (``CLIP_CONFIGS``) on the same towers:
+``VisionConfig(cnn_model="clip_vit_l14")`` makes the vision tower the
+trunk (``models/vision.py``; the visual projection is its head) and the
+text encoder ``"clip"`` is ``CLIPTextEncoder`` (``models/text.py``). Their
+parameters take torch's default initialisation: load weights.
 """
 
 from __future__ import annotations
@@ -87,6 +98,22 @@ _TEXT_DEFAULTS = dict(hidden_size=512, intermediate_size=2048,
 _VISION_DEFAULTS = dict(hidden_size=768, intermediate_size=3072,
                         num_attention_heads=12)
 
+# the CLIPs CVCL trains by name (``VisionConfig.cnn_model``), as their
+# config.json gives them: ViT-L/14 is openai/clip-vit-large-patch14's
+# (Radford et al. 2021, Tables 19-20; OpenCLIP's ViT-L-14.json)
+CLIP_CONFIGS = {
+    "clip_vit_l14": {
+        "projection_dim": 768,
+        "max_logit_scale": 100.0,   # OpenCLIP's clamp of the learned scale
+        "text_config": dict(hidden_size=768, intermediate_size=3072,
+                            num_hidden_layers=12, num_attention_heads=12,
+                            max_position_embeddings=77, vocab_size=49408,
+                            eos_token_id=2),
+        "vision_config": dict(hidden_size=1024, intermediate_size=4096,
+                              num_hidden_layers=24, num_attention_heads=16,
+                              image_size=224, patch_size=14)},
+}
+
 
 def tower_configs(config: Mapping) -> tuple:
     """(text, vision, projection_dim) of a ``CLIPModel``'s config.json
@@ -104,6 +131,20 @@ def tower_configs(config: Mapping) -> tuple:
             int(config.get("projection_dim", 512)))
 
 
+def clip_kernels(kernels: Union[KernelConfig, ViTKernels, None],
+                 vision: TowerConfig) -> ViTKernels:
+    """The vision blocks' kernel configuration: ``kernels`` (None: K5 +
+    K6) with the model's GELU form. The int8 and LN-fold modes are
+    refused: they are not CLIP's function."""
+    if isinstance(kernels, KernelConfig):
+        kernels = kernels.vit
+    kernels = kernels or ViTKernels()
+    if kernels.int8 or kernels.lnfold:
+        raise ValueError("CLIP: the vision tower has no int8 or LN-fold "
+                         "mode (ViTKernels.int8 / .lnfold)")
+    return dataclasses.replace(kernels, gelu=vision.gelu)
+
+
 def _block(cfg: TowerConfig, device) -> ViTBlock:
     return ViTBlock(cfg.hidden_size, cfg.num_attention_heads,
                     hidden=cfg.intermediate_size, eps=cfg.layer_norm_eps,
@@ -112,14 +153,17 @@ def _block(cfg: TowerConfig, device) -> ViTBlock:
 
 class CLIPVisionTower(nn.Module):
     """``forward(pixel_values [B, 3, S, S])`` -> ``post_layernorm`` of the
-    class token, ``[B, C]`` f32, S the config's ``image_size``."""
+    class token, ``[B, C]`` f32, S the config's ``image_size``. ``frozen``:
+    no autograd, the kernels' weights cast once per weight state;
+    otherwise they are cast every call and the blocks take gradients."""
 
     def __init__(self, cfg: TowerConfig, dtype: torch.dtype,
-                 kernels: ViTKernels, *, device=None):
+                 kernels: ViTKernels, *, frozen: bool = True, device=None):
         super().__init__()
         C = cfg.hidden_size
         n = (cfg.image_size // cfg.patch_size) ** 2
         self.cfg, self.dtype, self.kernels = cfg, dtype, kernels
+        self.frozen = frozen
         self.patch_embedding = nn.Conv2d(
             cfg.num_channels, C, cfg.patch_size, cfg.patch_size, bias=False,
             device=device)
@@ -137,7 +181,8 @@ class CLIPVisionTower(nn.Module):
             raise ValueError(f"CLIP vision tower: images must be {S}x{S}, "
                              f"got {tuple(pixel_values.shape)}")
         dt = self.dtype
-        with torch.no_grad():
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.frozen):
             x = pixel_values.to(self.class_embedding.device, dt)
             patches = F.conv2d(x, self.patch_embedding.weight.to(dt),
                                stride=self.cfg.patch_size)
@@ -147,9 +192,12 @@ class CLIPVisionTower(nn.Module):
                                dim=1) + self.position_embedding.weight
             tokens = self.pre_layrnorm(tokens).to(dt)
             if dt == torch.bfloat16:
-                weights = per_weight_state(
-                    self._operands, self.blocks, ("kernels", dt),
-                    lambda b: b.kernel_weights(dt))
+                def make(b):
+                    return b.kernel_weights(dt)
+
+                weights = (per_weight_state(self._operands, self.blocks,
+                                            ("kernels", dt), make)
+                           if self.frozen else [make(b) for b in self.blocks])
                 for blk, w in zip(self.blocks, weights):
                     tokens = blk.forward_kernels(tokens, w, self.kernels)
             else:
@@ -162,6 +210,13 @@ def _layer_norm(norm: LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x, x.shape[-1:], norm.weight, norm.bias, norm.eps)
 
 
+def _dense(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype
+           ) -> torch.Tensor:
+    """``layer`` on x in ``dt``, its f32 parameters cast (in f32: ``layer(x)``
+    itself)."""
+    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+
+
 class CLIPTextTower(nn.Module):
     """``forward(input_ids [B, L], attention_mask [B, L] or None)`` -> the
     ``final_layer_norm`` state at each row's end-of-text token, ``[B, D]``
@@ -169,12 +224,15 @@ class CLIPTextTower(nn.Module):
     ops (``F.layer_norm``, ``scaled_dot_product_attention`` with the
     causal and padding mask), as transformers runs them: no kernel of the
     JAX package computes a causal block, and a tower of 12 blocks in
-    unfused ops is bound by its launches."""
+    unfused ops is bound by its launches. ``dtype``: the Dense layers' and
+    attention's compute dtype; the residual stream and the LayerNorms stay
+    f32. It takes gradients where its parameters do."""
 
-    def __init__(self, cfg: TowerConfig, *, device=None):
+    def __init__(self, cfg: TowerConfig, *, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         D = cfg.hidden_size
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
         self.token_embedding = nn.Embedding(cfg.vocab_size, D, device=device)
         self.position_embedding = nn.Embedding(cfg.max_position_embeddings,
                                                D, device=device)
@@ -187,34 +245,56 @@ class CLIPTextTower(nn.Module):
                allowed: torch.Tensor) -> torch.Tensor:
         B, L, D = x.shape
         H = blk.attn.num_heads
-        qkv = blk.attn.qkv(_layer_norm(blk.norm1, x))
+        dt = self.dtype
+        qkv = _dense(blk.attn.qkv, _layer_norm(blk.norm1, x), dt)
         q, k, v = qkv.view(B, L, 3, H, D // H).permute(2, 0, 3, 1, 4)
         y = F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
-        x = x + blk.attn.proj(y.transpose(1, 2).reshape(B, L, D))
-        h = gelu(blk.mlp.fc1(_layer_norm(blk.norm2, x)), self.cfg.gelu)
-        return x + blk.mlp.fc2(h)
+        x = x + _dense(blk.attn.proj, y.transpose(1, 2).reshape(B, L, D), dt)
+        h = gelu(_dense(blk.mlp.fc1, _layer_norm(blk.norm2, x), dt),
+                 self.cfg.gelu)
+        return x + _dense(blk.mlp.fc2, h, dt)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor | None = None) -> torch.Tensor:
         device = self.token_embedding.weight.device
         ids = input_ids.to(device)
         B, L = ids.shape
-        with torch.no_grad():
-            x = self.token_embedding(ids) + self.position_embedding.weight[:L]
-            # a query sees the keys up to itself that are not padding
-            allowed = torch.ones(L, L, dtype=torch.bool,
-                                 device=device).tril()[None, None]
-            if attention_mask is not None:
-                allowed = allowed & attention_mask.to(device).bool()[
-                    :, None, None, :]
-            for blk in self.blocks:
-                x = self._block(blk, x, allowed)
-            x = _layer_norm(self.final_layer_norm, x)
-            if self.cfg.eos_token_id == 2:
-                eos = ids.argmax(-1)
-            else:
-                eos = (ids == self.cfg.eos_token_id).int().argmax(-1)
-            return x[torch.arange(B, device=device), eos]
+        x = self.token_embedding(ids) + self.position_embedding.weight[:L]
+        # a query sees the keys up to itself that are not padding
+        allowed = torch.ones(L, L, dtype=torch.bool,
+                             device=device).tril()[None, None]
+        if attention_mask is not None:
+            allowed = allowed & attention_mask.to(device).bool()[
+                :, None, None, :]
+        for blk in self.blocks:
+            x = self._block(blk, x, allowed)
+        x = _layer_norm(self.final_layer_norm, x)
+        if self.cfg.eos_token_id == 2:
+            eos = ids.argmax(-1)
+        else:
+            eos = (ids == self.cfg.eos_token_id).int().argmax(-1)
+        return x[torch.arange(B, device=device), eos]
+
+
+class CLIPTextEncoder(nn.Module):
+    """CVCL's text encoder ``"clip"`` (``models/text.py::
+    build_text_encoder``): CLIP's text tower (``text_model``, computing in
+    ``dtype``) and its bias-free ``text_projection`` to the embedding, in
+    f32. ``forward(text, text_length, generator)`` -> (features [B, E],
+    None). A caption is start-of-text, its tokens, end-of-text and zero
+    padding: the causal mask keeps the padding out of the end-of-text
+    state, so the lengths are not read; CLIP has no dropout."""
+
+    def __init__(self, cfg: TowerConfig, embedding_dim: int,
+                 dtype: torch.dtype = torch.float32, *, device=None):
+        super().__init__()
+        self.text_model = CLIPTextTower(cfg, dtype=dtype, device=device)
+        self.text_projection = nn.Linear(cfg.hidden_size, embedding_dim,
+                                         bias=False, device=device)
+
+    def forward(self, text: torch.Tensor, text_length: torch.Tensor,
+                generator: torch.Generator | None = None):
+        return self.text_projection(self.text_model(text)), None
 
 
 class CLIPModel(nn.Module):
@@ -230,13 +310,7 @@ class CLIPModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         text, vision, proj = tower_configs(config)
-        if isinstance(kernels, KernelConfig):
-            kernels = kernels.vit
-        kernels = kernels or ViTKernels()
-        if kernels.int8 or kernels.lnfold:
-            raise ValueError("CLIP: the vision tower has no int8 or LN-fold "
-                             "mode (ViTKernels.int8 / .lnfold)")
-        kernels = dataclasses.replace(kernels, gelu=vision.gelu)
+        kernels = clip_kernels(kernels, vision)
         if dtype is None:
             dtype = (torch.bfloat16 if device.type == "cuda"
                      else torch.float32)

@@ -9,8 +9,13 @@ Parameter names follow the reference's Lightning checkpoint, so
 module's ``state_dict()`` to the JAX package's parameter tree:
 ``vision_encoder.model.{conv1,bn1,layerS.B.*,fc}`` (ResNeXt-50) or
 ``vision_encoder.model.{patch_embed,cls_token,pos_embed,blocks.*,norm,head}``
-(ViT-B/14), ``text_encoder.*`` (``models/text.py``),
-``model.logit_neg_log_temperature`` (learned temperature only) and
+(ViT-B/14) or ``vision_encoder.model.{patch_embedding, class_embedding,
+position_embedding, pre_layrnorm, blocks.*, post_layernorm, head}``
+(CLIP ViT-L/14, ``models/clip.py``; the port only), ``text_encoder.*``
+(``models/text.py``; CLIP's: ``text_encoder.{text_model.*,
+text_projection}``), ``model.logit_neg_log_temperature`` (learned
+temperature only; with a CLIP trunk held at or under the log of its
+``max_logit_scale`` after each update, ``clip_logit_scale``) and
 ``language_model.output_layer.{weight,bias}`` (weight only when untied:
 tied, the head reads the token embedding).
 
@@ -34,9 +39,10 @@ from multimodal_baby_tpu_torch.core.config import ModelConfig
 from multimodal_baby_tpu_torch.core.constants import (
     EOS_TOKEN_ID, SOS_TOKEN_ID)
 from multimodal_baby_tpu_torch.models.beam_search import beam_search
+from multimodal_baby_tpu_torch.models.clip import CLIP_CONFIGS
 from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
 from multimodal_baby_tpu_torch.models.layers import resolve_device
-from multimodal_baby_tpu_torch.models.text import TextEncoder
+from multimodal_baby_tpu_torch.models.text import build_text_encoder
 from multimodal_baby_tpu_torch.models.vision import VisionEncoder
 from multimodal_baby_tpu_torch.parallel.collectives import (
     model_copy, model_gather)
@@ -107,9 +113,9 @@ class CVCL(nn.Module):
         self.vision_encoder = VisionEncoder(cfg, dtype, device=device,
                                             generator=generator,
                                             kernels=self.kernels)
-        self.text_encoder = TextEncoder(
-            cfg, cfg.vision.last_out_dim, device=device, generator=generator,
-            fused_lstm=self.kernels.fused_lstm)
+        self.text_encoder = build_text_encoder(
+            cfg, cfg.vision.last_out_dim, dtype=dtype, device=device,
+            generator=generator, fused_lstm=self.kernels.fused_lstm)
         init_val = -math.log(cfg.temperature)
         if cfg.fix_temperature:
             self.register_buffer(
@@ -120,6 +126,11 @@ class CVCL(nn.Module):
             self.model = nn.Module()
             self.model.logit_neg_log_temperature = nn.Parameter(
                 torch.tensor(init_val, dtype=torch.float32, device=device))
+        # the log of the learned logit scale's bound (None: unbounded)
+        bound = CLIP_CONFIGS.get(cfg.vision.backbone, {}).get(
+            "max_logit_scale")
+        self.max_log_scale = (None if cfg.fix_temperature or bound is None
+                              else math.log(bound))
         self.language_model = nn.Module()
         self.language_model.output_layer = LMOutputLayer(
             cfg, device=device, generator=generator)
@@ -160,6 +171,16 @@ class CVCL(nn.Module):
 
     def logit_scale(self) -> torch.Tensor:
         return self.logit_neg_log_temperature.exp()
+
+    @torch.no_grad()
+    def clip_logit_scale(self) -> None:
+        """CLIP's rule, after each update (OpenCLIP's train loop): a
+        learned logit scale is held in [1, ``max_logit_scale``], its log
+        in [0, ``max_log_scale``]. CVCL's trunks give no bound and leave it
+        as it is."""
+        if self.max_log_scale is not None:
+            self.model.logit_neg_log_temperature.clamp_(0.0,
+                                                        self.max_log_scale)
 
     def forward(self, image: torch.Tensor, text: torch.Tensor,
                 text_length: torch.Tensor, train: bool = False,

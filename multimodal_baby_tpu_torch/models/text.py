@@ -15,6 +15,11 @@ all five of its modes:
   layer (8 heads, feed-forward 2048, dropout 0.1 in training), PAD keys
   masked.
 
+The port adds a sixth, ``clip`` (``build_text_encoder``): CLIP's causal
+text tower and its projection (``models/clip.py::CLIPTextEncoder``), for
+the CLIP trunk named by ``VisionConfig.cnn_model``, in the model's compute
+dtype.
+
 The flat embedding is the sum of the outputs over the whole padded window
 divided by the true length (embedding, transformer; the reference's
 semantics: padded query positions contribute to the sum), or the final
@@ -57,6 +62,8 @@ from multimodal_baby_tpu_torch.core.constants import (
     MAX_LEN_UTTERANCE, PAD_TOKEN_ID)
 from multimodal_baby_tpu_torch.models.attention import (
     AdditiveAttention, additive_attention)
+from multimodal_baby_tpu_torch.models.clip import (
+    CLIP_CONFIGS, CLIPTextEncoder, tower_configs)
 from multimodal_baby_tpu_torch.models.layers import (
     LSTMCellParams, TorchLinear, TorchTransformerEncoderLayer,
     check_fused_lstm, dropout, length_mask, locked_dropout, lstm_gates,
@@ -68,6 +75,33 @@ _ARCHS = ("embedding", "cbow", "lstm", "bilstm", "transformer")
 _POS_EMBEDS = ("no_pos_embed", "learned", "sinusoidal")
 
 Tensor = torch.Tensor
+
+
+def build_text_encoder(cfg: ModelConfig, image_feature_map_dim: int, *,
+                       dtype: torch.dtype | None = None, device="cuda",
+                       generator: torch.Generator | None = None,
+                       fused_lstm: bool | None = None) -> nn.Module:
+    """CVCL's text encoder: ``CLIPTextEncoder`` for ``"clip"`` (the text
+    tower of the CLIP that ``cfg.vision.cnn_model`` names, computing in
+    ``dtype``, its vocabulary ``cfg.vocab_size``), else ``TextEncoder``
+    (which computes in f32, as the JAX package's does)."""
+    if cfg.text.text_encoder != "clip":
+        return TextEncoder(cfg, image_feature_map_dim, device=device,
+                           generator=generator, fused_lstm=fused_lstm)
+    name = cfg.vision.backbone
+    if name not in CLIP_CONFIGS:
+        raise ValueError(f"the clip text encoder needs a CLIP trunk "
+                         f"(cnn_model one of {sorted(CLIP_CONFIGS)}), got "
+                         f"{name!r}")
+    text, _, _ = tower_configs(CLIP_CONFIGS[name])
+    if cfg.vocab_size != text.vocab_size:
+        raise ValueError(f"{name}: vocab_size must be {text.vocab_size}, "
+                         f"got {cfg.vocab_size}")
+    if cfg.text.captioning or cfg.text.attention:
+        raise ValueError("the clip text encoder has no LM conditioning")
+    return CLIPTextEncoder(text, cfg.embedding_dim,
+                           dtype or torch.float32,
+                           device=resolve_device(device))
 
 
 class TextEncoder(nn.Module):

@@ -5,11 +5,15 @@ The trunk is ResNeXt-50 (with the config's ``trunk_int8`` plan, and the
 kernel plan, folded-path rule and stem of the ``KernelConfig``, by default
 the JAX package's), DINO ViT-B/14 (with the ``KernelConfig``'s
 ``ViTKernels``, by default K5 + K6 with the erf GELU; its int8 and LN-fold
-modes are refused when the trunk is fine-tuned, as in the JAX package) or
-the test trunk ``TinyConvNet`` (``cnn_model="toy"``).
+modes are refused when the trunk is fine-tuned, as in the JAX package),
+CLIP ViT-L/14's vision tower (``cnn_model="clip_vit_l14"``, the port
+only: ``models/clip.py::CLIPVisionTower``, K5 + K6 with CLIP's GELU, its
+gradient through their ``PlainVJP`` when fine-tuned) or the test trunk
+``TinyConvNet`` (``cnn_model="toy"``).
 The head replaces the trunk's classifier with the projection, as in the
 reference: ``model.fc`` on the ResNeXt and the toy trunk (2048 or 32 ->
-E), ``model.head`` on the ViT (768 -> E). For spatial embeddings (CNN
+E), ``model.head`` on the ViTs (768 -> E; on CLIP the bias-free visual
+projection, 1024 -> E). For spatial embeddings (CNN
 trunks only) the head maps every position of the feature map: a 1x1
 convolution, which on the NHWC map is the same Linear on the channel
 axis. A frozen trunk's outputs are
@@ -27,12 +31,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_baby_tpu_torch.core.config import ModelConfig
+from multimodal_baby_tpu_torch.models.clip import (
+    CLIP_CONFIGS, CLIPVisionTower, clip_kernels, tower_configs)
 from multimodal_baby_tpu_torch.models.kernel_config import KernelConfig
 from multimodal_baby_tpu_torch.models.layers import (
     TorchLinear, resolve_device)
 from multimodal_baby_tpu_torch.models.vision_resnext import ResNeXt50
 from multimodal_baby_tpu_torch.models.vision_vit import vit_base
 from multimodal_baby_tpu_torch.train.profiler import span
+
+
+# the trunks that give a class token and no feature map
+_VITS = ("vit_b14", "clip_vit_l14")
 
 
 class TinyConvNet(nn.Module):
@@ -85,7 +95,7 @@ class VisionEncoder(nn.Module):
         if cfg.embedding_type not in ("flat", "spatial"):
             raise ValueError(f"embedding_type must be flat|spatial, got "
                              f"{cfg.embedding_type!r}")
-        if cfg.embedding_type == "spatial" and v.vit_dino:
+        if cfg.embedding_type == "spatial" and v.backbone in _VITS:
             raise ValueError("spatial embeddings require the CNN backbone")
         if v.frozen_bn not in ("batch", "running"):
             raise ValueError(f"frozen_bn must be batch|running, got "
@@ -94,6 +104,12 @@ class VisionEncoder(nn.Module):
         self.cfg = cfg
         if v.backbone == "toy":
             self.model = TinyConvNet(device=device, generator=generator)
+        elif v.backbone in CLIP_CONFIGS:
+            _, tower, _ = tower_configs(CLIP_CONFIGS[v.backbone])
+            self.model = CLIPVisionTower(
+                tower, dtype or torch.float32,
+                clip_kernels(kernels.vit, tower),
+                frozen=not v.finetune_cnn, device=device)
         elif v.vit_dino:  # trunk_int8 is the ResNeXt's, as in the JAX package
             self.model = vit_base(dtype=dtype, frozen=not v.finetune_cnn,
                                   device=device, generator=generator,
@@ -105,9 +121,13 @@ class VisionEncoder(nn.Module):
                 fused_plan=kernels.trunk_plan,
                 fused_trunk=kernels.fused_trunk, stem=kernels.stem,
                 stem_cpad=kernels.stem_cpad)
-        head = TorchLinear(v.last_out_dim, cfg.embedding_dim, device=device,
-                           generator=generator)
-        if v.backbone == "vit_b14":
+        if v.backbone in CLIP_CONFIGS:
+            head = nn.Linear(self.model.cfg.hidden_size, cfg.embedding_dim,
+                             bias=False, device=device)
+        else:
+            head = TorchLinear(v.last_out_dim, cfg.embedding_dim,
+                               device=device, generator=generator)
+        if v.backbone in _VITS:
             self.model.head = head
         else:
             self.model.fc = head
@@ -116,10 +136,12 @@ class VisionEncoder(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x: [B, H, W, 3] NHWC, ImageNet-normalized. Returns
         (features [B, E] (flat) or [B, h, w, E] (spatial), feature_map
-        [B, h, w, 2048]); the ViT has no feature map (None), as in the
+        [B, h, w, 2048]); the ViTs have no feature map (None), as in the
         reference."""
         v = self.cfg.vision
-        if v.backbone == "vit_b14":
+        if v.backbone in _VITS:
+            if v.backbone in CLIP_CONFIGS:
+                x = x.permute(0, 3, 1, 2)   # the CLIP tower reads NCHW
             with span("trunk"):
                 cls = self.model(x)
             if not v.finetune_cnn:

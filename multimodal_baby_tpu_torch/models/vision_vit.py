@@ -1,7 +1,10 @@
 """DINO ViT-B/14 trunk (counterpart of
 ``multimodal_baby_tpu/models/vision_vit.py``): pre-norm blocks, qkv bias,
 GELU MLP of ratio 4, LayerNorm eps 1e-6, a CLS token and learned absolute
-positional embeddings, bicubically resized for off-grid inputs.
+positional embeddings, bicubically resized for off-grid inputs. Its
+blocks (``ViTBlock``, ``per_weight_state``) also make CLIP's towers
+(``models/clip.py``): ViT-L/14's 24 blocks of 1024, frozen in the CLIP
+baseline and trained when CVCL fine-tunes them.
 
 Parameters carry the reference's names (``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.{norm1, attn.qkv, attn.proj,

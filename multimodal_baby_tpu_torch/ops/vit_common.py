@@ -3,7 +3,9 @@
 rounding points, the GELU forms, the argument checks, and the autograd
 Function whose backward is the VJP of the plain version (the JAX package's
 custom VJPs take the XLA oracle's, since the ViT trunk is frozen in the
-CVCL recipes and only the forward is hot).
+CVCL recipes and only the forward is hot). A trained trunk takes its
+whole gradient through it: CLIP ViT-L/14 (``models/clip.py``) recomputes
+each block's plain version, in its f32 products, in the backward.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from multimodal_baby_tpu_torch.train.profiler import span
 
 # the MLP activation's forms (the JAX package's MMB_VIT_GELU), in the order
 # of the kernels' `gelu` argument
@@ -93,7 +97,15 @@ class PlainVJP(torch.autograd.Function):
     """``apply(run, reference, statics, *tensors)``: the forward is
     ``run(*tensors, *statics)`` (the kernel's wrapper), the backward the VJP
     of ``reference(*tensors, *statics)``, recomputed from the saved
-    inputs."""
+    inputs.
+
+    Each backward runs inside the program span ``mmb/vjp/<kernel>``, the
+    reference's name less ``_reference`` (``block_attention`` for K5,
+    ``mlp`` for K6), and adds one to ``PlainVJP.backward_calls``. On the
+    card autograd runs it on its device thread; ``train/profiler.py``
+    nests the span under the calling thread's ``mmb/backward``."""
+
+    backward_calls = 0
 
     @staticmethod
     def forward(ctx, run: Callable, reference: Callable, statics: tuple,
@@ -104,12 +116,15 @@ class PlainVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        needs = ctx.needs_input_grad[3:]
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, needs)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            out = ctx.reference(*inputs, *ctx.statics)
-        grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (None, None, None,
-                *(next(grads) if n else None for n in needs))
+        PlainVJP.backward_calls += 1
+        name = ctx.reference.__name__.removesuffix("_reference")
+        with span("vjp/" + name):
+            needs = ctx.needs_input_grad[3:]
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            wanted = [t for t in inputs if t.requires_grad]
+            with torch.enable_grad():
+                out = ctx.reference(*inputs, *ctx.statics)
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+            return (None, None, None,
+                    *(next(grads) if n else None for n in needs))

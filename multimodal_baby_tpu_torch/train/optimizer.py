@@ -1,11 +1,18 @@
 """Optimizer construction (counterpart of
 ``multimodal_baby_tpu/train/optimizer.py``): AdamW, Adam or SGD over the
 trainable parameters, with the vision trunk frozen unless ``finetune_cnn``,
-and the plateau LR schedule."""
+and the plateau LR schedule.
+
+``TrainConfig.optimizer`` may give AdamW options after a colon (the port
+only; ``parse_optimizer``): ``"AdamW:beta2=0.98,eps=1e-6,decay=matrices"``
+is CLIP's AdamW (Radford et al. 2021; OpenCLIP): beta2 and eps as given, and
+the weight decay only on the leaves of two or more axes (OpenCLIP leaves
+gains, biases, the class embedding and the logit scale undecayed). The
+bare names keep the JAX package's settings."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -29,31 +36,71 @@ def frozen_mask(model: nn.Module, finetune_cnn: bool) -> Dict[str, bool]:
 # decay is decoupled; Adam's and SGD's (``add_decayed_weights`` first) is
 # added to the gradient, which is torch's ``weight_decay`` for both
 _OPTIMIZERS = {
-    "AdamW": lambda params, lr, wd: torch.optim.AdamW(
-        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd),
-    "Adam": lambda params, lr, wd: torch.optim.Adam(
-        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd),
-    "SGD": lambda params, lr, wd: torch.optim.SGD(
-        params, lr=lr, weight_decay=wd),
+    "AdamW": lambda params, lr, o: torch.optim.AdamW(
+        params, lr=lr, betas=(0.9, o["beta2"]), eps=o["eps"]),
+    "Adam": lambda params, lr, o: torch.optim.Adam(
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8),
+    "SGD": lambda params, lr, o: torch.optim.SGD(params, lr=lr),
 }
+# AdamW's options and their values without them (optax's); ``decay``:
+# every trainable leaf ("all") or those of two or more axes ("matrices")
+_ADAMW_OPTIONS = {"beta2": 0.999, "eps": 1e-8, "decay": "all"}
+_DECAY_RULES = ("all", "matrices")
+
+
+def parse_optimizer(spec: str) -> Tuple[str, Dict[str, object]]:
+    """``"AdamW"`` or ``"AdamW:beta2=0.98,eps=1e-6,decay=matrices"`` ->
+    (the name, every AdamW option with its default filled in). Unknown
+    names, options and values raise ValueError; Adam and SGD take no
+    options."""
+    name, _, rest = spec.partition(":")
+    if name not in _OPTIMIZERS:
+        raise ValueError(f"optimizer must be one of {sorted(_OPTIMIZERS)}, "
+                         f"got {spec!r}")
+    options = dict(_ADAMW_OPTIONS)
+    for item in filter(None, rest.split(",")):
+        key, _, value = item.partition("=")
+        if name != "AdamW" or key not in options:
+            raise ValueError(f"optimizer {spec!r}: unknown option {key!r}")
+        if key == "decay":
+            if value not in _DECAY_RULES:
+                raise ValueError(f"optimizer {spec!r}: decay must be one of "
+                                 f"{_DECAY_RULES}, got {value!r}")
+            options[key] = value
+        else:
+            try:
+                options[key] = float(value)
+            except ValueError:
+                raise ValueError(f"optimizer {spec!r}: {key} must be a "
+                                 f"number, got {value!r}") from None
+    return name, options
 
 
 def build_optimizer(cfg: ExperimentConfig, model: nn.Module
                     ) -> torch.optim.Optimizer:
-    """``cfg.train.optimizer`` (AdamW, Adam or SGD, as optax builds them)
-    over the trainable parameters, as the JAX package's masked optimizer.
-    Frozen parameters get ``requires_grad=False`` and no optimizer state."""
+    """``cfg.train.optimizer`` (AdamW, Adam or SGD, as optax builds them,
+    AdamW with ``parse_optimizer``'s options) over the trainable
+    parameters, as the JAX package's masked optimizer. Frozen parameters
+    get ``requires_grad=False`` and no optimizer state. The weight decay
+    goes to every trainable leaf (one parameter group), or with
+    ``decay=matrices`` to those of two or more axes (the first group; the
+    second has none)."""
     t = cfg.train
-    if t.optimizer not in _OPTIMIZERS:
-        raise ValueError(f"optimizer must be one of {sorted(_OPTIMIZERS)}, "
-                         f"got {t.optimizer!r}")
+    name, options = parse_optimizer(t.optimizer)
     mask = frozen_mask(model, cfg.model.vision.finetune_cnn)
     params = []
-    for name, p in model.named_parameters():
-        p.requires_grad_(mask[name])
-        if mask[name]:
+    for pname, p in model.named_parameters():
+        p.requires_grad_(mask[pname])
+        if mask[pname]:
             params.append(p)
-    return _OPTIMIZERS[t.optimizer](params, t.lr, t.weight_decay)
+    if options["decay"] == "all":
+        groups = [{"params": params, "weight_decay": t.weight_decay}]
+    else:
+        groups = [{"params": [p for p in params if p.dim() >= 2],
+                   "weight_decay": t.weight_decay},
+                  {"params": [p for p in params if p.dim() < 2],
+                   "weight_decay": 0.0}]
+    return _OPTIMIZERS[name](groups, t.lr, options)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

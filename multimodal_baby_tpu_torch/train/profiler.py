@@ -32,8 +32,14 @@ Each root that records on the card also turns on
 ``torch.cuda.set_sync_debug_mode("warn")`` and counts every
 synchronizing call in the innermost open span, so a host wait that no
 ``wait`` covers shows as a count; the mode, the warning filters and
-``warnings.showwarning`` are restored when the root ends. Spans are
-opened from the thread that drives the steps.
+``warnings.showwarning`` are restored when the root ends.
+
+Each thread keeps its own stack of open spans. A span that another
+thread opens while a root is open, with none of its own open, is kept
+under the innermost span open on the root's thread: autograd runs a CUDA
+backward on its own device thread while the calling thread waits inside
+``mmb/backward``, so the spans of the backward (``ops/vit_common.py::
+PlainVJP``: ``mmb/vjp/<kernel>``) nest there.
 
 ``SPANS`` holds the latest profiled block only: the first recording root
 after a span that did not record starts it afresh, as ``trace`` does. It
@@ -44,6 +50,7 @@ whole, with the rest of the block.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -169,7 +176,9 @@ class SpanStore:
     def __init__(self, limit: int = MAX_SPANS):
         self.limit = limit
         self.stale = True   # a span ran unrecorded: the next root resets
-        self._stack: List[Optional[Span]] = []
+        self._local = threading.local()   # .stack: this thread's open spans
+        # the stack of the thread whose root is open (None between roots)
+        self._root_stack: Optional[List[Optional[Span]]] = None
         self._sync_mode = self._warnings = self._showwarning = None
         self.reset()
 
@@ -182,14 +191,24 @@ class SpanStore:
 
     # -- recording ------------------------------------------------------
 
+    def _thread_stack(self) -> List[Optional[Span]]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
     def _enter(self, rec: _Recording) -> None:
-        stack = self._stack
-        if not stack:
+        stack = self._thread_stack()
+        # the open spans above this one: this thread's, else the open
+        # root's thread's
+        above = stack or self._root_stack
+        if not above:
             self._begin_root()
+            self._root_stack = stack
         rec.range = torch._C._profiler._RecordFunctionFast(rec.name)
         rec.range.__enter__()
         rec.span = span_ = None
-        if not self._full and (not stack or stack[-1] is not None):
+        if not self._full and (not above or above[-1] is not None):
             if len(self.spans) >= self.limit:
                 # the open root does not fit: drop it whole
                 del self.spans[self._root_start:]
@@ -197,7 +216,7 @@ class SpanStore:
                 self.dropped_roots += 1
             else:
                 i = len(self.spans)
-                parent = stack[-1] if stack else None
+                parent = above[-1] if above else None
                 span_ = Span(rec.name, i,
                              None if parent is None else parent.index,
                              i if parent is None else parent.root,
@@ -212,13 +231,15 @@ class SpanStore:
 
     def _exit(self, rec: _Recording, exc) -> None:
         span_ = rec.span
+        stack = self._thread_stack()
         if span_ is not None:
             if span_.e1 is not None:
                 self._record(span_.e1)
             span_.t1 = time.perf_counter_ns()
-        self._stack.pop()
+        stack.pop()
         rec.range.__exit__(*exc)
-        if not self._stack:
+        if not stack and stack is self._root_stack:
+            self._root_stack = None
             self._end_root()
 
     def _record(self, event) -> None:
@@ -256,8 +277,9 @@ class SpanStore:
     def _warned(self, message, category, filename, lineno, file=None,
                 line=None):
         if str(message).startswith(SYNC_WARNING):
-            if self._stack and self._stack[-1] is not None:
-                self._stack[-1].syncs += 1
+            stack = self._thread_stack() or self._root_stack
+            if stack and stack[-1] is not None:
+                stack[-1].syncs += 1
             return
         self._showwarning(message, category, filename, lineno, file, line)
 

@@ -299,6 +299,7 @@ def make_train_step(model: CVCL, cfg: ExperimentConfig,
                 if group is not None:
                     reduce_gradients(params, group, mesh.shape[DATA_AXIS])
                 opt.step()
+                model.clip_logit_scale()
             return {k: v.detach() for k, v in metrics.items()}
 
     return train_step

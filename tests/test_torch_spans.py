@@ -11,6 +11,7 @@ and ``showwarning`` restored (the card's calls faked on the CPU). Marked
 paths falls inside a ``wait`` span."""
 
 import json
+import threading
 import time
 import types
 import warnings
@@ -188,6 +189,36 @@ def test_host_ms_leaves_out_the_waits(store):
     assert 2 <= s["host_ms"] < 10
     assert s["self_ms"]["mmb/wait/outer"] == pytest.approx(
         s["device_ms"]["mmb/wait/outer"] - s["device_ms"]["mmb/wait/inner"])
+
+
+def test_a_span_on_another_thread_nests_under_the_open_root(store):
+    """Autograd runs a CUDA backward on its own device thread while the
+    calling thread waits inside ``mmb/backward``: a span that thread opens
+    is kept under the root thread's innermost open span. With no root
+    open, a thread's span is a root of its own."""
+    def worker():
+        with span("vjp/mlp"):
+            with span("inner"):
+                pass
+
+    def on_a_thread():
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("root"):
+            with span("backward"):
+                on_a_thread()
+            with span("after"):
+                pass
+        on_a_thread()
+    vjp = ("mmb/vjp/mlp", [("mmb/inner", [])])
+    assert trees(store.table()) == [
+        ("mmb/root", [("mmb/backward", [vjp]), ("mmb/after", [])]), vjp]
+    s = store.summary("mmb/root")
+    assert s["steps"] == 1 and s["device_ms"]["mmb/vjp/mlp"] > 0
 
 
 def test_each_block_starts_afresh(store, tmp_path):
